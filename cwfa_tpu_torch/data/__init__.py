@@ -1,0 +1,1 @@
+"""cwfa_tpu_torch.data — see the package docstring."""

@@ -1,0 +1,74 @@
+"""s,t-predicting subnetwork towers for the coupling blocks (counterpart of
+``cwfa_tpu/flow/subnets.py:39-89``).
+
+``WaveletFlowSubnet2d`` follows the Wavelet Flow paper design
+(arXiv 2010.13821) as implemented in reference networks.py:586-706:
+
+    b1 = 1x1 conv (in-proj)
+    b2 = [3x3 conv -> ELU -> 1x1 conv](b1) + b1       (residual)
+    b3 = ELU(b2); b4 = block(b3) + b3; b5 = ELU(b4); b6 = block(b5) + b5
+    out = 3x3 conv(ELU(b6))
+
+The ``_first`` variant (networks.py:684-706) is the input
+ConditionalAffineTransform's subnet: its input is [low_res_up_grad | cond];
+only ``cond`` goes through the tower (predicting s), and the translation is
+the prior ``-low_res_up_grad/sqrt(2)``.  Its last conv is 0.01-Xavier
+initialized (networks.py:706).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cwfa_tpu_torch.nn import same_conv2d, subnet_init_small_
+
+SQRT2_INV = 1.0 / math.sqrt(2.0)
+
+
+class WaveletFlowSubnet2d(nn.Module):
+    """Normal variant: full input through the tower -> c_out channels."""
+
+    def __init__(self, c_in: int, c_out: int, n_ch: int = 64,
+                 use_bias: bool = True):
+        super().__init__()
+        self.b1 = same_conv2d(c_in, n_ch, 1, use_bias)
+        self.b2a = same_conv2d(n_ch, n_ch, 3, use_bias)
+        self.b2b = same_conv2d(n_ch, n_ch, 1, use_bias)
+        self.b4a = same_conv2d(n_ch, n_ch, 3, use_bias)
+        self.b4b = same_conv2d(n_ch, n_ch, 1, use_bias)
+        self.b6a = same_conv2d(n_ch, n_ch, 3, use_bias)
+        self.b6b = same_conv2d(n_ch, n_ch, 1, use_bias)
+        self.b7 = same_conv2d(n_ch, c_out, 3, use_bias)
+
+    def tower(self, x):
+        b1 = self.b1(x)
+        b2 = self.b2b(F.elu(self.b2a(b1))) + b1
+        b3 = F.elu(b2)
+        b4 = self.b4b(F.elu(self.b4a(b3))) + b3
+        b5 = F.elu(b4)
+        b6 = self.b6b(F.elu(self.b6a(b5))) + b5
+        return self.b7(F.elu(b6))
+
+    def forward(self, x):
+        return self.tower(x)
+
+
+class WaveletFlowSubnet2dFirst(WaveletFlowSubnet2d):
+    """First variant: c_in = 2n (concat of both conditions), c_out = 2n
+    (s|t); the tower maps n -> n."""
+
+    def __init__(self, c_in: int, c_out: int, n_ch: int = 64,
+                 use_bias: bool = True):
+        super().__init__(c_in // 2, c_out // 2, n_ch, use_bias)
+
+    def init_override_(self, generator: torch.Generator):
+        subnet_init_small_(self.b7, generator)
+
+    def forward(self, x):
+        n = x.shape[1] // 2
+        low_res, cond = x[:, :n], x[:, n:]
+        return torch.cat([self.tower(cond), low_res * -SQRT2_INV], dim=1)

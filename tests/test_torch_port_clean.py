@@ -1,0 +1,28 @@
+"""The PyTorch port runs where JAX is not installed: no module of
+cwfa_tpu_torch, nor chip_smoke.py, imports JAX, the JAX package or Triton."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cwfa_tpu", "triton"}
+FILES = sorted((ROOT / "cwfa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_files_found():
+    assert len(FILES) > 15
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_jax_cwfa_tpu_or_triton(path):
+    assert not set(_imported_roots(path)) & FORBIDDEN
