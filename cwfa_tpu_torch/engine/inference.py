@@ -4,7 +4,10 @@
 The whole chain — lenslet view extraction, normalization, LRNN, four inverse
 CWF steps through the CUDA flow kernels, un-normalization — runs batched over
 frames on one device.  The LRNN's mean-volume branch is computed once, at
-construction.  int8 packs, meshes and stochastic sampling are not ported.
+construction.  Two int8 options, as in JAX: ``use_int8`` (the LRNN UNet)
+and ``use_int8_towers`` (the coupling towers, through the CUDA int8 tower
+kernel), both calibrated on ``calib_frames``.  ``use_int8_cond``, meshes and
+stochastic sampling are not ported.
 """
 
 from __future__ import annotations
@@ -24,12 +27,25 @@ class XLFMReconstructor:
 
     The model is copied to ``device`` in ``compute_dtype`` (the caller's
     model is left as it is); frames are normalized in f32 and cast to
-    ``compute_dtype`` for the networks."""
+    ``compute_dtype`` for the networks.
+
+    int8 packs (``unet_q``, ``qpacks``) are calibrated at construction on
+    ``calib_frames`` (raw frames): the calibration forwards run in
+    ``compute_dtype`` (the tower trace in f32), and the weights are
+    quantized from the caller's f32 weights, not from the cast copy."""
 
     def __init__(self, model: CWFAModel, stats: DatasetStatistics,
                  view_indices: dict, mean_caches, *, device,
                  deterministic: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 use_int8: bool = False, use_int8_towers: bool = False,
+                 calib_frames=None):
+        if (use_int8 or use_int8_towers) and calib_frames is None:
+            raise ValueError("int8 paths require calib_frames "
+                             "(a batch of raw camera frames)")
+        if use_int8 and not deterministic:
+            raise ValueError("use_int8 requires deterministic=True "
+                             "(the int8 UNet folds eval-mode BN stats)")
         if not deterministic:
             raise NotImplementedError("only deterministic=True is ported")
         self.device = torch.device(device)
@@ -42,16 +58,33 @@ class XLFMReconstructor:
             torch.as_tensor(c).to(device=self.device, dtype=compute_dtype)
             for c in mean_caches]
         nf = self.model.n_flow_steps
+        self.unet_q = self.qpacks = None
         with torch.inference_mode():
             self.mean_branch = lrnn_mean_branch(self.model.lrnn,
                                                 self.mean_caches[nf - 1])
+            if use_int8 or use_int8_towers:
+                master = (self.model if compute_dtype == torch.float32 else
+                          copy.deepcopy(model).to(
+                              device=self.device, dtype=torch.float32).eval())
+                calib = self._normalized_views(calib_frames)
+                if use_int8:
+                    self.unet_q = self.model.quantize_unet_pack(
+                        calib, master=master)
+                if use_int8_towers:
+                    self.qpacks = self.model.quantize_steps(
+                        calib, master=master)
+
+    def _normalized_views(self, raw_images):
+        s = self.stats
+        raw = torch.as_tensor(raw_images).to(self.device, torch.float32)
+        views = extract_views(raw, self.view_indices)
+        return ((views - s.mean_imgs) / s.std_imgs).to(self.compute_dtype)
 
     @torch.inference_mode()
     def __call__(self, raw_images) -> torch.Tensor:
         s = self.stats
-        raw = torch.as_tensor(raw_images).to(self.device, torch.float32)
-        views = extract_views(raw, self.view_indices)
-        views_n = ((views - s.mean_imgs) / s.std_imgs).to(self.compute_dtype)
-        vol = self.model.reconstruct(views_n, self.mean_caches,
-                                     lrnn_mean_branch=self.mean_branch)
+        vol = self.model.reconstruct(self._normalized_views(raw_images),
+                                     self.mean_caches,
+                                     lrnn_mean_branch=self.mean_branch,
+                                     unet_q=self.unet_q, qpacks=self.qpacks)
         return vol.float() * s.std_vols + s.mean_vols

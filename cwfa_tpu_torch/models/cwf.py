@@ -13,6 +13,8 @@ D = n_depths/2^k depth-channels:
 
 Only the CAT block type and the inverse direction are ported; the coupling
 towers run one by one (the TPU's 128-wide tower pairing is not carried over).
+With a ``qpack`` (``quantize_cat_step``) the coupling towers run in int8
+through the CUDA tower kernel (``ops/qtower.fused_tower``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from cwfa_tpu_torch.flow.permute import (
     ReferencePermReplayer, apply_channel_perm, apply_spatial_perm)
 from cwfa_tpu_torch.flow.subnets import (
     SQRT2_INV, WaveletFlowSubnet2d, WaveletFlowSubnet2dFirst)
+from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.ops.flow_affine import cat_affine, haar_merge_affine
 
 
@@ -112,20 +115,33 @@ class CWFStep(nn.Module):
         return apply_spatial_perm(x, axis, inv)
 
     @torch.inference_mode()
-    def reverse_fast(self, z, avg, c_views, c_mean):
+    def reverse_fast(self, z, avg, c_views, c_mean, qpack=None):
         """Generative direction through the CUDA flow-affine kernels
         (counterpart of ``_cat_reverse_fast``, ``cwf.py:346-383``): no logdet,
         no grads.
 
         z, avg, c_views: (B, C, H, W); c_mean: (1 or B, C, H, W).
+        qpack: optional ``quantize_cat_step`` output; block i's tower runs in
+        int8 where ``qpack[i]`` is not None.
         Returns the volume (B, 2C, H, W)."""
         spec = self.spec
         kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
+        xq = None
+        if qpack is not None and any(pk is not None for pk in qpack):
+            # every tower's input scale row is the absmax of the same
+            # c_views: one quantization serves the whole step (cwf.py:308-311)
+            first = next(pk for pk in qpack if pk is not None)
+            xq = qtower.quantize_input(c_views, first["scales"][0])
         x = z
         if spec.use_final_perm:
             x = self._inverse_perm(spec.n_blocks, x)
         for nn_ in range(spec.n_blocks, 0, -1):
-            st = self.blocks[nn_ - 1]["subnet"](c_views)
+            pk = None if xq is None else qpack[nn_ - 1]
+            if pk is not None:
+                st = qtower.fused_tower(xq, pk["qw"], pk["scales"],
+                                        out_dtype=c_views.dtype)
+            else:
+                st = self.blocks[nn_ - 1]["subnet"](c_views)
             x = cat_affine(x, st, rev=True, **kw)
             x = self._inverse_perm(nn_ - 1, x)
         # input block: s_raw from the tower on the views condition; t is the
@@ -134,3 +150,24 @@ class CWFStep(nn.Module):
         s_raw = self.input_block["subnet"].tower(c_views)
         t = (c_mean * -SQRT2_INV).expand(x.shape)
         return haar_merge_affine(x, s_raw, t, avg, **kw)
+
+
+def quantize_cat_step(step: CWFStep, c_views_sample):
+    """int8 packs of one CAT step's coupling towers (counterpart of
+    ``quantize_cat_step``, ``cwf.py:273-290``): per-channel calibration of
+    the step's towers, in f32, on sample conditions; scales folded into
+    int8 weights quantized from the step's (f32 master) weights.  Towers are
+    quantized in pairs of blocks, as JAX pairs them, so with an odd
+    ``n_blocks`` the tail tower stays in the compute dtype; the input
+    block's tower always does.
+
+    Returns one entry per coupling block: {"qw", "scales"} or None."""
+    n = step.spec.n_blocks
+    packs = [None] * n
+    x = c_views_sample.float()
+    for i in range(n - n % 2):
+        tower = step.blocks[i]["subnet"]
+        scales = qtower.tower_calibrate(tower, x)
+        packs[i] = {"qw": qtower.quantize_tower(tower, scales),
+                    "scales": scales}
+    return packs

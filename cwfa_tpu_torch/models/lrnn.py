@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cwfa_tpu_torch.models.cond_net import GlobalAttention
-from cwfa_tpu_torch.models.unet import UNet, UNetSpec
+from cwfa_tpu_torch.models.unet import UNet, UNetSpec, unet_quantized
 from cwfa_tpu_torch.nn import LayerNormF32, same_conv2d, subnet_init_positive_
 
 
@@ -72,14 +72,20 @@ class LRNN(nn.Module):
     def init_override_(self, generator: torch.Generator):
         subnet_init_positive_(self.proj, generator)
 
-    def forward(self, x, mean_vol=None, mean_branch=None):
+    def forward(self, x, mean_vol=None, mean_branch=None, unet_q=None):
         """x: (B, ch_in, H, W); mean_vol: (1 or B, n_depths, H, W) or None.
 
         mean_branch: a precomputed ``lrnn_mean_branch`` output (broadcast
-        over the batch); when given, mean_vol is ignored."""
+        over the batch); when given, mean_vol is ignored.
+        unet_q: optional int8 UNet pack ({"qpack", "scales"} from
+        ``CWFAModel.quantize_unet_pack``), as ``lrnn.py:115-120``."""
         if self.training:
             raise NotImplementedError("LRNN training is not ported")
-        y = self.unet(self.proj(x))
+        y = self.proj(x)
+        if unet_q is not None:
+            y = unet_quantized(self.unet, y, unet_q["qpack"], unet_q["scales"])
+        else:
+            y = self.unet(y)
         if mean_branch is None and mean_vol is not None:
             mean_branch = lrnn_mean_branch(self, mean_vol)
         if mean_branch is not None:

@@ -1,5 +1,5 @@
-"""The flow-affine kernels of the CWF reverse chain: CUDA wrappers, their
-plain PyTorch versions, and the build/loader of ``csrc/*.cu``.
+"""The flow-affine kernels of the CWF reverse chain: CUDA wrappers and their
+plain PyTorch versions.
 
 Replace the Pallas TPU kernels of ``cwfa_tpu/ops/pallas_flow.py``:
 
@@ -18,30 +18,20 @@ A wrapper dispatches on the device of its inputs: CPU tensors take the plain
 version; CUDA tensors launch the kernel (or raise).  Each wrapper counts its
 launches in ``<wrapper>.launches``; the plain path does not count.
 
-The kernels are compiled at first use with nvcc into a shared library under
-``build/cwfa_tpu_torch/`` at the repository root, named by a hash of the
-sources and flags, and bound with ctypes.
+The kernels are built and loaded by ``cwfa_tpu_torch.ops.cuda_build``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS, clamp_fn
 from cwfa_tpu_torch.flow.subnets import SQRT2_INV
+from cwfa_tpu_torch.ops import cuda_build
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cwfa_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,44 +66,13 @@ def haar_merge_affine_reference(z, s_raw, t, avg, *, clamp: float,
 
 
 # ---------------------------------------------------------------------------
-# build + load
+# library entries
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-    return found
-
-
-def build_kernels() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library if it is not built yet
-    (its name carries a hash of the sources and flags); returns its path.
-    Raises with nvcc's output if the build fails."""
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"libcwfa_flow_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = ctypes.CDLL(str(build_kernels()))
+    lib = cuda_build.load("flow_affine")
     p, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_int)
     lib.cwfa_cat_affine.argtypes = [p, p, p, i64, i64, i64, f32, i32, i32,
@@ -123,11 +82,6 @@ def _lib():
                                            f32, i32, i32, i32, p]
     lib.cwfa_haar_merge_affine.restype = i32
     return lib
-
-
-def _check_launch(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +132,7 @@ def cat_affine(x, st, *, clamp: float, activation: str, rev: bool):
         x.data_ptr(), st.data_ptr(), y.data_ptr(), b, c, h * w, float(clamp),
         act, int(bool(rev)), _DTYPES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _check_launch(rc, "cat_affine")
+    cuda_build.check_launch(rc, "cat_affine")
     cat_affine.launches += 1
     return y
 
@@ -216,7 +170,7 @@ def haar_merge_affine(z, s_raw, t, avg, *, clamp: float, activation: str):
         out.data_ptr(), b, c, h * w, t.stride(0) if b > 1 else 0,
         float(clamp), act, _DTYPES[z.dtype], z.device.index,
         torch.cuda.current_stream(z.device).cuda_stream)
-    _check_launch(rc, "haar_merge_affine")
+    cuda_build.check_launch(rc, "haar_merge_affine")
     haar_merge_affine.launches += 1
     return out
 

@@ -1,9 +1,11 @@
 """Where the time goes in the PyTorch port's reconstruction slice, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--batch 8]
+    python3 scripts/profile_torch_port.py [--batch 8] [--int8]
 
 Builds the flagship rig (``cwfa_tpu_torch.rig.flagship``, random weights
-from seed 0) as a bf16 ``XLFMReconstructor`` and prints:
+from seed 0) as a bf16 ``XLFMReconstructor`` — with ``--int8``, the int8
+configuration (``use_int8`` + ``use_int8_towers``, calibrated on the
+batch) — and prints:
 
 - the whole call's time (CUDA events, median of 5 after a warm-up);
 - each component run alone on the same inputs, with CUDA events: view
@@ -31,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
+from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.ops.flow_affine import cat_affine, haar_merge_affine
 from cwfa_tpu_torch.rig import flagship
 
@@ -52,7 +55,9 @@ def cuda_ms(fn, reps: int = 5) -> float:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
-    batch = ap.parse_args().batch
+    ap.add_argument("--int8", action="store_true")
+    args = ap.parse_args()
+    batch = args.batch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda", 0)
@@ -65,28 +70,33 @@ def main():
     side = cfg.volume_side_size
     caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
               .astype(np.float32) for k in range(model.n_flow_steps + 1)]
-    recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
-                              compute_dtype=torch.bfloat16)
-    m = recon.model
     frames = torch.as_tensor(
         rng.rand(batch, img, img).astype(np.float32) * 1000).to(dev)
+    int8 = ({"use_int8": True, "use_int8_towers": True,
+             "calib_frames": frames} if args.int8 else {})
+    recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              compute_dtype=torch.bfloat16, **int8)
+    m = recon.model
+    qpacks = recon.qpacks or [None] * m.n_flow_steps
 
     whole = cuda_ms(lambda: recon(frames))
-    print(f"batch {batch}: whole call {whole:.2f} ms = "
-          f"{whole / batch:.2f} ms/frame")
+    print(f"batch {batch}{' int8' if args.int8 else ''}: whole call "
+          f"{whole:.2f} ms = {whole / batch:.2f} ms/frame")
 
     with torch.inference_mode():
         views_n = ((extract_views(frames, vidx) - stats.mean_imgs)
                    / stats.std_imgs).to(torch.bfloat16)
         cv = cond_networks_batched(m.cond, views_n)
         ups = {}
-        up = m.lrnn(views_n, mean_branch=recon.mean_branch)
+        up = m.lrnn(views_n, mean_branch=recon.mean_branch,
+                    unet_q=recon.unet_q)
         for k in range(m.n_flow_steps - 1, -1, -1):
             ups[k] = up
             spec = m.step_specs[k]
             z = torch.zeros((batch, spec.c_flow, side, side),
                             dtype=up.dtype, device=dev)
-            up = m.flow[k].reverse_fast(z, up, cv[k], recon.mean_caches[k])
+            up = m.flow[k].reverse_fast(z, up, cv[k], recon.mean_caches[k],
+                                        qpack=qpacks[k])
 
         def pair3d():
             for net, c in zip(m.cond, cv):
@@ -95,8 +105,16 @@ def main():
 
         def towers():
             for k, step in enumerate(m.flow):
-                for blk in step.blocks:
-                    blk["subnet"](cv[k])
+                packs = qpacks[k] or [None] * len(step.blocks)
+                xq = None
+                for blk, pk in zip(step.blocks, packs):
+                    if pk is None:
+                        blk["subnet"](cv[k])
+                        continue
+                    if xq is None:
+                        xq = qtower.quantize_input(cv[k], pk["scales"][0])
+                    qtower.fused_tower(xq, pk["qw"], pk["scales"],
+                                       out_dtype=cv[k].dtype)
                 step.input_block["subnet"].tower(cv[k])
 
         def kernels():
@@ -120,7 +138,7 @@ def main():
                                          - stats.mean_imgs) / stats.std_imgs
                                         ).to(torch.bfloat16),
             "lrnn (proj+unet)": lambda: m.lrnn(
-                views_n, mean_branch=recon.mean_branch),
+                views_n, mean_branch=recon.mean_branch, unet_q=recon.unet_q),
             "cond nets (all)": lambda: cond_networks_batched(m.cond, views_n),
             "  of which 3-D pairs": pair3d,
             "towers (20)": towers,
