@@ -14,20 +14,31 @@ code != 0) on the first phase that does not hold:
    Nout 2*Cin), at step 0's shape at batch 8 and at two odd shapes, in f32
    and bf16 output; times the kernel at every batch-1 step shape and the
    plain version at step 0;
-4. runs the small rig through ``XLFMReconstructor`` on the card (kernels)
+4. holds the cond nets' 3-D pair kernel (``cond_pair``) against its plain
+   version at each flagship step's depth (1, D, 512, 512), D = 48/24/12/6,
+   at step 0's shape at batch 8 and at two odd shapes, in f32 and bf16, and
+   times it at step 0 beside the plain version and the two cuDNN
+   ``Conv3d`` modules it replaces;
+5. holds the float tower kernel (``fused_float_tower``) against its plain
+   version at every flagship tower shape (coupling Cin -> 2*Cin and input
+   Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8 and at two odd
+   shapes (64 and 8 wide), in f32 and bf16, and times it at every batch-1
+   shape, with the plain version and the cuDNN module chain it replaces at
+   step 0;
+6. runs the small rig through ``XLFMReconstructor`` on the card (kernels)
    and on the CPU (plain versions), in f32, and compares; then the same in
    int8 (``use_int8`` + ``use_int8_towers``);
-5. runs the flagship configuration (2160^2 frames, 29 views of 512^2,
+7. runs the flagship configuration (2160^2 frames, 29 views of 512^2,
    512x512x96 volumes, 4 CAT steps x 4 blocks, 64-wide towers, random
    weights from a seed) in bf16 at batch 1 and 8: shape, finiteness, the
    kernels' launch counts, ms per frame and peak device memory;
-6. compares the flagship bf16 output with the f32 output at batch 1;
-7. runs the flagship in int8 (bf16, ``use_int8`` + ``use_int8_towers``,
+8. compares the flagship bf16 output with the f32 output at batch 1;
+9. runs the flagship in int8 (bf16, ``use_int8`` + ``use_int8_towers``,
    calibrated on the batch) at batch 1 and 8: calibration time, shape,
    finiteness, launch counts (16 ``fused_tower`` per call), ms per frame,
    peak memory, and the int8 UNet and the 16 int8 towers timed against
    their bf16 counterparts;
-8. compares the flagship int8 output with the f32 output at batch 1.
+10. compares the flagship int8 output with the f32 output at batch 1.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line, then, as its
@@ -44,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS
@@ -51,6 +63,8 @@ from cwfa_tpu_torch.flow.subnets import WaveletFlowSubnet2d
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
 from cwfa_tpu_torch.models.unet import unet_quantized
 from cwfa_tpu_torch.nn import reset_parameters_
+from cwfa_tpu_torch.ops import btower
+from cwfa_tpu_torch.ops import cond_pair as cpair
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops import flow_affine as fa
 from cwfa_tpu_torch.ops import qtower
@@ -68,10 +82,28 @@ KERNELS = {
     "fused_tower": {"replaces": "cwfa_tpu/ops/qtower.py:454",
                     "source": "cwfa_tpu_torch/csrc/qtower.cu",
                     "wrapper": qtower.fused_tower},
+    "cond_pair": {"replaces": "cwfa_tpu/ops/cond_pair.py:276",
+                  "source": "cwfa_tpu_torch/csrc/cond_pair.cu",
+                  "wrapper": cpair.cond_pair},
+    "fused_float_tower": {"replaces": "cwfa_tpu/ops/btower.py:235",
+                          "source": "cwfa_tpu_torch/csrc/btower.cu",
+                          "wrapper": btower.fused_float_tower},
 }
 # launches per reconstruction call of each path
-BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 0}
-INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16}
+BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 0,
+                 "cond_pair": 4, "fused_float_tower": 20}
+INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16,
+                 "cond_pair": 4, "fused_float_tower": 4}
+# bounds of the two fused-conv kernels, as a share of max|ref|:
+# f32 1e-5 (the sums run in another order than cuDNN's); bf16 2^-6 for the
+# tower (a canvas between convs can round one bf16 ulp the other way, and
+# that propagates through the later convs) and 2^-7 for the 3-D pair (its
+# one intermediate y feeds z through a single conv, so a y that rounds the
+# other way moves z by far less than z's own rounding step)
+REL_BOUND = {("cond_pair", torch.float32): 1e-5,
+             ("cond_pair", torch.bfloat16): 2.0 ** -7,
+             ("fused_float_tower", torch.float32): 1e-5,
+             ("fused_float_tower", torch.bfloat16): 2.0 ** -6}
 
 
 def fail(msg: str):
@@ -108,6 +140,21 @@ def max_err(got, ref, dtype, what: str) -> float:
     if not bool(torch.isfinite(g).all()) or bool((d > bound).any()):
         fail(f"{what}: max |d| {d.max().item():.3e} over the bound")
     return d.max().item()
+
+
+def rel_err(got, ref, name, dtype, what: str):
+    """(max|got - ref|, the share of elements that differ), failing unless
+    max|d| <= REL_BOUND[name, dtype] * max|ref| and every value is
+    finite."""
+    torch.cuda.synchronize()
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    dmax, scale = d.max().item(), r.abs().max().item()
+    if not bool(torch.isfinite(g).all()) or not dmax <= (
+            REL_BOUND[name, dtype] * scale):
+        fail(f"{what}: max|d| {dmax:.3e} over {REL_BOUND[name, dtype]:.3e} "
+             f"x max|ref| {scale:.3e}")
+    return dmax, (d > 0).float().mean().item()
 
 
 def rel_norm(got, ref) -> float:
@@ -217,6 +264,113 @@ def phase_tower(dev, kernels):
                      f"({ops / plain_ms / 1e9:.1f} TOP/s)")
             k["ms"], k["plain_ms"] = ms, plain_ms
         log(line)
+
+
+def cudnn_pair(net, x):
+    """The two cuDNN ``Conv3d`` modules and the PReLU that ``cond_pair``
+    replaced on the path, on the (B, 1, H, W, D) view."""
+    v = net["c3b"](net["prelu"](net["c3a"](x.permute(0, 2, 3, 1).unsqueeze(1))))
+    return v[:, 0].permute(0, 3, 1, 2).contiguous()
+
+
+def cudnn_tower(t, x):
+    """The module chain (separate cuDNN convs, ELU and adds, every tensor in
+    the compute dtype) that ``fused_float_tower`` replaced on the path."""
+    b1 = t.b1(x)
+    b2 = t.b2b(F.elu(t.b2a(b1))) + b1
+    b3 = F.elu(b2)
+    b4 = t.b4b(F.elu(t.b4a(b3))) + b3
+    b5 = F.elu(b4)
+    b6 = t.b6b(F.elu(t.b6a(b5))) + b5
+    return t.b7(F.elu(b6))
+
+
+def phase_cond_pair(dev, kernels):
+    """cond_pair vs cond_pair_reference on the card: every flagship step's
+    depth at batch 1, step 0 at batch 8 and two odd shapes (D 5 and 8, a
+    part of a depth chunk and a whole one; H, W not multiples of the 8x32
+    tile), f32 and bf16; times at step 0 (bf16)."""
+    gen = torch.Generator().manual_seed(2)
+    shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
+    shapes += [(8, 48, SLICE_HW, SLICE_HW), (2, 5, 37, 53), (2, 8, 19, 35)]
+    k = kernels["cond_pair"]
+    for shape in shapes:
+        net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                                   "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                                   "prelu": torch.nn.PReLU(1)})
+        reset_parameters_(net, gen)
+        with torch.no_grad():
+            net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        x0 = torch.randn(shape, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            net = net.to(dev, dtype)
+            mods = (net["c3a"], net["c3b"], net["prelu"])
+            x = x0.to(dev, dtype)
+            with torch.inference_mode():
+                e, share = rel_err(cpair.cond_pair(x, *mods),
+                                   cpair.cond_pair_reference(x, *mods),
+                                   "cond_pair", dtype, f"cond_pair {shape} {dtype}")
+                k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+                log(f"cond_pair {shape} {str(dtype):14s} max|d| {e:.3e}, "
+                    f"{share:.2e} of the elements differ")
+                if shape[0] != 1 or shape[1] != 48 or dtype != torch.bfloat16:
+                    continue
+                ms = time_ms(lambda: cpair.cond_pair(x, *mods), 20)
+                plain_ms = time_ms(lambda: cpair.cond_pair_reference(x, *mods), 5)
+                cudnn_ms = time_ms(lambda: cudnn_pair(net, x), 5)
+            flop = 2 * 2 * 27 * 32 * x.numel()
+            log(f"time cond_pair {shape} bf16: kernel {ms:.4f} ms "
+                f"({flop / ms / 1e6:.0f} GFLOP/s)  plain {plain_ms:.4f} ms  "
+                f"cuDNN Conv3d modules (bf16) {cudnn_ms:.4f} ms")
+            k["ms"], k["plain_ms"] = ms, plain_ms
+
+
+def phase_float_tower(dev, kernels):
+    """fused_float_tower vs float_tower_reference on the card: every flagship
+    tower shape (coupling Cin -> 2*Cin and input Cin -> Cin, 64 wide), step 0
+    at batch 8 and the two odd shapes of phase_tower, f32 and bf16; times
+    the kernel at every batch-1 shape (bf16), and the plain version and the
+    cuDNN module chain at step 0's coupling tower."""
+    gen = torch.Generator().manual_seed(3)
+    shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
+              for cin in TOWER_CIN for nout in (2 * cin, cin)]
+    shapes += [(8, SLICE_C, SLICE_HW, SLICE_HW, 64, 2 * SLICE_C),
+               (2, 12, 37, 53, 64, 24), (2, 4, 19, 35, 8, 8)]
+    k = kernels["fused_float_tower"]
+    for b, cin, h, w, width, nout in shapes:
+        tower = WaveletFlowSubnet2d(cin, nout, width)
+        reset_parameters_(tower, gen)
+        x0 = torch.randn((b, cin, h, w), generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            tower = tower.to(dev, dtype).eval()
+            x = x0.to(dev, dtype)
+            with torch.inference_mode():
+                got = btower.fused_float_tower(x, tower)
+                want = btower.float_tower_reference(tower, x).to(dtype)
+                e, share = rel_err(got, want, "fused_float_tower", dtype,
+                                   f"fused_float_tower {(b, cin, h, w)} C "
+                                   f"{width} Nout {nout} {dtype}")
+                del got, want
+                k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+                log(f"fused_float_tower B{b} Cin {cin:2d} {h}x{w} C {width} "
+                    f"Nout {nout:2d} {str(dtype):14s} max|d| {e:.3e}, "
+                    f"{share:.2e} of the elements differ")
+                if b != 1 or h != SLICE_HW or dtype != torch.bfloat16:
+                    continue
+                ms = time_ms(lambda: btower.fused_float_tower(x, tower), 20)
+                flop = 2 * b * h * w * (cin * width + 3 * 10 * width * width
+                                        + 9 * width * nout)
+                line = (f"time fused_float_tower (1, {cin}, {h}, {w}) -> "
+                        f"{nout} bf16: kernel {ms:.4f} ms "
+                        f"({flop / ms / 1e6:.0f} GFLOP/s)")
+                if cin == SLICE_C and nout == 2 * cin:
+                    plain_ms = time_ms(
+                        lambda: btower.float_tower_reference(tower, x), 5)
+                    cudnn_ms = time_ms(lambda: cudnn_tower(tower, x), 5)
+                    line += (f"  plain {plain_ms:.4f} ms  cuDNN module chain "
+                             f"(bf16) {cudnn_ms:.4f} ms")
+                    k["ms"], k["plain_ms"] = ms, plain_ms
+                log(line)
 
 
 def phase_small_rig(dev):
@@ -386,7 +540,7 @@ def cuda_ms(fn, iters: int = 3) -> float:
 
 def int8_layer_times(recon, frames):
     """(int8 UNet, bf16 UNet, 16 int8 towers, 16 bf16 towers) ms on the
-    batch's own inputs."""
+    batch's own inputs; the bf16 towers run ``fused_float_tower``."""
     m = recon.model
     with torch.inference_mode():
         views = recon._normalized_views(frames)
@@ -474,7 +628,7 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
         uq, ub, tq, tb = int8_layer_times(recon, frames)
         log(f"flagship batch {batch} layers: UNet int8 {uq:.3f} ms vs bf16 "
             f"{ub:.3f} ms; 16 coupling towers int8 (fused_tower) {tq:.3f} ms "
-            f"vs bf16 {tb:.3f} ms; on {card}")
+            f"vs bf16 (fused_float_tower) {tb:.3f} ms; on {card}")
     return out1
 
 
@@ -496,8 +650,8 @@ def main():
 
     t0 = time.perf_counter()
     libs = cuda_build.build_kernels()
-    fa._lib()
-    qtower._lib()
+    for mod in (fa, qtower, cpair, btower):
+        mod._lib()
     root = cuda_build.BUILD_DIR.parents[1]
     names = ", ".join(str(p.relative_to(root)) for p in libs.values())
     log(f"kernels built from cwfa_tpu_torch/csrc/*.cu with nvcc "
@@ -507,6 +661,8 @@ def main():
     kernels = {name: {} for name in KERNELS}
     phase_kernels(dev, kernels)
     phase_tower(dev, kernels)
+    phase_cond_pair(dev, kernels)
+    phase_float_tower(dev, kernels)
     phase_small_rig(dev)
     small_rig_int8(dev)
     model, stats, vidx, caches, frames1, recon16 = phase_flagship(

@@ -9,6 +9,10 @@
     b3 = ELU(b2); b4 = block(b3) + b3; b5 = ELU(b4); b6 = block(b5) + b5
     out = 3x3 conv(ELU(b6))
 
+``tower`` runs the whole tower in one call of
+``ops/btower.fused_float_tower``: the CUDA kernel on a card, its plain
+version (f32 convs on canvases rounded to the compute dtype) on the CPU.
+
 The ``_first`` variant (networks.py:684-706) is the input
 ConditionalAffineTransform's subnet: its input is [low_res_up_grad | cond];
 only ``cond`` goes through the tower (predicting s), and the translation is
@@ -21,10 +25,10 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cwfa_tpu_torch.nn import same_conv2d, subnet_init_small_
+from cwfa_tpu_torch.ops.btower import fused_float_tower
 
 SQRT2_INV = 1.0 / math.sqrt(2.0)
 
@@ -45,13 +49,7 @@ class WaveletFlowSubnet2d(nn.Module):
         self.b7 = same_conv2d(n_ch, c_out, 3, use_bias)
 
     def tower(self, x):
-        b1 = self.b1(x)
-        b2 = self.b2b(F.elu(self.b2a(b1))) + b1
-        b3 = F.elu(b2)
-        b4 = self.b4b(F.elu(self.b4a(b3))) + b3
-        b5 = F.elu(b4)
-        b6 = self.b6b(F.elu(self.b6a(b5))) + b5
-        return self.b7(F.elu(b6))
+        return fused_float_tower(x.contiguous(), self)
 
     def forward(self, x):
         return self.tower(x)

@@ -9,10 +9,12 @@ conditioning features (B, n_depths/2^{k+1}, H, W) of CWF step k
   out = Conv3d(K->1) o PReLU o Conv3d(1->K)  over (H, W, depth)
 
 One PReLU alpha per net is shared by its three activation sites.  The 3-D
-pair runs in the reference layout (``_conv3d_pair_direct``,
-``cond_net.py:259-265``): the TPU's banded, depth-batched and
-block-diagonally paired forms are numerically equal rewrites and are not
-carried over.  Inference only: the Dropout3d of training is not ported.
+pair runs in one call of ``ops/cond_pair.cond_pair`` on the (B, D, H, W)
+features (the CUDA kernel on a card, its plain version on the CPU), with the
+reference layout's weights (``_conv3d_pair_direct``, ``cond_net.py:259-265``):
+the TPU's banded, depth-batched and block-diagonally paired forms are
+numerically equal rewrites and are not carried over.  Inference only: the
+Dropout3d of training is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cwfa_tpu_torch.nn import same_conv2d
+from cwfa_tpu_torch.ops.cond_pair import cond_pair
 
 
 class CondNetwork(nn.Module):
@@ -41,10 +44,8 @@ class CondNetwork(nn.Module):
         out = self.prelu(self.conv1(x))
         out = self.conv2(out)
         out = self.prelu(out + self.down(x))
-        # (B, C, H, W) -> (B, 1, H, W, C): the 3-D convs run over (H, W, depth)
-        v = out.permute(0, 2, 3, 1).unsqueeze(1)
-        v = self.c3b(self.prelu(self.c3a(v)))
-        return v[:, 0].permute(0, 3, 1, 2).contiguous()
+        # the 3-D convs run over (H, W, depth)
+        return cond_pair(out.contiguous(), self.c3a, self.c3b, self.prelu)
 
 
 def cond_networks_batched(nets, x):

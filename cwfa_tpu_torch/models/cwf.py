@@ -12,9 +12,11 @@ D = n_depths/2^k depth-channels:
         step, z is zeros at temperature 0 (CWFA.py:47-64).
 
 Only the CAT block type and the inverse direction are ported; the coupling
-towers run one by one (the TPU's 128-wide tower pairing is not carried over).
-With a ``qpack`` (``quantize_cat_step``) the coupling towers run in int8
-through the CUDA tower kernel (``ops/qtower.fused_tower``).
+towers run one by one (the TPU's 128-wide tower pairing is not carried over),
+each through the float tower kernel (``ops/btower.fused_float_tower``, via
+``WaveletFlowSubnet2d.tower``).  With a ``qpack`` (``quantize_cat_step``) the
+coupling towers run in int8 through the int8 tower kernel
+(``ops/qtower.fused_tower``).
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ batch) — and prints:
 
 - the whole call's time (CUDA events, median of 5 after a warm-up);
 - each component run alone on the same inputs, with CUDA events: view
-  extraction, LRNN, the cond nets (and their 3-D pairs alone), the 20
-  subnet towers, the 20 flow-kernel launches and the 16 inverse
-  permutations, with its share of the whole call;
+  extraction, LRNN, the cond nets (and their 3-D pairs alone, through
+  ``cond_pair``), the 20 subnet towers (``fused_float_tower``, or
+  ``fused_tower`` for the int8 coupling towers), the 20 flow-kernel
+  launches and the 16 inverse permutations, with its share of the whole
+  call;
 - one call under ``torch.profiler``: device time by kernel and the device's
   idle share of the call's wall time.
 """
@@ -34,6 +36,7 @@ from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
 from cwfa_tpu_torch.ops import qtower
+from cwfa_tpu_torch.ops.cond_pair import cond_pair
 from cwfa_tpu_torch.ops.flow_affine import cat_affine, haar_merge_affine
 from cwfa_tpu_torch.rig import flagship
 
@@ -99,9 +102,10 @@ def main():
                                         qpack=qpacks[k])
 
         def pair3d():
+            # the 3-D pairs as the path runs them, on their 2-D stacks'
+            # outputs (the same shape and dtype as cv)
             for net, c in zip(m.cond, cv):
-                v = c.permute(0, 2, 3, 1).unsqueeze(1)
-                net.c3b(net.prelu(net.c3a(v)))
+                cond_pair(c, net.c3a, net.c3b, net.prelu)
 
         def towers():
             for k, step in enumerate(m.flow):
