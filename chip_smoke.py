@@ -38,26 +38,51 @@ code != 0) on the first phase that does not hold:
    finiteness, launch counts (16 ``fused_tower`` per call), ms per frame,
    peak memory, and the int8 UNet and the 16 int8 towers timed against
    their bf16 counterparts;
-10. compares the flagship int8 output with the f32 output at batch 1.
+10. compares the flagship int8 output with the f32 output at batch 1;
+11. holds the four ceiling probes (``ops/probes``: ``tiled_gemm``, its
+    ``out8`` epilogue, ``chained_gemm``, ``fma_probe``) against their plain
+    versions on the card at every size the probe scripts run (the GEMM at M
+    2^20 for each of the scripts' (K, N) in int8 and bf16, the chain at M
+    2^20 and the scripts' depth, the FMA probe at both of its row counts in
+    every mode and accumulator count) and at small and odd ones: the int8
+    kernels equal to the bit, bf16 and FMA within their stated bounds; then
+    drives the probe scripts' own entry points
+    (``scripts/torch_bench_int8_micro.py``, ``torch_probe_cuda_core_rate.py``)
+    for their times, with the library call beside each GEMM, and holds the
+    launch counts to what those entry points must make;
+12. the exact-likelihood path: the small rig's per-frame NLLs of every step,
+    card (kernels) vs CPU (plain), f32; forward then ``reverse`` on the card
+    returns the volume and the log-dets cancel; ``reverse_fast`` agrees with
+    ``reverse``; then the flagship at full width (96 x 512 x 512 volumes
+    from a seed) through ``PyramidScorer`` at batch 1 and 4: shape,
+    finiteness, launch counts (16 ``cat_affine``, 20 ``fused_float_tower``
+    per call, no other kernel), ms per frame and peak memory.
 
 Each path is driven with every launch count set to 0 just before it and
-read just after.  Prints a ``{"kernels": [...]}`` JSON line, then, as its
+read just after.  Prints a ``{"kernels": [...]}`` JSON line (nine kernels,
+each with its launches, error, time, plain version's time, bound and, where
+one PyTorch call computes the same function, that call's time; the float
+tower also with the ``f32_*`` numbers of its CUDA-core instance, which the
+likelihood path runs), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import copy
+import importlib.util
 import json
-import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+from cwfa_tpu_torch.engine.ood import PyramidScorer
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS
 from cwfa_tpu_torch.flow.subnets import WaveletFlowSubnet2d
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
@@ -67,13 +92,16 @@ from cwfa_tpu_torch.ops import btower
 from cwfa_tpu_torch.ops import cond_pair as cpair
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops import flow_affine as fa
+from cwfa_tpu_torch.ops import probes
 from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.rig import flagship
+from cwfa_tpu_torch.roofline import WARMUP, bound_ms, card_line, time_ms
 
 SLICE_C, SLICE_HW = 48, 512        # step 0 of the flagship: (1, 48, 512, 512)
 TOWER_CIN = (48, 24, 12, 6)        # the flagship steps' condition widths
 INT8 = {"use_int8": True, "use_int8_towers": True}
 FLOW_SRC = "cwfa_tpu_torch/csrc/flow_affine.cu"
+PROBE_SRC = "cwfa_tpu_torch/csrc/probes.cu"
 KERNELS = {
     "cat_affine": {"replaces": "cwfa_tpu/ops/pallas_flow.py:138",
                    "source": FLOW_SRC, "wrapper": fa.cat_affine},
@@ -88,12 +116,24 @@ KERNELS = {
     "fused_float_tower": {"replaces": "cwfa_tpu/ops/btower.py:235",
                           "source": "cwfa_tpu_torch/csrc/btower.cu",
                           "wrapper": btower.fused_float_tower},
+    "tiled_gemm": {"replaces": "scripts/bench_int8_micro.py:182",
+                   "source": PROBE_SRC, "wrapper": probes.tiled_gemm},
+    "chained_gemm": {"replaces": "scripts/bench_int8_micro.py:255",
+                     "source": PROBE_SRC, "wrapper": probes.chained_gemm},
+    # the int8 requant epilogue of tiled_gemm, counted on its own
+    "tiled_gemm_out8": {"replaces": "scripts/bench_int8_micro.py:305",
+                        "source": PROBE_SRC, "wrapper": probes.tiled_gemm,
+                        "counter": "out8_launches"},
+    "fma_probe": {"replaces": "scripts/probe_vpu_rate.py:24",
+                  "source": PROBE_SRC, "wrapper": probes.fma_probe},
 }
-# launches per reconstruction call of each path
-BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 0,
-                 "cond_pair": 4, "fused_float_tower": 20}
+# launches per call of each path (a kernel not named: none)
+BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "cond_pair": 4,
+                 "fused_float_tower": 20}
 INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16,
                  "cond_pair": 4, "fused_float_tower": 4}
+NLL_PER_CALL = {"cat_affine": 16, "fused_float_tower": 20}
+PROBE_US = (1, 4, 8, 16)           # the FMA probe's accumulator counts here
 # bounds of the two fused-conv kernels, as a share of max|ref|:
 # f32 1e-5 (the sums run in another order than cuDNN's); bf16 2^-6 for the
 # tower (a canvas between convs can round one bf16 ulp the other way, and
@@ -114,16 +154,25 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def time_ms(fn, iters: int = 50) -> float:
-    for _ in range(5):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def load_script(name: str):
+    """A script of ``scripts/`` as a module (its entry points are what a
+    user runs)."""
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def set_bound(k: dict, nbytes: float, ops: float, kind: str, what: str):
+    """Record the kernel's bound for this run's inputs and log its
+    arithmetic."""
+    k["bound_ms"], k["bound_by"] = bound_ms(nbytes, ops, kind)
+    log(f"bound {what}: {nbytes / 1e6:.1f} MB -> "
+        f"{bound_ms(nbytes, 0, kind)[0]:.4f} ms at 3.35 TB/s; "
+        f"{ops / 1e9:.2f} G {kind} operations -> "
+        f"{bound_ms(0, ops, kind)[0]:.4f} ms at the data-sheet peak; bound "
+        f"{k['bound_ms']:.4f} ms by {k['bound_by']}")
 
 
 def max_err(got, ref, dtype, what: str) -> float:
@@ -142,19 +191,23 @@ def max_err(got, ref, dtype, what: str) -> float:
     return d.max().item()
 
 
+def share_err(got, ref, share: float, what: str) -> float:
+    """max|got - ref|, failing unless it is <= share * max|ref| and every
+    value is finite."""
+    torch.cuda.synchronize()
+    d = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not bool(torch.isfinite(got.float()).all()) or not d <= share * scale:
+        fail(f"{what}: max|d| {d:.3e} over {share:.3e} x max|ref| {scale:.3e}")
+    return d
+
+
 def rel_err(got, ref, name, dtype, what: str):
     """(max|got - ref|, the share of elements that differ), failing unless
     max|d| <= REL_BOUND[name, dtype] * max|ref| and every value is
     finite."""
-    torch.cuda.synchronize()
-    g, r = got.float(), ref.float()
-    d = (g - r).abs()
-    dmax, scale = d.max().item(), r.abs().max().item()
-    if not bool(torch.isfinite(g).all()) or not dmax <= (
-            REL_BOUND[name, dtype] * scale):
-        fail(f"{what}: max|d| {dmax:.3e} over {REL_BOUND[name, dtype]:.3e} "
-             f"x max|ref| {scale:.3e}")
-    return dmax, (d > 0).float().mean().item()
+    dmax = share_err(got, ref, REL_BOUND[name, dtype], what)
+    return dmax, (got.float() != ref.float()).float().mean().item()
 
 
 def rel_norm(got, ref) -> float:
@@ -217,6 +270,11 @@ def phase_kernels(dev, kernels):
                 f"({nbytes / ms / 1e6:.1f} GB/s)  plain {plain_ms:.4f} ms")
             if dtype == torch.bfloat16:
                 kernels[name]["ms"], kernels[name]["plain_ms"] = ms, plain_ms
+                # per element: the clamp (atan, two multiplies), exp, and
+                # the affine (two) or the affine and the butterfly (six)
+                set_bound(kernels[name], nbytes,
+                          (6 if name == "cat_affine" else 10) * n, "f32",
+                          f"{name} bf16 (1, {SLICE_C}, {SLICE_HW}, {SLICE_HW})")
 
 
 def phase_tower(dev, kernels):
@@ -263,6 +321,9 @@ def phase_tower(dev, kernels):
             line += (f"  plain {plain_ms:.4f} ms "
                      f"({ops / plain_ms / 1e9:.1f} TOP/s)")
             k["ms"], k["plain_ms"] = ms, plain_ms
+            wbytes = sum(t.numel() * t.element_size() for t in qw.values())
+            set_bound(k, b * h * w * (cin + 2 * 2 * cin) + wbytes, ops, "int8",
+                      f"fused_tower (1, {cin}, {h}, {w}) -> {2 * cin} bf16 out")
         log(line)
 
 
@@ -323,6 +384,13 @@ def phase_cond_pair(dev, kernels):
                 f"({flop / ms / 1e6:.0f} GFLOP/s)  plain {plain_ms:.4f} ms  "
                 f"cuDNN Conv3d modules (bf16) {cudnn_ms:.4f} ms")
             k["ms"], k["plain_ms"] = ms, plain_ms
+            # bf16 in, bf16 y between the two convs: both products could
+            # run on the tensor cores, so that is the rate of the bound
+            # (on f32 FMAs the same work takes bound_ms(0, flop, "f32"))
+            set_bound(k, 2 * x.numel() * x.element_size(), flop, "bf16",
+                      f"cond_pair {shape} bf16")
+            log(f"bound cond_pair on f32 FMAs, as the kernel runs it: "
+                f"{bound_ms(0, flop, 'f32')[0]:.4f} ms")
 
 
 def phase_float_tower(dev, kernels):
@@ -370,6 +438,28 @@ def phase_float_tower(dev, kernels):
                     line += (f"  plain {plain_ms:.4f} ms  cuDNN module chain "
                              f"(bf16) {cudnn_ms:.4f} ms")
                     k["ms"], k["plain_ms"] = ms, plain_ms
+                    f32_tower = copy.deepcopy(tower).float()
+                    x32 = x.float()
+                    wbytes32 = sum(t.numel() * t.element_size() for t in
+                                   btower.pack_float_tower(f32_tower))
+                    ms32 = time_ms(
+                        lambda: btower.fused_float_tower(x32, f32_tower), 10)
+                    plain32 = time_ms(lambda: btower.float_tower_reference(
+                        f32_tower, x32), 5)
+                    line += (f"  f32 instance (CUDA cores) {ms32:.4f} ms "
+                             f"({flop / ms32 / 1e6:.0f} GFLOP/s), its plain "
+                             f"version {plain32:.4f} ms")
+                    k["f32_ms"], k["f32_plain_ms"] = ms32, plain32
+                    k["f32_bound_ms"] = bound_ms(
+                        b * h * w * (cin + nout) * 4 + wbytes32, flop,
+                        "f32")[0]
+                    wbytes = sum(t.numel() * t.element_size()
+                                 for t in btower.pack_float_tower(tower))
+                    set_bound(k, b * h * w * (cin + nout) * 2 + wbytes, flop,
+                              "bf16", f"fused_float_tower (1, {cin}, {h}, {w})"
+                              f" -> {nout} bf16")
+                    log(f"bound fused_float_tower f32 instance on f32 FMAs: "
+                        f"{k['f32_bound_ms']:.4f} ms")
                 log(line)
 
 
@@ -438,21 +528,25 @@ def small_rig_int8(dev):
 
 
 def launch_counts():
-    return {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    return {name: getattr(k["wrapper"], k.get("counter", "launches"))
+            for name, k in KERNELS.items()}
 
 
 def reset_counts():
     for k in KERNELS.values():
-        k["wrapper"].launches = 0
+        setattr(k["wrapper"], k.get("counter", "launches"), 0)
 
 
-def check_counts(per_call: dict, calls: int, what: str) -> dict:
-    counts = launch_counts()
-    for name, n in per_call.items():
-        if counts[name] != n * calls:
-            fail(f"{what}: {name} launched {counts[name]} times in {calls} "
-                 f"calls, expected {n * calls}")
-    return counts
+def check_counts(per_call: dict, calls: int, what: str, before: dict) -> dict:
+    """The launches since ``before``, failing unless every kernel was
+    launched ``per_call`` (0 where not named) times ``calls``."""
+    after = launch_counts()
+    delta = {name: after[name] - before[name] for name in after}
+    for name, n in delta.items():
+        if n != per_call.get(name, 0) * calls:
+            fail(f"{what}: {name} launched {n} times in {calls} calls, "
+                 f"expected {per_call.get(name, 0) * calls}")
+    return delta
 
 
 def phase_flagship(dev, card, kernels):
@@ -484,29 +578,16 @@ def phase_flagship(dev, card, kernels):
             fail(f"flagship output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()):
             fail("flagship output has non-finite values")
-        ms = []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            out = recon(frames)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
+        ms = event_ms(lambda: recon(frames))
         peak = torch.cuda.max_memory_allocated()
-        after = launch_counts()
-        for name, n in BF16_PER_CALL.items():
-            if after[name] - before[name] != n * 4:
-                fail(f"{name} launched {after[name] - before[name]} times "
-                     f"in 4 calls, expected {n * 4}")
+        delta = check_counts(BF16_PER_CALL, 4, "flagship bf16", before)
         log(f"flagship bf16 batch {batch}: out {tuple(out.shape)} finite; "
             f"{np.median(ms) / batch:.2f} ms/frame (median of {ms} ms per "
             f"call); peak memory {peak / 2**30:.2f} GiB; launches "
-            f"{ {n: after[n] - before[n] for n in after} } in 4 calls; "
-            f"on {card}")
+            f"{delta} in 4 calls; on {card}")
         del out
     for name, n in launch_counts().items():
-        if BF16_PER_CALL[name]:
+        if name in BF16_PER_CALL:
             kernels[name]["launches"] = n
     return model, stats, vidx, caches, frames1, recon
 
@@ -524,18 +605,23 @@ def phase_bf16_vs_f32(dev, model, stats, vidx, caches, frames1, recon16):
     return out32
 
 
-def cuda_ms(fn, iters: int = 3) -> float:
-    """Median of ``iters`` CUDA-event timings of fn() after one warm-up."""
-    fn()
+def event_ms(fn, n: int = 3) -> list:
+    """CUDA-event times in ms of ``n`` single calls of fn()."""
     ms = []
-    for _ in range(iters):
+    for _ in range(n):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(end))
-    return float(np.median(ms))
+    return ms
+
+
+def cuda_ms(fn, iters: int = 3) -> float:
+    """Median of ``iters`` CUDA-event timings of fn() after one warm-up."""
+    fn()
+    return float(np.median(event_ms(fn, iters)))
 
 
 def int8_layer_times(recon, frames):
@@ -598,28 +684,14 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
             fail(f"flagship int8 output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()):
             fail("flagship int8 output has non-finite values")
-        ms = []
-        for _ in range(3):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            out = recon(frames)
-            end.record()
-            torch.cuda.synchronize()
-            ms.append(start.elapsed_time(end))
+        ms = event_ms(lambda: recon(frames))
         peak = torch.cuda.max_memory_allocated()
-        after = launch_counts()
-        for name, n in INT8_PER_CALL.items():
-            if after[name] - before[name] != n * 4:
-                fail(f"flagship int8: {name} launched "
-                     f"{after[name] - before[name]} times in 4 calls, "
-                     f"expected {n * 4}")
+        delta = check_counts(INT8_PER_CALL, 4, "flagship int8", before)
         log(f"flagship int8 bf16 batch {batch}: calibration + build "
             f"{calib_s:.2f} s; out {tuple(out.shape)} finite; "
             f"{np.median(ms) / batch:.2f} ms/frame (median of {ms} ms per "
             f"call); peak memory {peak / 2**30:.2f} GiB; launches "
-            f"{ {n: after[n] - before[n] for n in after} } in 4 calls; "
-            f"on {card}")
+            f"{delta} in 4 calls; on {card}")
         if batch == 1:
             out1 = out
         runs.append((batch, recon, frames))
@@ -631,6 +703,293 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
             f"vs bf16 (fused_float_tower) {tb:.3f} ms; on {card}")
     return out1
 
+def exact_equal(got, ref, what: str):
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        fail(f"{what}: {got.dtype} {tuple(got.shape)} against "
+             f"{ref.dtype} {tuple(ref.shape)}")
+    ndiff = int((got != ref).sum())
+    if ndiff:
+        fail(f"{what}: {ndiff} of {got.numel()} elements differ")
+
+
+def two_rounding_fma(x, y, t: int, u: int):
+    """The FMA probe's function with a * x + y rounded twice per step (the
+    form of the JAX kernel's source), for the stated distance to the fused
+    form."""
+    accs = [y * (0.5 + 0.01 * k) for k in range(u)]
+    for _ in range(t):
+        accs = [a * x + y for a in accs]
+    acc = accs[0]
+    for a in accs[1:]:
+        acc = acc + a
+    return acc
+
+
+def phase_probes(dev, card, kernels):
+    """The four probe kernels against their plain versions on the card at
+    every shape the probe scripts' entry points give them and at small and
+    odd ones, then those entry points for the times, their launches held to
+    the expected counts.  int8 (GEMM, out8, chain):
+    equal to the bit.  bf16 GEMM: <= 2^-7 max|ref| (exact products, f32 sums
+    in another order, one rounding to bf16).  bf16 chain: <= 2^-6 max|ref|
+    (a value that rounds the other way is carried through the later
+    stages).  FMA probe: mul and roll equal to the bit; fma <= one f32 ulp
+    of the plain version's fused form, and within t ulps of the two-rounding
+    form a * x + y at the probe's own inputs."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    micro = load_script("torch_bench_int8_micro")
+    rate = load_script("torch_probe_cuda_core_rate")
+    big, iters = 1 << 20, 10
+    kg, kc, k8, kf = (kernels[n] for n in ("tiled_gemm", "chained_gemm",
+                                           "tiled_gemm_out8", "fma_probe"))
+
+    # ---- tiled_gemm and its out8 epilogue
+    shapes = [(big, k, n) for k, n in micro.GEMM_SHAPES]     # probe_pallas's
+    shapes += [(37, 20, 5), (129, 100, 130), (300, 1153, 136)]
+    main_gemm = {}
+    for m, k, n in shapes:
+        a = micro.make((m, k), torch.int8, dev, gen)
+        b = micro.make((k, n), torch.int8, dev, gen)
+        a[0], b[:, 0] = -127, 127           # a corner of large negative sums
+        ref = probes.tiled_gemm_reference(a, b)
+        exact_equal(probes.tiled_gemm(a, b), ref, f"tiled_gemm int8 {(m, k, n)}")
+        ref8 = probes.requant(ref)
+        exact_equal(probes.tiled_gemm(a, b, out8=True), ref8,
+                    f"tiled_gemm out8 {(m, k, n)}")
+        log(f"tiled_gemm int8 {(m, k, n)}: int32 out and out8 equal the plain "
+            f"version to the bit (sums {int(ref.min())}..{int(ref.max())}; "
+            f"{float((ref8 < 0).float().mean()):.2f} of out8 negative)")
+        if (m, k, n) == (big, 1152, 128):
+            main_gemm = {"a": a, "b": b}
+        del ref, ref8
+        a, b = (micro.make(sh, torch.bfloat16, dev, gen)
+                for sh in ((m, k), (k, n)))
+        e = share_err(probes.tiled_gemm(a, b), probes.tiled_gemm_reference(a, b),
+                      2.0 ** -7, f"tiled_gemm bf16 {(m, k, n)}")
+        log(f"tiled_gemm bf16 {(m, k, n)}: max|d| {e:.3e} (bound 2^-7 max|ref|)")
+        del a, b
+    kg["max_abs_err"] = k8["max_abs_err"] = 0.0      # the int8 instances
+
+    # ---- chained_gemm
+    main_chain = {}
+    for m, depth, full in [(big, micro.CHAIN_DEPTH, True), (1000, 8, False),
+                           (37, 3, False), (256, 1, False)]:
+        x = micro.make((m, 128), torch.int8, dev, gen)
+        ws = micro.make((depth, 128, 128), torch.int8, dev, gen)
+        if not full:                # smaller weights: fewer sums saturate
+            ws = ws // 8
+        ref = probes.chained_gemm_reference(x, ws)
+        exact_equal(probes.chained_gemm(x, ws), ref,
+                    f"chained_gemm int8 M {m} depth {depth}")
+        log(f"chained_gemm int8 M {m} depth {depth}: equal to the bit "
+            f"({float((ref.abs() == 127).float().mean()):.2f} of the outputs "
+            f"at the clip)")
+        if full:
+            main_chain = {"x": x, "ws": ws}
+        x = micro.make((m, 128), torch.bfloat16, dev, gen)
+        ws = micro.make((depth, 128, 128), torch.bfloat16, dev, gen)
+        e = share_err(probes.chained_gemm(x, ws),
+                      probes.chained_gemm_reference(x, ws), 2.0 ** -6,
+                      f"chained_gemm bf16 M {m} depth {depth}")
+        log(f"chained_gemm bf16 M {m} depth {depth}: max|d| {e:.3e} "
+            f"(bound 2^-6 max|ref|)")
+        del x, ws, ref
+    kc["max_abs_err"] = 0.0
+
+    # ---- fma_probe
+    kf["max_abs_err"] = 0.0
+    for rows, t, own in [(rate.ROWS_PROBE, 512, True),
+                         (rate.ROWS_FULL, 512, True), (37, 8, False)]:
+        if own:
+            x = torch.full((rows, 128), 1.0000001, device=dev)
+            y = torch.full((rows, 128), 1e-9, device=dev)
+        else:
+            x = torch.rand((rows, 128), device=dev, generator=gen) * 2 - 1
+            y = torch.randn((rows, 128), device=dev, generator=gen)
+        for mode in probes.FMA_MODES:
+            for u in sorted({*PROBE_US, 3}):
+                got = probes.fma_probe(x, y, t=t, u=u, mode=mode)
+                ref = probes.fma_probe_reference(x, y, t=t, u=u, mode=mode)
+                what = f"fma_probe {mode} rows {rows} t {t} u {u}"
+                if mode != "fma":
+                    exact_equal(got, ref, what)
+                    continue
+                torch.cuda.synchronize()
+                d = (got - ref).abs()
+                if bool((d > 2.0 ** -23 * ref.abs()).any()):
+                    fail(f"{what}: more than one ulp from the fused plain "
+                         f"version (max|d| {d.max().item():.3e})")
+                kf["max_abs_err"] = max(kf["max_abs_err"], d.max().item())
+                if own:
+                    two = two_rounding_fma(x, y, t, u)
+                    d2 = ((got - two).abs() / two.abs()).max().item()
+                    log(f"{what}: against the two-rounding a * x + y "
+                        f"max|d|/|ref| {d2:.3e} (bound t 2^-23 = "
+                        f"{t * 2.0 ** -23:.3e})")
+                    if not d2 <= t * 2.0 ** -23:
+                        fail(f"{what}: {d2:.3e} from a * x + y")
+        log(f"fma_probe rows {rows} t {t}: mul and roll equal the plain "
+            f"version to the bit, fma within one ulp (max|d| "
+            f"{kf['max_abs_err']:.3e}), u {sorted({*PROBE_US, 3})}")
+
+    # ---- the probes' own entry points, counted
+    reset_counts()
+    before = launch_counts()
+    recs = micro.probe_pallas(iters=iters, log=log)
+    recs += micro.probe_chain(iters=iters, log=log)
+    frecs = rate.probe_fma(n=iters, us=PROBE_US, log=log)
+    # every configuration is launched WARMUP + iters times: each GEMM shape
+    # and each chain in int8 and bf16, the out8 GEMM once (it also counts as
+    # a tiled_gemm), the FMA probe at two row counts in every mode and u
+    per = WARMUP + iters
+    delta = check_counts(
+        {"tiled_gemm": 2 * len(micro.GEMM_SHAPES) + 1, "chained_gemm": 2,
+         "tiled_gemm_out8": 1,
+         "fma_probe": 2 * len(probes.FMA_MODES) * len(PROBE_US)},
+        per, "probe scripts", before)
+    for name in ("tiled_gemm", "chained_gemm", "tiled_gemm_out8", "fma_probe"):
+        kernels[name]["launches"] = delta[name]
+    log(f"probe scripts: launches {delta}, {per} of each configuration")
+    by_key = {r["key"]: r for r in recs}
+    m, kk, n = big, 1152, 128
+    r = by_key["gemm", "i8", kk, n]
+    kg["ms"], kg["library_ms"] = r["ms"], r["library_ms"]
+    a, b = main_gemm["a"], main_gemm["b"]
+    kg["plain_ms"] = time_ms(lambda: probes.tiled_gemm_reference(a, b), 2, 1)
+    set_bound(kg, m * kk + kk * n + 4 * m * n, 2 * m * kk * n, "int8",
+              f"tiled_gemm int8 -> int32 {(m, kk, n)}")
+    r = by_key["gemm_out8", "i8", kk, n]
+    k8["ms"], k8["library_ms"] = r["ms"], None    # no one call does both
+    k8["plain_ms"] = time_ms(
+        lambda: probes.tiled_gemm_reference(a, b, out8=True), 2, 1)
+    set_bound(k8, m * kk + kk * n + m * n, 2 * m * kk * n, "int8",
+              f"tiled_gemm int8 -> int8 {(m, kk, n)}")
+    lib8 = time_ms(lambda: probes.requant(torch._int_mm(a, b)), 10)
+    log(f"out8 as library calls (torch._int_mm, then the epilogue in "
+        f"torch): {lib8:.4f} ms; on {card}")
+    r = by_key["chain", "int8"]
+    kc["ms"], kc["library_ms"] = r["ms"], None    # eight calls, not one
+    x, ws = main_chain["x"], main_chain["ws"]
+    kc["plain_ms"] = time_ms(lambda: probes.chained_gemm_reference(x, ws), 2, 1)
+    set_bound(kc, 2 * m * 128 + 8 * 128 * 128, 2 * m * 128 * 128 * 8, "int8",
+              f"chained_gemm int8 M {m} depth 8")
+    rb = by_key["chain", "bfloat16"]
+    log(f"chained_gemm bf16 M {m} depth 8: {rb['ms']:.4f} ms, bound "
+        f"{bound_ms(4 * m * 128, rb['ops'], 'bf16')[0]:.4f} ms by operations")
+    fr = next(r for r in frecs if r["mode"] == "fma" and r["u"] == 8
+              and r["rows"] == rate.ROWS_FULL)
+    kf["ms"], kf["library_ms"] = fr["ms"], None
+    rows = fr["rows"]
+    x = torch.full((rows, 128), 1.0000001, device=dev)
+    y = torch.full((rows, 128), 1e-9, device=dev)
+    kf["plain_ms"] = time_ms(lambda: probes.fma_probe_reference(
+        x, y, t=fr["t"], u=8, mode="fma"), 1, 1)
+    set_bound(kf, 3 * rows * 128 * 4, fr["ops"], "f32",
+              f"fma_probe fma rows {rows} t {fr['t']} u 8")
+
+
+def nll_bound(got, ref, what: str):
+    """|d| <= 1e-4 * max(1, |ref|): the towers' and the reductions' f32 sums
+    run in another order on the card."""
+    g, r = got.double().cpu(), ref.double().cpu()
+    d = (g - r).abs()
+    if not bool(torch.isfinite(g).all()) or bool(
+            (d > 1e-4 * r.abs().clamp_min(1.0)).any()):
+        fail(f"{what}: max|d| {d.max().item():.3e} over the bound")
+    return d.max().item()
+
+
+def phase_likelihood_small(dev):
+    """Small rig, f32: per-frame NLLs card (kernels) vs CPU (plain) from the
+    same volumes and the same noise; one step forward then back."""
+    cfg, model, stats, _, _ = flagship(
+        True, "cpu", torch.Generator().manual_seed(0))
+    model.eval()
+    card_model = copy.deepcopy(model).to(dev)
+    rng = np.random.RandomState(3)
+    side = cfg.volume_side_size
+    vols = (rng.randn(3, cfg.n_depths, side, side) * 5 + 10).astype(np.float32)
+    vols[1, 4] = 0.0                          # an empty depth slice
+    outs = []
+    for m_, d_ in ((model, "cpu"), (card_model, dev)):
+        scorer = PyramidScorer(m_, stats, device=d_, batch_size=3,
+                               generator=torch.Generator().manual_seed(1))
+        outs.append(scorer(vols))
+    (nll_c, cache_c, pri_c, lj_c), (nll_g, cache_g, pri_g, lj_g) = outs
+    e = max(nll_bound(nll_g, nll_c, "small rig NLLs"),
+            nll_bound(pri_g, pri_c, "small rig priors"),
+            nll_bound(lj_g, lj_c, "small rig log-jacobians"))
+    for k, (g, c) in enumerate(zip(cache_g, cache_c)):
+        nll_bound(g, c, f"small rig pyramid level {k}")
+    log(f"small rig NLL f32, card vs CPU: nlls {nll_g.T.tolist()} max|d| "
+        f"{e:.3e} (bound 1e-4 max(1, |ref|)), pyramid levels within the "
+        f"same bound")
+    again = torch.stack(card_model.nll_from_pyramid(cache_g))
+    nll_bound(again, nll_g, "nll_from_pyramid vs forward_pyramid")
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for k, step in enumerate(card_model.flow):
+        d = cfg.n_depths // 2 ** k
+        v = torch.randn((2, d, side, side), device=dev, generator=gen)
+        cv, cm = (torch.randn((b, d // 2, side, side), device=dev,
+                              generator=gen) for b in (2, 1))
+        z, avg, ld = step(v, cv, cm)
+        back, ld_rev = step.reverse(z, avg, cv, cm)
+        fast = step.reverse_fast(z, avg, cv, cm)
+        e_rt = share_err(back, v, 1e-5, f"step {k} forward then reverse")
+        e_fast = share_err(fast, back, 1e-5, f"step {k} reverse_fast vs reverse")
+        nll_bound(ld + ld_rev, torch.zeros_like(ld), f"step {k} log-dets")
+        log(f"small rig step {k} on the card: forward then reverse max|d| "
+            f"{e_rt:.3e}, reverse_fast vs reverse {e_fast:.3e} (bounds 1e-5 "
+            f"max|ref|); log-dets {ld.tolist()} cancel to "
+            f"{(ld + ld_rev).abs().max().item():.3e}")
+
+
+def phase_likelihood_flagship(dev, card, kernels, model, stats):
+    """The forward pyramid at the flagship width, f32, through
+    ``PyramidScorer`` at batch 1 and 4."""
+    cfg = model.cfg
+    card_model = copy.deepcopy(model).to(dev).eval()
+    scorer = PyramidScorer(card_model, stats, device=dev, batch_size=4,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    rng = np.random.RandomState(5)
+    side = cfg.volume_side_size
+    nf = card_model.n_flow_steps
+    reset_counts()
+    btower.fused_float_tower.cuda_core_launches = 0
+    for batch in (1, 4):
+        vols = torch.as_tensor(
+            (rng.rand(batch, cfg.n_depths, side, side) * 20)
+            .astype(np.float16)).to(dev)
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        nlls, cache, priors, ljs = scorer(vols)               # warm-up
+        torch.cuda.synchronize()
+        if tuple(nlls.shape) != (nf, batch) or len(cache) != nf + 1:
+            fail(f"flagship NLL shape {tuple(nlls.shape)}")
+        if not bool(torch.isfinite(nlls).all()) or bool(
+                (nlls == 1e15).any()):
+            fail(f"flagship NLLs not finite: {nlls.tolist()}")
+        ms = event_ms(lambda: scorer(vols))
+        peak = torch.cuda.max_memory_allocated()
+        delta = check_counts(NLL_PER_CALL, 4, "flagship NLL", before)
+        log(f"flagship NLL f32 batch {batch}: nlls {tuple(nlls.shape)} "
+            f"finite, frame 0 {[round(v, 4) for v in nlls[:, 0].tolist()]}; "
+            f"{np.median(ms) / batch:.2f} ms/frame (median of {ms} ms per "
+            f"call); peak memory {peak / 2**30:.2f} GiB; launches {delta} "
+            f"in 4 calls; on {card}")
+        del nlls, cache, priors, ljs, vols
+    n32 = btower.fused_float_tower.cuda_core_launches
+    if n32 != launch_counts()["fused_float_tower"]:
+        fail(f"likelihood path: {n32} of its "
+             f"{launch_counts()['fused_float_tower']} tower launches ran the "
+             f"f32 instance")
+    kernels["fused_float_tower"]["f32_launches"] = n32
+    log(f"likelihood path launches in 8 calls: cat_affine "
+        f"{launch_counts()['cat_affine']} (forward mode), fused_float_tower "
+        f"{n32} (all the f32 instance)")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -640,17 +999,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
     libs = cuda_build.build_kernels()
-    for mod in (fa, qtower, cpair, btower):
+    for mod in (fa, qtower, cpair, btower, probes):
         mod._lib()
     root = cuda_build.BUILD_DIR.parents[1]
     names = ", ".join(str(p.relative_to(root)) for p in libs.values())
@@ -678,11 +1034,22 @@ def main():
     if not rel < 5e-2:
         fail(f"flagship int8 vs f32 {rel:.3e} >= 5e-2")
 
+    del out8, out32
+    torch.cuda.empty_cache()
+    phase_probes(dev, card, kernels)
+    torch.cuda.empty_cache()
+    phase_likelihood_small(dev)
+    phase_likelihood_flagship(dev, card, kernels, model, stats)
+
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
          "replaces": KERNELS[name]["replaces"],
          "launches": k["launches"], "max_abs_err": k["max_abs_err"],
-         "ms": k["ms"], "plain_ms": k["plain_ms"]}
+         "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         "library_ms": k.get("library_ms"),
+         # the float tower's f32 instance (CUDA cores): the likelihood path's
+         **{key: v for key, v in k.items() if key.startswith("f32_")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

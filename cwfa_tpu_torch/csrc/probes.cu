@@ -1,0 +1,561 @@
+// Ceiling probes for Hopper (sm_90a): a tiled GEMM, a chained on-chip GEMM
+// and an FMA-rate probe.  They are the yardsticks the tower and cond-pair
+// kernels are read against: what a kernel of that shape reaches on this
+// card, next to the data-sheet peak.
+//
+// Replace the Pallas TPU kernels of the two probe scripts:
+//
+//   gemm_kernel   scripts/bench_int8_micro.py:182 (_pallas_gemm) and, with the
+//                 int8 requant epilogue, :305 (gemm_out8): C = A (M, K) x
+//                 B (K, N); int8 x int8 -> int32 sums -> int32, or
+//                 clip(sum >> 7, -127, 127) -> int8; bf16 x bf16 -> f32 sums
+//                 -> bf16.
+//   chain_kernel  scripts/bench_int8_micro.py:255 (_chained): `depth` chained
+//                 128 x 128 products on a row tile that never leaves the
+//                 chip; between products int8: clip(sum >> 7, -127, 127) ->
+//                 int8, bf16: max(sum, 0) -> bf16.
+//   fma_kernel    scripts/probe_vpu_rate.py:24 (fma_kernel): u independent
+//                 accumulators a_k = y * (0.5 + 0.01 k) per element, t times
+//                 a <- fma(a, x, y) | a <- a * x | a <- roll(a, 1, axis 1) + y,
+//                 output sum_k a_k, on (rows, 128) f32.
+//
+// Bounds.  The GEMM at the probe's shapes (M 2^20, K 1152, N 128..512) does
+// 2 M K N operations on M K + K N + M N elements: 200-800 operations per
+// byte, so N = 128 sits near the card's ridge (~590 int8 operations, ~295
+// bf16 FLOP per byte) and N >= 256 is bound by the tensor cores.  The chain
+// does 8 products per row tile that it reads and writes once (2048
+// operations per int8 byte): bound by the tensor cores and by the
+// shared-memory traffic that feeds mma.sync.  The FMA probe keeps its
+// accumulators in registers and touches 3 x 4 bytes per element for 2 t u
+// FLOP: bound by the CUDA cores' FMA rate.
+//
+// Design (simple first versions; wgmma and TMA come later):
+//   - Both tensor-core kernels run on mma.sync (m16n8k32 s8, m16n8k16 bf16).
+//     In bytes the two have the same fragment layout: a k-step is 32 bytes
+//     of K, lane l = 4 g + q holds the 4-byte words at byte 4 q and 4 q + 16
+//     of rows g and g + 8 (A) or of column g (B).  So one kernel body serves
+//     both types, with K counted in bytes.  B is given TRANSPOSED, (N, K)
+//     row-major (the wrapper transposes the small B once), so that a B
+//     fragment is one 32-bit shared-memory load like an A fragment.
+//   - gemm_kernel: 128 x 128 output tile per block, 8 warps of 32 x 64, a
+//     4-stage cp.async ring of 64-byte K slices of A and B^T; rows are
+//     padded to 80 bytes (20 words: the 8 rows x 4 words of a fragment load
+//     hit 32 distinct banks).  Rows beyond M or N are zero-filled by
+//     cp.async's source size; the epilogue masks them.  K bytes must be a
+//     multiple of 16 (the wrapper zero-pads K otherwise).  Blocks that share
+//     a row tile of A are neighbours in the grid, so A is read from device
+//     memory once.
+//   - chain_kernel: 16 warps, each carries its own 16 rows through all the
+//     products, so only the weights need block-wide barriers.  The weights
+//     of one stage (128 x 128, 16 KB int8, 32 KB bf16; all eight bf16 stages
+//     would not fit a block's 227 KB) stream from L2 into a double buffer
+//     with cp.async while the previous stage computes.  bf16: the sum
+//     fragment of one stage is, packed to bf16 pairs, the A fragment of the
+//     next, and never leaves the registers.  int8: the m16n8k32 A fragment
+//     needs four consecutive columns that two lanes hold, so the requantized
+//     tile passes through the warp's own shared-memory tile (warp-local
+//     sync only).
+//   - fma_kernel: one warp per row, a lane holds 4 consecutive columns of
+//     each accumulator in registers; roll by one along the 128 columns is
+//     one shuffle (the lane's last column from its left neighbour, lane 0
+//     from lane 31) and a register rename.  fmaf / __fmul_rn / __fadd_rn
+//     keep the compiler from contracting or reordering what is measured.
+//
+// Plain C interface for ctypes; launches on the caller's stream, does not
+// synchronise, returns cudaGetLastError().  The plain PyTorch versions are
+// in cwfa_tpu_torch/ops/probes.py.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+__device__ __forceinline__ void mma(int* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; src_bytes < 16 zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The int8 requant epilogue of the probes: an arithmetic shift, then a clip.
+__device__ __forceinline__ int requant(int acc) {
+  return max(-127, min(127, acc >> 7));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// tiled GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128, kBN = 128;     // output tile
+constexpr int kBKB = 64;                // bytes of K per pipeline stage
+constexpr int kStr = kBKB + 16;         // padded row of a stage, bytes
+constexpr int kStages = 4;
+constexpr int kGemmThreads = 256;
+constexpr int kStageBytes = (kBM + kBN) * kStr;
+constexpr int kGemmSmem = kStages * kStageBytes;
+
+enum { kOutInt32 = 0, kOutInt8 = 1, kOutBf16 = 2 };
+
+template <int EPI>
+__device__ __forceinline__ void store_pair(void* out, size_t idx, int n_left,
+                                           bool pair_ok, int v0, int v1) {
+  if constexpr (EPI == kOutInt32) {
+    int* o = static_cast<int*>(out) + idx;
+    if (pair_ok && n_left > 1) {
+      *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+    } else {
+      o[0] = v0;
+      if (n_left > 1) o[1] = v1;
+    }
+  } else {
+    int8_t* o = static_cast<int8_t*>(out) + idx;
+    const int8_t q0 = (int8_t)requant(v0), q1 = (int8_t)requant(v1);
+    if (pair_ok && n_left > 1) {
+      *reinterpret_cast<char2*>(o) = make_char2(q0, q1);
+    } else {
+      o[0] = q0;
+      if (n_left > 1) o[1] = q1;
+    }
+  }
+}
+
+template <int EPI>
+__device__ __forceinline__ void store_pair(void* out, size_t idx, int n_left,
+                                           bool pair_ok, float v0, float v1) {
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + idx;
+  if (pair_ok && n_left > 1) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    o[0] = __float2bfloat16_rn(v0);
+    if (n_left > 1) o[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// a: (M, kb) bytes, bt: (N, kb) bytes (B transposed), kb % 16 == 0.
+template <typename Acc, int EPI>
+__global__ void __launch_bounds__(kGemmThreads)
+    gemm_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ bt,
+                void* __restrict__ out, int64_t M, int N, int kb, int ntn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int64_t m0 = (int64_t)(blockIdx.x / ntn) * kBM;
+  const int n0 = (blockIdx.x % ntn) * kBN;
+  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 64;
+  const int nk = (kb + kBKB - 1) / kBKB;
+
+  auto load = [&](int stage, int kt) {
+    unsigned char* as = smem + stage * kStageBytes;
+    unsigned char* bs = as + kBM * kStr;
+    const int kb0 = kt * kBKB;
+#pragma unroll
+    for (int i = 0; i < (kBM * kBKB / 16) / kGemmThreads; ++i) {
+      const int c = tid + i * kGemmThreads;
+      const int row = c >> 2, col = (c & 3) * 16;
+      const bool k_ok = kb0 + col < kb;
+      const bool a_ok = k_ok && m0 + row < M;
+      const bool b_ok = k_ok && n0 + row < N;
+      cp_async16(as + row * kStr + col,
+                 a_ok ? a + (size_t)(m0 + row) * kb + kb0 + col : a,
+                 a_ok ? 16 : 0);
+      cp_async16(bs + row * kStr + col,
+                 b_ok ? bt + (size_t)(n0 + row) * kb + kb0 + col : bt,
+                 b_ok ? 16 : 0);
+    }
+  };
+
+  Acc acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();   // slice kt has landed
+    __syncthreads();                // ... for every thread; slice kt-1 is free
+    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    cp_async_commit();
+    const unsigned char* as = smem + (kt % kStages) * kStageBytes;
+    const unsigned char* bs = as + kBM * kStr;
+#pragma unroll
+    for (int ks = 0; ks < kBKB / 32; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const unsigned char* p = as + (wm + mt * 16 + g) * kStr + ks * 32 + q * 4;
+        af[mt][0] = lds32(p);
+        af[mt][1] = lds32(p + 8 * kStr);
+        af[mt][2] = lds32(p + 16);
+        af[mt][3] = lds32(p + 8 * kStr + 16);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const unsigned char* p = bs + (wn + nt * 8 + g) * kStr + ks * 32 + q * 4;
+        const uint32_t b0 = lds32(p), b1 = lds32(p + 16);
+        mma(acc[0][nt], af[0], b0, b1);
+        mma(acc[1][nt], af[1], b0, b1);
+      }
+    }
+  }
+
+  const bool pair_ok = (N & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = m0 + wm + mt * 16 + g + h * 8;
+        const int col = n0 + wn + nt * 8 + q * 2;
+        if (row < M && col < N)
+          store_pair<EPI>(out, (size_t)row * N + col, N - col, pair_ok,
+                          acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+}
+
+template <typename Acc, int EPI>
+int launch_gemm(const void* a, const void* bt, void* out, int64_t m, int n,
+                int kb, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<Acc, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGemmSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntn = (n + kBN - 1) / kBN;
+  const int64_t blocks = (m + kBM - 1) / kBM * ntn;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  gemm_kernel<Acc, EPI><<<(unsigned)blocks, kGemmThreads, kGemmSmem, s>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(bt), out, m,
+      n, kb, ntn);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// chained GEMM
+// ---------------------------------------------------------------------------
+
+constexpr int kC = 128;                 // width of every product
+constexpr int kChainWarps = 16;
+constexpr int kChainThreads = kChainWarps * 32;
+constexpr int kChainBM = kChainWarps * 16;
+
+template <bool BF16>
+struct Chain {
+  using Acc = typename std::conditional<BF16, float, int>::type;
+  static constexpr int kRowB = kC * (BF16 ? 2 : 1);   // bytes of one row
+  static constexpr int kTStr = kRowB + 16;            // padded, 4 (mod 32) words
+  static constexpr int kKS = kRowB / 32;              // k-steps per product
+  static constexpr int kSmem = (2 * kC + kChainWarps * 16) * kTStr;
+};
+
+// x, out: (M, 128); wt: (depth, 128, 128), each stage TRANSPOSED (N, K).
+template <bool BF16>
+__global__ void __launch_bounds__(kChainThreads, 1)
+    chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ wt,
+                 uint8_t* __restrict__ out, int64_t M, int depth) {
+  using T = Chain<BF16>;
+  using Acc = typename T::Acc;
+  constexpr int RowB = T::kRowB, TStr = T::kTStr, KS = T::kKS;
+  constexpr int RowChunks = RowB / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  unsigned char* wbuf = smem;
+  unsigned char* ytile = smem + 2 * kC * TStr + warp * 16 * TStr;
+  const int64_t row0 = (int64_t)blockIdx.x * kChainBM + warp * 16;
+
+  auto load_w = [&](int buf, int stage) {
+    const uint8_t* src = wt + (size_t)stage * kC * RowB;
+    unsigned char* dst = wbuf + buf * kC * TStr;
+    for (int c = tid; c < kC * RowChunks; c += kChainThreads) {
+      const int r = c / RowChunks, col = (c % RowChunks) * 16;
+      cp_async16(dst + r * TStr + col, src + r * RowB + col, 16);
+    }
+  };
+  load_w(0, 0);
+  cp_async_commit();
+
+  // the warp's 16 rows of x into its own tile (zeros beyond M)
+  for (int c = lane; c < 16 * RowChunks; c += 32) {
+    const int r = c / RowChunks, col = (c % RowChunks) * 16;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (row0 + r < M)
+      v = __ldg(reinterpret_cast<const int4*>(x + (size_t)(row0 + r) * RowB + col));
+    *reinterpret_cast<int4*>(ytile + r * TStr + col) = v;
+  }
+  __syncwarp();
+
+  auto load_a = [&](uint32_t* af, int ks) {
+    const unsigned char* p = ytile + g * TStr + ks * 32 + q * 4;
+    af[0] = lds32(p);
+    af[1] = lds32(p + 8 * TStr);
+    af[2] = lds32(p + 16);
+    af[3] = lds32(p + 8 * TStr + 16);
+  };
+
+  uint32_t afrag[KS][4];   // bf16: y as A fragments, carried across stages
+  if constexpr (BF16) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) load_a(afrag[ks], ks);
+  }
+
+  for (int i = 0; i < depth; ++i) {
+    if (i + 1 < depth) {
+      load_w((i + 1) & 1, i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                 // stage i's weights are in for everyone
+    const unsigned char* ws = wbuf + (i & 1) * kC * TStr;
+    Acc acc[kC / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t af[4];
+      if constexpr (BF16) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[e] = afrag[ks][e];
+      } else {
+        load_a(af, ks);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kC / 8; ++nt) {
+        const unsigned char* p = ws + (nt * 8 + g) * TStr + ks * 32 + q * 4;
+        mma(acc[nt], af, lds32(p), lds32(p + 16));
+      }
+    }
+    if constexpr (BF16) {
+      // sum fragments of n-tiles 2s, 2s+1 -> A fragment of k-step s
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        afrag[s][0] = pack_bf16(fmaxf(acc[2 * s][0], 0.f), fmaxf(acc[2 * s][1], 0.f));
+        afrag[s][1] = pack_bf16(fmaxf(acc[2 * s][2], 0.f), fmaxf(acc[2 * s][3], 0.f));
+        afrag[s][2] = pack_bf16(fmaxf(acc[2 * s + 1][0], 0.f), fmaxf(acc[2 * s + 1][1], 0.f));
+        afrag[s][3] = pack_bf16(fmaxf(acc[2 * s + 1][2], 0.f), fmaxf(acc[2 * s + 1][3], 0.f));
+      }
+    } else {
+      __syncwarp();                  // every lane has read this stage's y
+#pragma unroll
+      for (int nt = 0; nt < kC / 8; ++nt) {
+        unsigned char* p = ytile + g * TStr + nt * 8 + q * 2;
+        *reinterpret_cast<char2*>(p) =
+            make_char2((signed char)requant(acc[nt][0]), (signed char)requant(acc[nt][1]));
+        *reinterpret_cast<char2*>(p + 8 * TStr) =
+            make_char2((signed char)requant(acc[nt][2]), (signed char)requant(acc[nt][3]));
+      }
+      __syncwarp();
+    }
+    __syncthreads();                 // buffer i & 1 is free for stage i + 2
+  }
+
+  if constexpr (BF16) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      unsigned char* p = ytile + g * TStr + ks * 32 + q * 4;
+      *reinterpret_cast<uint32_t*>(p) = afrag[ks][0];
+      *reinterpret_cast<uint32_t*>(p + 8 * TStr) = afrag[ks][1];
+      *reinterpret_cast<uint32_t*>(p + 16) = afrag[ks][2];
+      *reinterpret_cast<uint32_t*>(p + 8 * TStr + 16) = afrag[ks][3];
+    }
+    __syncwarp();
+  }
+  for (int c = lane; c < 16 * RowChunks; c += 32) {
+    const int r = c / RowChunks, col = (c % RowChunks) * 16;
+    if (row0 + r < M)
+      *reinterpret_cast<int4*>(out + (size_t)(row0 + r) * RowB + col) =
+          *reinterpret_cast<const int4*>(ytile + r * TStr + col);
+  }
+}
+
+template <bool BF16>
+int launch_chain(const void* x, const void* wt, void* out, int64_t m, int depth,
+                 cudaStream_t s) {
+  constexpr int smem = Chain<BF16>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (m + kChainBM - 1) / kChainBM;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  chain_kernel<BF16><<<(unsigned)blocks, kChainThreads, smem, s>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(wt),
+      static_cast<uint8_t*>(out), m, depth);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// FMA-rate probe
+// ---------------------------------------------------------------------------
+
+constexpr int kFmaWarps = 8;
+enum { kModeFma = 0, kModeMul = 1, kModeRoll = 2 };
+
+template <int U>
+__global__ void __launch_bounds__(kFmaWarps * 32)
+    fma_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
+               float4* __restrict__ o, int64_t rows, int t, int mode) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kFmaWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;          // the whole warp leaves together
+  const float4 xv = x[row * 32 + lane], yv = y[row * 32 + lane];
+  const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+  const float ys[4] = {yv.x, yv.y, yv.z, yv.w};
+  float a[U][4];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const float c = (float)(0.5 + 0.01 * k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[k][e] = __fmul_rn(ys[e], c);
+  }
+  if (mode == kModeFma) {
+    for (int i = 0; i < t; ++i)
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[k][e] = fmaf(a[k][e], xs[e], ys[e]);
+  } else if (mode == kModeMul) {
+    for (int i = 0; i < t; ++i)
+#pragma unroll
+      for (int k = 0; k < U; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[k][e] = __fmul_rn(a[k][e], xs[e]);
+  } else {
+    const int left = (lane + 31) & 31;
+    for (int i = 0; i < t; ++i)
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const float in = __shfl_sync(0xffffffffu, a[k][3], left);
+        a[k][3] = __fadd_rn(a[k][2], ys[3]);
+        a[k][2] = __fadd_rn(a[k][1], ys[2]);
+        a[k][1] = __fadd_rn(a[k][0], ys[1]);
+        a[k][0] = __fadd_rn(in, ys[0]);
+      }
+  }
+  float s[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    s[e] = a[0][e];
+#pragma unroll
+    for (int k = 1; k < U; ++k) s[e] = __fadd_rn(s[e], a[k][e]);
+  }
+  o[row * 32 + lane] = make_float4(s[0], s[1], s[2], s[3]);
+}
+
+template <int U>
+void launch_fma(const void* x, const void* y, void* o, int64_t rows, int t,
+                int mode, cudaStream_t s) {
+  const int64_t blocks = (rows + kFmaWarps - 1) / kFmaWarps;
+  fma_kernel<U><<<(unsigned)blocks, kFmaWarps * 32, 0, s>>>(
+      static_cast<const float4*>(x), static_cast<const float4*>(y),
+      static_cast<float4*>(o), rows, t, mode);
+}
+
+}  // namespace
+
+// a: (m, k) and bt: (n, k), B transposed, both int8 (dtype 0) or bf16
+// (dtype 1), contiguous, k * element size a multiple of 16; out: (m, n)
+// int32, or int8 with out8 (int8 inputs only), or bf16.
+extern "C" int cwfa_tiled_gemm(const void* a, const void* bt, void* out,
+                               int64_t m, int n, int k, int dtype, int out8,
+                               int device, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || dtype < 0 || dtype > 1 || out8 < 0 ||
+      out8 > 1 || (out8 && dtype != 0))
+    return (int)cudaErrorInvalidValue;
+  const int64_t kb = (int64_t)k * (dtype == 1 ? 2 : 1);
+  if (kb % 16 || kb > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_gemm<float, kOutBf16>(a, bt, out, m, n, (int)kb, s);
+  if (out8) return launch_gemm<int, kOutInt8>(a, bt, out, m, n, (int)kb, s);
+  return launch_gemm<int, kOutInt32>(a, bt, out, m, n, (int)kb, s);
+}
+
+// x, out: (m, 128); wt: (depth, 128, 128) with every stage transposed
+// (N, K); all int8 (dtype 0) or bf16 (dtype 1), contiguous.
+extern "C" int cwfa_chained_gemm(const void* x, const void* wt, void* out,
+                                 int64_t m, int depth, int dtype, int device,
+                                 void* stream) {
+  if (m <= 0 || depth <= 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_chain<true>(x, wt, out, m, depth, s)
+                    : launch_chain<false>(x, wt, out, m, depth, s);
+}
+
+// x, y, o: (rows, 128) f32, contiguous; u in 1..16; mode 0 fma, 1 mul,
+// 2 roll.
+extern "C" int cwfa_fma_probe(const void* x, const void* y, void* o,
+                              int64_t rows, int t, int u, int mode, int device,
+                              void* stream) {
+  if (rows <= 0 || t < 0 || u < 1 || u > 16 || mode < 0 || mode > 2 ||
+      (rows + kFmaWarps - 1) / kFmaWarps > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (u) {
+#define CWFA_FMA_CASE(U) \
+  case U:                \
+    launch_fma<U>(x, y, o, rows, t, mode, s); \
+    break;
+    CWFA_FMA_CASE(1) CWFA_FMA_CASE(2) CWFA_FMA_CASE(3) CWFA_FMA_CASE(4)
+    CWFA_FMA_CASE(5) CWFA_FMA_CASE(6) CWFA_FMA_CASE(7) CWFA_FMA_CASE(8)
+    CWFA_FMA_CASE(9) CWFA_FMA_CASE(10) CWFA_FMA_CASE(11) CWFA_FMA_CASE(12)
+    CWFA_FMA_CASE(13) CWFA_FMA_CASE(14) CWFA_FMA_CASE(15) CWFA_FMA_CASE(16)
+#undef CWFA_FMA_CASE
+  }
+  return (int)cudaGetLastError();
+}

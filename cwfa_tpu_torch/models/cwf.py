@@ -1,4 +1,4 @@
-"""Conditional Wavelet Flow steps, inverse direction, for inference
+"""Conditional Wavelet Flow steps, both directions, without gradients
 (counterpart of ``cwfa_tpu/models/cwf.py``).
 
 Per-step graph (reference networks.py:305-366), for step k on a volume with
@@ -11,12 +11,17 @@ D = n_depths/2^k depth-channels:
   rev   inverts the chain; ``avg`` is the upsampled volume from the coarser
         step, z is zeros at temperature 0 (CWFA.py:47-64).
 
-Only the CAT block type and the inverse direction are ported; the coupling
-towers run one by one (the TPU's 128-wide tower pairing is not carried over),
-each through the float tower kernel (``ops/btower.fused_float_tower``, via
-``WaveletFlowSubnet2d.tower``).  With a ``qpack`` (``quantize_cat_step``) the
-coupling towers run in int8 through the int8 tower kernel
-(``ops/qtower.fused_tower``).
+Only the CAT block type is ported, under ``torch.inference_mode`` (the
+differentiable form comes with training): ``forward`` (normalizing, with
+f32 log-dets: the exact-likelihood path), ``reverse`` (its exact inverse,
+with log-dets) and ``reverse_fast`` (reconstruction: no log-det, the input
+affine fused with the inverse Haar).  The coupling towers run one by one
+(the TPU's 128-wide tower pairing is not carried over), each through the
+float tower kernel (``ops/btower.fused_float_tower``, via
+``WaveletFlowSubnet2d.tower``), and every coupling block's affine through
+``ops/flow_affine.cat_affine``.  With a ``qpack`` (``quantize_cat_step``)
+``reverse_fast`` runs the coupling towers in int8 through the int8 tower
+kernel (``ops/qtower.fused_tower``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from cwfa_tpu_torch.flow.coupling import cat_transform, clamp_fn
+from cwfa_tpu_torch.flow.haar import haar1d_merge, haar1d_split
 from cwfa_tpu_torch.flow.permute import (
     ReferencePermReplayer, apply_channel_perm, apply_spatial_perm)
 from cwfa_tpu_torch.flow.subnets import (
@@ -90,31 +97,106 @@ class CWFStep(nn.Module):
         if spec.block_type != "CAT":
             raise NotImplementedError(
                 f"block type {spec.block_type!r}: only CAT is ported")
-        if spec.disable_low_res_input:
-            raise NotImplementedError("disable_low_res_input is not ported")
         self.spec = spec
         n = spec.c_flow
-        self.input_block = nn.ModuleDict({"subnet": WaveletFlowSubnet2dFirst(
-            2 * n, 2 * n, n_ch=spec.internal_ch, use_bias=spec.use_bias)})
+        # without the low-res input the input block is an ordinary CAT on
+        # the views condition alone (cwf.py:148-150,417-419)
+        first = (WaveletFlowSubnet2d(n, 2 * n, n_ch=spec.internal_ch,
+                                     use_bias=spec.use_bias)
+                 if spec.disable_low_res_input else
+                 WaveletFlowSubnet2dFirst(2 * n, 2 * n, n_ch=spec.internal_ch,
+                                          use_bias=spec.use_bias))
+        self.input_block = nn.ModuleDict({"subnet": first})
         self.blocks = nn.ModuleList(
             nn.ModuleDict({"subnet": WaveletFlowSubnet2d(
                 n, 2 * n, n_ch=spec.internal_ch, use_bias=spec.use_bias)})
             for _ in range(spec.n_blocks))
-        # inverse permutations as non-persistent buffers: they follow the
-        # module's device and stay out of the state dict
+        # permutations and their inverses as non-persistent buffers: they
+        # follow the module's device and stay out of the state dict
         self._perm_axes = []
         for i, entry in enumerate(spec.perms):
             self._perm_axes.append(1 if entry[0] == "channel" else entry[1])
-            self.register_buffer(f"perm_inv_{i}",
-                                 torch.as_tensor(entry[-1], dtype=torch.long),
-                                 persistent=False)
+            for name, idx in (("fwd", entry[-2]), ("inv", entry[-1])):
+                self.register_buffer(f"perm_{name}_{i}",
+                                     torch.as_tensor(idx, dtype=torch.long),
+                                     persistent=False)
 
-    def _inverse_perm(self, i: int, x):
-        inv = getattr(self, f"perm_inv_{i}")
+    def _perm(self, i: int, x, inverse: bool):
+        idx = getattr(self, f"perm_{'inv' if inverse else 'fwd'}_{i}")
         axis = self._perm_axes[i]
         if axis == 1:
-            return apply_channel_perm(x, inv)
-        return apply_spatial_perm(x, axis, inv)
+            return apply_channel_perm(x, idx)
+        return apply_spatial_perm(x, axis, idx)
+
+    def _input_block(self, x, c_views, c_mean, rev: bool):
+        """The input ConditionalAffineTransform, conditions concatenated as
+        [mean cache | views] (``_input_block``, ``cwf.py:414-425``).  A
+        batch-1 ``c_mean`` is expanded over the batch."""
+        spec = self.spec
+        if spec.disable_low_res_input:
+            conds = (c_views,)
+        else:
+            conds = (c_mean.expand(c_views.shape), c_views)
+        return cat_transform(self.input_block["subnet"], x, conds, rev=rev,
+                             clamp=spec.clamp,
+                             clamp_activation=spec.clamp_activation)
+
+    def _cat_chain(self, x, c_views, rev: bool):
+        """The permute / CAT block chain (``_cat_chain``, ``cwf.py:386-411``):
+        each block's (s_raw | t) from its tower, the affine through
+        ``cat_affine`` (which clamps s itself), the log-det as the f32 sum of
+        the clamped s per sample."""
+        spec = self.spec
+        n = spec.c_flow
+        kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
+        fcl = clamp_fn(spec.clamp_activation)
+        logdet = torch.zeros((x.shape[0],), dtype=torch.float32,
+                             device=x.device)
+
+        def block(nn_, x):
+            st = self.blocks[nn_ - 1]["subnet"](c_views)
+            s = (spec.clamp * fcl(st[:, :n].float())).to(st.dtype)
+            j = s.float().sum(dim=(1, 2, 3))
+            return cat_affine(x.contiguous(), st, rev=rev, **kw), j
+
+        if not rev:
+            for nn_ in range(1, spec.n_blocks + 1):
+                x = self._perm(nn_ - 1, x, inverse=False)
+                x, j = block(nn_, x)
+                logdet = logdet + j
+            if spec.use_final_perm:
+                x = self._perm(spec.n_blocks, x, inverse=False)
+        else:
+            if spec.use_final_perm:
+                x = self._perm(spec.n_blocks, x, inverse=True)
+            for nn_ in range(spec.n_blocks, 0, -1):
+                x, j = block(nn_, x)
+                logdet = logdet - j
+                x = self._perm(nn_ - 1, x, inverse=True)
+        return x, logdet
+
+    @torch.inference_mode()
+    def forward(self, v, c_views, c_mean):
+        """Normalizing direction (``cwf_step_forward``, ``cwf.py:476-494``):
+        volume -> (z, averages, logdet).
+
+        v: (B, D, H, W); c_views: (B, D/2, H, W); c_mean: (1 or B, D/2, H, W).
+        logdet: (B,) f32."""
+        avg, diff, logdet = haar1d_split(v)
+        x, j = self._input_block(diff, c_views, c_mean, rev=False)
+        logdet = logdet + j
+        x, j = self._cat_chain(x, c_views, rev=False)
+        return x, avg, logdet + j
+
+    @torch.inference_mode()
+    def reverse(self, z, avg, c_views, c_mean):
+        """Generative direction, the exact inverse of ``forward`` with its
+        log-det (the non-fast ``cwf_step_reverse``, ``cwf.py:510-538``):
+        (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32)."""
+        x, logdet = self._cat_chain(z, c_views, rev=True)
+        x, j = self._input_block(x, c_views, c_mean, rev=True)
+        v, ld = haar1d_merge(avg, x)
+        return v, logdet + j + ld
 
     @torch.inference_mode()
     def reverse_fast(self, z, avg, c_views, c_mean, qpack=None):
@@ -136,7 +218,7 @@ class CWFStep(nn.Module):
             xq = qtower.quantize_input(c_views, first["scales"][0])
         x = z
         if spec.use_final_perm:
-            x = self._inverse_perm(spec.n_blocks, x)
+            x = self._perm(spec.n_blocks, x, inverse=True)
         for nn_ in range(spec.n_blocks, 0, -1):
             pk = None if xq is None else qpack[nn_ - 1]
             if pk is not None:
@@ -145,12 +227,18 @@ class CWFStep(nn.Module):
             else:
                 st = self.blocks[nn_ - 1]["subnet"](c_views)
             x = cat_affine(x, st, rev=True, **kw)
-            x = self._inverse_perm(nn_ - 1, x)
-        # input block: s_raw from the tower on the views condition; t is the
-        # low-res prior -c_mean/sqrt(2) (flow/subnets.py), computed on the
-        # batch-1 cache and broadcast with a stride-0 expand
-        s_raw = self.input_block["subnet"].tower(c_views)
-        t = (c_mean * -SQRT2_INV).expand(x.shape)
+            x = self._perm(nn_ - 1, x, inverse=True)
+        if spec.disable_low_res_input:
+            # an ordinary CAT: (s_raw | t) both from the tower
+            st = self.input_block["subnet"](c_views)
+            n = spec.c_flow
+            s_raw, t = st[:, :n].contiguous(), st[:, n:].contiguous()
+        else:
+            # s_raw from the tower on the views condition; t is the low-res
+            # prior -c_mean/sqrt(2) (flow/subnets.py), computed on the
+            # batch-1 cache and broadcast with a stride-0 expand
+            s_raw = self.input_block["subnet"].tower(c_views)
+            t = (c_mean * -SQRT2_INV).expand(x.shape)
         return haar_merge_affine(x, s_raw, t, avg, **kw)
 
 

@@ -6,13 +6,17 @@ Structure for the default config (n_depths=96, 5 pyramid steps):
   cond nets k=0..3 mapping the views -> 96/2^{k+1} channels,
   LRNN producing the coarsest 6-depth volume from views + mean-volume prior.
 
-Only deterministic inference is ported: ``reconstruct`` at temperature 0,
-one sample, through the CUDA flow kernels (the JAX ``fast=True`` path),
-optionally with the int8 UNet (``unet_q``) and int8 coupling towers
-(``qpacks``).  Any other flag raises.
+Two paths are ported, both without gradients.  Deterministic inference:
+``reconstruct`` at temperature 0, one sample, through the CUDA flow kernels
+(the JAX ``fast=True`` path), optionally with the int8 UNet (``unet_q``) and
+int8 coupling towers (``qpacks``); any other flag raises.  Exact likelihood:
+``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in the
+normalizing direction, per-frame NLLs) and ``make_mean_caches``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -24,6 +28,30 @@ from cwfa_tpu_torch.models.cwf import (CWFStep, build_step_specs,
 from cwfa_tpu_torch.models.lrnn import LRNN, LRNNSpec
 from cwfa_tpu_torch.models.unet import quantize_unet, unet_calibrate
 from cwfa_tpu_torch.nn import reset_parameters_
+
+
+def sample_z_truncated(generator: torch.Generator, shape,
+                       temperature: float):
+    """z sampling (``sample_z_truncated``, ``cwfa_model.py:32-38``): zeros at
+    temperature 0, else a std-1 normal truncated to [-T, T], drawn from
+    ``generator`` (on its device) by inverting the normal CDF.  f32."""
+    if temperature == 0:
+        return torch.zeros(shape, device=generator.device)
+    lo = 0.5 * (1.0 + math.erf(-temperature / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64,
+                   device=generator.device)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
+    return z.clamp(-temperature, temperature).float()
+
+
+def check_empty_depths(generator: torch.Generator, vol):
+    """Add sigma = 1e-3 noise (drawn from ``generator`` on its device) to the
+    all-constant depth slices of ``vol`` (B, D, H, W) and to no other
+    (``check_empty_depths``, ``cwfa_model.py:57-62``)."""
+    empty = vol.std(dim=(2, 3), keepdim=True, correction=0) == 0
+    noise = 0.001 * torch.randn(vol.shape, generator=generator,
+                                dtype=vol.dtype, device=generator.device)
+    return torch.where(empty, vol + noise.to(vol.device), vol)
 
 
 class CWFAModel(nn.Module):
@@ -93,6 +121,79 @@ class CWFAModel(nn.Module):
         return [quantize_cat_step(master.flow[k], c_views_all[k])
                 if spec.n_blocks >= 2 else None
                 for k, spec in enumerate(self.step_specs)]
+
+    def _step_nll(self, k: int, v, c_mean=None):
+        """Flow step k forward on ``v`` with zero views condition (and zero
+        mean condition unless given).  Returns (avg, per-sample prior (B,),
+        logdet (B,), numel of avg)."""
+        spec = self.step_specs[k]
+        zeros = torch.zeros((v.shape[0], spec.c_flow) + tuple(v.shape[2:]),
+                            dtype=v.dtype, device=v.device)
+        z, avg, logdet = self.flow[k](v, zeros,
+                                      zeros if c_mean is None else c_mean)
+        prior_b = 0.5 * (z.float() ** 2).sum(dim=(1, 2, 3))
+        return avg, prior_b, logdet, float(avg.numel())
+
+    @torch.inference_mode()
+    def forward_pyramid(self, gt_volume, mean_caches=None,
+                        per_sample: bool = False):
+        """Every flow step in the normalizing direction with ZERO views
+        conditions (``forward_pyramid``, ``cwfa_model.py:116-162``);
+        ``mean_caches[k]``, where given, is step k's mean condition.
+
+        gt_volume: (B, n_depths, H, W).  Returns (nlls, gt_cache, priors,
+        log_jacobians), one entry per flow step; gt_cache[k] is the pyramid
+        volume at level k (gt_cache[0] the input, one entry more).
+
+        per_sample=True gives (B,)-shaped per-frame values, (0.5*||z_i||^2 -
+        logdet_i) / (numel(avg) / B); False the reference's batch scalars
+        (CWFA.py:189-192)."""
+        b = gt_volume.shape[0]
+        gt_cache = [gt_volume]
+        nlls, priors, logjacs = [], [], []
+        v = gt_volume
+        for k in range(self.n_flow_steps):
+            v, prior_b, logdet, numel = self._step_nll(
+                k, v, None if mean_caches is None else mean_caches[k])
+            if per_sample:
+                nlls.append((prior_b - logdet) / (numel / b))
+                priors.append(prior_b / (numel / b))
+                logjacs.append(logdet / (numel / b))
+            else:
+                prior = prior_b.sum()
+                nlls.append(((prior - logdet) / numel).mean())
+                priors.append(prior / numel)
+                logjacs.append(logdet.mean() / numel)
+            gt_cache.append(v)
+        return nlls, gt_cache, priors, logjacs
+
+    @torch.inference_mode()
+    def nll_from_pyramid(self, gt_cache):
+        """Per-sample NLLs from an existing wavelet pyramid
+        (``nll_from_pyramid``, ``cwfa_model.py:164-187``): the levels are
+        parameter-independent Haar averages, so ``gt_cache[k]`` is what
+        ``forward_pyramid`` feeds step k.  Returns a list of (B,) tensors."""
+        b = gt_cache[0].shape[0]
+        nlls = []
+        for k in range(self.n_flow_steps):
+            _, prior_b, logdet, numel = self._step_nll(k, gt_cache[k])
+            nlls.append((prior_b - logdet) / (numel / b))
+        return nlls
+
+    @torch.inference_mode()
+    def make_mean_caches(self, mean_volume, generator=None):
+        """Mean-volume conditioning pyramid (``make_mean_caches``,
+        ``cwfa_model.py:342-350``): the forward pyramid of the (normalized)
+        mean volume, each level as depth-pair differences ``g[:, ::2] -
+        g[:, 1::2]``; with a ``generator``, sigma = 1e-3 noise is added
+        first."""
+        v = mean_volume
+        if generator is not None:
+            v = v + 0.001 * torch.randn(
+                v.shape, generator=generator, dtype=v.dtype,
+                device=generator.device).to(v.device)
+        _, gt_cache, _, _ = self.forward_pyramid(v)
+        return [g[:, ::2] - g[:, 1::2] for g in gt_cache]
 
     @torch.inference_mode()
     def reconstruct(self, cond_input, mean_caches, *,

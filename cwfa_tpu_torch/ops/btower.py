@@ -180,7 +180,9 @@ def fused_float_tower(x, tower):
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(rc, "fused_float_tower")
     fused_float_tower.launches += 1
+    fused_float_tower.cuda_core_launches += int(not uses_mma(x.dtype, c))
     return out
 
 
-fused_float_tower.launches = 0
+fused_float_tower.launches = 0              # every launch of the kernel
+fused_float_tower.cuda_core_launches = 0    # those of the CUDA-core instance

@@ -1,6 +1,7 @@
-"""Where the time goes in the PyTorch port's reconstruction slice, on one GPU.
+"""Where the time goes in the PyTorch port's reconstruction slice, or in its
+exact-likelihood path, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--batch 8] [--int8]
+    python3 scripts/profile_torch_port.py [--batch 8] [--int8 | --nll]
 
 Builds the flagship rig (``cwfa_tpu_torch.rig.flagship``, random weights
 from seed 0) as a bf16 ``XLFMReconstructor`` — with ``--int8``, the int8
@@ -16,12 +17,18 @@ batch) — and prints:
   call;
 - one call under ``torch.profiler``: device time by kernel and the device's
   idle share of the call's wall time.
+
+With ``--nll`` the call is ``PyramidScorer`` (f32 volumes -> per-frame NLLs of
+every step) on the same rig, and the components are the 20 towers (the f32
+instance of ``fused_float_tower`` on the zero views condition), the 16
+forward ``cat_affine`` launches, the 20 permutations, the four Haar splits,
+and the reductions (16 log-det sums of the clamped s, four priors) with the
+four input blocks' plain affines.
 """
 
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -34,11 +41,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+from cwfa_tpu_torch.engine.ood import PyramidScorer
+from cwfa_tpu_torch.flow.coupling import clamp_fn
+from cwfa_tpu_torch.flow.haar import haar1d_split
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
 from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.ops.cond_pair import cond_pair
 from cwfa_tpu_torch.ops.flow_affine import cat_affine, haar_merge_affine
 from cwfa_tpu_torch.rig import flagship
+from cwfa_tpu_torch.roofline import card_line
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -55,20 +66,137 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(ms))
 
 
+def print_parts(parts: dict, whole: float):
+    for name, fn in parts.items():
+        ms = cuda_ms(fn)
+        print(f"{name:22s} {ms:9.3f} ms  {100 * ms / whole:5.1f}%")
+
+
+def profile_call(fn):
+    """One call of ``fn`` under ``torch.profiler``: the device's idle share
+    of the wall time and the device time by kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in kern:
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    print(f"profiled call: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
+          f"{len(kern)} device events")
+    rows = []
+    for a in prof.key_averages():
+        t = getattr(a, "self_device_time_total", None)
+        if t is None:
+            t = a.self_cuda_time_total
+        if t > 0:
+            rows.append((t, a.count, a.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    for t, count, key in rows[:25]:
+        print(f"{t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{count:<4d} "
+              f"{key[:90]}")
+
+
+def profile_nll(model, stats, batch: int, dev):
+    """The exact-likelihood path: ``PyramidScorer`` on random f16 volumes."""
+    cfg = model.cfg
+    m = model.to(dev).eval()
+    side = cfg.volume_side_size
+    rng = np.random.RandomState(0)
+    vols = torch.as_tensor((rng.rand(batch, cfg.n_depths, side, side) * 20)
+                           .astype(np.float16)).to(dev)
+    scorer = PyramidScorer(m, stats, device=dev, batch_size=batch,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    whole = cuda_ms(lambda: scorer(vols))
+    print(f"batch {batch} nll f32: whole call {whole:.2f} ms = "
+          f"{whole / batch:.2f} ms/frame")
+    with torch.inference_mode():
+        levels = scorer(vols)[1]                   # the pyramid volumes
+        zeros = [torch.zeros_like(levels[k + 1]) for k in range(len(m.flow))]
+        sts = [m.flow[k].blocks[0]["subnet"](zeros[k])
+               for k in range(len(m.flow))]
+
+        def towers():
+            for k, step in enumerate(m.flow):
+                for blk in step.blocks:
+                    blk["subnet"](zeros[k])
+                step.input_block["subnet"].tower(zeros[k])
+
+        def affines():
+            for k, step in enumerate(m.flow):
+                kw = {"clamp": step.spec.clamp,
+                      "activation": step.spec.clamp_activation}
+                for _ in step.blocks:
+                    cat_affine(zeros[k], sts[k], rev=False, **kw)
+
+        def perms():
+            for k, step in enumerate(m.flow):
+                for i in range(len(step.spec.perms)):
+                    step._perm(i, zeros[k], inverse=False)
+
+        def haar():
+            for k in range(len(m.flow)):
+                haar1d_split(levels[k])
+
+        def reductions():
+            for k, step in enumerate(m.flow):
+                spec = step.spec
+                n = spec.c_flow
+                fcl = clamp_fn(spec.clamp_activation)
+                for _ in step.blocks:
+                    (spec.clamp * fcl(sts[k][:, :n].float())).sum(dim=(1, 2, 3))
+                (zeros[k].float() ** 2).sum(dim=(1, 2, 3))
+                # the input block's affine and log-det, in plain torch
+                s = spec.clamp * fcl(sts[k][:, :n].float())
+                s.sum(dim=(1, 2, 3))
+                torch.exp(s) * zeros[k] + sts[k][:, n:]
+
+        def normalize():
+            v = (vols.float() - stats.mean_vols) / stats.std_vols
+            return v + 0.001 * torch.randn(v.shape, device=dev)
+
+        print_parts({
+            "normalize + noise": normalize,
+            "towers (20, f32)": towers,
+            "cat_affine fwd (16)": affines,
+            "permutations (20)": perms,
+            "haar splits (4)": haar,
+            "reductions + input affines": reductions,
+        }, whole)
+    profile_call(lambda: scorer(vols))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--int8", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--int8", action="store_true")
+    mode.add_argument("--nll", action="store_true")
     args = ap.parse_args()
     batch = args.batch
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card_line())
     cfg, model, stats, vidx, img = flagship(
         False, "cpu", torch.Generator().manual_seed(0))
+    if args.nll:
+        return profile_nll(model, stats, batch, dev)
     rng = np.random.RandomState(0)
     side = cfg.volume_side_size
     caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
@@ -135,7 +263,7 @@ def main():
         def perms():
             for k, step in enumerate(m.flow):
                 for i in range(len(step.spec.perms)):
-                    step._inverse_perm(i, ups[k])
+                    step._perm(i, ups[k], inverse=True)
 
         parts = {
             "views+normalize": lambda: ((extract_views(frames, vidx)
@@ -149,45 +277,9 @@ def main():
             "flow kernels (20)": kernels,
             "inverse perms": perms,
         }
-        for name, fn in parts.items():
-            ms = cuda_ms(fn)
-            print(f"{name:22s} {ms:9.3f} ms  {100 * ms / whole:5.1f}%")
+        print_parts(parts, whole)
 
-    recon(frames)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        recon(frames)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in kern:
-        if cur_e is None or s > cur_e:
-            busy += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    print(f"profiled call: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {1 - busy / wall_us:.3f}, "
-          f"{len(kern)} device events")
-    rows = []
-    for a in prof.key_averages():
-        t = getattr(a, "self_device_time_total", None)
-        if t is None:
-            t = a.self_cuda_time_total
-        if t > 0:
-            rows.append((t, a.count, a.key))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    for t, count, key in rows[:25]:
-        print(f"{t / 1e3:9.3f} ms {100 * t / total:5.1f}% x{count:<4d} "
-              f"{key[:90]}")
+    profile_call(lambda: recon(frames))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """The PyTorch port runs where JAX is not installed: no module of
-cwfa_tpu_torch, nor chip_smoke.py, imports JAX, the JAX package or Triton."""
+cwfa_tpu_torch, nor chip_smoke.py, nor a script that drives the port, imports
+JAX, the JAX package or Triton."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cwfa_tpu", "triton"}
-FILES = sorted((ROOT / "cwfa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "cwfa_tpu_torch").rglob("*.py"))
+         + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py"))
+         + [ROOT / "scripts" / "profile_torch_port.py"])
 
 
 def _imported_roots(path: Path):
