@@ -22,9 +22,11 @@ code != 0) on the first phase that does not hold:
 5. holds the float tower kernel (``fused_float_tower``) against its plain
    version at every flagship tower shape (coupling Cin -> 2*Cin and input
    Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8 and at two odd
-   shapes (64 and 8 wide), in f32 and bf16, and times it at every batch-1
-   shape, with the plain version and the cuDNN module chain it replaces at
-   step 0;
+   shapes (64 and 8 wide), in f32 and bf16, logging the instance that ran
+   (wgmma bf16, wgmma 3xTF32 for f32, CUDA cores for the 8-wide towers; each
+   must have run), and times both instances at every batch-1 shape, with the
+   plain versions, the cuDNN module chain the bf16 one replaces and the f32
+   instance's two bounds (f32 FMAs, 3 x TF32) at step 0;
 6. runs the small rig through ``XLFMReconstructor`` on the card (kernels)
    and on the CPU (plain versions), in f32, and compares; then the same in
    int8 (``use_int8`` + ``use_int8_towers``);
@@ -62,7 +64,7 @@ Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (nine kernels,
 each with its launches, error, time, plain version's time, bound and, where
 one PyTorch call computes the same function, that call's time; the float
-tower also with the ``f32_*`` numbers of its CUDA-core instance, which the
+tower also with the ``f32_*`` numbers of its f32 instance, which the
 likelihood path runs), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
@@ -113,8 +115,10 @@ KERNELS = {
     "cond_pair": {"replaces": "cwfa_tpu/ops/cond_pair.py:276",
                   "source": "cwfa_tpu_torch/csrc/cond_pair.cu",
                   "wrapper": cpair.cond_pair},
+    # the 64-wide instances (wgmma) of the paths here; the other widths'
+    # CUDA-core instance is csrc/btower.cu
     "fused_float_tower": {"replaces": "cwfa_tpu/ops/btower.py:235",
-                          "source": "cwfa_tpu_torch/csrc/btower.cu",
+                          "source": "cwfa_tpu_torch/csrc/btower_wg.cu",
                           "wrapper": btower.fused_float_tower},
     "tiled_gemm": {"replaces": "scripts/bench_int8_micro.py:182",
                    "source": PROBE_SRC, "wrapper": probes.tiled_gemm},
@@ -396,24 +400,35 @@ def phase_cond_pair(dev, kernels):
 def phase_float_tower(dev, kernels):
     """fused_float_tower vs float_tower_reference on the card: every flagship
     tower shape (coupling Cin -> 2*Cin and input Cin -> Cin, 64 wide), step 0
-    at batch 8 and the two odd shapes of phase_tower, f32 and bf16; times
-    the kernel at every batch-1 shape (bf16), and the plain version and the
-    cuDNN module chain at step 0's coupling tower."""
+    at batch 8 and the two odd shapes of phase_tower, f32 and bf16, with the
+    instance of the kernel that ran each; times both instances at every
+    batch-1 shape, and their plain versions and the cuDNN module chain at
+    step 0's coupling tower."""
     gen = torch.Generator().manual_seed(3)
     shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
               for cin in TOWER_CIN for nout in (2 * cin, cin)]
     shapes += [(8, SLICE_C, SLICE_HW, SLICE_HW, 64, 2 * SLICE_C),
                (2, 12, 37, 53, 64, 24), (2, 4, 19, 35, 8, 8)]
     k = kernels["fused_float_tower"]
+    ran = dict.fromkeys(btower.fused_float_tower.by_instance, 0)
     for b, cin, h, w, width, nout in shapes:
         tower = WaveletFlowSubnet2d(cin, nout, width)
         reset_parameters_(tower, gen)
         x0 = torch.randn((b, cin, h, w), generator=gen)
+        flop = 2 * b * h * w * (cin * width + 3 * 10 * width * width
+                                + 9 * width * nout)
         for dtype in (torch.float32, torch.bfloat16):
             tower = tower.to(dev, dtype).eval()
             x = x0.to(dev, dtype)
+            name = "f32" if dtype == torch.float32 else "bf16"
+            instance = btower.kernel_instance(dtype, width, cin, nout)
             with torch.inference_mode():
+                before = btower.fused_float_tower.by_instance[instance]
                 got = btower.fused_float_tower(x, tower)
+                if btower.fused_float_tower.by_instance[instance] != before + 1:
+                    fail(f"fused_float_tower {(b, cin, h, w)} {dtype} did not "
+                         f"run the {instance} instance")
+                ran[instance] += 1
                 want = btower.float_tower_reference(tower, x).to(dtype)
                 e, share = rel_err(got, want, "fused_float_tower", dtype,
                                    f"fused_float_tower {(b, cin, h, w)} C "
@@ -421,46 +436,45 @@ def phase_float_tower(dev, kernels):
                 del got, want
                 k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
                 log(f"fused_float_tower B{b} Cin {cin:2d} {h}x{w} C {width} "
-                    f"Nout {nout:2d} {str(dtype):14s} max|d| {e:.3e}, "
+                    f"Nout {nout:2d} {name:4s} ({instance}) max|d| {e:.3e}, "
                     f"{share:.2e} of the elements differ")
-                if b != 1 or h != SLICE_HW or dtype != torch.bfloat16:
+                if b != 1 or h != SLICE_HW:
                     continue
                 ms = time_ms(lambda: btower.fused_float_tower(x, tower), 20)
-                flop = 2 * b * h * w * (cin * width + 3 * 10 * width * width
-                                        + 9 * width * nout)
                 line = (f"time fused_float_tower (1, {cin}, {h}, {w}) -> "
-                        f"{nout} bf16: kernel {ms:.4f} ms "
+                        f"{nout} {name} ({instance}): kernel {ms:.4f} ms "
                         f"({flop / ms / 1e6:.0f} GFLOP/s)")
                 if cin == SLICE_C and nout == 2 * cin:
                     plain_ms = time_ms(
                         lambda: btower.float_tower_reference(tower, x), 5)
-                    cudnn_ms = time_ms(lambda: cudnn_tower(tower, x), 5)
-                    line += (f"  plain {plain_ms:.4f} ms  cuDNN module chain "
-                             f"(bf16) {cudnn_ms:.4f} ms")
-                    k["ms"], k["plain_ms"] = ms, plain_ms
-                    f32_tower = copy.deepcopy(tower).float()
-                    x32 = x.float()
-                    wbytes32 = sum(t.numel() * t.element_size() for t in
-                                   btower.pack_float_tower(f32_tower))
-                    ms32 = time_ms(
-                        lambda: btower.fused_float_tower(x32, f32_tower), 10)
-                    plain32 = time_ms(lambda: btower.float_tower_reference(
-                        f32_tower, x32), 5)
-                    line += (f"  f32 instance (CUDA cores) {ms32:.4f} ms "
-                             f"({flop / ms32 / 1e6:.0f} GFLOP/s), its plain "
-                             f"version {plain32:.4f} ms")
-                    k["f32_ms"], k["f32_plain_ms"] = ms32, plain32
-                    k["f32_bound_ms"] = bound_ms(
-                        b * h * w * (cin + nout) * 4 + wbytes32, flop,
-                        "f32")[0]
+                    line += f"  plain {plain_ms:.4f} ms"
                     wbytes = sum(t.numel() * t.element_size()
                                  for t in btower.pack_float_tower(tower))
-                    set_bound(k, b * h * w * (cin + nout) * 2 + wbytes, flop,
-                              "bf16", f"fused_float_tower (1, {cin}, {h}, {w})"
-                              f" -> {nout} bf16")
-                    log(f"bound fused_float_tower f32 instance on f32 FMAs: "
-                        f"{k['f32_bound_ms']:.4f} ms")
+                    nbytes = b * h * w * (cin + nout) * x.element_size() + wbytes
+                    if dtype == torch.bfloat16:
+                        cudnn_ms = time_ms(lambda: cudnn_tower(tower, x), 5)
+                        line += f"  cuDNN module chain (bf16) {cudnn_ms:.4f} ms"
+                        k["ms"], k["plain_ms"] = ms, plain_ms
+                        set_bound(k, nbytes, flop, "bf16", f"fused_float_tower "
+                                  f"(1, {cin}, {h}, {w}) -> {nout} bf16")
+                    else:
+                        # the plain version is eight cuDNN f32 convs (TF32
+                        # off); two bounds: the work as f32 FMAs, and as the
+                        # kernel runs it, three TF32 products on the tensor
+                        # cores for each f32 one
+                        k["f32_ms"], k["f32_plain_ms"] = ms, plain_ms
+                        k["f32_bound_ms"] = bound_ms(nbytes, flop, "f32")[0]
+                        k["f32_3xtf32_bound_ms"] = bound_ms(
+                            nbytes, 3 * flop, "tf32")[0]
+                        log(f"bound fused_float_tower f32 instance: "
+                            f"{k['f32_bound_ms']:.4f} ms on f32 FMAs; "
+                            f"{k['f32_3xtf32_bound_ms']:.4f} ms as 3 x "
+                            f"{flop / 1e9:.2f} G TF32 operations at the "
+                            f"data-sheet peak")
                 log(line)
+    log(f"fused_float_tower instances checked: {ran}")
+    if not all(ran.values()):
+        fail(f"an instance of fused_float_tower was not checked: {ran}")
 
 
 def phase_small_rig(dev):
@@ -535,6 +549,19 @@ def launch_counts():
 def reset_counts():
     for k in KERNELS.values():
         setattr(k["wrapper"], k.get("counter", "launches"), 0)
+    for name in btower.fused_float_tower.by_instance:
+        btower.fused_float_tower.by_instance[name] = 0
+
+
+def check_tower_instance(instance: str, what: str):
+    """Fails unless every fused_float_tower launch since reset_counts() ran
+    ``instance``."""
+    by_instance = btower.fused_float_tower.by_instance
+    n = launch_counts()["fused_float_tower"]
+    log(f"{what}: fused_float_tower launches by instance {by_instance}")
+    if by_instance[instance] != n:
+        fail(f"{what}: {by_instance[instance]} of its {n} tower launches ran "
+             f"the {instance} instance")
 
 
 def check_counts(per_call: dict, calls: int, what: str, before: dict) -> dict:
@@ -586,6 +613,7 @@ def phase_flagship(dev, card, kernels):
             f"call); peak memory {peak / 2**30:.2f} GiB; launches "
             f"{delta} in 4 calls; on {card}")
         del out
+    check_tower_instance(btower.WGMMA_BF16, "flagship bf16")
     for name, n in launch_counts().items():
         if name in BF16_PER_CALL:
             kernels[name]["launches"] = n
@@ -957,7 +985,6 @@ def phase_likelihood_flagship(dev, card, kernels, model, stats):
     side = cfg.volume_side_size
     nf = card_model.n_flow_steps
     reset_counts()
-    btower.fused_float_tower.cuda_core_launches = 0
     for batch in (1, 4):
         vols = torch.as_tensor(
             (rng.rand(batch, cfg.n_depths, side, side) * 20)
@@ -980,15 +1007,12 @@ def phase_likelihood_flagship(dev, card, kernels, model, stats):
             f"call); peak memory {peak / 2**30:.2f} GiB; launches {delta} "
             f"in 4 calls; on {card}")
         del nlls, cache, priors, ljs, vols
-    n32 = btower.fused_float_tower.cuda_core_launches
-    if n32 != launch_counts()["fused_float_tower"]:
-        fail(f"likelihood path: {n32} of its "
-             f"{launch_counts()['fused_float_tower']} tower launches ran the "
-             f"f32 instance")
+    check_tower_instance(btower.WGMMA_3XTF32, "likelihood path")
+    n32 = launch_counts()["fused_float_tower"]
     kernels["fused_float_tower"]["f32_launches"] = n32
     log(f"likelihood path launches in 8 calls: cat_affine "
         f"{launch_counts()['cat_affine']} (forward mode), fused_float_tower "
-        f"{n32} (all the f32 instance)")
+        f"{n32} (all the f32 instance, {btower.WGMMA_3XTF32})")
 
 
 def main():
@@ -1048,7 +1072,7 @@ def main():
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k.get("library_ms"),
-         # the float tower's f32 instance (CUDA cores): the likelihood path's
+         # the float tower's f32 instance (3xTF32): the likelihood path's
          **{key: v for key, v in k.items() if key.startswith("f32_")}}
         for name, k in kernels.items()]}))
     log(card)

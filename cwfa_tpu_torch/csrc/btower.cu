@@ -1,5 +1,7 @@
-// The float subnet tower of the CWF coupling and input blocks, for Hopper
-// (sm_90a), in bf16 or f32.
+// The float subnet tower of the CWF coupling and input blocks on the CUDA
+// cores of Hopper (sm_90a), in bf16 or f32: the instance for the tower
+// widths that csrc/btower_wg.cu (64 wide, on the warpgroup tensor cores) does
+// not take, such as the small rig's 8-wide towers.
 //
 // Replaces the Pallas TPU kernel cwfa_tpu/ops/btower.py:235
 // (fused_pair_tower_bf16), one tower per launch instead of a paired
@@ -18,38 +20,25 @@
 // T.  The plain PyTorch version is float_tower_reference in
 // cwfa_tpu_torch/ops/btower.py.
 //
-// Bound: multiply-adds.  A 64-wide coupling tower needs Cin*64 +
-// 3*(9*64*64 + 64*64) + 9*64*Nout multiply-adds per pixel (~181 k at step
-// 0) against ~4 bytes in and ~Nout*2 bytes out in bf16, far from device
-// memory; the 4-pixel halo adds ~40% recomputed work.  In bf16 (C a
-// multiple of 16) the products run on the tensor cores with mma.sync
-// m16n8k16 (bf16 in, f32 sums), bound by the shared-memory and L1 traffic
-// that feeds them; in f32 (and bf16 at C = 8) they are f32 FMAs on the
-// CUDA cores, bound by the FMA rate.
+// Bound: multiply-adds, as f32 FMAs (Cin*C + 3*(9*C*C + C*C) + 9*C*Nout per
+// pixel against ~4 bytes in and ~Nout*4 bytes out); the 4-pixel halo adds
+// 40-64% recomputed work.  The loop does one shared-memory load and one
+// weight load per 8 FMAs, which is what holds it under the FMA rate; the
+// 64-wide towers, where that mattered, left for the tensor cores.
 // The TPU kernel's rows carried across its sequential grid, its 128-lane
 // padding, its rolled canvases and the block-diagonal pairing (half of the
 // paired MACs multiply zeros) are not carried over.
 //
-// Design (a simple first version; wgmma, TMA and persistent blocks come
-// later):
+// Design:
 //   - One block of 512 threads per (batch, TH x 16 output tile), TH = 16 for
 //     bf16 and 8 for f32.  The input window with its 4-pixel halo is staged
 //     into shared memory; the layers then run on shrinking canvases (halo
 //     4 -> 3 -> 2 -> 1 -> 0) that keep one fixed geometry, so a residual is
 //     read and written at the same address.  Two canvases: A holds r1, e2,
 //     e4, e6 (each the residual of the next block), B holds x and then each
-//     3x3 output.  bf16 at C = 64: 2 x 24 x 24 x 72 x 2 B = 166 KB; f32:
-//     2 x 16 x 24 x 66 x 4 B = 203 KB; one block per SM.
+//     3x3 output.
 //   - A conv is an implicit GEMM: M = canvas positions, N = output
-//     channels, K = taps x input channels.
-//   - Tensor cores (bf16, C % 16 == 0): each warp owns 32 positions (two
-//     m16 blocks) x 64 output channels (eight n8 blocks), 64 f32 sums per
-//     thread.  A is read from the canvas with ldmatrix.x4 (a row of A is 8
-//     channels of one position; a 3x3 tap is a shifted row address), B from
-//     a pack in fragment order (one 16-byte load per lane gives two n8
-//     blocks), through the L1 cache.  Positions are padded to a stride of
-//     8 x odd elements, so the 8 rows of an ldmatrix hit distinct banks.
-//   - CUDA cores (f32, and bf16 at C = 8): each warp owns 8 output channels
+//     channels, K = taps x input channels.  Each warp owns 8 output channels
 //     and 4 positions per lane (32 f32 sums per thread); a step reads two
 //     channels of each position (one bf16x2 or float2 load) and the weights
 //     of those two input channels for the 8 outputs (four float4 loads, the
@@ -57,11 +46,10 @@
 //     padded to a stride = 2 (mod 4) elements, so the lanes hit distinct
 //     banks.
 //   - The weights come from the pack of ops/btower.pack_float_tower, built
-//     once per set of weights: per conv [tap][Cin][Cout] f32 for the CUDA
-//     cores, or bf16 in mma fragment order for the tensor cores; the biases
-//     f32 beside it.
-//   - SAME padding: every canvas that feeds a 3x3 conv (A) is written as 0
-//     at positions outside the image, so every conv sees the zero padding of
+//     once per set of weights: per conv [tap][Cin][Cout] f32; the biases f32
+//     beside it.
+//   - SAME padding: every canvas that feeds a 3x3 conv (A) is written as 0 at
+//     positions outside the image, so every conv sees the zero padding of
 //     the plain version at the image border and at tile edges.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
@@ -83,10 +71,10 @@ constexpr int kSmemMax = 232448;
 
 struct Params {
   const void* x;       // (B, cin, H, W), T
-  const char* wp;      // weight pack: w1 w2a w2b w4a w4b w6a w6b w7
+  const float* wp;     // weight pack: w1 w2a w2b w4a w4b w6a w6b w7
   const float* bias;   // (7 * C + nout) f32: b1 b2a b2b b4a b4b b6a b6b b7
   void* out;           // (B, nout, H, W), T
-  int woff[8];         // byte offset of each conv in the pack
+  int woff[8];         // offset of each conv in the pack, in floats
   int H, W, cin, cinp, C, nout, ocp7;
   int rs, xs;          // canvas strides (elements per position): C-wide, input
   int a_bytes;         // bytes of canvas A (canvas B follows it)
@@ -188,105 +176,7 @@ __device__ __forceinline__ void conv(const T* in, int stride, int cinp,
 }
 
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* a, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The same conv on the tensor cores (bf16 canvas, cinp and ocp multiples
-// of 16).  The pack `w` is [tap][cinp / 16][ocp / 16][lane] of 16 bytes:
-// lane l holds, for the two n8 blocks of that pair, B[k][n] = W[n][k] at
-// n = l / 4 and k = 2 (l % 4) + {0, 1, 8, 9}, the mma.sync fragment order.
-// Each warp item is 32 positions x 64 output channels.
-template <int K, typename Epi>
-__device__ __forceinline__ void conv_mma(const __nv_bfloat16* in, int stride,
-                                         int cinp, const uint4* __restrict__ w,
-                                         int ocp, int level, Epi epi) {
-  constexpr int SH = 16 + 2 * kHalo;
-  const int nc = kSW - 2 * level;
-  const int npos = (SH - 2 * level) * nc;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ksteps = cinp >> 4, npairs = ocp >> 4;
-  const int ngroups = (npairs + 3) >> 2;
-  const int nchunks = (npos + 31) >> 5;
-  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(in);
-  for (int item = warp; item < ngroups * nchunks; item += kWarps) {
-    const int og = item % ngroups;
-    const int chunk = item / ngroups;
-    // ldmatrix row addresses: lanes 0-15 rows 0-15 at channel 0, lanes
-    // 16-31 the same rows at channel 8
-    uint32_t arow[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      int p = chunk * 32 + mt * 16 + (lane & 15);
-      p = p < npos ? p : 0;
-      arow[mt] = sbase + 2 * (((level + p / nc) * kSW + level + p % nc) * stride +
-                              (lane >> 4) * 8);
-    }
-    float acc[2][8][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    for (int t = 0; t < K * K; ++t) {
-      const int off = K == 3 ? 2 * ((t / 3 - 1) * kSW + (t % 3 - 1)) * stride : 0;
-      const uint4* wt = w + ((size_t)t * ksteps * npairs + og * 4) * 32 + lane;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        uint32_t a[2][4];
-        ldmatrix_x4(a[0], arow[0] + off + ks * 32);
-        ldmatrix_x4(a[1], arow[1] + off + ks * 32);
-        const uint4* wk = wt + (size_t)ks * npairs * 32;
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          if (og * 4 + np < npairs) {
-            const uint4 b = __ldg(wk + np * 32);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16(acc[mt][2 * np], a[mt], b.x, b.y);
-              mma_bf16(acc[mt][2 * np + 1], a[mt], b.z, b.w);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int p = chunk * 32 + mt * 16 + (lane >> 2) + (i >> 1) * 8;
-          if (p < npos && og * 4 + (nt >> 1) < npairs)
-            epi(level + p / nc, level + p % nc,
-                (og * 8 + nt) * 8 + (lane & 3) * 2 + (i & 1), acc[mt][nt][i]);
-        }
-  }
-}
-
-// One K x K conv through the path of the kernel instance.
-template <typename T, int TH, bool MMA, int K, typename Epi>
-__device__ __forceinline__ void run_conv(const T* in, int stride, int cinp,
-                                         const char* w, int ocp, int level,
-                                         Epi epi) {
-  if constexpr (MMA)
-    conv_mma<K>(in, stride, cinp, reinterpret_cast<const uint4*>(w), ocp, level, epi);
-  else
-    conv<T, TH, K>(in, stride, cinp, reinterpret_cast<const float*>(w), ocp, level, epi);
-}
-
-template <typename T, int TH, bool MMA>
+template <typename T, int TH>
 __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
   constexpr int SH = TH + 2 * kHalo;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -317,8 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
   __syncthreads();
 
   // b1 (1x1, level 0): r1 -> A
-  run_conv<T, TH, MMA, 1>(cb, XS, p.cinp, p.wp + p.woff[0], C, 0,
-                          [&](int R, int Cc, int oc, float acc) {
+  conv<T, TH, 1>(cb, XS, p.cinp, p.wp + p.woff[0], C, 0,
+                 [&](int R, int Cc, int oc, float acc) {
     ca[(R * kSW + Cc) * RS + oc] = inside(R, Cc) ? from_f<T>(acc + bias[oc]) : zero;
   });
 
@@ -326,16 +216,16 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int lv = k + 1;
-    const char* wa = p.wp + p.woff[1 + 2 * k];
-    const char* wb = p.wp + p.woff[2 + 2 * k];
+    const float* wa = p.wp + p.woff[1 + 2 * k];
+    const float* wb = p.wp + p.woff[2 + 2 * k];
     const float* ba = bias + (1 + 2 * k) * C;
     const float* bb = ba + C;
     __syncthreads();
-    run_conv<T, TH, MMA, 3>(ca, RS, C, wa, C, lv, [&](int R, int Cc, int oc, float acc) {
+    conv<T, TH, 3>(ca, RS, C, wa, C, lv, [&](int R, int Cc, int oc, float acc) {
       cb[(R * kSW + Cc) * RS + oc] = from_f<T>(elu(acc + ba[oc]));
     });
     __syncthreads();
-    run_conv<T, TH, MMA, 1>(cb, RS, C, wb, C, lv, [&](int R, int Cc, int oc, float acc) {
+    conv<T, TH, 1>(cb, RS, C, wb, C, lv, [&](int R, int Cc, int oc, float acc) {
       const int i = (R * kSW + Cc) * RS + oc;
       const float v = acc + bb[oc] + to_f(ca[i]);
       ca[i] = inside(R, Cc) ? from_f<T>(elu(v)) : zero;
@@ -346,8 +236,8 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
   __syncthreads();
   const int nout = p.nout;
   const float* b7 = bias + 7 * C;
-  run_conv<T, TH, MMA, 3>(ca, RS, C, p.wp + p.woff[7], p.ocp7, kHalo,
-                          [&](int R, int Cc, int oc, float acc) {
+  conv<T, TH, 3>(ca, RS, C, p.wp + p.woff[7], p.ocp7, kHalo,
+                 [&](int R, int Cc, int oc, float acc) {
     if (oc >= nout || !inside(R, Cc)) return;
     const int64_t o = (((int64_t)b * nout + oc) * H + r0 + R) * W + c0 + Cc;
     static_cast<T*>(p.out)[o] = from_f<T>(acc + b7[oc]);
@@ -356,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
 
 int align16(int n) { return (n + 15) & ~15; }
 
-template <typename T, int TH, bool MMA>
+template <typename T, int TH>
 int launch(Params p, int b, cudaStream_t stream) {
   const int pix = (TH + 2 * kHalo) * kSW;
   const int esz = (int)sizeof(T);
@@ -364,10 +254,10 @@ int launch(Params p, int b, cudaStream_t stream) {
   const int smem = p.a_bytes + align16(pix * (p.rs > p.xs ? p.rs : p.xs) * esz);
   if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      btower_kernel<T, TH, MMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      btower_kernel<T, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.W + kTW - 1) / kTW, (p.H + TH - 1) / TH, b);
-  btower_kernel<T, TH, MMA><<<grid, kThreads, smem, stream>>>(p);
+  btower_kernel<T, TH><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -377,25 +267,21 @@ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // x and out: (B, cin, H, W) and (B, nout, H, W), dtype 0 = float32,
 // 1 = bfloat16 (the canvas type);
-// wp: the weight pack of ops/btower.pack_float_tower in the layout `mma`
-// names (0: f32 [tap][Cin][Cout], 1: bf16 mma fragments; 16-byte aligned),
-// bias: its (7 * c + nout) f32 biases.  c % 8 == 0 (c % 16 == 0 and bf16
-// for mma);
-// the canvases must fit in shared memory (c <= 64).
+// wp: the weight pack of ops/btower.pack_float_tower in the CUDA-core layout
+// (f32 [tap][Cin][Cout], 16-byte aligned), bias: its (7 * c + nout) f32
+// biases.  c % 8 == 0; the canvases must fit in shared memory (c <= 64).
 extern "C" int cwfa_btower(const void* x, const void* wp, const void* bias,
                            void* out, int b, int h, int w, int cin, int c,
-                           int nout, int dtype, int mma,
-                           int device, void* stream) {
+                           int nout, int dtype, int device, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || nout <= 0 || c <= 0 || c % 8 ||
-      dtype < 0 || dtype > 1 || mma < 0 ||
-      mma > 1 || (mma && (dtype != 1 || c % 16)) || b > 65535 ||
+      dtype < 0 || dtype > 1 || b > 65535 ||
       reinterpret_cast<uintptr_t>(wp) % 16)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
   p.x = x;
-  p.wp = static_cast<const char*>(wp);
+  p.wp = static_cast<const float*>(wp);
   p.bias = static_cast<const float*>(bias);
   p.out = out;
   p.H = h;
@@ -405,27 +291,18 @@ extern "C" int cwfa_btower(const void* x, const void* wp, const void* bias,
   p.nout = nout;
   p.a_bytes = 0;
   // padded input / output channel counts of the pack, and the canvas
-  // strides: 8 x odd elements for ldmatrix, 2 (mod 4) for the FMA loads
-  const int kpad = mma ? 16 : 2, npad = mma ? 16 : 8;
-  p.cinp = round_up(cin, kpad);
-  p.ocp7 = round_up(nout, npad);
-  if (mma) {
-    p.rs = (c / 8) % 2 ? c : c + 8;
-    p.xs = (p.cinp / 8) % 2 ? p.cinp : p.cinp + 8;
-  } else {
-    p.rs = c + 2;
-    p.xs = p.cinp % 4 ? p.cinp : p.cinp + 2;
-  }
-  // conv byte offsets: taps x padded inputs x padded outputs elements each
-  const int esz = mma ? 2 : 4;
+  // strides: 2 (mod 4) elements for the FMA loads
+  p.cinp = round_up(cin, 2);
+  p.ocp7 = round_up(nout, 8);
+  p.rs = c + 2;
+  p.xs = p.cinp % 4 ? p.cinp : p.cinp + 2;
+  // conv offsets: taps x padded inputs x padded outputs floats each
   const int taps[8] = {1, 9, 1, 9, 1, 9, 1, 9};
   int off = 0;
   for (int i = 0; i < 8; ++i) {
     p.woff[i] = off;
-    off += taps[i] * (i == 0 ? p.cinp : c) * (i == 7 ? p.ocp7 : c) * esz;
+    off += taps[i] * (i == 0 ? p.cinp : c) * (i == 7 ? p.ocp7 : c);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma) return launch<__nv_bfloat16, 16, true>(p, b, s);
-  return dtype ? launch<__nv_bfloat16, 16, false>(p, b, s)
-               : launch<float, 8, false>(p, b, s);
+  return dtype ? launch<__nv_bfloat16, 16>(p, b, s) : launch<float, 8>(p, b, s);
 }

@@ -22,29 +22,45 @@
 // Bounds.  The GEMM at the probe's shapes (M 2^20, K 1152, N 128..512) does
 // 2 M K N operations on M K + K N + M N elements: 200-800 operations per
 // byte, so N = 128 sits near the card's ridge (~590 int8 operations, ~295
-// bf16 FLOP per byte) and N >= 256 is bound by the tensor cores.  The chain
-// does 8 products per row tile that it reads and writes once (2048
-// operations per int8 byte): bound by the tensor cores and by the
-// shared-memory traffic that feeds mma.sync.  The FMA probe keeps its
-// accumulators in registers and touches 3 x 4 bytes per element for 2 t u
-// FLOP: bound by the CUDA cores' FMA rate.
+// bf16 FLOP per byte: A alone, 2.4 GB in bf16, takes 0.72 ms to read) and
+// N >= 256 is bound by the tensor cores.  The chain does 8 products per row
+// tile that it reads and writes once (2048 operations per int8 byte): bound
+// by the tensor cores and by the shared-memory traffic that feeds mma.sync.
+// The FMA probe keeps its accumulators in registers and touches 3 x 4 bytes
+// per element for 2 t u FLOP: bound by the CUDA cores' FMA rate.
 //
-// Design (simple first versions; wgmma and TMA come later):
-//   - Both tensor-core kernels run on mma.sync (m16n8k32 s8, m16n8k16 bf16).
-//     In bytes the two have the same fragment layout: a k-step is 32 bytes
-//     of K, lane l = 4 g + q holds the 4-byte words at byte 4 q and 4 q + 16
-//     of rows g and g + 8 (A) or of column g (B).  So one kernel body serves
-//     both types, with K counted in bytes.  B is given TRANSPOSED, (N, K)
-//     row-major (the wrapper transposes the small B once), so that a B
-//     fragment is one 32-bit shared-memory load like an A fragment.
-//   - gemm_kernel: 128 x 128 output tile per block, 8 warps of 32 x 64, a
-//     4-stage cp.async ring of 64-byte K slices of A and B^T; rows are
-//     padded to 80 bytes (20 words: the 8 rows x 4 words of a fragment load
-//     hit 32 distinct banks).  Rows beyond M or N are zero-filled by
-//     cp.async's source size; the epilogue masks them.  K bytes must be a
-//     multiple of 16 (the wrapper zero-pads K otherwise).  Blocks that share
-//     a row tile of A are neighbours in the grid, so A is read from device
-//     memory once.
+// Design:
+//   - The int8 GEMM and both chains run on mma.sync (m16n8k32 s8, m16n8k16
+//     bf16).  In bytes the two have the same fragment layout: a k-step is 32
+//     bytes of K, lane l = 4 g + q holds the 4-byte words at byte 4 q and
+//     4 q + 16 of rows g and g + 8 (A) or of column g (B).  So one kernel
+//     body serves both types, with K counted in bytes.  B is given
+//     TRANSPOSED, (N, K) row-major (the wrapper transposes the small B
+//     once), so that a B fragment is one 32-bit shared-memory load like an A
+//     fragment.
+//   - gemm_kernel (int8): 128 x 128 output tile per block, 8 warps of
+//     32 x 64, a 4-stage cp.async ring of 64-byte K slices of A and B^T;
+//     rows are padded to 80 bytes (20 words: the 8 rows x 4 words of a
+//     fragment load hit 32 distinct banks).  Rows beyond M or N are
+//     zero-filled by cp.async's source size; the epilogue masks them.  K
+//     bytes must be a multiple of 16 (the wrapper zero-pads K otherwise).
+//     Blocks that share a row tile of A are neighbours in the grid, so A is
+//     read from device memory once.
+//   - gemm_wgmma_kernel (bf16): mma.sync feeds every fragment through the
+//     registers and tops out near 230 TFLOP/s here; wgmma (csrc/wgmma.cuh)
+//     reads both operands from shared memory.  A 128 x BN tile per block (BN
+//     256, or 128 for N <= 128), two warpgroups of 64 rows x BN columns
+//     (m64nBNk16, f32 sums in registers).  A slice is 128 bytes of K: one
+//     row of the 128-byte swizzle, which every thread applies to the
+//     16-byte chunks it copies with cp.async (chunk c of row r goes to chunk
+//     c ^ (r % 8)), so neither the copies nor the tensor cores' reads
+//     conflict.  A ring of 4 (BN 256) or 6 (BN 128) stages, the copies two
+//     slices ahead; one block barrier per slice, before which a thread waits
+//     for its own copies and for its products but the newest (wgmma's
+//     wait_group 1), so the tensor cores stay busy across the barrier.  The
+//     same edges as the int8 kernel.  Neither TMA nor a producer warp: every
+//     thread copies, which costs instruction slots; the remaining distance to
+//     cuBLAS at N >= 256 is there and in the epilogue's 4-byte stores.
 //   - chain_kernel: 16 warps, each carries its own 16 rows through all the
 //     products, so only the weights need block-wide barriers.  The weights
 //     of one stage (128 x 128, 16 KB int8, 32 KB bf16; all eight bf16 stages
@@ -70,6 +86,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -271,6 +289,138 @@ int launch_gemm(const void* a, const void* bt, void* out, int64_t m, int n,
   const int64_t blocks = (m + kBM - 1) / kBM * ntn;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   gemm_kernel<Acc, EPI><<<(unsigned)blocks, kGemmThreads, kGemmSmem, s>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(bt), out, m,
+      n, kb, ntn);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// tiled GEMM, bf16, on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWRow = 128;              // bytes of K per slice: one swizzled row
+constexpr int kWSmemMax = 232448 - 1024;   // the tile base is aligned up
+
+constexpr int kWBM = 128;               // two warpgroups of 64 rows
+constexpr int kWThreads = 256;
+constexpr int kWPass = kWThreads / 8;   // rows a pass of copies covers
+
+template <int BN>
+struct WGemm {
+  static constexpr int kStage = (kWBM + BN) * kWRow;
+  static constexpr int kFit = kWSmemMax / kStage;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr int kSmem = kStages * kStage + 1024;
+};
+
+// a: (M, kb) bytes, bt: (N, kb) bytes (B transposed), bf16, kb % 16 == 0.
+// A 128 x BN tile per block; warpgroup w owns rows 64 w .. 64 w + 63 and all
+// BN columns (BN / 2 sums per thread).
+template <int BN>
+__global__ void __launch_bounds__(kWThreads, 1)
+    gemm_wgmma_kernel(const uint8_t* __restrict__ a,
+                      const uint8_t* __restrict__ bt, void* __restrict__ out,
+                      int64_t M, int N, int kb, int ntn) {
+  using G = WGemm<BN>;
+  constexpr int S = G::kStages, BM = kWBM, PASS = kWPass;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sbase =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x;
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int64_t m0 = (int64_t)(blockIdx.x / ntn) * BM;
+  const int n0 = (blockIdx.x % ntn) * BN;
+  const int nk = (kb + kWRow - 1) / kWRow;
+
+  // a thread copies chunk `ch` (16 bytes) of rows r0 + PASS i of A and B^T
+  const int ch = tid & 7, r0 = tid >> 3;
+  const uint32_t sw = (uint32_t)((ch ^ (r0 & 7)) << 4);   // PASS % 8 == 0
+  auto load = [&](int stage, int kt) {
+    const uint32_t as = sbase + stage * G::kStage;
+    const uint32_t bs = as + BM * kWRow;
+    const int koff = kt * kWRow + ch * 16;
+    const bool k_ok = koff < kb;
+#pragma unroll
+    for (int i = 0; i < BM / PASS; ++i) {
+      const int row = r0 + PASS * i;
+      const bool ok = k_ok && m0 + row < M;
+      const uint8_t* src = ok ? a + (size_t)(m0 + row) * kb + koff : a;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       as + row * kWRow + sw),
+                   "l"(src), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+#pragma unroll
+    for (int i = 0; i < BN / PASS; ++i) {
+      const int row = r0 + PASS * i;
+      const bool ok = k_ok && n0 + row < N;
+      const uint8_t* src = ok ? bt + (size_t)(n0 + row) * kb + koff : bt;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       bs + row * kWRow + sw),
+                   "l"(src), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  // Slice kt + S - 2 is copied while slices kt - 1 (its products may still
+  // run) and kt are in use: it goes to the stage of slice kt - 2.
+  for (int s = 0; s < S - 2; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  const uint64_t dbase = wg::desc_base(0, 1024, wg::kSwizzle128);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<S - 3>();         // this thread's part of slice kt is in
+    wg::wait<1>();                  // its products on slice kt - 2 are done
+    wg::fence_proxy_async();
+    __syncthreads();
+    if (kt + S - 2 < nk) load((kt + S - 2) % S, kt + S - 2);
+    cp_async_commit();
+    const uint32_t as = sbase + (kt % S) * G::kStage + wgi * 64 * kWRow;
+    const uint32_t bs = sbase + (kt % S) * G::kStage + BM * kWRow;
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < kWRow / 32; ++ks)
+      wg::wgmma_ss_bf16<BN>(acc, wg::desc_at(dbase, as + ks * 32),
+                            wg::desc_at(dbase, bs + ks * 32));
+    wg::commit();
+  }
+  wg::wait<0>();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const bool pair_ok = (N & 1) == 0;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = m0 + wgi * 64 + warp * 16 + g + h * 8;
+      const int col = n0 + nt * 8 + q * 2;
+      if (row < M && col < N)
+        store_pair<kOutBf16>(out, (size_t)row * N + col, N - col, pair_ok,
+                             acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+    }
+}
+
+template <int BN>
+int launch_gemm_wgmma(const void* a, const void* bt, void* out, int64_t m,
+                      int n, int kb, cudaStream_t s) {
+  using G = WGemm<BN>;
+  constexpr int BM = kWBM;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int ntn = (n + BN - 1) / BN;
+  const int64_t blocks = (m + BM - 1) / BM * ntn;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  gemm_wgmma_kernel<BN><<<(unsigned)blocks, kWThreads, G::kSmem, s>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(bt), out, m,
       n, kb, ntn);
   return (int)cudaGetLastError();
@@ -516,7 +666,9 @@ extern "C" int cwfa_tiled_gemm(const void* a, const void* bt, void* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_gemm<float, kOutBf16>(a, bt, out, m, n, (int)kb, s);
+  if (dtype == 1)
+    return n > 128 ? launch_gemm_wgmma<256>(a, bt, out, m, n, (int)kb, s)
+                   : launch_gemm_wgmma<128>(a, bt, out, m, n, (int)kb, s);
   if (out8) return launch_gemm<int, kOutInt8>(a, bt, out, m, n, (int)kb, s);
   return launch_gemm<int, kOutInt32>(a, bt, out, m, n, (int)kb, s);
 }

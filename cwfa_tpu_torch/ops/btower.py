@@ -15,10 +15,13 @@ with the cast structure of ``pair_tower_bf16_reference``
 between convs are rounded to x's dtype; sums, bias, ELU (as
 ``exp(min(v, 0)) - 1``) and the residual add are f32.
 
-The kernel runs a bf16 tower of width C % 16 == 0 on the tensor cores
-(``mma.sync``) and the others on the CUDA cores; it reads the weights from a
-pack in the layout of that path, built once per set of weights by
-``pack_float_tower`` and kept on the module.
+The kernel has three instances (``kernel_instance``): a 64-wide tower runs
+on the warpgroup tensor cores (``wgmma``), in bf16 or, for f32, as 3xTF32
+(every f32 operand split into a TF32 high part and a remainder, three
+products, f32 sums; ``csrc/btower_wg.cu``); every other width runs on the
+CUDA cores (``csrc/btower.cu``).  Each reads the weights from a pack in its
+own layout, built once per set of weights by ``pack_float_tower`` and kept
+on the module.
 """
 
 from __future__ import annotations
@@ -61,50 +64,107 @@ def float_tower_reference(tower, x):
     return conv("b7", e6)
 
 
-def uses_mma(dtype, c: int) -> bool:
-    """Whether the kernel runs a tower of width ``c`` in ``dtype`` on the
-    tensor cores (bf16, C a multiple of 16) rather than the CUDA cores."""
-    return dtype == torch.bfloat16 and c % 16 == 0
+WGMMA_BF16, WGMMA_3XTF32, CUDA_CORES = "wgmma bf16", "wgmma 3xTF32", "CUDA cores"
+WGMMA_WIDTH = 64                       # the tower width of the wgmma instances
+WGMMA_NOUT = (16, 32, 48, 64, 96)      # b7 widths they are built for
+TF32_CHUNK = 32                        # input channels per weight slice, 3xTF32
+# a 1x1 that follows a 3x3 in registers reads its input channels in the
+# order the 3x3's sums sit in a thread: slot s of 8 is channel _SUM_ORDER[s]
+_SUM_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
-def _pack_conv(w, mma: bool):
-    """One conv's OIHW weight in the kernel's layout, flattened.
+def kernel_instance(dtype, c: int, cin: int, nout: int) -> str:
+    """Which instance of the kernel runs a tower of width ``c`` with ``cin``
+    inputs and ``nout`` outputs in ``dtype``."""
+    if c == WGMMA_WIDTH and cin <= WGMMA_WIDTH and nout <= WGMMA_NOUT[-1]:
+        return WGMMA_BF16 if dtype == torch.bfloat16 else WGMMA_3XTF32
+    return CUDA_CORES
+
+
+def _round_up(n: int, m: int) -> int:
+    return n + (-n) % m
+
+
+def split_tf32(w):
+    """f32 -> (hi, lo), both exact TF32 values (10 mantissa bits): hi is w
+    rounded to nearest (ties away from zero), lo the remainder w - hi rounded
+    the same way.  hi + lo is w to 2^-22 relative."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def _taps(w, ipad: int, opad: int):
+    """OIHW -> [tap][O padded to opad][I padded to a multiple of ipad]."""
+    o, i, k, _ = w.shape
+    full = torch.zeros((k * k, opad, _round_up(i, ipad)), device=w.device)
+    full[:, :o, :i] = w.permute(2, 3, 0, 1).reshape(k * k, o, i)
+    return full
+
+
+def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False):
+    """One conv's OIHW f32 weight in the layout of ``instance``, flattened.
 
     CUDA cores: f32 [tap][Cin rounded up to 2][Cout rounded up to 8].
-    Tensor cores: bf16 [tap][Cin/16][Cout/16][lane][8] (both rounded up to
-    16): lane l's 8 values are, for the two n8 blocks h of that pair,
-    W[16 j + 8 h + l // 4][16 i + 2 (l % 4) + {0, 1, 8, 9}], the B fragment
-    of mma.sync m16n8k16 (k = input channel, n = output channel)."""
+
+    wgmma: the B operand as the tensor cores read it from shared memory,
+    K-major without swizzle: a core matrix is 8 output channels x 16 bytes
+    of input channels (``nout_pad`` output channels, the conv's own if 0).
+    bf16: [tap][Cin/8][Cout][8], Cin rounded up to 16.  3xTF32: per tap and
+    per chunk of 32 input channels (Cin rounded up to 8) the high parts
+    [chunk/4][Cout][4] and then the low parts, f32 (``split_tf32``); with
+    ``after_3x3`` (the 1x1 of a residual block, whose A operand is the
+    3x3's sums in registers) the input channels of every 8 in the order
+    ``_SUM_ORDER``."""
     o, i, k, _ = w.shape
-    taps = w.permute(2, 3, 0, 1).reshape(k * k, o, i)        # [tap][O][I]
-    if not mma:
-        full = torch.zeros((k * k, i + i % 2, o + (-o) % 8), device=w.device)
-        full[:, :i, :o] = taps.transpose(1, 2)
-        return full.flatten()
-    ip, op = i + (-i) % 16, o + (-o) % 16
-    full = torch.zeros((k * k, op, ip), device=w.device)
-    full[:, :o, :i] = taps
-    # n = (pair, h, l // 4); k = (step, j // 2, l % 4, j % 2)
-    f = full.reshape(k * k, op // 16, 2, 8, ip // 16, 2, 4, 2)
-    f = f.permute(0, 4, 1, 3, 6, 2, 5, 7)
-    return f.reshape(-1).to(torch.bfloat16)
+    if instance == CUDA_CORES:
+        return _taps(w, 2, _round_up(o, 8)).transpose(1, 2).reshape(-1)
+    opad = nout_pad or o
+    if instance == WGMMA_BF16:
+        t = _taps(w, 16, opad)                                # [tap][O][I]
+        t = t.reshape(k * k, opad, -1, 8).permute(0, 2, 1, 3)  # [tap][I/8][O][8]
+        return t.reshape(-1).to(torch.bfloat16)
+    t = _taps(w, 8, opad)
+    if after_3x3:
+        order = torch.tensor(_SUM_ORDER, device=w.device)
+        t = t.reshape(k * k, opad, -1, 8)[..., order].reshape(k * k, opad, -1)
+    parts = []
+    for tap in t:
+        for c0 in range(0, tap.shape[1], TF32_CHUNK):
+            chunk = tap[:, c0:c0 + TF32_CHUNK]                # [O][kc]
+            for part in split_tf32(chunk):
+                parts.append(part.reshape(opad, -1, 4).permute(1, 0, 2).reshape(-1))
+    return torch.cat(parts)
 
 
-def _pack(tower):
-    mma = uses_mma(tower.b1.weight.dtype, tower.b1.out_channels)
+def _pack(tower, instance: str):
     weights, biases = [], []
+    nout_pad = 0
+    if instance != CUDA_CORES:
+        nout_pad = next(n for n in WGMMA_NOUT if n >= tower.b7.out_channels)
     for name in CONVS:
         conv = getattr(tower, name)
-        weights.append(_pack_conv(conv.weight.detach().float(), mma))
+        weights.append(_pack_conv(
+            conv.weight.detach().float(), instance,
+            nout_pad=nout_pad if name == "b7" else 0,
+            after_3x3=name in ("b2b", "b4b", "b6b")))
         biases.append(torch.zeros(conv.out_channels, device=conv.weight.device)
                       if conv.bias is None else conv.bias.detach().float())
     return torch.cat(weights), torch.cat(biases)
 
 
+def _instance_of(tower) -> str:
+    return kernel_instance(tower.b1.weight.dtype, tower.b1.out_channels,
+                           tower.b1.in_channels, tower.b7.out_channels)
+
+
 def pack_float_tower(tower):
     """The tower's kernel pack (weights, biases): the weights of b1, b2a,
     b2b, b4a, b4b, b6a, b6b and b7 in turn, each in the layout of
-    ``_pack_conv`` for the tower's dtype and width (``uses_mma``), and the
+    ``_pack_conv`` for the tower's instance (``kernel_instance``), and the
     eight biases in f32 (zeros where a conv has none).  Built at first use
     and kept on the module until a weight changes (in place or by
     replacement)."""
@@ -114,18 +174,21 @@ def pack_float_tower(tower):
     cached = getattr(tower, "_float_tower_pack", None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, _pack(tower))
+            cached = (key, _pack(tower, _instance_of(tower)))
         tower._float_tower_pack = cached
     return cached[1]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = cuda_build.load("btower")
+    """(the CUDA-core library, the wgmma library)"""
+    lib, wg = cuda_build.load("btower"), cuda_build.load("btower_wg")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cwfa_btower.argtypes = [p] * 4 + [i32] * 9 + [p]
+    lib.cwfa_btower.argtypes = [p] * 4 + [i32] * 8 + [p]
     lib.cwfa_btower.restype = i32
-    return lib
+    wg.cwfa_btower_wg.argtypes = [p] * 4 + [i32] * 7 + [p]
+    wg.cwfa_btower_wg.restype = i32
+    return lib, wg
 
 
 def _check(x, tower):
@@ -163,7 +226,8 @@ def fused_float_tower(x, tower):
     the tower's output (B, Nout, H, W) in x's dtype, NCHW.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (tower width C a multiple of 8, at most 64) or raises."""
+    (tower width C a multiple of 8, at most 64) or raises.  Counts every
+    launch, and per instance in ``fused_float_tower.by_instance``."""
     c, nout = _check(x, tower)
     if x.device.type == "cpu":
         return float_tower_reference(tower, x).to(x.dtype)
@@ -173,16 +237,22 @@ def fused_float_tower(x, tower):
     b, cin, h, w = x.shape
     weights, biases = pack_float_tower(tower)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
-    rc = _lib().cwfa_btower(
-        x.data_ptr(), weights.data_ptr(), biases.data_ptr(), out.data_ptr(), b,
-        h, w, cin, c, nout, _DTYPES[x.dtype], int(uses_mma(x.dtype, c)),
-        x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check_launch(rc, "fused_float_tower")
+    instance = kernel_instance(x.dtype, c, cin, nout)
+    lib, wg = _lib()
+    ptrs = (x.data_ptr(), weights.data_ptr(), biases.data_ptr(), out.data_ptr())
+    where = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if instance == CUDA_CORES:
+        rc = lib.cwfa_btower(*ptrs, b, h, w, cin, c, nout, _DTYPES[x.dtype],
+                             *where)
+    else:
+        rc = wg.cwfa_btower_wg(*ptrs, b, h, w, cin, nout, _DTYPES[x.dtype],
+                               *where)
+    cuda_build.check_launch(rc, f"fused_float_tower ({instance})")
     fused_float_tower.launches += 1
-    fused_float_tower.cuda_core_launches += int(not uses_mma(x.dtype, c))
+    fused_float_tower.by_instance[instance] += 1
     return out
 
 
 fused_float_tower.launches = 0              # every launch of the kernel
-fused_float_tower.cuda_core_launches = 0    # those of the CUDA-core instance
+# ... and of each instance
+fused_float_tower.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0, CUDA_CORES: 0}

@@ -3,8 +3,9 @@
 Each source is compiled by its own ``nvcc -shared``, all started together,
 into a shared library ``libcwfa_<source>_<hash>.so`` under
 ``build/cwfa_tpu_torch/`` at the repository root; the hash covers every
-source and the flags.  Each op module opens its source's library with
-``load(stem)`` and registers the ``argtypes`` of its own entries.
+source, every header beside them (``csrc/*.cuh``) and the flags.  Each op
+module opens its source's library with ``load(stem)`` and registers the
+``argtypes`` of its own entries.
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cwfa_tpu_torch"
+# -Xptxas -v: registers, spills and ptxas's notes on wgmma of every kernel;
+# nvcc's output stays beside each library as <library>.log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -31,17 +34,25 @@ def _nvcc() -> str:
     return found
 
 
+def library_paths() -> dict[str, Path]:
+    """{source stem: library path} of every ``csrc/*.cu``.  The name carries
+    a hash of the flags, of every source and of every header beside them
+    (``*.cuh``): an edit to any of them builds anew."""
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return {p.stem: BUILD_DIR / f"libcwfa_{p.stem}_{h.hexdigest()[:16]}.so"
+            for p in sources}
+
+
 def build_kernels() -> dict[str, Path]:
     """Compile every ``csrc/*.cu`` whose library is not built yet; returns
     {source stem: library path}.  Raises with nvcc's output if a build
     fails."""
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    libs = {p.stem: BUILD_DIR / f"libcwfa_{p.stem}_{h.hexdigest()[:16]}.so"
-            for p in sources}
+    libs = library_paths()
+    sources = [CSRC / f"{stem}.cu" for stem in libs]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources:
@@ -60,6 +71,8 @@ def build_kernels() -> dict[str, Path]:
                           f"\n{stdout}\n{stderr}")
         else:
             os.replace(tmp, out)
+            if (stdout + stderr).strip():
+                out.with_suffix(".log").write_text(stdout + stderr)
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs

@@ -19,6 +19,7 @@ H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = {
     "int8": 1979e12,        # tensor cores
     "bf16": 989e12,         # tensor cores
+    "tf32": 495e12,         # tensor cores
     "f32": 67e12,           # CUDA cores (FMA = 2 operations)
 }
 

@@ -139,21 +139,33 @@ def test_f32_matches_jax_subnet(first):
         assert np.abs(got[sl] - want[sl]).max() <= 1e-5 * scale
 
 
-def test_pack_layout_and_reuse():
-    m = WaveletFlowSubnet2d(3, 6, n_ch=8)           # f32: the CUDA-core layout
-    pack, biases = tbt.pack_float_tower(m)
-    assert tbt.pack_float_tower(m)[0] is pack       # built once
+def _conv_blocks(m, pack, size):
+    """(name, weight, the conv's flat block of the pack) in pack order."""
     off = 0
     for name in tbt.CONVS:
         w = getattr(m, name).weight.detach()
+        n = size(name, w)
+        yield name, w, pack[off:off + n]
+        off += n
+    assert off == pack.numel()
+
+
+def test_pack_layout_and_reuse():
+    m = WaveletFlowSubnet2d(3, 6, n_ch=8)           # f32, 8 wide: CUDA cores
+    assert tbt.kernel_instance(torch.float32, 8, 3, 6) == tbt.CUDA_CORES
+    pack, biases = tbt.pack_float_tower(m)
+    assert tbt.pack_float_tower(m)[0] is pack       # built once
+
+    def size(name, w):
         o, i, k, _ = w.shape
-        ip, op = i + i % 2, o + (-o) % 8
-        blk = pack[off:off + k * k * ip * op].reshape(k * k, ip, op)
+        return k * k * (i + i % 2) * (o + (-o) % 8)
+
+    for name, w, blk in _conv_blocks(m, pack, size):
+        o, i, k, _ = w.shape
+        blk = blk.reshape(k * k, i + i % 2, o + (-o) % 8)
         assert torch.equal(blk[:, :i, :o],
                            w.permute(2, 3, 1, 0).reshape(k * k, i, o))
         assert not blk[:, i:].any() and not blk[:, :, o:].any()
-        off += blk.numel()
-    assert off == pack.numel()
     assert torch.equal(biases, torch.cat([getattr(m, n).bias.detach()
                                           for n in tbt.CONVS]))
     with torch.no_grad():
@@ -161,37 +173,139 @@ def test_pack_layout_and_reuse():
     repacked = tbt.pack_float_tower(m)[0]
     assert repacked is not pack and not torch.equal(repacked, pack)
 
+    # bf16, 64 wide: the wgmma layout, B as the tensor cores read it from
+    # shared memory: [tap][Cin / 8][Cout][8], Cin padded to 16, b7's Cout to
+    # the next width the kernel is built for
+    m = WaveletFlowSubnet2d(5, 10, n_ch=64).to(torch.bfloat16)
+    assert tbt.kernel_instance(torch.bfloat16, 64, 5, 10) == tbt.WGMMA_BF16
+    pack, biases = tbt.pack_float_tower(m)
+    assert pack.dtype == torch.bfloat16 and biases.dtype == torch.float32
 
-def test_mma_fragment_layout():
-    """The tensor-core pack holds, at [tap][i][j][lane][8], the B fragments
-    of mma.sync m16n8k16: value (h, e) of lane l is W[16 j + 8 h + l // 4]
-    [16 i + 2 (l % 4) + (e % 2) + 8 (e // 2)]."""
-    m = WaveletFlowSubnet2d(5, 10, n_ch=16).to(torch.bfloat16)
-    assert tbt.uses_mma(torch.bfloat16, 16)
-    assert not tbt.uses_mma(torch.bfloat16, 8)
-    assert not tbt.uses_mma(torch.float32, 64)
-    pack = tbt.pack_float_tower(m)[0]
-    assert pack.dtype == torch.bfloat16
-    off = 0
-    for name in tbt.CONVS:
-        w = getattr(m, name).weight.detach()
+    def dims(name, w):
         o, i, k, _ = w.shape
-        ip, op = i + (-i) % 16, o + (-o) % 16
-        blk = pack[off:off + k * k * ip * op].reshape(k * k, ip // 16,
-                                                      op // 16, 32, 2, 4)
-        off += blk[0].numel() * k * k
-        full = torch.zeros((op, ip, k, k), dtype=w.dtype)
-        full[:o, :i] = w
-        for lane in range(32):
-            for h in range(2):
-                for e in range(4):
-                    n = torch.arange(op // 16)[:, None] * 16 + 8 * h + lane // 4
-                    kk = (torch.arange(ip // 16)[None, :] * 16
-                          + 2 * (lane % 4) + e % 2 + 8 * (e // 2))
-                    want = full[n, kk].permute(2, 3, 1, 0).reshape(
-                        k * k, ip // 16, op // 16)
-                    assert torch.equal(blk[:, :, :, lane, h, e], want), name
-    assert off == pack.numel()
+        return k * k, i + (-i) % 16, 16 if name == "b7" else o
+
+    def size16(name, w):
+        taps, ip, op = dims(name, w)
+        return taps * ip * op
+
+    for name, w, blk in _conv_blocks(m, pack, size16):
+        o, i, k, _ = w.shape
+        taps, ip, op = dims(name, w)
+        blk = blk.reshape(taps, ip // 8, op, 8).permute(0, 2, 1, 3)
+        blk = blk.reshape(taps, op, ip)             # [tap][Cout][Cin]
+        assert torch.equal(blk[:, :o, :i],
+                           w.permute(2, 3, 0, 1).reshape(taps, o, i)), name
+        assert not blk[:, o:].any() and not blk[:, :, i:].any()
+
+
+@pytest.mark.parametrize("cin,nout", [(5, 10), (48, 96), (40, 33)])
+def test_mma_fragment_layout(cin, nout):
+    """The 3xTF32 pack of the f32 wgmma instance: per tap and per chunk of
+    32 input channels the high parts [chunk / 4][Cout][4] and then the low
+    parts; both are TF32 values and hi + lo is the f32 weight to 2^-21; the
+    1x1 of a residual block reads the input channels of every 8 in the order
+    its 3x3's sums sit in a thread."""
+    assert tbt.kernel_instance(torch.float32, 64, cin, nout) == tbt.WGMMA_3XTF32
+    assert tbt.kernel_instance(torch.float32, 64, 65, nout) == tbt.CUDA_CORES
+    assert tbt.kernel_instance(torch.float32, 64, cin, 97) == tbt.CUDA_CORES
+    assert tbt.kernel_instance(torch.bfloat16, 16, cin, nout) == tbt.CUDA_CORES
+    m = WaveletFlowSubnet2d(cin, nout, n_ch=64)
+    pack = tbt.pack_float_tower(m)[0]
+    assert pack.dtype == torch.float32
+    np7 = next(n for n in tbt.WGMMA_NOUT if n >= nout)
+
+    def dims(name, w):
+        o, i, k, _ = w.shape
+        return k * k, i + (-i) % 8, np7 if name == "b7" else o
+
+    def size(name, w):
+        taps, ip, op = dims(name, w)
+        return 2 * taps * ip * op
+
+    for name, w, blk in _conv_blocks(m, pack, size):
+        o, i, k, _ = w.shape
+        taps, ip, op = dims(name, w)
+        want = torch.zeros((taps, op, ip))
+        want[:, :o, :i] = w.permute(2, 3, 0, 1).reshape(taps, o, i)
+        if name in ("b2b", "b4b", "b6b"):
+            want = want.reshape(taps, op, ip // 8, 8)[
+                ..., [0, 2, 4, 6, 1, 3, 5, 7]].reshape(taps, op, ip)
+        off = 0
+        for tap in range(taps):
+            for c0 in range(0, ip, tbt.TF32_CHUNK):
+                kc = min(tbt.TF32_CHUNK, ip - c0)
+                hi, lo = (blk[off + j * kc * op:off + (j + 1) * kc * op]
+                          .reshape(kc // 4, op, 4).permute(1, 0, 2)
+                          .reshape(op, kc) for j in range(2))
+                off += 2 * kc * op
+                for part in (hi, lo):               # TF32: 13 low bits clear
+                    assert not (part.contiguous().view(torch.int32)
+                                & 0x1fff).any()
+                ref = want[tap, :, c0:c0 + kc]
+                assert (hi.double() + lo.double() - ref.double()).abs().max() \
+                    <= 2.0 ** -21 * ref.abs().max()
+                assert ((hi - ref).abs() <= 2.0 ** -11 * ref.abs()).all()
+        assert off == blk.numel()
+
+
+_CONV2D = torch.nn.functional.conv2d
+
+
+def _tf32_mask(v):
+    """What the tensor cores read of an f32 operand: its top 19 bits."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _conv_3xtf32(x, w, padding):
+    """A conv as the f32 wgmma instance computes it: x and w split into a
+    TF32 high part and the remainder (the remainder of x cut to TF32 by the
+    tensor cores), hi*hi + hi*lo + lo*hi, f32 sums."""
+    xh = tbt.split_tf32(x)[0]
+    xl = _tf32_mask(x - xh)
+    wh, wl = tbt.split_tf32(w)
+    return (_CONV2D(xl, wh, padding=padding) + _CONV2D(xh, wl, padding=padding)
+            + _CONV2D(xh, wh, padding=padding))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_3xtf32_conv_holds_the_f32_bound(k):
+    """One 64 -> 64 conv of the tower (K = 576 for the 3x3) through the
+    three TF32 products against the f32 conv: <= 1e-5 of max|ref|, the
+    kernel's bound, where one TF32 product alone misses it."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(1, 64, 12, 12).astype(np.float32))
+    w = torch.from_numpy((rng.randn(64, 64, k, k) / np.sqrt(64 * k * k))
+                         .astype(np.float32))
+    ref = torch.nn.functional.conv2d(x.double(), w.double(), padding=k // 2)
+    f32 = torch.nn.functional.conv2d(x, w, padding=k // 2)
+    got = _conv_3xtf32(x, w, k // 2)
+    scale = ref.abs().max()
+    assert (got - f32).abs().max() <= 1e-5 * f32.abs().max()
+    assert (got.double() - ref).abs().max() <= 2e-6 * scale
+    one = torch.nn.functional.conv2d(_tf32_mask(x), _tf32_mask(w),
+                                     padding=k // 2)
+    assert (one.double() - ref).abs().max() > 1e-5 * scale
+
+
+def test_3xtf32_tower_holds_the_f32_bound(monkeypatch):
+    """The whole tower with every conv through the three TF32 products
+    against the plain f32 version: <= 1e-5 of max|ref|."""
+    m = WaveletFlowSubnet2d(CIN, 2 * CIN, n_ch=64).eval()
+    x = torch.from_numpy(np.random.RandomState(8).randn(1, CIN, 12, 12)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = tbt.float_tower_reference(m, x)
+
+        def conv2d(v, w, bias=None, padding=0):
+            out = _conv_3xtf32(v, w, padding)
+            return out if bias is None else out + bias[None, :, None, None]
+
+        monkeypatch.setattr(tbt.F, "conv2d", conv2d)
+        got = tbt.float_tower_reference(m, x)
+        monkeypatch.undo()
+    assert not torch.equal(got, want)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 def test_fused_float_tower_rejects_what_the_kernel_does_not_take():

@@ -222,3 +222,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                          u=1, mode="fma")
     with pytest.raises(RuntimeError):               # neither CPU nor CUDA
         probes.fma_probe(f.to("meta"), f.to("meta"), t=1, u=1, mode="fma")
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 20, 5), (129, 100, 130),
+                                   (100, 161, 24)])
+def test_tiled_gemm_bf16_plain_version_at_odd_shapes(m, k, n):
+    """The plain version the card's bf16 kernel is held against, at sizes
+    that are no multiple of its tiles: exact products, f32 sums, one
+    rounding to bf16 (<= 2^-8 of each value, the kernel's bound is 2^-7 of
+    the largest)."""
+    rng = np.random.RandomState(11)
+    a, b = _bf16(rng, m, k), _bf16(rng, k, n)
+    got = probes.tiled_gemm(a, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    want = a.double() @ b.double()
+    assert ((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 1e-6).all()
+
+
+def test_kernel_library_names_follow_the_headers(tmp_path, monkeypatch):
+    """A library's name carries a hash of every source and of every header
+    beside them, so an edit to the shared wgmma header rebuilds."""
+    from cwfa_tpu_torch.ops import cuda_build
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    first = cuda_build.library_paths()
+    assert set(first) == {"a"}
+    assert cuda_build.library_paths() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert cuda_build.library_paths()["a"] != first["a"]
+    monkeypatch.undo()
+    assert "wgmma.cuh" in {p.name for p in cuda_build.CSRC.glob("*.cuh")}
+
+
+def test_wgmma_header_is_what_its_script_writes():
+    """csrc/wgmma.cuh is generated (its instruction wrappers are operand
+    lists that differ only in N): the committed header is the output of
+    scripts/torch_gen_wgmma_header.py."""
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "torch_gen_wgmma_header.py")
+    spec = importlib.util.spec_from_file_location("torch_gen_wgmma_header", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.HEADER.read_text() == mod.render()
+    assert "wgmma_ss_bf16<256>" in mod.render()
