@@ -1,6 +1,9 @@
 """Smoke test of the PyTorch/CUDA port (``cwfa_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # the whole check
+    python3 chip_smoke.py tower cond_pair      # kernel phases alone (kernels,
+                                               # tower, cond_pair, float_tower)
+                                               # while working on one: no verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -9,35 +12,48 @@ code != 0) on the first phase that does not hold:
 2. holds each flow kernel against its plain PyTorch version on the card, at
    the main path's shapes, in f32 and bf16, for every clamp activation, and
    times both (CUDA events);
-3. holds the int8 tower kernel (``fused_tower``) against its plain version
-   at each flagship step's shape (B 1, 512^2, Cin 48/24/12/6, 64 wide,
-   Nout 2*Cin), at step 0's shape at batch 8 and at two odd shapes, in f32
-   and bf16 output; times the kernel at every batch-1 step shape and the
-   plain version at step 0;
+3. holds the int8 tower kernel (``fused_tower``) to its plain version,
+   equal to the bit, at each flagship step's shape (B 1, 512^2, Cin
+   48/24/12/6, 64 wide, Nout 2*Cin), at step 0's shape at batch 8, at two
+   odd shapes and at three more tower widths (20, 72, 128), in f32 and bf16
+   output, a 64-wide tower through both instances (s8 wgmma; __dp4a when
+   asked for), logging the instance of every launch (each must have run);
+   times the wgmma instance at every batch-1 step shape and the __dp4a
+   instance and the plain version beside it at step 0;
 4. holds the cond nets' 3-D pair kernel (``cond_pair``) against its plain
    version at each flagship step's depth (1, D, 512, 512), D = 48/24/12/6,
-   at step 0's shape at batch 8 and at two odd shapes, in f32 and bf16, and
-   times it at step 0 beside the plain version and the two cuDNN
-   ``Conv3d`` modules it replaces;
+   at step 0's shape at batch 8 and at two odd shapes, in f32 (CUDA cores)
+   and bf16 (both instances: tensor cores; CUDA cores when asked for), and
+   times both at step 0 beside the plain version and the two cuDNN
+   ``Conv3d`` modules the kernel replaces;
 5. holds the float tower kernel (``fused_float_tower``) against its plain
    version at every flagship tower shape (coupling Cin -> 2*Cin and input
-   Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8 and at two odd
-   shapes (64 and 8 wide), in f32 and bf16, logging the instance that ran
-   (wgmma bf16, wgmma 3xTF32 for f32, CUDA cores for the 8-wide towers; each
-   must have run), and times both instances at every batch-1 shape, with the
-   plain versions, the cuDNN module chain the bf16 one replaces and the f32
-   instance's two bounds (f32 FMAs, 3 x TF32) at step 0;
+   Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8, at two odd
+   shapes (64 and 8 wide) and at tower widths 20, 72 and 128, in f32 and
+   bf16, logging the instance that ran (wgmma bf16, wgmma 3xTF32 for f32,
+   CUDA cores for every other width; each must have run), and times both
+   wgmma instances at every batch-1 shape, with the plain versions, the
+   cuDNN module chain the bf16 one replaces and the f32 instance's two
+   bounds (f32 FMAs, 3 x TF32) at step 0;
 6. runs the small rig through ``XLFMReconstructor`` on the card (kernels)
-   and on the CPU (plain versions), in f32, and compares; then the same in
-   int8 (``use_int8`` + ``use_int8_towers``);
+   and on the CPU (plain versions), in f32, deterministic and in the
+   default mode (``deterministic=False``; drop rates 0, so that nothing is
+   drawn), and compares; then the same in int8 (``use_int8`` +
+   ``use_int8_towers``);
 7. runs the flagship configuration (2160^2 frames, 29 views of 512^2,
    512x512x96 volumes, 4 CAT steps x 4 blocks, 64-wide towers, random
-   weights from a seed) in bf16 at batch 1 and 8: shape, finiteness, the
-   kernels' launch counts, ms per frame and peak device memory;
-8. compares the flagship bf16 output with the f32 output at batch 1;
+   weights from a seed) in bf16, deterministic, at batch 1 and 8: shape,
+   finiteness, the kernels' launch counts and instances, ms per frame and
+   peak device memory;
+8. compares the flagship bf16 output with the f32 output at batch 1; then
+   runs the flagship in the reconstructor's default mode (bf16, batch 1):
+   shape, finiteness, launch counts, ms per frame, two reconstructors from
+   one seed agree, two calls differ; and once with z sampled at temperature
+   0.7 and two samples per frame;
 9. runs the flagship in int8 (bf16, ``use_int8`` + ``use_int8_towers``,
    calibrated on the batch) at batch 1 and 8: calibration time, shape,
-   finiteness, launch counts (16 ``fused_tower`` per call), ms per frame,
+   finiteness, launch counts (16 ``fused_tower`` per call, all the wgmma
+   instance), ms per frame,
    peak memory, and the int8 UNet and the 16 int8 towers timed against
    their bf16 counterparts;
 10. compares the flagship int8 output with the f32 output at batch 1;
@@ -73,6 +89,7 @@ line when no CUDA device is present.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib.util
 import json
 import sys
@@ -109,8 +126,10 @@ KERNELS = {
                    "source": FLOW_SRC, "wrapper": fa.cat_affine},
     "haar_merge_affine": {"replaces": "cwfa_tpu/ops/pallas_flow.py:118",
                           "source": FLOW_SRC, "wrapper": fa.haar_merge_affine},
+    # the 64-wide instance (s8 wgmma) of the int8 path; the other widths'
+    # __dp4a instance is csrc/qtower.cu
     "fused_tower": {"replaces": "cwfa_tpu/ops/qtower.py:454",
-                    "source": "cwfa_tpu_torch/csrc/qtower.cu",
+                    "source": "cwfa_tpu_torch/csrc/qtower_wg.cu",
                     "wrapper": qtower.fused_tower},
     "cond_pair": {"replaces": "cwfa_tpu/ops/cond_pair.py:276",
                   "source": "cwfa_tpu_torch/csrc/cond_pair.cu",
@@ -282,17 +301,25 @@ def phase_kernels(dev, kernels):
 
 
 def phase_tower(dev, kernels):
-    """fused_tower vs quantized_tower_reference on the card: every flagship
-    step shape (64 wide), step 0 at batch 8 (the int8 main path's batch),
-    and two odd shapes (H, W not multiples of the 16x16 tile, batch 2; 64
-    wide and the small rig's 8 wide), f32 and bf16 output; times the kernel
-    at every batch-1 step shape and the plain version at step 0 (bf16
-    out)."""
+    """fused_tower vs quantized_tower_reference on the card, equal to the
+    bit: every flagship step shape (64 wide), step 0 at batch 8 (the int8
+    main path's batch), two odd shapes (H, W not multiples of the 16x16
+    tile, batch 2; 64 wide and the small rig's 8 wide) and three more tower
+    widths (20: not a multiple of 8; 72 and 128: smaller tiles, weights not
+    staged), f32 and bf16 output.  A 64-wide tower is checked through both
+    instances (s8 wgmma, and __dp4a when asked for); the instance of every
+    launch is logged and each must have run.  Times the wgmma instance at
+    every batch-1 step shape and, at step 0, the __dp4a instance and the
+    plain version beside it (bf16 out)."""
     gen = torch.Generator().manual_seed(1)
     shapes = [(1, cin, SLICE_HW, SLICE_HW, 64) for cin in TOWER_CIN]
     shapes += [(8, SLICE_C, SLICE_HW, SLICE_HW, 64),
-               (2, 12, 37, 53, 64), (2, 4, 19, 35, 8)]
+               (2, 12, 37, 53, 64), (2, 4, 19, 35, 8), (2, 5, 19, 35, 20),
+               (1, 12, 37, 53, 72), (1, 12, 37, 53, 128)]
     k = kernels["fused_tower"]
+    k["max_abs_err"] = 0.0
+    by_instance = qtower.fused_tower.by_instance
+    ran = dict.fromkeys(by_instance, 0)
     for b, cin, h, w, width in shapes:
         tower = WaveletFlowSubnet2d(cin, 2 * cin, width)
         reset_parameters_(tower, gen)
@@ -302,33 +329,46 @@ def phase_tower(dev, kernels):
         qw = qtower.quantize_tower(tower, scales)
         xq = qtower.quantize_input(x, scales[0])
         ref = qtower.quantized_tower_reference(qw, scales, xq)
-        for dtype in (torch.float32, torch.bfloat16):
-            got = qtower.fused_tower(xq, qw, scales, out_dtype=dtype)
-            want = ref.to(dtype)
-            e = max_err(got, want, dtype,
-                        f"fused_tower {(b, cin, h, w)} C {width} {dtype}")
-            ndiff = int((got.float() != want.float()).sum())
-            k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
-            log(f"fused_tower B{b} Cin {cin:2d} {h}x{w} C {width} "
-                f"{str(dtype):14s} "
-                f"max|d| {e:.3e}, {ndiff} of {got.numel()} elements differ")
+        own = qtower.kernel_instance(width, cin, 2 * cin)
+        for instance in dict.fromkeys((own, qtower.DP4A)):
+            asked = None if instance == own else instance
+            for dtype in (torch.float32, torch.bfloat16):
+                before = by_instance[instance]
+                got = qtower.fused_tower(xq, qw, scales, out_dtype=dtype,
+                                         instance=asked)
+                if by_instance[instance] != before + 1:
+                    fail(f"fused_tower {(b, cin, h, w)} C {width} did not "
+                         f"run the {instance} instance")
+                ran[instance] += 1
+                exact_equal(got, ref.to(dtype), f"fused_tower {(b, cin, h, w)} "
+                            f"C {width} {dtype} ({instance})")
+                del got
+            log(f"fused_tower B{b} Cin {cin:2d} {h}x{w} C {width} ({instance}): "
+                f"f32 and bf16 out equal the plain version to the bit")
         if b != 1 or h != SLICE_HW:
             continue
         ms = time_ms(lambda: qtower.fused_tower(xq, qw, scales), 20)
         ops = 2 * b * h * w * (cin * 64 + 3 * (9 * 64 * 64 + 64 * 64)
                                + 9 * 64 * 2 * cin)
-        line = (f"time fused_tower (1, {cin}, {h}, {w}) bf16 out: kernel "
-                f"{ms:.4f} ms ({ops / ms / 1e9:.1f} int8 TOP/s)")
-        if cin == SLICE_C:                  # step 0: the plain version too
+        line = (f"time fused_tower (1, {cin}, {h}, {w}) bf16 out ({own}): "
+                f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} int8 TOP/s)")
+        if cin == SLICE_C:                  # step 0: the other two as well
+            dp4a_ms = time_ms(lambda: qtower.fused_tower(
+                xq, qw, scales, instance=qtower.DP4A), 10)
             plain_ms = time_ms(
                 lambda: qtower.quantized_tower_reference(qw, scales, xq), 5)
-            line += (f"  plain {plain_ms:.4f} ms "
-                     f"({ops / plain_ms / 1e9:.1f} TOP/s)")
-            k["ms"], k["plain_ms"] = ms, plain_ms
-            wbytes = sum(t.numel() * t.element_size() for t in qw.values())
+            line += (f"  {qtower.DP4A} instance {dp4a_ms:.4f} ms "
+                     f"({ops / dp4a_ms / 1e9:.1f} TOP/s)  plain "
+                     f"{plain_ms:.4f} ms ({ops / plain_ms / 1e9:.1f} TOP/s)")
+            k["ms"], k["plain_ms"], k["dp4a_ms"] = ms, plain_ms, dp4a_ms
+            wbytes = sum(t.numel() * t.element_size()
+                         for name, t in qw.items() if name not in qtower.WEIGHTS)
             set_bound(k, b * h * w * (cin + 2 * 2 * cin) + wbytes, ops, "int8",
                       f"fused_tower (1, {cin}, {h}, {w}) -> {2 * cin} bf16 out")
         log(line)
+    log(f"fused_tower instances checked: {ran}")
+    if not all(ran.values()):
+        fail(f"an instance of fused_tower was not checked: {ran}")
 
 
 def cudnn_pair(net, x):
@@ -354,11 +394,15 @@ def phase_cond_pair(dev, kernels):
     """cond_pair vs cond_pair_reference on the card: every flagship step's
     depth at batch 1, step 0 at batch 8 and two odd shapes (D 5 and 8, a
     part of a depth chunk and a whole one; H, W not multiples of the 8x32
-    tile), f32 and bf16; times at step 0 (bf16)."""
+    tile), f32 and bf16.  bf16 is checked through both instances (tensor
+    cores, and the CUDA cores when asked for); the instance of every launch
+    is logged and each must have run.  Times both at step 0 (bf16)."""
     gen = torch.Generator().manual_seed(2)
     shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
     shapes += [(8, 48, SLICE_HW, SLICE_HW), (2, 5, 37, 53), (2, 8, 19, 35)]
     k = kernels["cond_pair"]
+    by_instance = cpair.cond_pair.by_instance
+    ran = dict.fromkeys(by_instance, 0)
     for shape in shapes:
         net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
                                    "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
@@ -371,36 +415,54 @@ def phase_cond_pair(dev, kernels):
             net = net.to(dev, dtype)
             mods = (net["c3a"], net["c3b"], net["prelu"])
             x = x0.to(dev, dtype)
+            own = cpair.kernel_instance(dtype, 32)
             with torch.inference_mode():
-                e, share = rel_err(cpair.cond_pair(x, *mods),
-                                   cpair.cond_pair_reference(x, *mods),
-                                   "cond_pair", dtype, f"cond_pair {shape} {dtype}")
-                k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
-                log(f"cond_pair {shape} {str(dtype):14s} max|d| {e:.3e}, "
-                    f"{share:.2e} of the elements differ")
+                want = cpair.cond_pair_reference(x, *mods)
+                for instance in dict.fromkeys((own, cpair.CUDA_CORES)):
+                    before = by_instance[instance]
+                    got = cpair.cond_pair(
+                        x, *mods, instance=None if instance == own else instance)
+                    if by_instance[instance] != before + 1:
+                        fail(f"cond_pair {shape} {dtype} did not run the "
+                             f"{instance} instance")
+                    ran[instance] += 1
+                    e, share = rel_err(got, want, "cond_pair", dtype,
+                                       f"cond_pair {shape} {dtype} ({instance})")
+                    k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+                    log(f"cond_pair {shape} {str(dtype):14s} ({instance}) "
+                        f"max|d| {e:.3e}, {share:.2e} of the elements differ")
+                del got, want
                 if shape[0] != 1 or shape[1] != 48 or dtype != torch.bfloat16:
                     continue
                 ms = time_ms(lambda: cpair.cond_pair(x, *mods), 20)
+                cores_ms = time_ms(lambda: cpair.cond_pair(
+                    x, *mods, instance=cpair.CUDA_CORES), 10)
                 plain_ms = time_ms(lambda: cpair.cond_pair_reference(x, *mods), 5)
                 cudnn_ms = time_ms(lambda: cudnn_pair(net, x), 5)
             flop = 2 * 2 * 27 * 32 * x.numel()
-            log(f"time cond_pair {shape} bf16: kernel {ms:.4f} ms "
-                f"({flop / ms / 1e6:.0f} GFLOP/s)  plain {plain_ms:.4f} ms  "
+            log(f"time cond_pair {shape} bf16 ({own}): kernel {ms:.4f} ms "
+                f"({flop / ms / 1e6:.0f} GFLOP/s)  {cpair.CUDA_CORES} instance "
+                f"{cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
                 f"cuDNN Conv3d modules (bf16) {cudnn_ms:.4f} ms")
-            k["ms"], k["plain_ms"] = ms, plain_ms
+            k["ms"], k["plain_ms"], k["cuda_cores_ms"] = ms, plain_ms, cores_ms
             # bf16 in, bf16 y between the two convs: both products could
             # run on the tensor cores, so that is the rate of the bound
             # (on f32 FMAs the same work takes bound_ms(0, flop, "f32"))
             set_bound(k, 2 * x.numel() * x.element_size(), flop, "bf16",
                       f"cond_pair {shape} bf16")
-            log(f"bound cond_pair on f32 FMAs, as the kernel runs it: "
-                f"{bound_ms(0, flop, 'f32')[0]:.4f} ms")
+            log(f"bound cond_pair on f32 FMAs, as the {cpair.CUDA_CORES} "
+                f"instance runs it: {bound_ms(0, flop, 'f32')[0]:.4f} ms")
+    log(f"cond_pair instances checked: {ran}")
+    if not all(ran.values()):
+        fail(f"an instance of cond_pair was not checked: {ran}")
 
 
 def phase_float_tower(dev, kernels):
     """fused_float_tower vs float_tower_reference on the card: every flagship
     tower shape (coupling Cin -> 2*Cin and input Cin -> Cin, 64 wide), step 0
-    at batch 8 and the two odd shapes of phase_tower, f32 and bf16, with the
+    at batch 8, the two odd shapes of phase_tower and its three other tower
+    widths (20, 72, 128: the CUDA cores, padded channels and smaller tiles),
+    f32 and bf16, with the
     instance of the kernel that ran each; times both instances at every
     batch-1 shape, and their plain versions and the cuDNN module chain at
     step 0's coupling tower."""
@@ -408,7 +470,9 @@ def phase_float_tower(dev, kernels):
     shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
               for cin in TOWER_CIN for nout in (2 * cin, cin)]
     shapes += [(8, SLICE_C, SLICE_HW, SLICE_HW, 64, 2 * SLICE_C),
-               (2, 12, 37, 53, 64, 24), (2, 4, 19, 35, 8, 8)]
+               (2, 12, 37, 53, 64, 24), (2, 4, 19, 35, 8, 8),
+               (2, 5, 19, 35, 20, 10), (1, 12, 37, 53, 72, 24),
+               (1, 12, 37, 53, 128, 24)]
     k = kernels["fused_float_tower"]
     ran = dict.fromkeys(btower.fused_float_tower.by_instance, 0)
     for b, cin, h, w, width, nout in shapes:
@@ -485,13 +549,27 @@ def phase_small_rig(dev):
                         cfg.volume_side_size).astype(np.float32)
               for k in range(model.n_flow_steps + 1)]
     frames = rng.rand(2, img, img).astype(np.float32) * 1000
-    ref = XLFMReconstructor(model, stats, vidx, caches, device="cpu")(frames)
-    got = XLFMReconstructor(model, stats, vidx, caches, device=dev)(frames)
-    rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
-    log(f"small rig f32, card vs CPU: max|d|/max|ref| {rel:.3e} "
-        f"(bound 1e-4)")
-    if not rel <= 1e-4:
-        fail(f"small rig card vs CPU {rel:.3e} > 1e-4")
+    # the reconstructor's default (stochastic) mode draws from a generator
+    # on its own device: with both drop rates 0 (and the configuration's
+    # temperature 0) nothing is drawn, and what is left of the mode, the
+    # LRNN's BatchNorm on batch statistics and its mean branch per call, can
+    # be compared between the card and the CPU
+    plain = copy.deepcopy(model)
+    lrnn_spec = dataclasses.replace(
+        plain.lrnn.spec, convnext_drop=0.0, unet_drop=0.0,
+        unet=dataclasses.replace(plain.lrnn.spec.unet, drop_out=0.0))
+    plain.lrnn.spec, plain.lrnn.unet.spec = lrnn_spec, lrnn_spec.unet
+    for what, m, kw in (("deterministic", model, {"deterministic": True}),
+                        ("default mode, drop rates 0", plain, {})):
+        ref = XLFMReconstructor(m, stats, vidx, caches, device="cpu",
+                                **kw)(frames)
+        got = XLFMReconstructor(m, stats, vidx, caches, device=dev,
+                                **kw)(frames)
+        rel = ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+        log(f"small rig f32, {what}, card vs CPU: max|d|/max|ref| {rel:.3e} "
+            f"(bound 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"small rig ({what}) card vs CPU {rel:.3e} > 1e-4")
 
 
 def small_rig_int8(dev):
@@ -507,10 +585,10 @@ def small_rig_int8(dev):
               for k in range(model.n_flow_steps + 1)]
     frames = rng.rand(2, img, img).astype(np.float32) * 1000
     cpu = XLFMReconstructor(model, stats, vidx, caches, device="cpu",
-                            calib_frames=frames, **INT8)
+                            deterministic=True, calib_frames=frames, **INT8)
     ref = cpu(frames)
     card = XLFMReconstructor(model, stats, vidx, caches, device=dev,
-                             calib_frames=frames, **INT8)
+                             deterministic=True, calib_frames=frames, **INT8)
     flips = []
     for k, (a, b) in enumerate(zip(cpu.qpacks, card.qpacks)):
         for i, (pa, pb) in enumerate(zip(a, b)):
@@ -549,18 +627,20 @@ def launch_counts():
 def reset_counts():
     for k in KERNELS.values():
         setattr(k["wrapper"], k.get("counter", "launches"), 0)
-    for name in btower.fused_float_tower.by_instance:
-        btower.fused_float_tower.by_instance[name] = 0
+    for wrapper in (btower.fused_float_tower, qtower.fused_tower,
+                    cpair.cond_pair):
+        for name in wrapper.by_instance:
+            wrapper.by_instance[name] = 0
 
 
-def check_tower_instance(instance: str, what: str):
-    """Fails unless every fused_float_tower launch since reset_counts() ran
+def check_instance(name: str, instance: str, what: str):
+    """Fails unless every launch of kernel ``name`` since reset_counts() ran
     ``instance``."""
-    by_instance = btower.fused_float_tower.by_instance
-    n = launch_counts()["fused_float_tower"]
-    log(f"{what}: fused_float_tower launches by instance {by_instance}")
+    by_instance = KERNELS[name]["wrapper"].by_instance
+    n = launch_counts()[name]
+    log(f"{what}: {name} launches by instance {by_instance}")
     if by_instance[instance] != n:
-        fail(f"{what}: {by_instance[instance]} of its {n} tower launches ran "
+        fail(f"{what}: {by_instance[instance]} of its {n} {name} launches ran "
              f"the {instance} instance")
 
 
@@ -588,6 +668,7 @@ def phase_flagship(dev, card, kernels):
     caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
               .astype(np.float32) for k in range(model.n_flow_steps + 1)]
     recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=True,
                               compute_dtype=torch.bfloat16)
     out_shape = (cfg.n_depths, side, side)
     frames1 = None
@@ -613,16 +694,74 @@ def phase_flagship(dev, card, kernels):
             f"call); peak memory {peak / 2**30:.2f} GiB; launches "
             f"{delta} in 4 calls; on {card}")
         del out
-    check_tower_instance(btower.WGMMA_BF16, "flagship bf16")
+    check_instance("fused_float_tower", btower.WGMMA_BF16, "flagship bf16")
+    check_instance("cond_pair", cpair.TENSOR_CORES, "flagship bf16")
     for name, n in launch_counts().items():
         if name in BF16_PER_CALL:
             kernels[name]["launches"] = n
     return model, stats, vidx, caches, frames1, recon
 
 
+def phase_flagship_stochastic(dev, card, model, stats, vidx, caches, frames1):
+    """The reconstructor's default mode at the flagship width, bf16, batch 1:
+    the LRNN in train mode (BatchNorm on batch statistics, Dropout2d,
+    drop_path, the mean branch per call), every draw from the generator
+    seeded with the configuration's seed.  Two reconstructors agree on
+    their first call and a second call differs from the first (the dropout
+    masks); then one call with z sampled at temperature 0.7 and two samples
+    per frame.  The launch counts per call are the deterministic path's."""
+    side = model.cfg.volume_side_size
+    out_shape = (1, model.cfg.n_depths, side, side)
+    kw = {"device": dev, "compute_dtype": torch.bfloat16}
+    recon = XLFMReconstructor(model, stats, vidx, caches, **kw)
+    twin = XLFMReconstructor(model, stats, vidx, caches, **kw)
+    if recon.deterministic or recon.mean_branch is not None:
+        fail("the reconstructor's default is not the stochastic mode")
+    reset_counts()
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, second, other = recon(frames1), recon(frames1), twin(frames1)
+    torch.cuda.synchronize()
+    for out in (first, second, other):
+        if tuple(out.shape) != out_shape or not bool(torch.isfinite(out).all()):
+            fail(f"flagship default mode: output {tuple(out.shape)} or "
+                 f"non-finite values")
+    if not torch.equal(first, other):
+        fail("two reconstructors from the same seed disagree on their first "
+             f"call: max|d| {(first - other).abs().max().item():.3e}")
+    if torch.equal(first, second):
+        fail("two calls of the default mode gave the same volume")
+    ms = event_ms(lambda: recon(frames1))
+    peak = torch.cuda.max_memory_allocated()
+    delta = check_counts(BF16_PER_CALL, 6, "flagship default mode", before)
+    check_instance("fused_float_tower", btower.WGMMA_BF16, "flagship default mode")
+    check_instance("cond_pair", cpair.TENSOR_CORES, "flagship default mode")
+    d12 = ((first - second).abs().max() / first.abs().max()).item()
+    log(f"flagship bf16 default mode (deterministic=False) batch 1: out "
+        f"{tuple(first.shape)} finite; two reconstructors from one seed agree "
+        f"to the bit; a second call differs by {d12:.3e} of max|out|; "
+        f"{np.median(ms):.2f} ms/frame (median of {ms} ms per call); peak "
+        f"memory {peak / 2**30:.2f} GiB; launches {delta} in 6 calls; on "
+        f"{card}")
+    del first, second, other, recon, twin
+    sampled = copy.deepcopy(model)
+    sampled.cfg = dataclasses.replace(model.cfg, INN_z_temperature=0.7,
+                                      INN_n_samples=2)
+    recon = XLFMReconstructor(sampled, stats, vidx, caches, **kw)
+    before = launch_counts()
+    out = recon(frames1)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != out_shape or not bool(torch.isfinite(out).all()):
+        fail(f"flagship sampled: output {tuple(out.shape)} or non-finite")
+    delta = check_counts(BF16_PER_CALL, 1, "flagship sampled", before)
+    log(f"flagship bf16, temperature 0.7, 2 samples per frame, batch 1: out "
+        f"{tuple(out.shape)} finite; launches {delta} in 1 call")
+
+
 def phase_bf16_vs_f32(dev, model, stats, vidx, caches, frames1, recon16):
     out16 = recon16(frames1)
     recon32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                deterministic=True,
                                 compute_dtype=torch.float32)
     out32 = recon32(frames1)
     rel = ((out16 - out32).abs().max() / out32.abs().max()).item()
@@ -697,6 +836,7 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                  deterministic=True,
                                   compute_dtype=torch.bfloat16,
                                   calib_frames=frames, **INT8)
         torch.cuda.synchronize()
@@ -723,6 +863,9 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
         if batch == 1:
             out1 = out
         runs.append((batch, recon, frames))
+    check_instance("fused_tower", qtower.WGMMA_S8, "flagship int8")
+    check_instance("cond_pair", cpair.TENSOR_CORES, "flagship int8")
+    check_instance("fused_float_tower", btower.WGMMA_BF16, "flagship int8")
     kernels["fused_tower"]["launches"] = launch_counts()["fused_tower"]
     for batch, recon, frames in runs:
         uq, ub, tq, tb = int8_layer_times(recon, frames)
@@ -1007,7 +1150,7 @@ def phase_likelihood_flagship(dev, card, kernels, model, stats):
             f"call); peak memory {peak / 2**30:.2f} GiB; launches {delta} "
             f"in 4 calls; on {card}")
         del nlls, cache, priors, ljs, vols
-    check_tower_instance(btower.WGMMA_3XTF32, "likelihood path")
+    check_instance("fused_float_tower", btower.WGMMA_3XTF32, "likelihood path")
     n32 = launch_counts()["fused_float_tower"]
     kernels["fused_float_tower"]["f32_launches"] = n32
     log(f"likelihood path launches in 8 calls: cat_affine "
@@ -1039,10 +1182,18 @@ def main():
         f"parallel) -> {names} in {time.perf_counter() - t0:.1f} s")
 
     kernels = {name: {} for name in KERNELS}
-    phase_kernels(dev, kernels)
-    phase_tower(dev, kernels)
-    phase_cond_pair(dev, kernels)
-    phase_float_tower(dev, kernels)
+    kernel_phases = {"kernels": phase_kernels, "tower": phase_tower,
+                     "cond_pair": phase_cond_pair,
+                     "float_tower": phase_float_tower}
+    if len(sys.argv) > 1:
+        # python3 chip_smoke.py tower cond_pair: those kernel phases alone,
+        # while a kernel is being worked on; not the check, and no "ok" line
+        for name in sys.argv[1:]:
+            kernel_phases[name](dev, kernels)
+        log(f"partial run ({', '.join(sys.argv[1:])}): no verdict")
+        return 1
+    for phase in kernel_phases.values():
+        phase(dev, kernels)
     phase_small_rig(dev)
     small_rig_int8(dev)
     model, stats, vidx, caches, frames1, recon16 = phase_flagship(
@@ -1050,6 +1201,7 @@ def main():
     out32 = phase_bf16_vs_f32(dev, model, stats, vidx, caches, frames1,
                               recon16)
     del recon16
+    phase_flagship_stochastic(dev, card, model, stats, vidx, caches, frames1)
     out8 = phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
                                frames1)
     rel = rel_norm(out8, out32)
@@ -1072,8 +1224,11 @@ def main():
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k.get("library_ms"),
-         # the float tower's f32 instance (3xTF32): the likelihood path's
-         **{key: v for key, v in k.items() if key.startswith("f32_")}}
+         # the float tower's f32 instance (3xTF32): the likelihood path's;
+         # the instance that fused_tower (__dp4a) and cond_pair (CUDA cores)
+         # ran before their tensor-core ones, timed in this run
+         **{key: v for key, v in k.items()
+            if key.startswith("f32_") or key in ("dp4a_ms", "cuda_cores_ms")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

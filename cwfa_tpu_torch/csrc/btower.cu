@@ -1,6 +1,6 @@
 // The float subnet tower of the CWF coupling and input blocks on the CUDA
-// cores of Hopper (sm_90a), in bf16 or f32: the instance for the tower
-// widths that csrc/btower_wg.cu (64 wide, on the warpgroup tensor cores) does
+// cores of Hopper (sm_90a), in bf16 or f32: the instance for every tower
+// width that csrc/btower_wg.cu (64 wide, on the warpgroup tensor cores) does
 // not take, such as the small rig's 8-wide towers.
 //
 // Replaces the Pallas TPU kernel cwfa_tpu/ops/btower.py:235
@@ -30,13 +30,19 @@
 // paired MACs multiply zeros) are not carried over.
 //
 // Design:
-//   - One block of 512 threads per (batch, TH x 16 output tile), TH = 16 for
-//     bf16 and 8 for f32.  The input window with its 4-pixel halo is staged
-//     into shared memory; the layers then run on shrinking canvases (halo
-//     4 -> 3 -> 2 -> 1 -> 0) that keep one fixed geometry, so a residual is
-//     read and written at the same address.  Two canvases: A holds r1, e2,
-//     e4, e6 (each the residual of the next block), B holds x and then each
-//     3x3 output.
+//   - One block of 512 threads per (batch, TH x TW output tile), 16 x 16
+//     for bf16 and 8 x 16 for f32.  The input window with its 4-pixel halo
+//     is staged into shared memory; the layers then run on shrinking
+//     canvases (halo 4 -> 3 -> 2 -> 1 -> 0) that keep one fixed geometry, so
+//     a residual is read and written at the same address.  Two canvases: A
+//     holds r1, e2, e4, e6 (each the residual of the next block), B holds x
+//     and then each 3x3 output.
+//   - Any tower width: the canvases are sized by the width (padded to a
+//     multiple of 8; the padded channels have zero weights and biases, so
+//     they stay 0 through ELU and the residual), and a width whose canvases
+//     do not fit in shared memory at that tile takes a smaller tile (8 x 8,
+//     then 4 x 4 for bf16; 4 x 8, then 2 x 4 for f32: up to 400 and 240
+//     wide), at the price of a larger share of halo positions.
 //   - A conv is an implicit GEMM: M = canvas positions, N = output
 //     channels, K = taps x input channels.  Each warp owns 8 output channels
 //     and 4 positions per lane (32 f32 sums per thread); a step reads two
@@ -61,9 +67,7 @@
 
 namespace {
 
-constexpr int kTW = 16;              // output tile width
 constexpr int kHalo = 4;             // total 3x3 halo of the four 3x3 convs
-constexpr int kSW = kTW + 2 * kHalo; // canvas width
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kNP = 4;               // positions per lane per work item
@@ -118,16 +122,16 @@ __device__ __forceinline__ void fma8(float* acc, float a, const float4& w0,
 
 // A K x K conv (K = 1 or 3) from the canvas `in` (`stride` elements per
 // position, cinp input channels, even) into the outputs at canvas level
-// `level` (rows [level, SH - level) and columns [level, kSW - level) of the
+// `level` (rows [level, SH - level) and columns [level, SW - level) of the
 // fixed geometry), with the packed weights `w` ([tap][cinp][ocp]) and ocp
 // output channels (a multiple of 8).  epi(R, Cc, oc, acc) consumes each f32
 // sum.
-template <typename T, int TH, int K, typename Epi>
+template <typename T, int TH, int TW, int K, typename Epi>
 __device__ __forceinline__ void conv(const T* in, int stride, int cinp,
                                      const float* __restrict__ w, int ocp,
                                      int level, Epi epi) {
-  constexpr int SH = TH + 2 * kHalo;
-  const int nc = kSW - 2 * level;
+  constexpr int SH = TH + 2 * kHalo, SW = TW + 2 * kHalo;
+  const int nc = SW - 2 * level;
   const int npos = (SH - 2 * level) * nc;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ngroups = ocp >> 3;
@@ -140,7 +144,7 @@ __device__ __forceinline__ void conv(const T* in, int stride, int cinp,
     for (int j = 0; j < kNP; ++j) {
       int p = chunk * 32 * kNP + j * 32 + lane;
       p = p < npos ? p : 0;
-      base[j] = ((level + p / nc) * kSW + level + p % nc) * stride;
+      base[j] = ((level + p / nc) * SW + level + p % nc) * stride;
     }
     float acc[kNP][8];
 #pragma unroll
@@ -148,7 +152,7 @@ __device__ __forceinline__ void conv(const T* in, int stride, int cinp,
 #pragma unroll
       for (int o = 0; o < 8; ++o) acc[j][o] = 0.f;
     for (int t = 0; t < K * K; ++t) {
-      const int off = K == 3 ? ((t / 3 - 1) * kSW + (t % 3 - 1)) * stride : 0;
+      const int off = K == 3 ? ((t / 3 - 1) * SW + (t % 3 - 1)) * stride : 0;
       const float* wt = w + t * cinp * ocp + og * 8;
 #pragma unroll 2
       for (int ci = 0; ci < cinp; ci += 2) {
@@ -176,16 +180,16 @@ __device__ __forceinline__ void conv(const T* in, int stride, int cinp,
 }
 
 
-template <typename T, int TH>
+template <typename T, int TH, int TW>
 __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
-  constexpr int SH = TH + 2 * kHalo;
+  constexpr int SH = TH + 2 * kHalo, kSW = TW + 2 * kHalo;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ca = reinterpret_cast<T*>(smem);
   T* cb = reinterpret_cast<T*>(smem + p.a_bytes);
 
   const int C = p.C, RS = p.rs, XS = p.xs, H = p.H, W = p.W;
   const int b = blockIdx.z;
-  const int r0 = blockIdx.y * TH - kHalo, c0 = blockIdx.x * kTW - kHalo;
+  const int r0 = blockIdx.y * TH - kHalo, c0 = blockIdx.x * TW - kHalo;
   auto inside = [=](int R, int Cc) {
     return (unsigned)(r0 + R) < (unsigned)H && (unsigned)(c0 + Cc) < (unsigned)W;
   };
@@ -207,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
   __syncthreads();
 
   // b1 (1x1, level 0): r1 -> A
-  conv<T, TH, 1>(cb, XS, p.cinp, p.wp + p.woff[0], C, 0,
+  conv<T, TH, TW, 1>(cb, XS, p.cinp, p.wp + p.woff[0], C, 0,
                  [&](int R, int Cc, int oc, float acc) {
     ca[(R * kSW + Cc) * RS + oc] = inside(R, Cc) ? from_f<T>(acc + bias[oc]) : zero;
   });
@@ -221,11 +225,11 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
     const float* ba = bias + (1 + 2 * k) * C;
     const float* bb = ba + C;
     __syncthreads();
-    conv<T, TH, 3>(ca, RS, C, wa, C, lv, [&](int R, int Cc, int oc, float acc) {
+    conv<T, TH, TW, 3>(ca, RS, C, wa, C, lv, [&](int R, int Cc, int oc, float acc) {
       cb[(R * kSW + Cc) * RS + oc] = from_f<T>(elu(acc + ba[oc]));
     });
     __syncthreads();
-    conv<T, TH, 1>(cb, RS, C, wb, C, lv, [&](int R, int Cc, int oc, float acc) {
+    conv<T, TH, TW, 1>(cb, RS, C, wb, C, lv, [&](int R, int Cc, int oc, float acc) {
       const int i = (R * kSW + Cc) * RS + oc;
       const float v = acc + bb[oc] + to_f(ca[i]);
       ca[i] = inside(R, Cc) ? from_f<T>(elu(v)) : zero;
@@ -236,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
   __syncthreads();
   const int nout = p.nout;
   const float* b7 = bias + 7 * C;
-  conv<T, TH, 3>(ca, RS, C, p.wp + p.woff[7], p.ocp7, kHalo,
+  conv<T, TH, TW, 3>(ca, RS, C, p.wp + p.woff[7], p.ocp7, kHalo,
                  [&](int R, int Cc, int oc, float acc) {
     if (oc >= nout || !inside(R, Cc)) return;
     const int64_t o = (((int64_t)b * nout + oc) * H + r0 + R) * W + c0 + Cc;
@@ -246,19 +250,32 @@ __global__ void __launch_bounds__(kThreads, 1) btower_kernel(const Params p) {
 
 int align16(int n) { return (n + 15) & ~15; }
 
-template <typename T, int TH>
+constexpr int kTooWide = -1;   // the canvases of this tile exceed shared memory
+
+template <typename T, int TH, int TW>
 int launch(Params p, int b, cudaStream_t stream) {
-  const int pix = (TH + 2 * kHalo) * kSW;
+  const int pix = (TH + 2 * kHalo) * (TW + 2 * kHalo);
   const int esz = (int)sizeof(T);
   p.a_bytes = align16(pix * p.rs * esz);
-  const int smem = p.a_bytes + align16(pix * (p.rs > p.xs ? p.rs : p.xs) * esz);
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const int64_t smem =
+      p.a_bytes + (int64_t)align16(pix * (p.rs > p.xs ? p.rs : p.xs) * esz);
+  if (smem > kSmemMax) return kTooWide;
   cudaError_t err = cudaFuncSetAttribute(
-      btower_kernel<T, TH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      btower_kernel<T, TH, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.W + kTW - 1) / kTW, (p.H + TH - 1) / TH, b);
-  btower_kernel<T, TH><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.W + TW - 1) / TW, (p.H + TH - 1) / TH, b);
+  btower_kernel<T, TH, TW><<<grid, kThreads, (int)smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The largest tile whose canvases fit.
+template <typename T, int TH, int TW, int TH2, int TW2, int TH3, int TW3>
+int launch_fitting(const Params& p, int b, cudaStream_t stream) {
+  int rc = launch<T, TH, TW>(p, b, stream);
+  if (rc == kTooWide) rc = launch<T, TH2, TW2>(p, b, stream);
+  if (rc == kTooWide) rc = launch<T, TH3, TW3>(p, b, stream);
+  return rc;
 }
 
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
@@ -269,11 +286,12 @@ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 // 1 = bfloat16 (the canvas type);
 // wp: the weight pack of ops/btower.pack_float_tower in the CUDA-core layout
 // (f32 [tap][Cin][Cout], 16-byte aligned), bias: its (7 * c + nout) f32
-// biases.  c % 8 == 0; the canvases must fit in shared memory (c <= 64).
+// biases, both for the width padded to a multiple of 8.  Returns -1 for a
+// width whose canvases exceed shared memory at the smallest tile.
 extern "C" int cwfa_btower(const void* x, const void* wp, const void* bias,
                            void* out, int b, int h, int w, int cin, int c,
                            int nout, int dtype, int device, void* stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || nout <= 0 || c <= 0 || c % 8 ||
+  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || nout <= 0 || c <= 0 ||
       dtype < 0 || dtype > 1 || b > 65535 ||
       reinterpret_cast<uintptr_t>(wp) % 16)
     return (int)cudaErrorInvalidValue;
@@ -287,6 +305,7 @@ extern "C" int cwfa_btower(const void* x, const void* wp, const void* bias,
   p.H = h;
   p.W = w;
   p.cin = cin;
+  c = round_up(c, 8);
   p.C = c;
   p.nout = nout;
   p.a_bytes = 0;
@@ -304,5 +323,6 @@ extern "C" int cwfa_btower(const void* x, const void* wp, const void* bias,
     off += taps[i] * (i == 0 ? p.cinp : c) * (i == 7 ? p.ocp7 : c);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch<__nv_bfloat16, 16>(p, b, s) : launch<float, 8>(p, b, s);
+  return dtype ? launch_fitting<__nv_bfloat16, 16, 16, 8, 8, 4, 4>(p, b, s)
+               : launch_fitting<float, 8, 16, 4, 8, 2, 4>(p, b, s);
 }

@@ -13,13 +13,46 @@
 // The plain PyTorch version is cond_pair_reference in
 // cwfa_tpu_torch/ops/cond_pair.py.
 //
-// Bound: f32 FMAs on the CUDA cores.  Each output voxel needs 27*K + K*27
-// multiply-adds (1,728 at K = 32, ~3.5 kFLOP) against ~4 bytes of x and z
-// moved in bf16, so the pair is far above the card's ~20 f32 FLOP per byte
-// of device memory.  The TPU kernel's lane packing (depth % 4, slabs,
-// pre-shifted canvases, block-placed weights) is not carried over.
+// Bound: multiply-adds.  Each output voxel needs 27*K + K*27 of them (1,728
+// at K = 32, ~3.5 kFLOP) against ~4 bytes of x and z moved in bf16, so the
+// pair is far above the card's ~20 f32 FLOP per byte of device memory.  The
+// TPU kernel's lane packing (depth % 4, slabs, pre-shifted canvases,
+// block-placed weights) is not carried over.
 //
-// Design (a simple first version):
+// Two instances.  bf16 with K = 32 runs both convs on the tensor cores
+// (cond_pair_tc_kernel, below); f32, and bf16 with any other K, run on the
+// CUDA cores (cond_pair_kernel).
+//
+// Design of the tensor-core instance:
+//   - Both convs are products with K = 32 on one side.  conv_a is
+//     (positions x 27 taps, padded to 32) . (32 x K): its A operand is the
+//     3x3x3 neighbourhood of x, an im2col that exists only in registers (a
+//     thread gathers its 16 values of a 16-position tile from the x window in
+//     shared memory).  conv_b is (positions x K) . (K x 27 taps, padded to
+//     32): every y position's contribution to each of its 27 neighbours,
+//     f32; z is then the shift-and-add of those 27 planes on the CUDA cores,
+//     27 adds per voxel in place of 864 FMAs.
+//   - mma.sync (m16n8k16 bf16, f32 sums), not wgmma: the products are a few
+//     percent of the work, which is in gathering conv_a's operand and in the
+//     shift-and-add, so the tensor cores' rate does not matter; a warp walks
+//     16-position tiles of a (8+2) x (32+2) y plane on its own (340
+//     positions: 22 tiles of 16 where 64-row tiles would compute 384), both
+//     weight matrices stay in registers as B fragments for the whole kernel,
+//     and conv_a's sums, after bias, PReLU and the rounding to bf16 that the
+//     contract asks for, are conv_b's A fragments as they sit: y never
+//     leaves the registers, let alone reaches device memory.
+//   - One block of 256 threads per (batch, depth chunk, 8 x 32 H x W tile).
+//     x with its 2-voxel halo is staged once as bf16.  For each y depth
+//     plane the warps write the 27 contribution planes to shared memory;
+//     after a barrier every thread adds the 9 values of each depth tap to
+//     the z sums of its own (h, w) column: three rolling sums, the plane's
+//     depth tap dd feeding z at depth (plane - dd + 1).  The order of the
+//     f32 adds is fixed, so the result does not change from run to run.  y
+//     planes outside the volume are zero and are skipped.
+//   - Products of bf16 values are exact in f32; only the order of the f32
+//     sums differs from the plain version (its bound: 2^-7 max|ref|).
+//
+// Design of the CUDA-core instance:
 //   - One block of 256 threads per (batch, depth chunk of TD, 8x32 H x W
 //     tile).  x with its 2-voxel halo, (TD+4) x 12 x 36, is staged once
 //     into shared memory as f32, zero outside the volume.
@@ -183,6 +216,210 @@ __global__ void __launch_bounds__(kThreads) cond_pair_kernel(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core instance: bf16, K = 32
+// ---------------------------------------------------------------------------
+
+constexpr int kK = 32;                  // the instance's K
+constexpr int kYTiles = (kYCols + 15) / 16;
+constexpr int kPStride = 356;           // floats per contribution plane:
+                                        // >= 16 kYTiles and 4 (mod 32), so a
+                                        // warp's stores hit 32 banks
+constexpr int kMaxTD = 48;              // depths per block
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// p.nchunks depth chunks of td depths each.
+__global__ void __launch_bounds__(kThreads, 2)
+cond_pair_tc_kernel(const Params p, int td) {
+  extern __shared__ __align__(16) float smem[];
+  float* pbuf = smem;                                        // (27, kPStride)
+  uint16_t* xs = reinterpret_cast<uint16_t*>(pbuf + 27 * kPStride);
+                                                             // (td+4, kXH, kXW)
+  const int D = p.D, H = p.H, W = p.W;
+  const int b = blockIdx.z / p.nchunks;
+  const int d0 = (blockIdx.z % p.nchunks) * td;
+  const int h0 = blockIdx.y * kTH, w0 = blockIdx.x * kTW;
+  const uint16_t* x = static_cast<const uint16_t*>(p.x) + (int64_t)b * D * H * W;
+
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) {
+    const int dz = i / kXCols, rc = i % kXCols;
+    const int d = d0 - 2 + dz, h = h0 - 2 + rc / kXW, w = w0 - 2 + rc % kXW;
+    uint16_t v = 0;
+    if (d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W)
+      v = x[((int64_t)d * H + h) * W + w];
+    xs[i] = v;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  // Both weight matrices as B fragments (k = 16 ks + 8 r + 2 q, + 1 in the
+  // two halves of register r; n = 8 nt + g): conv_a's is [tap][channel],
+  // conv_b's [channel][tap], the taps beyond 27 zero.
+  const uint16_t* gwa = static_cast<const uint16_t*>(p.wa);
+  const uint16_t* gwb = static_cast<const uint16_t*>(p.wb);
+  uint32_t fa[2][4][2], fb[2][4][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k0 = 16 * ks + 8 * r + 2 * q, n = 8 * nt + g;
+        const uint32_t a_lo = k0 < 27 ? gwa[n * 27 + k0] : 0;
+        const uint32_t a_hi = k0 + 1 < 27 ? gwa[n * 27 + k0 + 1] : 0;
+        fa[ks][nt][r] = a_lo | (a_hi << 16);
+        const uint32_t b_lo = n < 27 ? gwb[k0 * 27 + n] : 0;
+        const uint32_t b_hi = n < 27 ? gwb[(k0 + 1) * 27 + n] : 0;
+        fb[ks][nt][r] = b_lo | (b_hi << 16);
+      }
+  const __nv_bfloat16* gba = static_cast<const __nv_bfloat16*>(p.ba);
+  float bias_a[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    bias_a[nt][0] = __bfloat162float(gba[8 * nt + 2 * q]);
+    bias_a[nt][1] = __bfloat162float(gba[8 * nt + 2 * q + 1]);
+  }
+  const float alpha = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.alpha));
+  const float bias_b = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.bb));
+  // offsets in the x window of this thread's taps of conv_a's A fragments
+  // (tap t = 9 dh + 3 dw + dd; -1: one of the 5 that pad 27 to 32)
+  int aoff[2][2][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = 16 * ks + 8 * r + 2 * q + e;
+        aoff[ks][r][e] = t < 27 ? (t % 3) * kXCols + (t / 9) * kXW + (t / 3) % 3 : -1;
+      }
+
+  const int zr = threadIdx.x / kTW, zc = threadIdx.x % kTW;
+  const int zh = h0 + zr, zw = w0 + zc;
+  uint16_t* z = static_cast<uint16_t*>(p.z) + (int64_t)b * D * H * W;
+  float z2 = 0.f, z1 = 0.f, z0 = 0.f;   // z at depths plane - 1, plane, plane + 1
+
+  __syncthreads();
+  for (int j = 0; j < td + 2; ++j) {
+    const int dj = d0 - 1 + j;          // this y plane's depth
+    const bool live = dj >= 0 && dj < D;
+    if (live) {
+      for (int tile = warp; tile < kYTiles; tile += kThreads / 32) {
+        int base[2];
+        bool in[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = 16 * tile + g + 8 * h;
+          const int r = pos < kYCols ? pos / kYW : 0, c = pos < kYCols ? pos % kYW : 0;
+          base[h] = j * kXCols + r * kXW + c;
+          const int yh = h0 - 1 + r, yw = w0 - 1 + c;
+          in[h] = pos < kYCols && yh >= 0 && yh < H && yw >= 0 && yw < W;
+        }
+        // conv_a: the im2col fragments, gathered from the x window
+        uint32_t a[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t lo = aoff[ks][r][0] >= 0 ? xs[base[h] + aoff[ks][r][0]] : 0;
+              const uint32_t hi = aoff[ks][r][1] >= 0 ? xs[base[h] + aoff[ks][r][1]] : 0;
+              a[ks][2 * r + h] = lo | (hi << 16);
+            }
+        float y[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) y[nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) mma_bf16(y[nt], a[ks], fa[ks][nt][0], fa[ks][nt][1]);
+        }
+        // bias, PReLU, round to bf16, zero outside the volume: conv_a's sums
+        // of the channel tiles 2 ks, 2 ks + 1 are conv_b's A fragment ks
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = y[nt][2 * h] + bias_a[nt][0], v1 = y[nt][2 * h + 1] + bias_a[nt][1];
+            v0 = v0 > 0.f ? v0 : alpha * v0;
+            v1 = v1 > 0.f ? v1 : alpha * v1;
+            a[nt >> 1][2 * (nt & 1) + h] = in[h] ? pack2(v0, v1) : 0u;
+          }
+        // conv_b: every position's contribution to its 27 neighbours
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) y[nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) mma_bf16(y[nt], a[ks], fb[ks][nt][0], fb[ks][nt][1]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * nt + 2 * q + e;
+            if (t < 27) {
+              pbuf[t * kPStride + 16 * tile + g] = y[nt][e];
+              pbuf[t * kPStride + 16 * tile + g + 8] = y[nt][2 + e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      // y at depth dj reaches z at depth dj - dd + 1 through depth tap dd
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw) {
+          const float* c = pbuf + (9 * dh + 3 * dw) * kPStride + (zr + dh) * kYW + zc + dw;
+          z0 += c[0];
+          z1 += c[kPStride];
+          z2 += c[2 * kPStride];
+        }
+    }
+    const int dzo = dj - 1;             // z2 is complete
+    if (j >= 2 && dzo < D && zh < H && zw < W) {
+      const __nv_bfloat16 v = __float2bfloat16_rn(z2 + bias_b);
+      z[((int64_t)dzo * H + zh) * W + zw] = *reinterpret_cast<const uint16_t*>(&v);
+    }
+    z2 = z1;
+    z1 = z0;
+    z0 = 0.f;
+    __syncthreads();
+  }
+}
+
+int launch_tc(const Params& p0, int b, cudaStream_t stream) {
+  Params p = p0;
+  p.nchunks = (p.D + kMaxTD - 1) / kMaxTD;
+  const int td = (p.D + p.nchunks - 1) / p.nchunks;
+  const int smem = 27 * kPStride * 4 + (td + 4) * kXCols * 2;
+  if ((int64_t)b * p.nchunks > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cond_pair_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.W + kTW - 1) / kTW, (p.H + kTH - 1) / kTH, b * p.nchunks);
+  cond_pair_tc_kernel<<<grid, kThreads, smem, stream>>>(p, td);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the CUDA-core instance
+// ---------------------------------------------------------------------------
+
 template <typename T, int TD>
 int launch(const Params& p0, int b, cudaStream_t stream) {
   Params p = p0;
@@ -214,12 +451,15 @@ int dispatch(const Params& p, int b, cudaStream_t stream) {
 
 // x, z: (B, D, H, W); wa (K, 1, 3, 3, 3), ba (K), wb (1, K, 3, 3, 3), bb (1),
 // alpha (1), all contiguous and of x's type: dtype 0 = float32,
-// 1 = bfloat16.
+// 1 = bfloat16.  tensor_cores 1: the tensor-core instance (bfloat16 and
+// k = 32 only), 0: the CUDA-core instance.
 extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
                               const void* wb, const void* bb, const void* alpha,
                               void* z, int b, int d, int h, int w, int k,
-                              int dtype, int device, void* stream) {
-  if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1)
+                              int dtype, int tensor_cores, int device,
+                              void* stream) {
+  if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1 ||
+      (tensor_cores && (dtype != 1 || k != kK)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -237,5 +477,6 @@ extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
   p.K = k;
   p.nchunks = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) return launch_tc(p, b, s);
   return dtype ? dispatch<__nv_bfloat16>(p, b, s) : dispatch<float>(p, b, s);
 }

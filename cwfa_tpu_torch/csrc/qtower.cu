@@ -1,8 +1,10 @@
-// The int8 subnet tower of the CWF coupling blocks, for Hopper (sm_90a).
+// The int8 subnet tower of the CWF coupling blocks on the CUDA cores of
+// Hopper (sm_90a), with __dp4a: the instance for every tower width that
+// csrc/qtower_wg.cu (64 wide, on the warpgroup tensor cores) does not take.
 //
 // Replaces the Pallas TPU kernel cwfa_tpu/ops/qtower.py:454
-// (fused_pair_tower), one 64-wide tower per launch instead of a paired
-// 128-wide one:
+// (fused_pair_tower), one tower per launch instead of a paired 128-wide
+// one:
 //
 //   r1  = b1(x)                          1x1, Cin -> C
 //   e2  = elu(b2b(elu(b2a(r1))) + r1)    3x3, 1x1, residual
@@ -24,7 +26,7 @@
 // byte of device memory, so the kernel is bound by its multiply-add rate and
 // by the shared-memory traffic that feeds it, not by device memory.
 //
-// Design (a simple first version; mma.sync/wgmma and TMA come later):
+// Design:
 //   - One block per (batch, 16x16 output tile).  The int8 input window with
 //     its 4-pixel halo (24x24) is staged into shared memory; the layers then
 //     run on shrinking canvases (24 -> 22 -> 20 -> 18 -> 16) that keep one
@@ -47,6 +49,12 @@
 //   - Epilogues use __fmul_rn/__fadd_rn (never contracted to FMAs), expf and
 //     rintf, without --use_fast_math: each result is re-quantized, and an FMA
 //     where the plain version rounds twice would flip int8 levels.
+//   - Any tower width: the caller pads the width to a multiple of 8 (zero
+//     weights, scales and biases: the padded channels stay 0), the canvases
+//     are sized by the width, and a width whose canvases do not fit in shared
+//     memory takes a smaller tile (8x8, then 4x4: up to 400 wide).  Where the
+//     largest conv's weights do not fit beside the canvases (above 72 wide)
+//     the convs read them from device memory instead of staging them.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, returns cudaGetLastError().
@@ -57,9 +65,7 @@
 
 namespace {
 
-constexpr int kT = 16;              // output tile side
 constexpr int kHalo = 4;            // total 3x3 halo of the four 3x3 convs
-constexpr int kS = kT + 2 * kHalo;  // canvas side
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kNP = 4;              // positions per lane per work item
@@ -100,10 +106,11 @@ __device__ __forceinline__ void stage(int* dst, const int8_t* src, int bytes) {
 
 // A K x K conv (K = 1 or 3) from the int8 canvas `in` (stride bytes per
 // position, ci4 words of 4 channels) into the outputs at canvas level
-// `level` (positions [level, kS - level)^2 of the fixed geometry), with the
-// weights `w` in shared memory, ocp output channels (a multiple of 8).
+// `level` (positions [level, kS - level)^2 of the fixed geometry of side
+// kS), with the weights `w` (in shared memory, or in device memory where
+// they were not staged), ocp output channels (a multiple of 8).
 // epi(R, Cc, oc, acc) consumes each int32 sum.
-template <int K, typename Epi>
+template <int K, int kS, typename Epi>
 __device__ __forceinline__ void conv(const int8_t* in, int stride, int ci4,
                                      const int* w, int ocp, int level, Epi epi) {
   const int n = kS - 2 * level;
@@ -152,7 +159,11 @@ __device__ __forceinline__ void conv(const int8_t* in, int stride, int ci4,
   }
 }
 
+// kT: the output tile's side; STAGED: each conv's weights are copied to
+// shared memory before its products.
+template <int kT, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1) qtower_kernel(const Params p) {
+  constexpr int kS = kT + 2 * kHalo;   // canvas side
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* res = reinterpret_cast<__nv_bfloat16*>(smem);
   int8_t* qa = reinterpret_cast<int8_t*>(smem + p.res_bytes);
@@ -181,11 +192,18 @@ __global__ void __launch_bounds__(kThreads, 1) qtower_kernel(const Params p) {
       v = p.x[(((int64_t)b * p.cin + ch) * H + r0 + R) * W + c0 + Cc];
     qb[pix * XS + ch] = v;
   }
-  stage(wbuf, p.w[0], p.cin4 * C * 4);
-  __syncthreads();
+  // conv i's weights, after a barrier that ends the conv before it
+  auto weights = [&](int i, int bytes) -> const int* {
+    __syncthreads();
+    if (!STAGED) return reinterpret_cast<const int*>(p.w[i]);
+    stage(wbuf, p.w[i], bytes);
+    __syncthreads();
+    return wbuf;
+  };
 
   // b1 (1x1, level 0): r1 -> bf16 residual canvas, q1 -> qa
-  conv<1>(qb, XS, p.cin4, wbuf, C, 0, [&](int R, int Cc, int oc, int acc) {
+  const int* w1 = weights(0, p.cin4 * C * 4);
+  conv<1, kS>(qb, XS, p.cin4, w1, C, 0, [&](int R, int Cc, int oc, int acc) {
     const int pix = R * kS + Cc;
     const __nv_bfloat16 r = __float2bfloat16_rn(deq(acc, sw[oc], bias[oc]));
     res[pix * RS + oc] = r;
@@ -197,19 +215,15 @@ __global__ void __launch_bounds__(kThreads, 1) qtower_kernel(const Params p) {
   for (int k = 0; k < 3; ++k) {
     const int lv = k + 1;
     const int ka = 1 + 2 * k, kb = 2 + 2 * k;  // sw/bias rows of bXa, bXb
-    __syncthreads();
-    stage(wbuf, p.w[ka], 9 * c4 * C * 4);
-    __syncthreads();
-    conv<3>(qa, QS, c4, wbuf, C, lv, [&](int R, int Cc, int oc, int acc) {
+    const int* wa = weights(ka, 9 * c4 * C * 4);
+    conv<3, kS>(qa, QS, c4, wa, C, lv, [&](int R, int Cc, int oc, int acc) {
       const float v = elu(deq(acc, sw[ka * C + oc], bias[ka * C + oc]));
       qb[(R * kS + Cc) * QS + oc] =
           inside(R, Cc) ? quant(v, inv[(ka + 1) * C + oc]) : 0;
     });
-    __syncthreads();
-    stage(wbuf, p.w[kb], c4 * C * 4);
-    __syncthreads();
+    const int* wb = weights(kb, c4 * C * 4);
     const bool last = k == 2;
-    conv<1>(qb, QS, c4, wbuf, C, lv, [&](int R, int Cc, int oc, int acc) {
+    conv<1, kS>(qb, QS, c4, wb, C, lv, [&](int R, int Cc, int oc, int acc) {
       const int pix = R * kS + Cc;
       const float v = __fadd_rn(deq(acc, sw[kb * C + oc], bias[kb * C + oc]),
                                 __bfloat162float(res[pix * RS + oc]));
@@ -224,11 +238,9 @@ __global__ void __launch_bounds__(kThreads, 1) qtower_kernel(const Params p) {
   }
 
   // b7 (3x3, level 4): the (s_raw|t) output, NCHW
-  __syncthreads();
-  stage(wbuf, p.w[7], 9 * c4 * p.nout8 * 4);
-  __syncthreads();
+  const int* w7 = weights(7, 9 * c4 * p.nout8 * 4);
   const int nout = p.nout;
-  conv<3>(qa, QS, c4, wbuf, p.nout8, 4, [&](int R, int Cc, int oc, int acc) {
+  conv<3, kS>(qa, QS, c4, w7, p.nout8, 4, [&](int R, int Cc, int oc, int acc) {
     if (oc >= nout || !inside(R, Cc)) return;
     const float v = deq(acc, p.sw7[oc], p.bias7[oc]);
     const int64_t o = (((int64_t)b * nout + oc) * H + r0 + R) * W + c0 + Cc;
@@ -241,12 +253,37 @@ __global__ void __launch_bounds__(kThreads, 1) qtower_kernel(const Params p) {
 
 int align16(int n) { return (n + 15) & ~15; }
 
+constexpr int kTooWide = -1;   // the canvases of this tile exceed shared memory
+
+// Launches with a kT x kT tile if its canvases fit, staging the weights if
+// the largest conv's (wmax bytes) fit beside them.
+template <int kT>
+int launch(Params p, int wmax, int b, cudaStream_t stream) {
+  constexpr int kS = kT + 2 * kHalo;
+  const int pix = kS * kS;
+  p.res_bytes = align16(pix * p.res_stride * 2);
+  p.qa_bytes = align16(pix * p.q_stride);
+  p.qb_bytes = align16(pix * (p.q_stride > p.x_stride ? p.q_stride : p.x_stride));
+  const int canvases = p.res_bytes + p.qa_bytes + p.qb_bytes;
+  if (canvases > kSmemMax) return kTooWide;
+  const bool staged = canvases + wmax <= kSmemMax;
+  const int smem = canvases + (staged ? wmax : 0);
+  auto kernel = staged ? qtower_kernel<kT, true> : qtower_kernel<kT, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.W + kT - 1) / kT, (p.H + kT - 1) / kT, b);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (B, cin, H, W) int8; w*: the eight convs' weights in the dp4a layout;
 // inv (8, C), sw (7, C), bias (7, C), sw7 (nout), bias7 (nout) f32;
 // out (B, nout, H, W), out_dtype 0 = float32, 1 = bfloat16.
-// C % 8 == 0 and C <= 64.
+// c % 8 == 0 (the caller pads).  Returns -1 for a width whose canvases exceed
+// shared memory at the smallest tile.
 extern "C" int cwfa_qtower(const void* x, const void* w1, const void* w2a,
                            const void* w2b, const void* w4a, const void* w4b,
                            const void* w6a, const void* w6b, const void* w7,
@@ -255,7 +292,7 @@ extern "C" int cwfa_qtower(const void* x, const void* w1, const void* w2a,
                            int h, int w, int cin, int c, int nout, int out_dtype,
                            int device, void* stream) {
   if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || nout <= 0 || c <= 0 || c % 8 ||
-      c > 64 || out_dtype < 0 || out_dtype > 1)
+      out_dtype < 0 || out_dtype > 1 || b > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -284,20 +321,13 @@ extern "C" int cwfa_qtower(const void* x, const void* w1, const void* w2a,
   p.res_stride = c + 2;
   p.q_stride = c + 4;
   p.x_stride = p.cin4 * 4 + ((p.cin4 % 2) ? 0 : 4);
-  const int pix = kS * kS;
-  p.res_bytes = align16(pix * p.res_stride * 2);
-  p.qa_bytes = align16(pix * p.q_stride);
-  p.qb_bytes = align16(pix * (p.q_stride > p.x_stride ? p.q_stride : p.x_stride));
   int wmax = p.cin4 * c * 4;
   const int w33 = 9 * (c / 4) * c * 4, w7b = 9 * (c / 4) * p.nout8 * 4;
   wmax = wmax > w33 ? wmax : w33;
   wmax = wmax > w7b ? wmax : w7b;
-  const int smem = p.res_bytes + p.qa_bytes + p.qb_bytes + wmax;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(qtower_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + kT - 1) / kT, (h + kT - 1) / kT, b);
-  qtower_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = launch<16>(p, wmax, b, s);
+  if (rc == kTooWide) rc = launch<8>(p, wmax, b, s);
+  if (rc == kTooWide) rc = launch<4>(p, wmax, b, s);
+  return rc;
 }

@@ -16,7 +16,8 @@ both sides and a transposed conv's is (I, O, kH, kW) on both sides, so
 nothing is transposed.
 
 ``load_jax_int8_packs`` carries the JAX package's int8 packs across: the
-paired 128-wide tower packs are split into the port's 64-wide tower packs,
+paired 128-wide tower packs are split into the port's 64-wide tower packs
+(in the layouts of the port's own kernels, ``ops/qtower.pack_convs``),
 and the UNet's packs are keyed by the same site tuples.
 """
 
@@ -27,7 +28,7 @@ import torch
 from torch import nn
 
 from cwfa_tpu_torch.models.unet import unet_site_conv
-from cwfa_tpu_torch.ops.qtower import pack_weight
+from cwfa_tpu_torch.ops.qtower import pack_convs
 
 _PARAM_LEAF = {"w": "weight", "b": "bias", "alpha": "weight",
                "scale": "weight", "bias": "bias"}
@@ -125,14 +126,15 @@ def split_jax_tower_pair(pair: dict, cin: int, what: str = "pair"):
         ch = slice(h * c, (h + 1) * c)
         oh = slice(h * nout, (h + 1) * nout)
         other = slice((1 - h) * c, (2 - h) * c)
-        qwt = {"w1": pack_weight(oihw(t["w1"][:cin, ch]))}
+        convs = {"w1": oihw(t["w1"][:cin, ch])}
         for name in names[1:]:
             w = t[name]
             cols = oh if name == "w7" else ch
             if bool(w[..., other, cols].any()):
                 raise ValueError(f"{what} {name}: off-diagonal block is not "
                                  "zero")
-            qwt[name] = pack_weight(oihw(w[..., ch, cols]))
+            convs[name] = oihw(w[..., ch, cols])
+        qwt = pack_convs(convs)
         qwt["sw"] = t["sw"][:, ch].float().contiguous()
         qwt["bias"] = t["bias"][:, ch].float().contiguous()
         qwt["sw7"] = t["sw7"][oh].float().contiguous()

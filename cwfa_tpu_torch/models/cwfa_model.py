@@ -6,10 +6,13 @@ Structure for the default config (n_depths=96, 5 pyramid steps):
   cond nets k=0..3 mapping the views -> 96/2^{k+1} channels,
   LRNN producing the coarsest 6-depth volume from views + mean-volume prior.
 
-Two paths are ported, both without gradients.  Deterministic inference:
-``reconstruct`` at temperature 0, one sample, through the CUDA flow kernels
-(the JAX ``fast=True`` path), optionally with the int8 UNet (``unet_q``) and
-int8 coupling towers (``qpacks``); any other flag raises.  Exact likelihood:
+Two paths are ported, both without gradients.  Reconstruction:
+``reconstruct`` through the CUDA flow kernels (the JAX ``fast=True`` path),
+deterministic (temperature 0, the LRNN in eval mode, optionally with the
+int8 UNet ``unet_q`` and int8 coupling towers ``qpacks``) or stochastic (z
+sampled at a temperature, the mean over ``n_samples``, the LRNN in train
+mode), every draw from one ``torch.Generator``; ``fast=False`` raises.
+Exact likelihood:
 ``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in the
 normalizing direction, per-frame NLLs) and ``make_mean_caches``.
 """
@@ -197,7 +200,8 @@ class CWFAModel(nn.Module):
 
     @torch.inference_mode()
     def reconstruct(self, cond_input, mean_caches, *,
-                    z_temperature: float = 0.0, n_samples: int = 1,
+                    z_temperature: float = 0.0, generator=None,
+                    lrnn_train: bool | None = None, n_samples: int = 1,
                     fast: bool = True, lrnn_mean_branch=None, unet_q=None,
                     qpacks=None):
         """Full generative chain (CWFA.py:865-927): LRNN at the coarsest
@@ -207,23 +211,57 @@ class CWFAModel(nn.Module):
         mean_caches: per-level mean-volume difference caches, (1 or B, C_k,
           H, W); entry k is the flow condition at step k and entry
           [n_flow-1] feeds the LRNN (reference CWFA.py:882).
+        z_temperature: 0 gives z = 0; above 0 every step's z is one draw of
+          ``sample_z_truncated`` from ``generator``.
+        generator: the ``torch.Generator`` of every random draw, in the
+          order of ``cwfa_model.py:246-317``: the LRNN's (its UNet's
+          dropouts, then the two ``drop_path`` of its mean branch), then one
+          z per step, coarsest first.  None: nothing is drawn.
+        lrnn_train: the LRNN in train mode (BatchNorm on batch statistics,
+          dropout where there is a generator); the reference keeps it so at
+          evaluation (CWFA.py:531-532).  Default: whether there is a
+          generator.  The cond nets and the flow stay in eval mode.
+        n_samples: above 1 every step reverses n_samples z for each frame
+          and hands the mean over them down (``cwfa_model.py:320-330``).
         lrnn_mean_branch: optional precomputed LRNN mean-branch output.
-        unet_q: optional int8 UNet pack (``quantize_unet_pack``).
+        unet_q: optional int8 UNet pack (``quantize_unet_pack``); unused
+          when the LRNN is in train mode.
         qpacks: optional per-step int8 tower packs (``quantize_steps``).
         """
-        if z_temperature != 0 or n_samples != 1 or not fast:
-            raise NotImplementedError(
-                "only z_temperature=0, n_samples=1, fast=True are ported")
+        if not fast:
+            raise NotImplementedError("fast=False is not ported")
+        if z_temperature != 0 and generator is None:
+            raise ValueError("z_temperature > 0 needs a generator")
+        if lrnn_train is None:
+            lrnn_train = generator is not None
         nf = self.n_flow_steps
         b = cond_input.shape[0]
-        up = self.lrnn(cond_input, mean_vol=mean_caches[nf - 1],
-                       mean_branch=lrnn_mean_branch, unet_q=unet_q)
+        mean_vol = mean_caches[nf - 1]
+        if lrnn_train:
+            # as JAX broadcasts the caches at entry: drop_path draws per frame
+            mean_vol = mean_vol.expand((b,) + tuple(mean_vol.shape[1:]))
+        up = self.lrnn(cond_input, mean_vol=mean_vol,
+                       mean_branch=lrnn_mean_branch, unet_q=unet_q,
+                       train=lrnn_train, generator=generator)
         c_views_all = cond_networks_batched(self.cond, cond_input)
         for k in range(nf - 1, -1, -1):
             spec = self.step_specs[k]
-            z = torch.zeros((b, spec.c_flow, spec.spatial, spec.spatial),
-                            dtype=up.dtype, device=up.device)
-            up = self.flow[k].reverse_fast(
-                z, up, c_views_all[k], mean_caches[k],
+            zshape = (b * n_samples, spec.c_flow, spec.spatial, spec.spatial)
+            if z_temperature == 0:
+                z = torch.zeros(zshape, dtype=up.dtype, device=up.device)
+            else:
+                z = sample_z_truncated(generator, zshape, z_temperature).to(
+                    device=up.device, dtype=up.dtype)
+            c_views, c_mean = c_views_all[k], mean_caches[k]
+            if n_samples > 1:
+                tile = (n_samples, 1, 1, 1)
+                up, c_views = up.repeat(tile), c_views.repeat(tile)
+                if c_mean.shape[0] != 1:
+                    c_mean = c_mean.repeat(tile)
+            v = self.flow[k].reverse_fast(
+                z, up, c_views, c_mean,
                 qpack=None if qpacks is None else qpacks[k])
+            if n_samples > 1:
+                v = v.reshape((n_samples, b) + tuple(v.shape[1:])).mean(0)
+            up = v
         return up

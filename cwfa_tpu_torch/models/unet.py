@@ -1,15 +1,20 @@
 """Padding U-Net with additive skips (counterpart of
-``cwfa_tpu/models/unet.py:27-268``, reference unet.py:9-195), eval mode.
+``cwfa_tpu/models/unet.py:27-268``, reference unet.py:9-195), without
+gradients.
 
 - downsampling via max-pool to exactly half the size (unet.py:79);
 - up path: ConvTranspose2d(k=2, s=2) and an ADDITIVE skip (unet.py:190);
 - 'last' head = 1x1 conv + activation (unet.py:67-69);
-- per-site PReLU parameters; BatchNorm after each activation, in eval mode
-  from its running statistics.
+- per-site PReLU parameters; BatchNorm after each activation, from its
+  running statistics.
 
-Only inference is ported: a module in training mode raises (the Dropout2d
-and batch-statistics BatchNorm of training are not ported).  The activation
-is PReLU, the one the LRNN uses.
+``forward(..., train=True)`` is the train mode that reconstruction runs the
+LRNN in (``cwfa_tpu/models/cwfa_model.py:267-276``): BatchNorm on the
+batch's own statistics and Dropout2d (``spec.drop_out``) after every pool
+and every up block.  The mode is an argument, as in JAX; the running
+statistics are left as they are (updating them is training's business, and
+a module put into training mode with ``.train()`` still raises).  The
+activation is PReLU, the one the LRNN uses.
 
 The int8 path (``unet_calibrate``, ``quantize_unet``, ``unet_quantized``)
 runs every conv through the same forward with a conv hook, as the JAX
@@ -28,7 +33,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from cwfa_tpu_torch.nn import adaptive_max_pool2d_half, same_conv2d
+from cwfa_tpu_torch.nn import (adaptive_max_pool2d_half,
+                               batch_norm_batch_stats, dropout2d, same_conv2d)
 from cwfa_tpu_torch.ops.int8_conv import (
     conv2d_int8, conv_transpose2x2_int8, quantize_div)
 
@@ -42,6 +48,7 @@ class UNetSpec:
     batch_norm: bool = True
     use_bias: bool = False
     skip_conn: bool = False
+    drop_out: float = 0.0
 
 
 def _plain_conv(_site, conv, x):
@@ -58,9 +65,15 @@ class ConvBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
         self.bn2 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
 
-    def forward(self, x, conv_fn=_plain_conv, site=()):
-        y = self.bn1(self.act1(conv_fn(site + ("conv1",), self.conv1, x)))
-        return self.bn2(self.act2(conv_fn(site + ("conv2",), self.conv2, y)))
+    def forward(self, x, conv_fn=_plain_conv, site=(), train=False):
+        def norm(bn, v):
+            if train and isinstance(bn, nn.BatchNorm2d):
+                return batch_norm_batch_stats(bn, v)
+            return bn(v)
+
+        y = norm(self.bn1, self.act1(conv_fn(site + ("conv1",), self.conv1, x)))
+        return norm(self.bn2,
+                    self.act2(conv_fn(site + ("conv2",), self.conv2, y)))
 
 
 class UpBlock(nn.Module):
@@ -91,26 +104,31 @@ class UNet(nn.Module):
             "conv": same_conv2d(prev, spec.n_classes, 1, spec.use_bias),
             "act": nn.PReLU(1)})
 
-    def forward(self, x, conv_fn=_plain_conv):
+    def forward(self, x, conv_fn=_plain_conv, train=False, generator=None):
         """x: (B, C, H, W); H, W divisible by 2^(depth-1).
 
         conv_fn(site, conv_module, v): the hook every conv and transposed
-        conv goes through (the int8 path and its calibration)."""
+        conv goes through (the int8 path and its calibration).
+        train: BatchNorm on the batch's statistics, and Dropout2d drawing
+        from ``generator`` (none without one), ``unet.py:134-155``."""
         if self.training:
             raise NotImplementedError("UNet training is not ported")
+        drop = self.spec.drop_out if train else 0.0
         blocks = []
         for i, block in enumerate(self.down):
-            x = block(x, conv_fn, ("down", i))
+            x = block(x, conv_fn, ("down", i), train)
             if i != len(self.down) - 1:
                 blocks.append(x)
                 x = adaptive_max_pool2d_half(x)
+                x = dropout2d(x, drop, generator)
         for i, up_block in enumerate(self.up):
             up = conv_fn(("up", i, "upconv"), up_block.up, x)
             if self.spec.skip_conn:
                 # H, W divisible by 2^(depth-1): the reference's center
                 # crop of the bridge is the identity
                 up = up + blocks[-i - 1]
-            x = up_block.conv_block(up, conv_fn, ("up", i))
+            x = up_block.conv_block(up, conv_fn, ("up", i), train)
+            x = dropout2d(x, drop, generator)
         return self.last["act"](conv_fn(("last",), self.last["conv"], x))
 
 

@@ -8,7 +8,11 @@ parameter names.  This module adds:
   ``torch.Generator``, so a random-weight model has the reference's
   activation scales (the bits differ from JAX's);
 - the few pieces torch lacks as-is: SAME-padded convs, the LayerNorm over
-  trailing (C, S, S) computed in f32, and the half-size max-pool.
+  trailing (C, S, S) computed in f32, and the half-size max-pool;
+- the train-mode pieces that reconstruction runs (the LRNN stays in train
+  mode at inference, ``cwfa_tpu/models/cwfa_model.py:267-276``): BatchNorm
+  on the batch's own statistics, ``dropout2d`` and ``drop_path`` drawing
+  from an explicit ``torch.Generator``.
 
 A PReLU shared across sites (``cwfa_tpu/models/cond_net.py:13-18``) is one
 ``nn.PReLU(1)`` called at each site.
@@ -123,9 +127,54 @@ class LayerNormF32(nn.LayerNorm):
     (``cwfa_tpu/nn.py:333-341``)."""
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(x.dtype)
+        # written out: ``F.layer_norm`` gives each sample's normalized
+        # elements to one thread block, and a sample here is (C, S, S),
+        # 16.8 M elements at the flagship's 64 x 512 x 512
+        dims = tuple(range(x.dim() - len(self.normalized_shape), x.dim()))
+        xf = x.float()
+        var, mean = torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+def batch_norm_batch_stats(bn: nn.BatchNorm2d, x):
+    """``bn`` on the statistics of the batch ``x`` itself (f32 sums, the
+    biased variance: the train branch of ``cwfa_tpu/nn.py:302-325``), in x's
+    dtype.  The module's running statistics are neither read nor updated."""
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def dropout2d(x, rate: float, generator):
+    """Channel dropout on (B, C, ...): whole (B, C) maps are zeroed with
+    probability ``rate`` and the kept ones divided by 1 - rate
+    (``cwfa_tpu/nn.py:359-369``).  The identity when ``generator`` is None
+    or the rate 0; clean zeros at a rate of 1 or more.  The mask is drawn
+    from ``generator`` on its device."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[:2], generator=generator,
+                      device=generator.device) < keep
+    mask = mask.to(x.device).reshape(x.shape[:2] + (1,) * (x.dim() - 2))
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path(x, rate: float, generator):
+    """Stochastic depth: whole samples of the batch are zeroed with
+    probability ``rate``, the kept ones divided by 1 - rate
+    (``cwfa_tpu/nn.py:375-383``).  The identity when ``generator`` is None
+    or the rate 0; clean zeros at a rate of 1 or more."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                      generator=generator, device=generator.device) < keep
+    return (x / keep * mask.to(x.device)).to(x.dtype)
 
 
 def adaptive_max_pool2d_half(x):

@@ -19,7 +19,8 @@ The kernel has three instances (``kernel_instance``): a 64-wide tower runs
 on the warpgroup tensor cores (``wgmma``), in bf16 or, for f32, as 3xTF32
 (every f32 operand split into a TF32 high part and a remainder, three
 products, f32 sums; ``csrc/btower_wg.cu``); every other width runs on the
-CUDA cores (``csrc/btower.cu``).  Each reads the weights from a pack in its
+CUDA cores (``csrc/btower.cu``), any width whose canvases fit in shared
+memory at the smallest tile (400 wide in bf16, 240 in f32).  Each reads the weights from a pack in its
 own layout, built once per set of weights by ``pack_float_tower`` and kept
 on the module.
 """
@@ -68,6 +69,7 @@ WGMMA_BF16, WGMMA_3XTF32, CUDA_CORES = "wgmma bf16", "wgmma 3xTF32", "CUDA cores
 WGMMA_WIDTH = 64                       # the tower width of the wgmma instances
 WGMMA_NOUT = (16, 32, 48, 64, 96)      # b7 widths they are built for
 TF32_CHUNK = 32                        # input channels per weight slice, 3xTF32
+TOO_WIDE = -1                          # csrc/btower.cu: no tile fits the width
 # a 1x1 that follows a 3x3 in registers reads its input channels in the
 # order the 3x3's sums sit in a thread: slot s of 8 is channel _SUM_ORDER[s]
 _SUM_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
@@ -105,10 +107,13 @@ def _taps(w, ipad: int, opad: int):
     return full
 
 
-def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False):
+def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False,
+               first: bool = False):
     """One conv's OIHW f32 weight in the layout of ``instance``, flattened.
 
-    CUDA cores: f32 [tap][Cin rounded up to 2][Cout rounded up to 8].
+    CUDA cores: f32 [tap][Cin][Cout], zero-padded: Cout to a multiple of 8,
+    Cin to a multiple of 2 for b1 (``first``) and of 8 for the others, whose
+    input is a canvas of the tower's width padded to 8.
 
     wgmma: the B operand as the tensor cores read it from shared memory,
     K-major without swizzle: a core matrix is 8 output channels x 16 bytes
@@ -121,7 +126,8 @@ def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False):
     ``_SUM_ORDER``."""
     o, i, k, _ = w.shape
     if instance == CUDA_CORES:
-        return _taps(w, 2, _round_up(o, 8)).transpose(1, 2).reshape(-1)
+        return (_taps(w, 2 if first else 8, _round_up(o, 8))
+                .transpose(1, 2).reshape(-1))
     opad = nout_pad or o
     if instance == WGMMA_BF16:
         t = _taps(w, 16, opad)                                # [tap][O][I]
@@ -150,9 +156,13 @@ def _pack(tower, instance: str):
         weights.append(_pack_conv(
             conv.weight.detach().float(), instance,
             nout_pad=nout_pad if name == "b7" else 0,
-            after_3x3=name in ("b2b", "b4b", "b6b")))
-        biases.append(torch.zeros(conv.out_channels, device=conv.weight.device)
-                      if conv.bias is None else conv.bias.detach().float())
+            after_3x3=name in ("b2b", "b4b", "b6b"), first=name == "b1"))
+        bias = (torch.zeros(conv.out_channels, device=conv.weight.device)
+                if conv.bias is None else conv.bias.detach().float())
+        if instance == CUDA_CORES and name != "b7":
+            # the padded channels of a width that is not a multiple of 8
+            bias = F.pad(bias, (0, (-bias.numel()) % 8))
+        biases.append(bias)
     return torch.cat(weights), torch.cat(biases)
 
 
@@ -165,7 +175,8 @@ def pack_float_tower(tower):
     """The tower's kernel pack (weights, biases): the weights of b1, b2a,
     b2b, b4a, b4b, b6a, b6b and b7 in turn, each in the layout of
     ``_pack_conv`` for the tower's instance (``kernel_instance``), and the
-    eight biases in f32 (zeros where a conv has none).  Built at first use
+    eight biases in f32 (zeros where a conv has none; for the CUDA cores
+    those of b1..b6b padded with zeros to a multiple of 8).  Built at first use
     and kept on the module until a weight changes (in place or by
     replacement)."""
     key = tuple((t.device, t.dtype, t.data_ptr(),
@@ -226,14 +237,11 @@ def fused_float_tower(x, tower):
     the tower's output (B, Nout, H, W) in x's dtype, NCHW.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (tower width C a multiple of 8, at most 64) or raises.  Counts every
-    launch, and per instance in ``fused_float_tower.by_instance``."""
+    or raises.  Counts every launch, and per instance in
+    ``fused_float_tower.by_instance``."""
     c, nout = _check(x, tower)
     if x.device.type == "cpu":
         return float_tower_reference(tower, x).to(x.dtype)
-    if c % 8 or c > 64:
-        raise ValueError(f"the kernel takes a tower width C % 8 == 0, "
-                         f"C <= 64; got {c}")
     b, cin, h, w = x.shape
     weights, biases = pack_float_tower(tower)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
@@ -247,6 +255,9 @@ def fused_float_tower(x, tower):
     else:
         rc = wg.cwfa_btower_wg(*ptrs, b, h, w, cin, nout, _DTYPES[x.dtype],
                                *where)
+    if rc == TOO_WIDE:
+        raise ValueError(f"tower width {c} in {x.dtype}: the canvases of the "
+                         "smallest tile exceed the card's shared memory")
     cuda_build.check_launch(rc, f"fused_float_tower ({instance})")
     fused_float_tower.launches += 1
     fused_float_tower.by_instance[instance] += 1

@@ -12,6 +12,11 @@ f32 sums.  The weights are the modules' own: c3a (K, 1, 3, 3, 3) and c3b
 (1, K, 3, 3, 3), whose kernel dims act on (H, W, depth) as ``nn.Conv3d``
 does on the (B, 1, H, W, D) view (``_conv3d_pair_direct``,
 ``cwfa_tpu/models/cond_net.py:259-265``).
+
+The kernel has two instances (``kernel_instance``): bf16 with K = 32 runs
+both convs as products on the tensor cores and z as the shift-and-add of
+conv_b's 27 per-tap planes (``cond_pair_products`` is that form in plain
+PyTorch); f32, and bf16 with another K, run on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -25,6 +30,16 @@ import torch.nn.functional as F
 from cwfa_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
+TENSOR_CORE_K = 32                     # the K of the tensor-core instance
+
+
+def kernel_instance(dtype, k: int) -> str:
+    """Which instance of the kernel runs a pair with ``k`` intermediate
+    channels in ``dtype``."""
+    if dtype == torch.bfloat16 and k == TENSOR_CORE_K:
+        return TENSOR_CORES
+    return CUDA_CORES
 
 
 def cond_pair_reference(x, c3a, c3b, prelu):
@@ -38,11 +53,35 @@ def cond_pair_reference(x, c3a, c3b, prelu):
     return z[:, 0].permute(0, 3, 1, 2).to(x.dtype).contiguous()
 
 
+def cond_pair_products(x, c3a, c3b, prelu):
+    """The pair as the tensor-core instance computes it, in plain PyTorch:
+    conv_a as (positions x 27 taps) . (27 x K) on the 3x3x3 neighbourhoods of
+    the zero-padded x; conv_b as (positions x K) . (K x 27), every y
+    position's contribution to each of its 27 neighbours; z as the
+    shift-and-add of those 27 planes.  y is zero outside the volume.  Same
+    arguments and result as ``cond_pair_reference``."""
+    b, d, h, w = x.shape
+    k = c3a.weight.shape[0]
+    v = x.float().permute(0, 2, 3, 1)                       # (B, H, W, D)
+    taps = [(i, j, l) for i in range(3) for j in range(3) for l in range(3)]
+    xp = F.pad(v, (1, 1, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, i:i + h, j:j + w, l:l + d] for i, j, l in taps],
+                       dim=-1)                              # (B, H, W, D, 27)
+    y = cols @ c3a.weight.float().reshape(k, 27).t() + c3a.bias.float()
+    y = F.prelu(y, prelu.weight.float()).to(x.dtype).float()
+    planes = y @ c3b.weight.float().reshape(k, 27)          # (B, H, W, D, 27)
+    pp = F.pad(planes, (0, 0, 1, 1, 1, 1, 1, 1))
+    # tap (i, j, l) of the plane of y at (h + i - 1, w + j - 1, d + l - 1)
+    z = sum(pp[:, i:i + h, j:j + w, l:l + d, t]
+            for t, (i, j, l) in enumerate(taps)) + c3b.bias.float()
+    return z.permute(0, 3, 1, 2).to(x.dtype).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("cond_pair")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cwfa_cond_pair.argtypes = [p] * 7 + [i32] * 7 + [p]
+    lib.cwfa_cond_pair.argtypes = [p] * 7 + [i32] * 8 + [p]
     lib.cwfa_cond_pair.restype = i32
     return lib
 
@@ -73,7 +112,7 @@ def _check(x, c3a, c3b, prelu) -> int:
     return k
 
 
-def cond_pair(x, c3a, c3b, prelu):
+def cond_pair(x, c3a, c3b, prelu, *, instance=None):
     """Conv3d(1->K) -> PReLU -> Conv3d(K->1) over (H, W, depth) of x
     (``cond_pair_fused``, ``cwfa_tpu/ops/cond_pair.py:276``).
 
@@ -82,20 +121,29 @@ def cond_pair(x, c3a, c3b, prelu):
     device.  Returns z (B, D, H, W) in x's dtype.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises.  instance: ``CUDA_CORES`` runs that instance where
+    ``kernel_instance`` would pick the tensor cores (to time the two side by
+    side).  Counts every launch, and per instance in
+    ``cond_pair.by_instance``."""
     k = _check(x, c3a, c3b, prelu)
+    if instance not in (None, CUDA_CORES):
+        raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
         return cond_pair_reference(x, c3a, c3b, prelu)
+    instance = instance or kernel_instance(x.dtype, k)
     b, d, h, w = x.shape
     z = torch.empty_like(x)
     rc = _lib().cwfa_cond_pair(
         x.data_ptr(), c3a.weight.data_ptr(), c3a.bias.data_ptr(),
         c3b.weight.data_ptr(), c3b.bias.data_ptr(), prelu.weight.data_ptr(),
-        z.data_ptr(), b, d, h, w, k, _DTYPES[x.dtype], x.device.index,
+        z.data_ptr(), b, d, h, w, k, _DTYPES[x.dtype],
+        int(instance == TENSOR_CORES), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check_launch(rc, "cond_pair")
+    cuda_build.check_launch(rc, f"cond_pair ({instance})")
     cond_pair.launches += 1
+    cond_pair.by_instance[instance] += 1
     return z
 
 
-cond_pair.launches = 0
+cond_pair.launches = 0                      # every launch of the kernel
+cond_pair.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}   # ... per instance

@@ -1,8 +1,9 @@
 """The int8 subnet tower: calibration, weight packing, the plain PyTorch
 version and the CUDA kernel's wrapper (counterpart of
-``cwfa_tpu/ops/qtower.py``; the kernel is ``csrc/qtower.cu``).
+``cwfa_tpu/ops/qtower.py``; the kernel is ``csrc/qtower_wg.cu`` for 64-wide
+towers and ``csrc/qtower.cu`` for every other width).
 
-One 64-wide tower (``flow/subnets.WaveletFlowSubnet2d``) per call:
+One tower (``flow/subnets.WaveletFlowSubnet2d``) per call:
 
     r1  = b1(x)                                  1x1, Cin -> C
     e2  = elu(b2b(elu(b2a(r1))) + r1)            3x3 then 1x1, residual
@@ -22,10 +23,14 @@ tower.  Unpaired is exact: the scales are per channel, b1 stacks the two
 towers on their shared input, and every other paired conv is
 block-diagonal, so a tower quantizes exactly as its half of the pair.
 
-Weights are kept in the kernel's layout: a k x k conv with I inputs and O
-outputs is int8 (k*k, ceil(I/4), ceil8(O), 4), element [t, g, o, j] =
-W[o, 4g+j, t//k, t%k], zero-padded, so that one int32 word holds four input
-channels of one output channel (one ``__dp4a``).
+Weights are kept in the kernels' layouts.  For ``__dp4a`` a k x k conv with
+I inputs and O outputs is int8 (k*k, ceil(I/4), ceil8(O), 4), element
+[t, g, o, j] = W[o, 4g+j, t//k, t%k], zero-padded, so that one int32 word
+holds four input channels of one output channel; the convs that read a
+C-wide canvas pad I to a multiple of 8, the canvas's padded width.  A tower
+that the warpgroup tensor cores take (``kernel_instance``) carries one more
+entry, ``"wg"``: the same weights as the B operand of the s8 ``wgmma``, in
+the order the kernel consumes them (``pack_tower_wg``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,29 @@ from cwfa_tpu_torch.ops.int8_conv import conv2d_int8, quantize_mul
 SITES = ("x", "r1", "e2a", "e2", "e4a", "e4", "e6a", "e6")
 CONVS = ("b1", "b2a", "b2b", "b4a", "b4b", "b6a", "b6b", "b7")
 _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WEIGHTS = tuple("w" + n[1:] for n in CONVS)        # the qw keys of the convs
+
+WGMMA_S8, DP4A = "wgmma s8", "dp4a"
+WGMMA_WIDTH = 64                       # the tower width of the wgmma instance
+WGMMA_NOUT = (16, 32, 48, 64, 96)      # b7 widths it is built for
+TOO_WIDE = -1                          # csrc/qtower.cu: no tile fits the width
+# the 1x1 of a residual block takes its A operand from the 3x3's sums in
+# registers: slot s of every 16 input channels is channel _SUM_ORDER[s]
+# (a thread holds columns 8 j + 2 q, 8 j + 2 q + 1 of the sums and fills
+# bytes 4 q .. 4 q + 3 of the s8 fragment)
+_SUM_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
+
+
+def _round_up(n: int, m: int) -> int:
+    return n + (-n) % m
+
+
+def kernel_instance(c: int, cin: int, nout: int) -> str:
+    """Which instance of the kernel runs a tower of width ``c`` with ``cin``
+    inputs and ``nout`` outputs."""
+    if c == WGMMA_WIDTH and cin <= WGMMA_WIDTH and nout <= WGMMA_NOUT[-1]:
+        return WGMMA_S8
+    return DP4A
 
 
 # ---------------------------------------------------------------------------
@@ -50,10 +78,11 @@ _OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------------------
 
 
-def pack_weight(wq):
-    """int8 OIHW -> the kernel layout (k*k, ceil(I/4), ceil8(O), 4)."""
+def pack_weight(wq, i_mult: int = 4):
+    """int8 OIHW -> the ``__dp4a`` layout (k*k, ceil(I/4), ceil8(O), 4), I
+    zero-padded to a multiple of ``i_mult`` (4 or 8)."""
     o, i, k, _ = wq.shape
-    i4, o8 = -(-i // 4), o + (-o) % 8
+    i4, o8 = _round_up(i, i_mult) // 4, o + (-o) % 8
     full = torch.zeros((k * k, i4 * 4, o8), dtype=torch.int8,
                        device=wq.device)
     full[:, :i, :o] = wq.permute(2, 3, 1, 0).reshape(k * k, i, o)
@@ -66,6 +95,49 @@ def unpack_weight(wk, i: int, o: int):
     k = int(round(kk ** 0.5))
     w = wk.permute(0, 1, 3, 2).reshape(kk, i4 * 4, o8)[:, :i, :o]
     return w.reshape(k, k, i, o).permute(3, 2, 0, 1)
+
+
+def _wg_operand(wq, ipad: int, opad: int, after_3x3: bool = False):
+    """int8 OIHW -> the B operand of the s8 ``wgmma`` as the tensor cores
+    read it from shared memory, K-major without swizzle, per tap
+    [Cin / 16][Cout][16]: a core matrix is 8 output channels x 16 bytes of
+    input channels.  Cin is zero-padded to ``ipad``, Cout to ``opad``; with
+    ``after_3x3`` the input channels of every 16 come in ``_SUM_ORDER``."""
+    o, i, k, _ = wq.shape
+    full = torch.zeros((k * k, opad, ipad), dtype=torch.int8, device=wq.device)
+    full[:, :o, :i] = wq.permute(2, 3, 0, 1).reshape(k * k, o, i)
+    full = full.reshape(k * k, opad, ipad // 16, 16)
+    if after_3x3:
+        full = full[..., torch.tensor(_SUM_ORDER, device=wq.device)]
+    return full.permute(0, 2, 1, 3).reshape(-1)
+
+
+def pack_tower_wg(convs):
+    """{"w1".."w7": int8 OIHW} of a 64-wide tower -> the weight pack of
+    ``csrc/qtower_wg.cu``, flat int8: b1 (Cin padded to 32), then per
+    residual block the 3x3's nine taps and the 1x1, then b7's nine taps
+    (Cout padded to the next of ``WGMMA_NOUT``), each as ``_wg_operand``."""
+    c, cin = convs["w1"].shape[:2]
+    np7 = next(n for n in WGMMA_NOUT if n >= convs["w7"].shape[0])
+    parts = [_wg_operand(convs["w1"], _round_up(cin, 32), c)]
+    for name in WEIGHTS[1:7]:
+        parts.append(_wg_operand(convs[name], c, c,
+                                 after_3x3=name.endswith("b")))
+    parts.append(_wg_operand(convs["w7"], c, np7))
+    return torch.cat(parts)
+
+
+def pack_convs(convs):
+    """{"w1".."w7": int8 OIHW} -> the weight entries of a ``qw``: each conv
+    in the ``__dp4a`` layout (``pack_weight``; the convs after b1 with the
+    input channels padded to a multiple of 8) and, for a tower of the
+    ``wgmma`` instance, ``"wg"`` (``pack_tower_wg``)."""
+    out = {name: pack_weight(convs[name], 4 if name == "w1" else 8)
+           for name in WEIGHTS}
+    (c, cin), nout = convs["w1"].shape[:2], convs["w7"].shape[0]
+    if kernel_instance(c, cin, nout) == WGMMA_S8:
+        out["wg"] = pack_tower_wg(convs)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -138,20 +210,23 @@ def quantize_tower(tower, scales):
     ``qtower.py:97-140``).
 
     Returns {"w1".."w7" (kernel layout, keyed by conv: w1, w2a, w2b, w4a,
-    w4b, w6a, w6b, w7), "sw" (7, C) and "bias" (7, C) for b1..b6b,
+    w4b, w6a, w6b, w7; "wg" for a tower of the ``wgmma`` instance:
+    ``pack_convs``), "sw" (7, C) and "bias" (7, C) for b1..b6b,
     "sw7" (Nout,), "bias7" (Nout,)} — scales and biases f32."""
     cin = tower.b1.in_channels
-    out, sws, bs = {}, [], []
+    convs, sws, bs = {}, [], []
     for row, name in enumerate(CONVS):
         w, b = _conv_params(tower, name)
         s_in = scales[row, :cin] if name == "b1" else scales[row]
         q, s = _quant_w(w, s_in)
-        out["w" + name[1:]] = pack_weight(q)
+        convs["w" + name[1:]] = q
         if name == "b7":
-            out["sw7"], out["bias7"] = s, b.clone()
+            sw7, bias7 = s, b.clone()
         else:
             sws.append(s)
             bs.append(b)
+    out = pack_convs(convs)
+    out["sw7"], out["bias7"] = sw7, bias7
     out["sw"] = torch.stack(sws)
     out["bias"] = torch.stack(bs)
     return out
@@ -227,11 +302,14 @@ def quantized_tower_reference(qw, scales, xq):
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    lib = cuda_build.load("qtower")
+    """(the ``__dp4a`` library, the wgmma library)"""
+    lib, wg = cuda_build.load("qtower"), cuda_build.load("qtower_wg")
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cwfa_qtower.argtypes = [p] * 15 + [i32] * 8 + [p]
     lib.cwfa_qtower.restype = i32
-    return lib
+    wg.cwfa_qtower_wg.argtypes = [p] * 8 + [i32] * 7 + [p]
+    wg.cwfa_qtower_wg.restype = i32
+    return lib, wg
 
 
 def _check(xq, qw, scales, out_dtype):
@@ -243,24 +321,26 @@ def _check(xq, qw, scales, out_dtype):
         raise TypeError(f"out_dtype {out_dtype} not in {list(_OUT_DTYPES)}")
     c = qw["sw"].shape[1]
     cin = xq.shape[1]
-    want = {"w1": (1, -(-cin // 4), c), "sw": (7, c), "bias": (7, c)}
-    for k in ("w2a", "w4a", "w6a"):
-        want[k] = (9, c // 4, c)
-    for k in ("w2b", "w4b", "w6b"):
-        want[k] = (1, c // 4, c)
+    cp = _round_up(c, 8)               # the canvases' padded width
     nout = qw["sw7"].shape[0]
-    want["w7"] = (9, c // 4, nout + (-nout) % 8)
-    want["sw7"] = want["bias7"] = (nout,)
+    want = {"w1": (1, -(-cin // 4), cp, 4), "sw": (7, c), "bias": (7, c),
+            "w7": (9, cp // 4, nout + (-nout) % 8, 4),
+            "sw7": (nout,), "bias7": (nout,)}
+    for k in ("w2a", "w4a", "w6a"):
+        want[k] = (9, cp // 4, cp, 4)
+    for k in ("w2b", "w4b", "w6b"):
+        want[k] = (1, cp // 4, cp, 4)
+    if kernel_instance(c, cin, nout) == WGMMA_S8:
+        np7 = next(n for n in WGMMA_NOUT if n >= nout)
+        want["wg"] = (c * (_round_up(cin, 32) + 30 * c + 9 * np7),)
     if set(qw) != set(want):
         raise ValueError(f"qw keys {sorted(qw)} != {sorted(want)}")
     for k, shape in want.items():
         t = qw[k]
-        w = k.startswith("w")
-        got = tuple(t.shape[:3]) if w else tuple(t.shape)
-        if got != shape or (w and tuple(t.shape[3:]) != (4,)):
+        if tuple(t.shape) != shape:
             raise ValueError(f"qw[{k!r}] shape {tuple(t.shape)} does not "
                              f"match {shape} for Cin {cin}, C {c}")
-        if t.dtype != (torch.int8 if w else torch.float32):
+        if t.dtype != (torch.int8 if k.startswith("w") else torch.float32):
             raise TypeError(f"qw[{k!r}] dtype {t.dtype}")
     if tuple(scales.shape) != (8, c) or scales.dtype != torch.float32:
         raise ValueError(f"scales must be (8, {c}) float32, got "
@@ -271,7 +351,7 @@ def _check(xq, qw, scales, out_dtype):
     return c, nout
 
 
-def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16):
+def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16, instance=None):
     """One int8 tower over the whole batch (``fused_pair_tower``,
     ``qtower.py:454``).
 
@@ -280,25 +360,46 @@ def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16):
     (B, Nout, H, W) in out_dtype (f32 or bf16), NCHW.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (C a multiple of 8, at most 64) or raises."""
+    or raises.  instance: ``DP4A`` runs that instance where
+    ``kernel_instance`` would pick the tensor cores (to time the two side by
+    side).  Counts every launch, and per instance in
+    ``fused_tower.by_instance``."""
     c, nout = _check(xq, qw, scales, out_dtype)
+    if instance not in (None, DP4A):
+        raise ValueError(f"instance {instance!r}: None or {DP4A!r}")
     if xq.device.type == "cpu":
         return quantized_tower_reference(qw, scales, xq).to(out_dtype)
-    if c % 8 or c > 64:
-        raise ValueError(f"the kernel takes a tower width C % 8 == 0, "
-                         f"C <= 64; got {c}")
     b, cin, h, w = xq.shape
     out = torch.empty((b, nout, h, w), dtype=out_dtype, device=xq.device)
-    inv = 1.0 / scales
-    rc = _lib().cwfa_qtower(
-        xq.data_ptr(), *(qw["w" + n[1:]].data_ptr() for n in CONVS),
-        inv.data_ptr(), qw["sw"].data_ptr(), qw["bias"].data_ptr(),
-        qw["sw7"].data_ptr(), qw["bias7"].data_ptr(), out.data_ptr(),
-        b, h, w, cin, c, nout, _OUT_DTYPES[out_dtype], xq.device.index,
-        torch.cuda.current_stream(xq.device).cuda_stream)
-    cuda_build.check_launch(rc, "fused_tower")
+    inv, sw, bias = 1.0 / scales, qw["sw"], qw["bias"]
+    instance = instance or kernel_instance(c, cin, nout)
+    lib, wg = _lib()
+    tail = (qw["sw7"].data_ptr(), qw["bias7"].data_ptr(), out.data_ptr())
+    where = (_OUT_DTYPES[out_dtype], xq.device.index,
+             torch.cuda.current_stream(xq.device).cuda_stream)
+    if instance == WGMMA_S8:
+        rc = wg.cwfa_qtower_wg(
+            xq.data_ptr(), qw["wg"].data_ptr(), inv.data_ptr(), sw.data_ptr(),
+            bias.data_ptr(), *tail, b, h, w, cin, nout, *where)
+    else:
+        if c % 8:
+            # the canvases' padded channels: sums of zero weights, times 0,
+            # plus 0, stay 0 through ELU, the residual and the requant
+            pad = (0, (-c) % 8)
+            inv = F.pad(inv, pad, value=1.0)
+            sw, bias = F.pad(sw, pad), F.pad(bias, pad)
+        rc = lib.cwfa_qtower(
+            xq.data_ptr(), *(qw[k].data_ptr() for k in WEIGHTS),
+            inv.data_ptr(), sw.data_ptr(), bias.data_ptr(), *tail,
+            b, h, w, cin, _round_up(c, 8), nout, *where)
+        if rc == TOO_WIDE:
+            raise ValueError(f"tower width {c}: the canvases of the smallest "
+                             "tile exceed the card's shared memory")
+    cuda_build.check_launch(rc, f"fused_tower ({instance})")
     fused_tower.launches += 1
+    fused_tower.by_instance[instance] += 1
     return out
 
 
-fused_tower.launches = 0
+fused_tower.launches = 0                    # every launch of the kernel
+fused_tower.by_instance = {WGMMA_S8: 0, DP4A: 0}     # ... and of each instance

@@ -1,12 +1,15 @@
 """Where the time goes in the PyTorch port's reconstruction slice, or in its
 exact-likelihood path, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--batch 8] [--int8 | --nll]
+    python3 scripts/profile_torch_port.py [--batch 8] [--int8 | --nll
+                                           | --stochastic]
 
 Builds the flagship rig (``cwfa_tpu_torch.rig.flagship``, random weights
-from seed 0) as a bf16 ``XLFMReconstructor`` — with ``--int8``, the int8
-configuration (``use_int8`` + ``use_int8_towers``, calibrated on the
-batch) — and prints:
+from seed 0) as a deterministic bf16 ``XLFMReconstructor`` — with
+``--int8``, the int8 configuration (``use_int8`` + ``use_int8_towers``,
+calibrated on the batch); with ``--stochastic``, the reconstructor's
+default mode (the LRNN in train mode, its mean branch computed per call) —
+and prints:
 
 - the whole call's time (CUDA events, median of 5 after a warm-up);
 - each component run alone on the same inputs, with CUDA events: view
@@ -187,6 +190,7 @@ def main():
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--int8", action="store_true")
     mode.add_argument("--nll", action="store_true")
+    mode.add_argument("--stochastic", action="store_true")
     args = ap.parse_args()
     batch = args.batch
     if not torch.cuda.is_available():
@@ -206,8 +210,14 @@ def main():
     int8 = ({"use_int8": True, "use_int8_towers": True,
              "calib_frames": frames} if args.int8 else {})
     recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=not args.stochastic,
                               compute_dtype=torch.bfloat16, **int8)
     m = recon.model
+    lrnn_kw = {"mean_branch": recon.mean_branch, "unet_q": recon.unet_q}
+    if args.stochastic:
+        mean_vol = recon.mean_caches[m.n_flow_steps - 1]
+        lrnn_kw = {"mean_vol": mean_vol.expand((batch,) + mean_vol.shape[1:]),
+                   "train": True, "generator": recon.generator}
     qpacks = recon.qpacks or [None] * m.n_flow_steps
 
     whole = cuda_ms(lambda: recon(frames))
@@ -219,8 +229,7 @@ def main():
                    / stats.std_imgs).to(torch.bfloat16)
         cv = cond_networks_batched(m.cond, views_n)
         ups = {}
-        up = m.lrnn(views_n, mean_branch=recon.mean_branch,
-                    unet_q=recon.unet_q)
+        up = m.lrnn(views_n, **lrnn_kw)
         for k in range(m.n_flow_steps - 1, -1, -1):
             ups[k] = up
             spec = m.step_specs[k]
@@ -269,8 +278,8 @@ def main():
             "views+normalize": lambda: ((extract_views(frames, vidx)
                                          - stats.mean_imgs) / stats.std_imgs
                                         ).to(torch.bfloat16),
-            "lrnn (proj+unet)": lambda: m.lrnn(
-                views_n, mean_branch=recon.mean_branch, unet_q=recon.unet_q),
+            "lrnn (proj+unet)" + (" + mean branch" if args.stochastic else ""):
+                lambda: m.lrnn(views_n, **lrnn_kw),
             "cond nets (all)": lambda: cond_networks_batched(m.cond, views_n),
             "  of which 3-D pairs": pair3d,
             "towers (20)": towers,

@@ -5,8 +5,8 @@ comes from, so the header is generated.
     python3 scripts/torch_gen_wgmma_header.py          # print the header
     python3 scripts/torch_gen_wgmma_header.py --write  # replace the file
 
-To add a width, add it to ``SS_BF16``, ``RS_BF16`` or ``RS_TF32`` and write
-the header anew; ``tests/test_torch_port_probes.py`` holds the committed
+To add a width, add it to ``SS_BF16``, ``RS_BF16``, ``RS_TF32``, ``SS_S8`` or
+``RS_S8`` and write the header anew; ``tests/test_torch_port_probes.py`` holds the committed
 header to this script's output.
 """
 
@@ -20,27 +20,35 @@ HEADER = (Path(__file__).resolve().parents[1] / "cwfa_tpu_torch" / "csrc"
 SS_BF16 = (16, 32, 48, 64, 96, 128, 256)   # A and B from shared memory
 RS_BF16 = (64,)                            # A from registers
 RS_TF32 = (16, 32, 48, 64, 96)
+SS_S8 = (16, 32, 48, 64, 96)               # int8, int32 sums
+RS_S8 = (64,)
+# kind -> (k, PTX types, type and asm constraint of a sum)
+KINDS = {"bf16": (16, "f32.bf16.bf16", "float", "+f"),
+         "tf32": (8, "f32.tf32.tf32", "float", "+f"),
+         "s8": (32, "s32.s8.s8", "int32_t", "+r")}
+
 
 def regs(n: int, start: int = 0) -> str:
     return ", ".join(f"%{i}" for i in range(start, start + n))
 
 
 def inst(kind: str, n: int, rs: bool) -> str:
-    """One wrapper: ``kind`` "bf16" (k16) or "tf32" (k8), N = ``n``, A from
-    registers (``rs``) or from shared memory."""
+    """One wrapper: ``kind`` "bf16" (k16), "tf32" (k8) or "s8" (k32), N =
+    ``n``, A from registers (``rs``) or from shared memory."""
     nacc = n // 2
-    k = 16 if kind == "bf16" else 8
-    types = "f32.bf16.bf16" if kind == "bf16" else "f32.tf32.tf32"
+    k, types, ctype, constraint = KINDS[kind]
     name = f"wgmma_{'rs' if rs else 'ss'}_{kind}"
     a_arg = "const uint32_t* a" if rs else "uint64_t da"
     a_ops = "{" + regs(4, nacc) + "}" if rs else f"%{nacc}"
     nb = nacc + (4 if rs else 1)          # operand number of B's descriptor
-    # after scale-d (the predicate): scale-a, scale-b, then for bf16 the
-    # transpose flags (of B only when A comes from registers)
+    # after scale-d (the predicate): for the float types scale-a, scale-b,
+    # then for bf16 the transpose flags (of B only when A comes from
+    # registers); the integer product has neither
     tail = {("bf16", True): "p, 1, 1, 0", ("bf16", False): "p, 1, 1, 0, 0",
-            ("tf32", True): "p, 1, 1"}[kind, rs]
+            ("tf32", True): "p, 1, 1", ("s8", True): "p",
+            ("s8", False): "p"}[kind, rs]
     out = ["template <>",
-           f"__device__ __forceinline__ void {name}<{n}>(float* d, {a_arg}, "
+           f"__device__ __forceinline__ void {name}<{n}>({ctype}* d, {a_arg}, "
            f"uint64_t db) {{",
            "  asm volatile(",
            f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{nb + 1}, 0;\\n"',
@@ -52,7 +60,7 @@ def inst(kind: str, n: int, rs: bool) -> str:
         post = "}, " if j == len(lines) - 1 else ", "
         out.append(f'      "{pre}{line}{post}"')
     out.append(f'      "{a_ops}, %{nb}, {tail};\\n}}\\n"')
-    sums = [f'"+f"(d[{i}])' for i in range(nacc)]
+    sums = [f'"{constraint}"(d[{i}])' for i in range(nacc)]
     out.append("      : " + ",\n        ".join(
         ", ".join(sums[i:i + 4]) for i in range(0, nacc, 4)))
     if rs:
@@ -66,8 +74,9 @@ def inst(kind: str, n: int, rs: bool) -> str:
 
 HEAD = '''// Hopper (sm_90a) warpgroup matrix multiply (wgmma) building blocks: shared
 // memory matrix descriptors, the fence / commit / wait instructions and the
-// m64nNk16 bf16 and m64nNk8 tf32 products with f32 sums, B always from
-// shared memory, A from shared memory (ss) or from registers (rs).
+// m64nNk16 bf16 and m64nNk8 tf32 products with f32 sums and the m64nNk32 s8
+// product with s32 sums, B always from shared memory, A from shared memory
+// (ss) or from registers (rs).
 //
 // A warpgroup is four consecutive warps (128 threads, the first warp's index
 // a multiple of 4); all of them execute every instruction here together.  The
@@ -79,8 +88,10 @@ HEAD = '''// Hopper (sm_90a) warpgroup matrix multiply (wgmma) building blocks: 
 //   d[4 j + 2], d[4 j + 3]: row 16 w + g + 8, the same columns.
 // A from registers (4 words): rows 16 w + g (a[0], a[2]) and 16 w + g + 8
 // (a[1], a[3]); bf16: a[0], a[1] hold k = 2 q, 2 q + 1 and a[2], a[3]
-// k = 2 q + 8, 2 q + 9; tf32: a[0], a[1] hold k = q and a[2], a[3] k = q + 4.
-// The registers of an rs product must not change until it has completed
+// k = 2 q + 8, 2 q + 9; tf32: a[0], a[1] hold k = q and a[2], a[3] k = q + 4;
+// s8: a[0], a[1] hold k = 4 q .. 4 q + 3 (one per byte, lowest first) and
+// a[2], a[3] k = 4 q + 16 .. 4 q + 19.  The s8 sums have the layout of the
+// f32 ones.  The registers of an rs product must not change until it has completed
 // (wgmma_wait).
 //
 // The instruction wrappers differ only in N and their operand lists:
@@ -143,6 +154,10 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint64_t db);
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t db);
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int32_t* d, uint64_t da, uint64_t db);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint64_t db);
 '''
 
 def render() -> str:
@@ -150,6 +165,8 @@ def render() -> str:
     parts += [inst("bf16", n, False) for n in SS_BF16]
     parts += [inst("bf16", n, True) for n in RS_BF16]
     parts += [inst("tf32", n, True) for n in RS_TF32]
+    parts += [inst("s8", n, False) for n in SS_S8]
+    parts += [inst("s8", n, True) for n in RS_S8]
     parts.append("}  // namespace wg\n")
     return "\n\n".join(parts)
 

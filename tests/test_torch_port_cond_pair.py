@@ -10,6 +10,12 @@ carried across by load_jax_params.
 - The whole port ``CondNetwork`` against ``cond_network`` with
   ``conv3d_impl="pallas_fused"`` (the same bound) and ``"direct"`` (1e-5).
 
+- The pair written as the tensor-core instance computes it (two products
+  with K on one side and the shift-and-add of conv_b's 27 planes,
+  ``cond_pair_products``) against the plain version: 1e-5 of max|ref| in
+  f32, 2^-7 in bf16 (chip_smoke.py's bounds for the kernel), and against the
+  Pallas kernel in interpret mode.
+
 Every elementwise tensor stays under 32,768 elements (the CPU's
 multithreaded elementwise kernels above that size are not steady, PERF.md).
 On the CPU ``cond_pair`` runs the plain version and counts no launch; the
@@ -138,3 +144,44 @@ def test_cond_pair_rejects_what_the_kernel_does_not_take():
         tcp.cond_pair(x, net.c3a, net.c3b, torch.nn.PReLU(4))
     with pytest.raises(RuntimeError):               # neither CPU nor CUDA
         tcp.cond_pair(x.to("meta"), *mods)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5),
+                                         (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("b,d,h,w", [(2, 6, 7, 9), (1, 5, 3, 11)])
+def test_products_form_matches_reference(dtype, bound, b, d, h, w):
+    """Depth 6 (the flagship's last step) and 5, odd H x W: the SAME padding
+    of both convs in all three dims, y zero outside the volume."""
+    _, net = _net(d, seed=8)
+    net = net.to(dtype)
+    x = torch.from_numpy(_x(b, d, h, w, seed=9)).to(dtype)
+    mods = (net.c3a, net.c3b, net.prelu)
+    with torch.no_grad():
+        want = tcp.cond_pair_reference(x, *mods)
+        got = tcp.cond_pair_products(x, *mods)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    _assert_rel(got.float(), want.float().numpy(), bound)
+
+
+def test_products_form_matches_pallas_fused_interpret():
+    params, net = _net(8, seed=2)
+    x = _x(1, 8, 8, 12, seed=3)
+    want = cond_pair_fused(jnp.asarray(x), _jnp(params), th=4,
+                           interpret=True)
+    with torch.no_grad():
+        got = tcp.cond_pair_products(torch.from_numpy(x), net.c3a, net.c3b,
+                                     net.prelu)
+    _assert_rel(got, want, 3e-2)
+
+
+def test_kernel_instances():
+    assert tcp.kernel_instance(torch.bfloat16, 32) == tcp.TENSOR_CORES
+    assert tcp.kernel_instance(torch.float32, 32) == tcp.CUDA_CORES
+    assert tcp.kernel_instance(torch.bfloat16, 4) == tcp.CUDA_CORES
+    assert set(tcp.cond_pair.by_instance) == {tcp.TENSOR_CORES, tcp.CUDA_CORES}
+    _, net = _net(6)
+    x = torch.from_numpy(_x(1, 6, 5, 7))
+    with pytest.raises(ValueError):                 # not an instance to ask for
+        tcp.cond_pair(x, net.c3a, net.c3b, net.prelu,
+                      instance=tcp.TENSOR_CORES)
+    tcp.cond_pair(x, net.c3a, net.c3b, net.prelu, instance=tcp.CUDA_CORES)

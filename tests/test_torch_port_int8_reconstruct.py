@@ -62,6 +62,7 @@ def rig():
 
 def _recon(rig, **kw):
     model, stats, vidx, caches, frames = rig[:5]
+    kw.setdefault("deterministic", True)
     return XLFMReconstructor(model, stats, vidx, caches, device="cpu", **kw)
 
 
@@ -105,5 +106,8 @@ def test_int8_flags_raise_without_calibration_or_determinism(rig):
             _recon(rig, **kw)
     with pytest.raises(ValueError, match="deterministic"):
         _recon(rig, deterministic=False, use_int8=True, calib_frames=frames)
+    with pytest.raises(ValueError, match="deterministic"):     # the default
+        XLFMReconstructor(*rig[:4], device="cpu", use_int8=True,
+                          calib_frames=frames)
     recon = _recon(rig)
     assert recon.unet_q is None and recon.qpacks is None

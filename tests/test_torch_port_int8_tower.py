@@ -10,8 +10,12 @@ package's int8 pair tower (cwfa_tpu.ops.qtower).
   both towers against JAX's oracle and its Pallas kernel in interpret mode,
   within rtol = atol = 2e-4, the bound of tests/test_qtower.py.
 
+- The weight pack of the s8 ``wgmma`` instance (64-wide towers): a CPU
+  emulation that walks the pack in the kernel's order of slices and
+  fragments reproduces the plain version to the bit.
+
 On the CPU ``fused_tower`` runs the plain version and counts no launch; the
-CUDA kernel is held to the plain version on the card by chip_smoke.py.
+CUDA kernels are held to the plain version on the card by chip_smoke.py.
 """
 
 import numpy as np
@@ -192,3 +196,107 @@ def test_fused_tower_rejects_what_the_kernel_does_not_take(towers):
                        scales)
     with pytest.raises(RuntimeError):               # neither CPU nor CUDA
         tq.fused_tower(xq.to("meta"), qw, scales)
+
+
+def _tower_from_wg_pack(qw, scales, xq, cin, nout):
+    """The tower as ``csrc/qtower_wg.cu`` computes it from ``qw["wg"]``:
+    the slices in the order the kernel consumes them (b1; per residual block
+    the 3x3's nine taps, then the 1x1; b7's nine taps), each the B operand
+    [Cin / 16][Cout][16] of an s8 product, the 1x1's A operand being the
+    3x3's requantized sums in the order they sit in a thread's registers."""
+    c, pack = qw["sw"].shape[1], qw["wg"]
+    np7 = next(n for n in tq.WGMMA_NOUT if n >= nout)
+    cinp = cin + (-cin) % 32
+    order = torch.tensor(tq._SUM_ORDER)
+    off = 0
+
+    def operand(k, ipad, opad):
+        """The next k x k conv of the pack as OIHW (opad, ipad, k, k)."""
+        nonlocal off
+        n = k * k * ipad * opad
+        blk = pack[off:off + n].reshape(k * k, ipad // 16, opad, 16)
+        off += n
+        return (blk.permute(2, 1, 3, 0).reshape(opad, ipad, k, k)
+                .contiguous())
+
+    def conv(q, w):
+        return ic.conv2d_int8(q, w, w.shape[-1] // 2)
+
+    def deq(acc, k):
+        return (acc.float() * qw["sw"][k][None, :, None, None]
+                + qw["bias"][k][None, :, None, None])
+
+    inv = 1.0 / scales
+    quant = lambda v, k: ic.quantize_mul(v, inv[k, :v.shape[1]])
+    bf = lambda v: v.to(torch.bfloat16)
+    x = torch.nn.functional.pad(xq, (0, 0, 0, 0, 0, cinp - cin))
+    res = bf(deq(conv(x, operand(1, cinp, c)), 0))                  # r1
+    q = quant(res.float(), 1)
+    for blk in range(3):
+        ka, kb = 1 + 2 * blk, 2 + 2 * blk
+        qa = quant(tq._elu(deq(conv(q, operand(3, c, c)), ka)), ka + 1)
+        # a thread's requantized sums fill its A registers in _SUM_ORDER
+        a = qa.reshape(qa.shape[0], c // 16, 16, *qa.shape[2:])[:, :, order]
+        r = deq(conv(a.reshape(qa.shape), operand(1, c, c)), kb) + res.float()
+        e = tq._elu(r)
+        if blk < 2:
+            res = bf(e)
+            e = res.float()
+        q = quant(e, kb + 1)
+    w7 = operand(3, c, np7)
+    assert off == pack.numel() and not w7[nout:].any()
+    return (conv(q, w7)[:, :nout].float() * qw["sw7"][None, :, None, None]
+            + qw["bias7"][None, :, None, None])
+
+
+@pytest.mark.parametrize("cin,nout", [(12, 24), (6, 6), (48, 96), (40, 33)])
+def test_wgmma_pack_walked_in_kernel_order_is_the_plain_version(cin, nout):
+    gen = torch.Generator().manual_seed(cin)
+    m = WaveletFlowSubnet2d(cin, nout, n_ch=64).eval()
+    from cwfa_tpu_torch.nn import reset_parameters_
+    reset_parameters_(m, gen)
+    x = torch.randn((1, cin, 9, 7), generator=gen)
+    assert tq.kernel_instance(64, cin, nout) == tq.WGMMA_S8
+    assert tq.kernel_instance(64, 65, nout) == tq.DP4A
+    assert tq.kernel_instance(64, cin, 97) == tq.DP4A
+    assert tq.kernel_instance(56, cin, nout) == tq.DP4A
+    scales = tq.tower_calibrate(m, x)
+    qw = tq.quantize_tower(m, scales)
+    np7 = next(n for n in tq.WGMMA_NOUT if n >= nout)
+    assert qw["wg"].dtype == torch.int8 and qw["wg"].shape == (
+        64 * (cin + (-cin) % 32 + 30 * 64 + 9 * np7),)
+    xq = tq.quantize_input(x, scales[0])
+    ref = tq.quantized_tower_reference(qw, scales, xq)
+    got = _tower_from_wg_pack(qw, scales, xq, cin, nout)
+    assert torch.equal(got, ref)
+    assert torch.equal(tq.fused_tower(xq, qw, scales, out_dtype=torch.float32),
+                       ref)
+    with pytest.raises(ValueError):                 # the pack left out
+        tq.fused_tower(xq, {k: v for k, v in qw.items() if k != "wg"}, scales)
+    with pytest.raises(ValueError):                 # not an instance to ask for
+        tq.fused_tower(xq, qw, scales, instance=tq.WGMMA_S8)
+    assert torch.equal(tq.fused_tower(xq, qw, scales, out_dtype=torch.float32,
+                                      instance=tq.DP4A), ref)
+
+
+def test_wgmma_pack_from_jax_packs():
+    """``split_jax_tower_pair`` on a 64-wide pair carries the wgmma pack
+    too, equal to the one built from the same int8 weights."""
+    ka, kb, kx = jax.random.split(jax.random.PRNGKey(7), 3)
+    pa = init_wavelet_flow_subnet2d(ka, CIN, NOUT1, n_ch=64)
+    pb = init_wavelet_flow_subnet2d(kb, CIN, NOUT1, n_ch=64)
+    paired = pair_tower_params(pa, pb)
+    x = jax.random.normal(kx, (1, CIN, 8, 8), jnp.float32)
+    scales = jq.pair_tower_calibrate(paired, x)
+    pair = jax.tree_util.tree_map(
+        np.asarray, {"qw": jq.quantize_pair_tower(paired, scales),
+                     "scales": scales})
+    for t in split_jax_tower_pair(pair, CIN):
+        convs = {k: tq.unpack_weight(t["qw"][k], CIN if k == "w1" else 64,
+                                     NOUT1 if k == "w7" else 64)
+                 for k in tq.WEIGHTS}
+        assert torch.equal(t["qw"]["wg"], tq.pack_tower_wg(convs))
+        xq = tq.quantize_input(torch.from_numpy(np.array(x)), t["scales"][0])
+        assert torch.equal(
+            _tower_from_wg_pack(t["qw"], t["scales"], xq, CIN, NOUT1),
+            tq.quantized_tower_reference(t["qw"], t["scales"], xq))
