@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py                      # the whole check
     python3 chip_smoke.py tower cond_pair      # kernel phases alone (kernels,
-                                               # tower, cond_pair, float_tower)
-                                               # while working on one: no verdict
+                                               # tower, cond_pair, float_tower,
+                                               # probes) while working on one:
+                                               # no verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -63,11 +64,15 @@ code != 0) on the first phase that does not hold:
     2^20 for each of the scripts' (K, N) in int8 and bf16, the chain at M
     2^20 and the scripts' depth, the FMA probe at both of its row counts in
     every mode and accumulator count) and at small and odd ones: the int8
-    kernels equal to the bit, bf16 and FMA within their stated bounds; then
-    drives the probe scripts' own entry points
+    kernels equal to the bit (the out8 GEMM and the int8 chain through both
+    instances: s8 ``wgmma`` fed by TMA and ``mma.sync``), bf16 and FMA
+    within their stated bounds; then drives the probe scripts' own entry points
     (``scripts/torch_bench_int8_micro.py``, ``torch_probe_cuda_core_rate.py``)
-    for their times, with the library call beside each GEMM, and holds the
-    launch counts to what those entry points must make;
+    for their times, with the library call beside each GEMM, holds the
+    launch counts to what those entry points must make and the int8 chain
+    and the out8 GEMM to the s8 ``wgmma`` instance, then times each of these
+    two against its older instance on the same inputs, in turns (their
+    ``ms`` is the median of the new instance's readings);
 12. the exact-likelihood path: the small rig's per-frame NLLs of every step,
     card (kernels) vs CPU (plain), f32; forward then ``reverse`` on the card
     returns the volume and the log-dets cancel; ``reverse_fast`` agrees with
@@ -92,6 +97,7 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -628,7 +634,7 @@ def reset_counts():
     for k in KERNELS.values():
         setattr(k["wrapper"], k.get("counter", "launches"), 0)
     for wrapper in (btower.fused_float_tower, qtower.fused_tower,
-                    cpair.cond_pair):
+                    cpair.cond_pair, probes.tiled_gemm, probes.chained_gemm):
         for name in wrapper.by_instance:
             wrapper.by_instance[name] = 0
 
@@ -874,6 +880,18 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
             f"vs bf16 (fused_float_tower) {tb:.3f} ms; on {card}")
     return out1
 
+def one_launch_of(wrapper, instance: str, fn, what: str):
+    """fn()'s result, failing unless fn() made exactly one launch of
+    ``wrapper`` and that launch ran ``instance``."""
+    before = dict(wrapper.by_instance)
+    out = fn()
+    ran = {k: n - before[k] for k, n in wrapper.by_instance.items()
+           if n != before[k]}
+    if ran != {instance: 1}:
+        fail(f"{what}: launches by instance {ran}, expected one {instance}")
+    return out
+
+
 def exact_equal(got, ref, what: str):
     torch.cuda.synchronize()
     if got.dtype != ref.dtype or got.shape != ref.shape:
@@ -895,6 +913,15 @@ def two_rounding_fma(x, y, t: int, u: int):
     for a in accs[1:]:
         acc = acc + a
     return acc
+
+
+def instances_side_by_side(call, new: str, old: str, iters: int) -> dict:
+    """{instance: [ms, ...]}: call(instance) timed for the new instance,
+    the old one, the new, the old and the new, in that order."""
+    side = {}
+    for inst in (new, old, new, old, new):
+        side.setdefault(inst, []).append(time_ms(lambda: call(inst), iters))
+    return side
 
 
 def phase_probes(dev, card, kernels):
@@ -926,10 +953,14 @@ def phase_probes(dev, card, kernels):
         ref = probes.tiled_gemm_reference(a, b)
         exact_equal(probes.tiled_gemm(a, b), ref, f"tiled_gemm int8 {(m, k, n)}")
         ref8 = probes.requant(ref)
-        exact_equal(probes.tiled_gemm(a, b, out8=True), ref8,
-                    f"tiled_gemm out8 {(m, k, n)}")
-        log(f"tiled_gemm int8 {(m, k, n)}: int32 out and out8 equal the plain "
-            f"version to the bit (sums {int(ref.min())}..{int(ref.max())}; "
+        for inst in (probes.WGMMA_S8, probes.MMA_SYNC):
+            what = f"tiled_gemm out8 {(m, k, n)} ({inst})"
+            exact_equal(one_launch_of(probes.tiled_gemm, inst, lambda: (
+                probes.tiled_gemm(a, b, out8=True, instance=inst)), what),
+                ref8, what)
+        log(f"tiled_gemm int8 {(m, k, n)}: int32 out and out8 (both "
+            f"instances) equal the plain version to the bit (sums "
+            f"{int(ref.min())}..{int(ref.max())}; "
             f"{float((ref8 < 0).float().mean()):.2f} of out8 negative)")
         if (m, k, n) == (big, 1152, 128):
             main_gemm = {"a": a, "b": b}
@@ -951,11 +982,13 @@ def phase_probes(dev, card, kernels):
         if not full:                # smaller weights: fewer sums saturate
             ws = ws // 8
         ref = probes.chained_gemm_reference(x, ws)
-        exact_equal(probes.chained_gemm(x, ws), ref,
-                    f"chained_gemm int8 M {m} depth {depth}")
-        log(f"chained_gemm int8 M {m} depth {depth}: equal to the bit "
-            f"({float((ref.abs() == 127).float().mean()):.2f} of the outputs "
-            f"at the clip)")
+        for inst in (probes.WGMMA_S8, probes.MMA_SYNC):
+            what = f"chained_gemm int8 M {m} depth {depth} ({inst})"
+            exact_equal(one_launch_of(probes.chained_gemm, inst, lambda: (
+                probes.chained_gemm(x, ws, instance=inst)), what), ref, what)
+        log(f"chained_gemm int8 M {m} depth {depth}: both instances equal "
+            f"to the bit ({float((ref.abs() == 127).float().mean()):.2f} of the "
+            f"outputs at the clip)")
         if full:
             main_chain = {"x": x, "ws": ws}
         x = micro.make((m, 128), torch.bfloat16, dev, gen)
@@ -1022,6 +1055,16 @@ def phase_probes(dev, card, kernels):
     for name in ("tiled_gemm", "chained_gemm", "tiled_gemm_out8", "fma_probe"):
         kernels[name]["launches"] = delta[name]
     log(f"probe scripts: launches {delta}, {per} of each configuration")
+    # the int8 chain (M 2^20) and the out8 GEMM (N 128) ran the s8 wgmma
+    # instances, every other launch its older one
+    gi, ci = probes.tiled_gemm.by_instance, probes.chained_gemm.by_instance
+    log(f"probe scripts: tiled_gemm launches by instance {gi}, chained_gemm "
+        f"{ci}")
+    if gi[probes.WGMMA_S8] != per or ci[probes.WGMMA_S8] != per \
+            or ci[probes.MMA_SYNC] != per:
+        fail(f"probe scripts: {gi[probes.WGMMA_S8]} of the {per} out8 and "
+             f"{ci[probes.WGMMA_S8]} of the {per} int8 chain launches ran "
+             f"{probes.WGMMA_S8}")
     by_key = {r["key"]: r for r in recs}
     m, kk, n = big, 1152, 128
     r = by_key["gemm", "i8", kk, n]
@@ -1031,7 +1074,7 @@ def phase_probes(dev, card, kernels):
     set_bound(kg, m * kk + kk * n + 4 * m * n, 2 * m * kk * n, "int8",
               f"tiled_gemm int8 -> int32 {(m, kk, n)}")
     r = by_key["gemm_out8", "i8", kk, n]
-    k8["ms"], k8["library_ms"] = r["ms"], None    # no one call does both
+    k8["script_ms"], k8["library_ms"] = r["ms"], None   # no one call does both
     k8["plain_ms"] = time_ms(
         lambda: probes.tiled_gemm_reference(a, b, out8=True), 2, 1)
     set_bound(k8, m * kk + kk * n + m * n, 2 * m * kk * n, "int8",
@@ -1039,10 +1082,27 @@ def phase_probes(dev, card, kernels):
     lib8 = time_ms(lambda: probes.requant(torch._int_mm(a, b)), 10)
     log(f"out8 as library calls (torch._int_mm, then the epilogue in "
         f"torch): {lib8:.4f} ms; on {card}")
+    # the older instance beside the new one, in turns, after the counted
+    # launches; ms is the new one's median there (the script's single
+    # reading, taken right after the GEMM probes, is kept as script_ms)
+    side = instances_side_by_side(
+        lambda inst: probes.tiled_gemm(a, b, out8=True, instance=inst),
+        probes.WGMMA_S8, probes.MMA_SYNC, iters)
+    k8["ms"] = statistics.median(side[probes.WGMMA_S8])
+    k8["mma_sync_ms"] = statistics.median(side[probes.MMA_SYNC])
+    log(f"tiled_gemm out8 {(m, kk, n)} side by side: {side}; script "
+        f"{k8['script_ms']:.4f} ms; on {card}")
     r = by_key["chain", "int8"]
-    kc["ms"], kc["library_ms"] = r["ms"], None    # eight calls, not one
+    kc["script_ms"], kc["library_ms"] = r["ms"], None   # eight calls, not one
     x, ws = main_chain["x"], main_chain["ws"]
     kc["plain_ms"] = time_ms(lambda: probes.chained_gemm_reference(x, ws), 2, 1)
+    side = instances_side_by_side(
+        lambda inst: probes.chained_gemm(x, ws, instance=inst),
+        probes.WGMMA_S8, probes.MMA_SYNC, iters)
+    kc["ms"] = statistics.median(side[probes.WGMMA_S8])
+    kc["mma_sync_ms"] = statistics.median(side[probes.MMA_SYNC])
+    log(f"chained_gemm int8 M {m} depth 8 side by side: {side}; script "
+        f"{kc['script_ms']:.4f} ms; on {card}")
     set_bound(kc, 2 * m * 128 + 8 * 128 * 128, 2 * m * 128 * 128 * 8, "int8",
               f"chained_gemm int8 M {m} depth 8")
     rb = by_key["chain", "bfloat16"]
@@ -1188,8 +1248,10 @@ def main():
     if len(sys.argv) > 1:
         # python3 chip_smoke.py tower cond_pair: those kernel phases alone,
         # while a kernel is being worked on; not the check, and no "ok" line
+        alone = {**kernel_phases,
+                 "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
-            kernel_phases[name](dev, kernels)
+            alone[name](dev, kernels)
         log(f"partial run ({', '.join(sys.argv[1:])}): no verdict")
         return 1
     for phase in kernel_phases.values():
@@ -1225,10 +1287,13 @@ def main():
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k.get("library_ms"),
          # the float tower's f32 instance (3xTF32): the likelihood path's;
-         # the instance that fused_tower (__dp4a) and cond_pair (CUDA cores)
-         # ran before their tensor-core ones, timed in this run
+         # the instance that fused_tower (__dp4a), cond_pair (CUDA cores),
+         # chained_gemm and the out8 GEMM (mma.sync) ran before their
+         # tensor-core ones, timed in this run; the probe script's own
+         # reading of the two s8 instances
          **{key: v for key, v in k.items()
-            if key.startswith("f32_") or key in ("dp4a_ms", "cuda_cores_ms")}}
+            if key.startswith("f32_") or key in (
+                "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

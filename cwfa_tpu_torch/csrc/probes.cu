@@ -25,20 +25,21 @@
 // bf16 FLOP per byte: A alone, 2.4 GB in bf16, takes 0.72 ms to read) and
 // N >= 256 is bound by the tensor cores.  The chain does 8 products per row
 // tile that it reads and writes once (2048 operations per int8 byte): bound
-// by the tensor cores and by the shared-memory traffic that feeds mma.sync.
-// The FMA probe keeps its accumulators in registers and touches 3 x 4 bytes
-// per element for 2 t u FLOP: bound by the CUDA cores' FMA rate.
+// by the tensor cores.  The FMA probe keeps its accumulators in registers
+// and touches 3 x 4 bytes per element for 2 t u FLOP: bound by the CUDA
+// cores' FMA rate.
 //
 // Design:
-//   - The int8 GEMM and both chains run on mma.sync (m16n8k32 s8, m16n8k16
-//     bf16).  In bytes the two have the same fragment layout: a k-step is 32
-//     bytes of K, lane l = 4 g + q holds the 4-byte words at byte 4 q and
+//   - The older instances run on mma.sync (m16n8k32 s8, m16n8k16 bf16).
+//     In bytes the two have the same fragment layout: a k-step is 32 bytes
+//     of K, lane l = 4 g + q holds the 4-byte words at byte 4 q and
 //     4 q + 16 of rows g and g + 8 (A) or of column g (B).  So one kernel
 //     body serves both types, with K counted in bytes.  B is given
 //     TRANSPOSED, (N, K) row-major (the wrapper transposes the small B
 //     once), so that a B fragment is one 32-bit shared-memory load like an A
 //     fragment.
-//   - gemm_kernel (int8): 128 x 128 output tile per block, 8 warps of
+//   - gemm_kernel (int8 -> int32, and the requant GEMM where gemm_s8_kernel
+//     does not take the call): 128 x 128 output tile per block, 8 warps of
 //     32 x 64, a 4-stage cp.async ring of 64-byte K slices of A and B^T;
 //     rows are padded to 80 bytes (20 words: the 8 rows x 4 words of a
 //     fragment load hit 32 distinct banks).  Rows beyond M or N are
@@ -61,16 +62,44 @@
 //     same edges as the int8 kernel.  Neither TMA nor a producer warp: every
 //     thread copies, which costs instruction slots; the remaining distance to
 //     cuBLAS at N >= 256 is there and in the epilogue's 4-byte stores.
-//   - chain_kernel: 16 warps, each carries its own 16 rows through all the
-//     products, so only the weights need block-wide barriers.  The weights
-//     of one stage (128 x 128, 16 KB int8, 32 KB bf16; all eight bf16 stages
-//     would not fit a block's 227 KB) stream from L2 into a double buffer
-//     with cp.async while the previous stage computes.  bf16: the sum
-//     fragment of one stage is, packed to bf16 pairs, the A fragment of the
-//     next, and never leaves the registers.  int8: the m16n8k32 A fragment
-//     needs four consecutive columns that two lanes hold, so the requantized
-//     tile passes through the warp's own shared-memory tile (warp-local
-//     sync only).
+//   - chain_kernel (bf16, and int8 where the s8 instance below does not
+//     take the call): 16 warps, each carries its own 16 rows through all
+//     the products, so only the weights need block-wide barriers.  The
+//     weights of one stage (128 x 128, 16 KB int8, 32 KB bf16; all eight
+//     bf16 stages would not fit a block's 227 KB) stream from L2 into a
+//     double buffer with cp.async while the previous stage computes.  bf16:
+//     the sum fragment of one stage is, packed to bf16 pairs, the A fragment
+//     of the next, and never leaves the registers.  int8: the m16n8k32 A
+//     fragment needs four consecutive columns that two lanes hold, so the
+//     requantized tile passes through the warp's own shared-memory tile.
+//     Every warp re-reads the whole stage from shared memory, one 32-bit
+//     pair per mma: shared-memory bandwidth caps it near 17% of the int8
+//     peak.
+//   - chain_s8_kernel and gemm_s8_kernel (int8 on s8 wgmma, csrc/tma.cuh):
+//     persistent blocks (one per SM) of consumer warpgroups, 64 rows and
+//     128 columns each (m64n128k32), and one producer warp whose one thread
+//     keeps TMA loads of 128-byte-wide row tiles (the 128-byte swizzle wgmma
+//     reads) in flight through a ring behind full / empty mbarriers.
+//     chain_s8_kernel holds all `depth` stages' weights in shared memory
+//     (16 KB each, loaded once per block); x tiles of 192 rows stream
+//     through the ring to three warpgroups.  Stage 0 reads x from shared
+//     memory; the requantized sums of stage i, as they sit in the thread,
+//     are the A registers of stage i + 1: the wrapper permutes the input
+//     channels of every stage after the first (slot 4 q + e of every 16 is
+//     channel 8 (e / 2) + 2 q + e % 2, as for the int8 tower), so nothing
+//     crosses threads and no stage needs a barrier.  Within a warpgroup the
+//     products and the requant run in series; the three warpgroups drift
+//     out of step, so one's requant runs while another's products are on
+//     the tensor cores, and cvt.pack.sat halves the requant's instructions
+//     (forcing the warpgroups to take turns measured slower: PERF.md
+//     section 6).  gemm_s8_kernel (the requant GEMM, two
+//     warpgroups on 128-row tiles) keeps B^T's 128-column slice resident
+//     (128 x K bytes, K <= 1408) and streams 128-byte K slices of A; a
+//     block keeps its column slice and walks row tiles, so the ring already
+//     holds the next tile's slices while the epilogue runs.  Both write
+//     their int8 tile through a swizzled staging tile in shared memory, 16
+//     bytes a store; TMA zero-fills rows >= M and K beyond the matrix, the
+//     stores skip them.
 //   - fma_kernel: one warp per row, a lane holds 4 consecutive columns of
 //     each accumulator in registers; roll by one along the 128 columns is
 //     one shuffle (the lane's last column from its left neighbour, lane 0
@@ -85,8 +114,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -584,6 +615,356 @@ int launch_chain(const void* x, const void* wt, void* out, int64_t m, int depth,
 }
 
 // ---------------------------------------------------------------------------
+// int8 on s8 wgmma, fed by TMA: the requant GEMM and the chain
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 128 * 128;        // a 128-row x 128-byte tile, swizzled
+constexpr int kHalf = 64 * 128;         // a consumer warpgroup's 64 rows of it
+
+// Threads of a block with NC consumer warpgroups and the producer warp;
+// its thread 128 NC issues every TMA load.
+constexpr int tma_threads(int nc) { return 128 * nc + 32; }
+
+// Shared memory: [nres resident tiles][ring slots of `slot` bytes][a
+// 64-row staging tile per consumer warpgroup][barriers: full[ring],
+// empty[ring], resident], every tile 1024-byte aligned.  The ring and the
+// grid come from the caller's plan (ops/probes.py gemm_plan, chain_plan, which
+// lays shared memory out the same way); the launch only checks them.
+constexpr int tma_smem(int nres, int ring, int slot, int nc) {
+  return 1024 + nres * kTile + ring * slot + nc * kHalf + 8 * (2 * ring + 1);
+}
+
+// cudaSuccess when `smem` bytes fit a block of this device, a grid of
+// `grid` blocks is positive and a ring has at least two slots.
+int check_tma_launch(int device, int smem, int64_t grid, int ring) {
+  int most = 0;
+  const int err = (int)cudaDeviceGetAttribute(
+      &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != 0) return err;
+  return smem <= most && grid >= 1 && grid <= 2147483647LL && ring >= 2
+             ? (int)cudaSuccess
+             : (int)cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ void sts16(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"((uint16_t)v)
+               : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+// wgmma writes the sums, and an rs product reads its A registers, until
+// wgmma's wait: these keep the compiler from taking them as final or free
+// before it (no instruction is emitted).
+__device__ __forceinline__ void keep(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&a)[4]) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3])::"memory");
+}
+
+// The requant epilogue packed: (c << 16) | q(hi) << 8 | q(lo), q(v) =
+// clip(v >> 7, -127, 127).  The lower clip goes before the shift (v >> 7 >=
+// -127 exactly when v >= -16256), the upper is the saturation of the pack
+// (cvt.pack.sat clips to -128..127): two instructions a value and one per
+// pair where requant() and a byte permute take four.
+__device__ __forceinline__ uint32_t requant2(int hi, int lo, uint32_t c) {
+  uint32_t d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(max(hi, -16256) >> 7), "r"(max(lo, -16256) >> 7), "r"(c));
+  return d;
+}
+// four requantized values, the first in the lowest byte
+__device__ __forceinline__ uint32_t requant4(int a, int b, int c, int d) {
+  return requant2(b, a, requant2(d, c, 0u));
+}
+
+// The barriers and the thread's place, which both kernels share.
+template <int NC>
+struct TmaBlock {
+  uint32_t full0, empty0, res;          // mbarrier addresses
+  int ring, tid, wgi;
+
+  __device__ TmaBlock(uint32_t bars, int ring_) : ring(ring_) {
+    full0 = bars;
+    empty0 = bars + 8 * ring;
+    res = bars + 16 * ring;
+    tid = threadIdx.x;
+    // the same in every lane, and the compiler can see that: a branch on it
+    // is not divergent, so wgmma inside it stays asynchronous
+    wgi = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+    if (tid == 0) {
+      for (int s = 0; s < ring; ++s) {
+        tma::mbar_init(full0 + 8 * s, 1);
+        tma::mbar_init(empty0 + 8 * s, 4 * NC);   // lane 0 of each consumer warp
+      }
+      tma::mbar_init(res, 1);
+      tma::fence_barrier_init();
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ bool producer() const { return wgi == NC; }
+  __device__ __forceinline__ bool issues() const { return tid == 128 * NC; }
+  __device__ __forceinline__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+  // the ring slot of the it-th tile a thread takes, and its phase's parity
+  __device__ __forceinline__ int slot(int it) const { return it % ring; }
+  __device__ __forceinline__ uint32_t parity(int it) const {
+    return (uint32_t)(it / ring) & 1u;
+  }
+};
+
+// The requantized sums of a warpgroup's 64 x 128 tile (t: the thread's
+// index in it) to rows row0.. and columns col0.. of the (M, N) int8 out:
+// into the warpgroup's staging tile (128-byte rows, chunk c of row r at
+// c ^ (r % 8): the 2-byte writes of a warp hit 32 banks), then 16 bytes a
+// store (vec: N % 16 == 0 and out 16-byte aligned), each row of the tile
+// 8 neighbouring threads.
+__device__ __forceinline__ void store_tile(const int32_t (&acc)[64],
+                                           uint32_t stg, int8_t* out,
+                                           int64_t row0, int64_t M, int col0,
+                                           int N, bool vec, int t, int bar) {
+  const int w = t >> 5, g = (t & 31) >> 2, q = t & 3;
+  tma::bar_sync<128>(bar);              // the last tile's reads are done
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + g + 8 * h, c = 8 * j + 2 * q;
+      sts16(stg + r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15),
+            requant2(acc[4 * j + 2 * h + 1], acc[4 * j + 2 * h], 0u));
+    }
+  tma::bar_sync<128>(bar);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int idx = t + 128 * i, r = idx >> 3, ch = idx & 7;
+    const int64_t row = row0 + r;
+    const int col = col0 + 16 * ch;
+    if (row >= M || col >= N) continue;
+    const uint4 v = lds128(stg + r * 128 + ((ch ^ (r & 7)) << 4));
+    int8_t* o = out + row * N + col;
+    if (vec) {
+      *reinterpret_cast<uint4*>(o) = v;
+    } else {
+      const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (col + b < N) o[b] = (int8_t)(wv[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+struct GemmS8 {
+  int64_t M;
+  int N, nk, ring, ntn;    // K slices (resident), ring tiles, column slices
+  int vec;
+};
+
+// clip((A B) >> 7, -127, 127): A (M, kb) int8 through map ma, B^T (N, kb)
+// through mb, out (M, N) int8.  Block b keeps column slice b % ntn of B^T
+// resident and takes row tiles b / ntn, b / ntn + gridDim.x / ntn, ...
+// Two consumer warpgroups, 64 rows of a 128-row tile each.
+__global__ void __launch_bounds__(tma_threads(2), 1)
+    gemm_s8_kernel(const __grid_constant__ CUtensorMap ma,
+                   const __grid_constant__ CUtensorMap mb,
+                   int8_t* __restrict__ out, const GemmS8 p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t bres =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = bres + p.nk * kTile, stg = ring + p.ring * kTile;
+  const TmaBlock<2> B(stg + 2 * kHalf, p.ring);
+  const int n0 = (blockIdx.x % p.ntn) * 128;
+  const int64_t mtiles = (p.M + 127) / 128;
+  const int64_t mt0 = blockIdx.x / p.ntn, mstep = gridDim.x / p.ntn;
+
+  if (B.producer()) {
+    if (B.issues()) {
+      tma::mbar_expect(B.res, p.nk * kTile);
+      for (int s = 0; s < p.nk; ++s)
+        tma::load_2d(bres + s * kTile, &mb, 128 * s, n0, B.res);
+      int it = 0;
+      for (int64_t mt = mt0; mt < mtiles; mt += mstep)
+        for (int s = 0; s < p.nk; ++s, ++it) {
+          const int sl = B.slot(it);
+          tma::mbar_wait(B.empty(sl), B.parity(it) ^ 1u);
+          tma::mbar_expect(B.full(sl), kTile);
+          tma::load_2d(ring + sl * kTile, &ma, 128 * s, (int)(mt * 128),
+                       B.full(sl));
+        }
+    }
+    return;
+  }
+
+  const uint64_t dsw = wg::desc_base(0, 1024, wg::kSwizzle128);
+  const int lane = B.tid & 31;
+  int32_t acc[64];
+  tma::mbar_wait(B.res, 0);
+  int it = 0;
+  for (int64_t mt = mt0; mt < mtiles; mt += mstep) {
+    for (int s = 0; s < p.nk; ++s, ++it) {
+      const int sl = B.slot(it);
+      tma::mbar_wait(B.full(sl), B.parity(it));
+      const uint32_t a = ring + sl * kTile + B.wgi * kHalf;
+      const uint32_t b = bres + s * kTile;
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wg::wgmma_ss_s8<128>(acc, wg::desc_at(dsw, a + 32 * ks),
+                             wg::desc_at(dsw, b + 32 * ks), s > 0 || ks > 0);
+      wg::commit();
+      wg::wait<0>();
+      keep(acc);
+      if (lane == 0) tma::mbar_arrive(B.empty(sl));
+    }
+    store_tile(acc, stg + B.wgi * kHalf, out, mt * 128 + B.wgi * 64, p.M, n0,
+               p.N, p.vec, B.tid & 127, 1 + B.wgi);
+  }
+}
+
+// The chain: x (M, 128) int8 through map mx (boxes of 192 rows), the depth
+// stages' weights through mw (depth * 128 rows of 128 bytes: stage i's
+// B^T, its input channels permuted for i >= 1), out (M, 128) int8.  Three
+// consumer warpgroups, 64 rows of a 192-row tile each; they drift out of
+// step, so one's epilogue runs while another's products are on the tensor
+// cores.
+constexpr int kChainWGs = 3;
+constexpr int kChainRows = 64 * kChainWGs, kChainSlot = kChainWGs * kHalf;
+
+__global__ void __launch_bounds__(tma_threads(kChainWGs), 1)
+    chain_s8_kernel(const __grid_constant__ CUtensorMap mx,
+                    const __grid_constant__ CUtensorMap mw,
+                    int8_t* __restrict__ out, const int64_t M,
+                    const int depth, const int nring) {
+  constexpr int NC = kChainWGs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t wres =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ring = wres + depth * kTile, stg = ring + nring * kChainSlot;
+  const TmaBlock<NC> B(stg + NC * kHalf, nring);
+  const int64_t ntiles = (M + kChainRows - 1) / kChainRows;
+
+  if (B.producer()) {
+    if (B.issues()) {
+      tma::mbar_expect(B.res, depth * kTile);
+      for (int i = 0; i < depth; ++i)
+        tma::load_2d(wres + i * kTile, &mw, 0, 128 * i, B.res);
+      int it = 0;
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++it) {
+        const int sl = B.slot(it);
+        tma::mbar_wait(B.empty(sl), B.parity(it) ^ 1u);
+        tma::mbar_expect(B.full(sl), kChainSlot);
+        tma::load_2d(ring + sl * kChainSlot, &mx, 0, (int)(t * kChainRows),
+                     B.full(sl));
+      }
+    }
+    return;
+  }
+
+  const uint64_t dsw = wg::desc_base(0, 1024, wg::kSwizzle128);
+  const int lane = B.tid & 31;
+  int32_t acc[64];
+  uint32_t af[4][4];
+  tma::mbar_wait(B.res, 0);
+  int it = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++it) {
+    const int sl = B.slot(it);
+    tma::mbar_wait(B.full(sl), B.parity(it));
+    const uint32_t xa = ring + sl * kChainSlot + B.wgi * kHalf;
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wg::wgmma_ss_s8<128>(acc, wg::desc_at(dsw, xa + 32 * ks),
+                           wg::desc_at(dsw, wres + 32 * ks), ks > 0);
+    wg::commit();
+    wg::wait<0>();
+    keep(acc);
+    if (lane == 0) tma::mbar_arrive(B.empty(sl));   // x is in the sums now
+#pragma unroll 1
+    for (int i = 1; i < depth; ++i) {
+      // requantize: register 2 r + h of k-step ks holds, for row g + 8 h,
+      // slots 16 r + 4 q .. + 3 of its 32, the columns of n-tiles
+      // jn = 4 ks + 2 r and jn + 1 that this thread's sums hold
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int32_t* a = acc + 4 * (4 * ks + 2 * r);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            af[ks][2 * r + h] = requant4(a[2 * h], a[2 * h + 1], a[4 + 2 * h],
+                                         a[5 + 2 * h]);
+        }
+      wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wg::wgmma_rs_s8<128>(acc, af[ks],
+                             wg::desc_at(dsw, wres + i * kTile + 32 * ks),
+                             ks > 0);
+      wg::commit();
+      wg::wait<0>();
+      keep(acc);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) keep(af[ks]);
+    }
+    store_tile(acc, stg + B.wgi * kHalf, out, t * kChainRows + B.wgi * 64, M,
+               0, 128, true, B.tid & 127, 1 + B.wgi);
+  }
+}
+
+int launch_gemm_s8(const void* a, const void* bt, void* out, int64_t m, int n,
+                   int kb, int ring, int grid, int device, cudaStream_t s) {
+  GemmS8 p;
+  p.M = m;
+  p.N = n;
+  p.nk = (kb + 127) / 128;
+  p.ring = ring;
+  p.ntn = (n + 127) / 128;
+  p.vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int smem = tma_smem(p.nk, p.ring, kTile, 2);
+  int err = check_tma_launch(device, smem, grid, ring);
+  if (err == 0 && (grid % p.ntn || reinterpret_cast<uintptr_t>(a) % 16 ||
+                   reinterpret_cast<uintptr_t>(bt) % 16))
+    err = (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (err == 0) err = tma::map_2d(&ma, a, m, kb, 128);
+  if (err == 0) err = tma::map_2d(&mb, bt, n, kb, 128);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        gemm_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  gemm_s8_kernel<<<(unsigned)grid, tma_threads(2), smem, s>>>(
+      ma, mb, static_cast<int8_t*>(out), p);
+  return (int)cudaGetLastError();
+}
+
+int launch_chain_s8(const void* x, const void* wt, void* out, int64_t m,
+                    int depth, int ring, int grid, int device,
+                    cudaStream_t s) {
+  const int smem = tma_smem(depth, ring, kChainSlot, kChainWGs);
+  int err = check_tma_launch(device, smem, grid, ring);
+  if (err == 0 && (reinterpret_cast<uintptr_t>(x) % 16 ||
+                   reinterpret_cast<uintptr_t>(wt) % 16 ||
+                   reinterpret_cast<uintptr_t>(out) % 16))
+    err = (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  if (err == 0) err = tma::map_2d(&mx, x, m, kC, kChainRows);
+  if (err == 0) err = tma::map_2d(&mw, wt, (uint64_t)depth * kC, kC, 128);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        chain_s8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  chain_s8_kernel<<<(unsigned)grid, tma_threads(kChainWGs), smem, s>>>(
+      mx, mw, static_cast<int8_t*>(out), m, depth, ring);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // FMA-rate probe
 // ---------------------------------------------------------------------------
 
@@ -654,35 +1035,50 @@ void launch_fma(const void* x, const void* y, void* o, int64_t rows, int t,
 
 // a: (m, k) and bt: (n, k), B transposed, both int8 (dtype 0) or bf16
 // (dtype 1), contiguous, k * element size a multiple of 16; out: (m, n)
-// int32, or int8 with out8 (int8 inputs only), or bf16.
+// int32, or int8 with out8 (int8 inputs only), or bf16.  instance: 0
+// mma.sync (int8), 1 wgmma (bf16), 2 s8 wgmma fed by TMA (out8, inputs
+// 16-byte aligned; ring slots and grid, a multiple of the column slices, as
+// ops/probes.py gemm_plan gives them; the other instances ignore both).
 extern "C" int cwfa_tiled_gemm(const void* a, const void* bt, void* out,
                                int64_t m, int n, int k, int dtype, int out8,
-                               int device, void* stream) {
+                               int instance, int ring, int grid, int device,
+                               void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || dtype < 0 || dtype > 1 || out8 < 0 ||
-      out8 > 1 || (out8 && dtype != 0))
+      out8 > 1 || (out8 && dtype != 0) || instance < 0 || instance > 2 ||
+      (instance == 1) != (dtype == 1) || (instance == 2 && !out8))
     return (int)cudaErrorInvalidValue;
   const int64_t kb = (int64_t)k * (dtype == 1 ? 2 : 1);
   if (kb % 16 || kb > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
+  if (instance == 1)
     return n > 128 ? launch_gemm_wgmma<256>(a, bt, out, m, n, (int)kb, s)
                    : launch_gemm_wgmma<128>(a, bt, out, m, n, (int)kb, s);
+  if (instance == 2)
+    return launch_gemm_s8(a, bt, out, m, n, (int)kb, ring, grid, device, s);
   if (out8) return launch_gemm<int, kOutInt8>(a, bt, out, m, n, (int)kb, s);
   return launch_gemm<int, kOutInt32>(a, bt, out, m, n, (int)kb, s);
 }
 
 // x, out: (m, 128); wt: (depth, 128, 128) with every stage transposed
-// (N, K); all int8 (dtype 0) or bf16 (dtype 1), contiguous.
+// (N, K); all int8 (dtype 0) or bf16 (dtype 1), contiguous.  instance: 0
+// mma.sync; 1 s8 wgmma fed by TMA (int8, depth <= 8, 16-byte aligned, every
+// stage after the first with its K permuted as ops/probes.chain_operand
+// does it; ring slots and grid as ops/probes.py chain_plan gives them, which
+// instance 0 ignores).
 extern "C" int cwfa_chained_gemm(const void* x, const void* wt, void* out,
-                                 int64_t m, int depth, int dtype, int device,
+                                 int64_t m, int depth, int dtype, int instance,
+                                 int ring, int grid, int device,
                                  void* stream) {
-  if (m <= 0 || depth <= 0 || dtype < 0 || dtype > 1)
+  if (m <= 0 || depth <= 0 || dtype < 0 || dtype > 1 || instance < 0 ||
+      instance > 1 || (instance == 1 && (dtype != 0 || depth > 8)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (instance == 1)
+    return launch_chain_s8(x, wt, out, m, depth, ring, grid, device, s);
   return dtype == 1 ? launch_chain<true>(x, wt, out, m, depth, s)
                     : launch_chain<false>(x, wt, out, m, depth, s);
 }

@@ -2,12 +2,14 @@
 // memory matrix descriptors, the fence / commit / wait instructions and the
 // m64nNk16 bf16 and m64nNk8 tf32 products with f32 sums and the m64nNk32 s8
 // product with s32 sums, B always from shared memory, A from shared memory
-// (ss) or from registers (rs).
+// (ss) or from registers (rs).  The float products always add to the sums in
+// d (zero them first); the s8 ones add unless scale_d is 0, which writes
+// d = A B.
 //
 // A warpgroup is four consecutive warps (128 threads, the first warp's index
-// a multiple of 4); all of them execute every instruction here together.  The
-// products always add to the sums in d (zero them first).  Both operands
-// are K-major: a core matrix is 8 rows (M of A, N of B) of 16 bytes of K.
+// a multiple of 4); all of them execute every instruction here together.
+// Both operands are K-major: a core matrix is 8 rows (M of A, N of B) of 16
+// bytes of K.
 //
 // Sum layout (d, N / 2 floats per thread), lane = 4 g + q of warp w:
 //   d[4 j + 0], d[4 j + 1]: row 16 w + g,     columns 8 j + 2 q, 8 j + 2 q + 1
@@ -81,9 +83,11 @@ __device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint6
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t db);
 template <int N>
-__device__ __forceinline__ void wgmma_ss_s8(int32_t* d, uint64_t da, uint64_t db);
+__device__ __forceinline__ void wgmma_ss_s8(int32_t* d, uint64_t da, uint64_t db,
+                                            int scale_d = 1);
 template <int N>
-__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint64_t db);
+__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint64_t db,
+                                            int scale_d = 1);
 
 
 template <>
@@ -384,7 +388,7 @@ __device__ __forceinline__ void wgmma_rs_tf32<96>(float* d, const uint32_t* a, u
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_s8<16>(int32_t* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<16>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
@@ -392,11 +396,11 @@ __device__ __forceinline__ void wgmma_ss_s8<16>(int32_t* d, uint64_t da, uint64_
       "%8, %9, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
         "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_s8<32>(int32_t* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<32>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
@@ -407,11 +411,11 @@ __device__ __forceinline__ void wgmma_ss_s8<32>(int32_t* d, uint64_t da, uint64_
         "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
         "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
         "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_s8<48>(int32_t* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<48>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
@@ -425,11 +429,11 @@ __device__ __forceinline__ void wgmma_ss_s8<48>(int32_t* d, uint64_t da, uint64_
         "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_s8<64>(int32_t* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<64>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -446,11 +450,11 @@ __device__ __forceinline__ void wgmma_ss_s8<64>(int32_t* d, uint64_t da, uint64_
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_ss_s8<96>(int32_t* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<96>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
@@ -473,11 +477,44 @@ __device__ __forceinline__ void wgmma_ss_s8<96>(int32_t* d, uint64_t da, uint64_
         "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
         "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 template <>
-__device__ __forceinline__ void wgmma_rs_s8<64>(int32_t* d, const uint32_t* a, uint64_t db) {
+__device__ __forceinline__ void wgmma_ss_s8<128>(int32_t* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(int32_t* d, const uint32_t* a, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
@@ -494,7 +531,40 @@ __device__ __forceinline__ void wgmma_rs_s8<64>(int32_t* d, const uint32_t* a, u
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<128>(int32_t* d, const uint32_t* a, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 }  // namespace wg

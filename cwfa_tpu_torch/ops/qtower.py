@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops.int8_conv import conv2d_int8, quantize_mul
+from cwfa_tpu_torch.ops.wgmma_layout import S8_SUM_ORDER
 
 # conv-input sites in execution order: row index of the (8, C) scales
 SITES = ("x", "r1", "e2a", "e2", "e4a", "e4", "e6a", "e6")
@@ -54,11 +55,6 @@ WGMMA_S8, DP4A = "wgmma s8", "dp4a"
 WGMMA_WIDTH = 64                       # the tower width of the wgmma instance
 WGMMA_NOUT = (16, 32, 48, 64, 96)      # b7 widths it is built for
 TOO_WIDE = -1                          # csrc/qtower.cu: no tile fits the width
-# the 1x1 of a residual block takes its A operand from the 3x3's sums in
-# registers: slot s of every 16 input channels is channel _SUM_ORDER[s]
-# (a thread holds columns 8 j + 2 q, 8 j + 2 q + 1 of the sums and fills
-# bytes 4 q .. 4 q + 3 of the s8 fragment)
-_SUM_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -102,13 +98,15 @@ def _wg_operand(wq, ipad: int, opad: int, after_3x3: bool = False):
     read it from shared memory, K-major without swizzle, per tap
     [Cin / 16][Cout][16]: a core matrix is 8 output channels x 16 bytes of
     input channels.  Cin is zero-padded to ``ipad``, Cout to ``opad``; with
-    ``after_3x3`` the input channels of every 16 come in ``_SUM_ORDER``."""
+    ``after_3x3`` the input channels of every 16 come in ``S8_SUM_ORDER``
+    (the 1x1 of a residual block takes its A operand from the 3x3's sums in
+    registers)."""
     o, i, k, _ = wq.shape
     full = torch.zeros((k * k, opad, ipad), dtype=torch.int8, device=wq.device)
     full[:, :o, :i] = wq.permute(2, 3, 0, 1).reshape(k * k, o, i)
     full = full.reshape(k * k, opad, ipad // 16, 16)
     if after_3x3:
-        full = full[..., torch.tensor(_SUM_ORDER, device=wq.device)]
+        full = full[..., torch.tensor(S8_SUM_ORDER, device=wq.device)]
     return full.permute(0, 2, 1, 3).reshape(-1)
 
 

@@ -20,8 +20,8 @@ HEADER = (Path(__file__).resolve().parents[1] / "cwfa_tpu_torch" / "csrc"
 SS_BF16 = (16, 32, 48, 64, 96, 128, 256)   # A and B from shared memory
 RS_BF16 = (64,)                            # A from registers
 RS_TF32 = (16, 32, 48, 64, 96)
-SS_S8 = (16, 32, 48, 64, 96)               # int8, int32 sums
-RS_S8 = (64,)
+SS_S8 = (16, 32, 48, 64, 96, 128)          # int8, int32 sums
+RS_S8 = (64, 128)
 # kind -> (k, PTX types, type and asm constraint of a sum)
 KINDS = {"bf16": (16, "f32.bf16.bf16", "float", "+f"),
          "tf32": (8, "f32.tf32.tf32", "float", "+f"),
@@ -39,6 +39,9 @@ def inst(kind: str, n: int, rs: bool) -> str:
     k, types, ctype, constraint = KINDS[kind]
     name = f"wgmma_{'rs' if rs else 'ss'}_{kind}"
     a_arg = "const uint32_t* a" if rs else "uint64_t da"
+    # the s8 products take scale-d as an argument (0: d = A B, the old sums
+    # ignored); the float ones always add
+    sd_arg, sd_op = (", int scale_d", "scale_d") if kind == "s8" else ("", "1")
     a_ops = "{" + regs(4, nacc) + "}" if rs else f"%{nacc}"
     nb = nacc + (4 if rs else 1)          # operand number of B's descriptor
     # after scale-d (the predicate): for the float types scale-a, scale-b,
@@ -49,7 +52,7 @@ def inst(kind: str, n: int, rs: bool) -> str:
             ("s8", False): "p"}[kind, rs]
     out = ["template <>",
            f"__device__ __forceinline__ void {name}<{n}>({ctype}* d, {a_arg}, "
-           f"uint64_t db) {{",
+           f"uint64_t db{sd_arg}) {{",
            "  asm volatile(",
            f'      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{nb + 1}, 0;\\n"',
            f'      "wgmma.mma_async.sync.aligned.m64n{n}k{k}.{types} "']
@@ -65,9 +68,9 @@ def inst(kind: str, n: int, rs: bool) -> str:
         ", ".join(sums[i:i + 4]) for i in range(0, nacc, 4)))
     if rs:
         out.append('      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), '
-                   '"l"(db), "r"(1));')
+                   f'"l"(db), "r"({sd_op}));')
     else:
-        out.append('      : "l"(da), "l"(db), "r"(1));')
+        out.append(f'      : "l"(da), "l"(db), "r"({sd_op}));')
     out.append("}")
     return "\n".join(out)
 
@@ -76,12 +79,14 @@ HEAD = '''// Hopper (sm_90a) warpgroup matrix multiply (wgmma) building blocks: 
 // memory matrix descriptors, the fence / commit / wait instructions and the
 // m64nNk16 bf16 and m64nNk8 tf32 products with f32 sums and the m64nNk32 s8
 // product with s32 sums, B always from shared memory, A from shared memory
-// (ss) or from registers (rs).
+// (ss) or from registers (rs).  The float products always add to the sums in
+// d (zero them first); the s8 ones add unless scale_d is 0, which writes
+// d = A B.
 //
 // A warpgroup is four consecutive warps (128 threads, the first warp's index
-// a multiple of 4); all of them execute every instruction here together.  The
-// products always add to the sums in d (zero them first).  Both operands
-// are K-major: a core matrix is 8 rows (M of A, N of B) of 16 bytes of K.
+// a multiple of 4); all of them execute every instruction here together.
+// Both operands are K-major: a core matrix is 8 rows (M of A, N of B) of 16
+// bytes of K.
 //
 // Sum layout (d, N / 2 floats per thread), lane = 4 g + q of warp w:
 //   d[4 j + 0], d[4 j + 1]: row 16 w + g,     columns 8 j + 2 q, 8 j + 2 q + 1
@@ -155,9 +160,11 @@ __device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint6
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t db);
 template <int N>
-__device__ __forceinline__ void wgmma_ss_s8(int32_t* d, uint64_t da, uint64_t db);
+__device__ __forceinline__ void wgmma_ss_s8(int32_t* d, uint64_t da, uint64_t db,
+                                            int scale_d = 1);
 template <int N>
-__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint64_t db);
+__device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint64_t db,
+                                            int scale_d = 1);
 '''
 
 def render() -> str:

@@ -33,6 +33,7 @@ from cwfa_tpu_torch.engine.jax_params import (load_jax_params,
 from cwfa_tpu_torch.flow.subnets import WaveletFlowSubnet2d
 from cwfa_tpu_torch.ops import int8_conv as ic
 from cwfa_tpu_torch.ops import qtower as tq
+from cwfa_tpu_torch.ops.wgmma_layout import S8_SUM_ORDER
 
 B, CIN, H, W, NCH, NOUT1 = 2, 6, 16, 16, 8, 12  # tests/test_qtower.py
 
@@ -207,7 +208,7 @@ def _tower_from_wg_pack(qw, scales, xq, cin, nout):
     c, pack = qw["sw"].shape[1], qw["wg"]
     np7 = next(n for n in tq.WGMMA_NOUT if n >= nout)
     cinp = cin + (-cin) % 32
-    order = torch.tensor(tq._SUM_ORDER)
+    order = torch.tensor(S8_SUM_ORDER)
     off = 0
 
     def operand(k, ipad, opad):
@@ -235,7 +236,7 @@ def _tower_from_wg_pack(qw, scales, xq, cin, nout):
     for blk in range(3):
         ka, kb = 1 + 2 * blk, 2 + 2 * blk
         qa = quant(tq._elu(deq(conv(q, operand(3, c, c)), ka)), ka + 1)
-        # a thread's requantized sums fill its A registers in _SUM_ORDER
+        # a thread's requantized sums fill its A registers in S8_SUM_ORDER
         a = qa.reshape(qa.shape[0], c // 16, 16, *qa.shape[2:])[:, :, order]
         r = deq(conv(a.reshape(qa.shape), operand(1, c, c)), kb) + res.float()
         e = tq._elu(r)
