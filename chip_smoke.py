@@ -1,10 +1,10 @@
 """Smoke test of the PyTorch/CUDA port (``cwfa_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                      # the whole check
-    python3 chip_smoke.py tower cond_pair      # kernel phases alone (kernels,
+    python3 chip_smoke.py tower cond_pair      # phases alone (kernels,
                                                # tower, cond_pair, float_tower,
-                                               # probes) while working on one:
-                                               # no verdict
+                                               # probes, serving) while working
+                                               # on one: no verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -79,14 +79,29 @@ code != 0) on the first phase that does not hold:
     ``reverse``; then the flagship at full width (96 x 512 x 512 volumes
     from a seed) through ``PyramidScorer`` at batch 1 and 4: shape,
     finiteness, launch counts (16 ``cat_affine``, 20 ``fused_float_tower``
-    per call, no other kernel), ms per frame and peak memory.
+    per call, no other kernel), ms per frame and peak memory;
+13. the serving entry point, ``python -m cwfa_tpu_torch.cli.serve``, at the
+    flagship width: the flagship model written as a checkpoint directory of
+    the JAX package's format through the port's writer (5 step files, the
+    mean caches of a seeded mean volume, the rig's statistics) and read back
+    equal to the bit, a lenslet file of the rig's centers, 19 uint16
+    camera frames of 2160^2 as TIFFs; then ``cli.serve.main`` at batch 8
+    twice, with the int8 UNet (the default) and with ``--no_int8``: 19
+    volume TIFFs of (96, 512, 512) f32, finite, 3 batches with 5 padded
+    frames, every volume equal to the bit to a reconstructor built by the
+    same steps and called on the same groups of 8 frames, the launch counts
+    of the bf16 path per call (warm-up and three batches), and the served
+    frames/s, batch latency p50 / p95, the service's segment seconds, peak
+    memory, ``throughput()`` at batch 8, ``latency_ms()`` at batch 1, and
+    the device-to-host copy and the TIFF writer timed alone.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (nine kernels,
 each with its launches, error, time, plain version's time, bound and, where
 one PyTorch call computes the same function, that call's time; the float
 tower also with the ``f32_*`` numbers of its f32 instance, which the
-likelihood path runs), then, as its
+likelihood path runs; the serving path's kernels with ``serve_launches``,
+their launches in its two runs), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -97,8 +112,11 @@ import copy
 import dataclasses
 import importlib.util
 import json
+import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -106,6 +124,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cwfa_tpu_torch.cli import serve
+from cwfa_tpu_torch.data.tiff import read_tiff_stack, write_tiff_stack
+from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
 from cwfa_tpu_torch.engine.ood import PyramidScorer
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS
@@ -119,7 +140,8 @@ from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops import flow_affine as fa
 from cwfa_tpu_torch.ops import probes
 from cwfa_tpu_torch.ops import qtower
-from cwfa_tpu_torch.rig import flagship
+from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+from cwfa_tpu_torch.rig import flagship, lenslet_coords
 from cwfa_tpu_torch.roofline import WARMUP, bound_ms, card_line, time_ms
 
 SLICE_C, SLICE_HW = 48, 512        # step 0 of the flagship: (1, 48, 512, 512)
@@ -162,6 +184,9 @@ BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "cond_pair": 4,
 INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16,
                  "cond_pair": 4, "fused_float_tower": 4}
 NLL_PER_CALL = {"cat_affine": 16, "fused_float_tower": 20}
+# the serving CLI: the int8 UNet (no custom kernel) or bf16, bf16 towers
+SERVE_PER_CALL = BF16_PER_CALL
+SERVE_FRAMES, SERVE_BATCH = 19, 8
 PROBE_US = (1, 4, 8, 16)           # the FMA probe's accumulator counts here
 # bounds of the two fused-conv kernels, as a share of max|ref|:
 # f32 1e-5 (the sums run in another order than cuDNN's); bf16 2^-6 for the
@@ -1218,6 +1243,182 @@ def phase_likelihood_flagship(dev, card, kernels, model, stats):
         f"{n32} (all the f32 instance, {btower.WGMMA_3XTF32})")
 
 
+def write_serving_inputs(root: Path, dev, model, stats, img: int):
+    """The serving phase's inputs under ``root``: the flagship model as a
+    checkpoint directory through the port's writer (with the mean caches
+    of a seeded mean volume, computed on the card), the rig's lenslet
+    centers - 50, and SERVE_FRAMES uint16 camera frames.  Fails unless the
+    directory reads back equal to the bit."""
+    cfg = model.cfg
+    side = cfg.volume_side_size
+    ckpt = root / "ckpt"
+    t0 = time.perf_counter()
+    files = checkpoints.save_model_checkpoints(model, str(ckpt), epoch=0,
+                                               stats=stats)
+    card_model = copy.deepcopy(model).to(dev).eval()
+    mean = torch.as_tensor(np.random.RandomState(7).randn(
+        1, cfg.n_depths, side, side).astype(np.float32)).to(dev)
+    caches = [c.cpu().numpy() for c in card_model.make_mean_caches(mean)]
+    del card_model, mean
+    files += checkpoints.save_mean_caches(str(ckpt), {0: caches})
+    reloaded = CWFAModel.build(cfg, torch.Generator().manual_seed(1))
+    got_stats, steps = checkpoints.load_model_checkpoints(reloaded, str(ckpt))
+    want, got = model.state_dict(), reloaded.state_dict()
+    if steps != [1, 2, 3, 4, 5] or got_stats.astuple() != stats.astuple() \
+            or set(want) != set(got) \
+            or not all(torch.equal(want[k], got[k]) for k in want):
+        fail(f"checkpoint reload: steps {steps}, or a parameter or buffer "
+             "differs from the written model")
+    back = checkpoints.load_mean_caches(str(ckpt))[0]
+    if len(back) != len(caches) or not all(
+            np.array_equal(a, b) for a, b in zip(back, caches)):
+        fail("mean caches read back differ from the written ones")
+    coords = lenslet_coords(cfg.n_lenslets, side, img)
+    lenslets = root / "lenslets.txt"
+    lenslets.write_text("".join(f"{x - 50}\t{y - 50}\n" for x, y in coords))
+    frames_dir = root / "frames"
+    frames_dir.mkdir()
+    rng = np.random.RandomState(11)
+    for i in range(SERVE_FRAMES):
+        write_tiff_stack(str(frames_dir / f"cam_{i:02d}.tif"),
+                         rng.randint(0, 400, (img, img)).astype(np.uint16))
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    log(f"serving inputs: checkpoint directory of {len(files)} files "
+        f"({mb:.1f} MB: {', '.join(os.path.basename(f) for f in files)}) "
+        f"read back equal to the bit, parameter for parameter and BatchNorm "
+        f"buffer for buffer; {SERVE_FRAMES} uint16 frames of {img}^2; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ckpt, lenslets, frames_dir
+
+
+def check_served_volumes(args, out_dir: Path, frames_dir: Path, what: str):
+    """Every served volume equal to the bit to a reconstructor built by the
+    CLI's own steps and called on the same groups of SERVE_BATCH frames in
+    the same order, the last group zero-padded.  Returns the reconstructor
+    and one batch of frames on the card."""
+    recon, img_shape = serve.build_reconstructor(args, "cuda")
+    names = sorted(os.listdir(frames_dir))
+    served = sorted(os.listdir(out_dir))
+    want_names = [f"XLFM_stack_{os.path.splitext(n)[0]}.tif" for n in names]
+    if served != sorted(want_names):
+        fail(f"{what}: served files {served[:3]}... != {want_names[:3]}...")
+    side, nd = recon.model.cfg.volume_side_size, recon.model.cfg.n_depths
+    batch = None
+    for g in range(0, len(names), SERVE_BATCH):
+        group = names[g:g + SERVE_BATCH]
+        frames = torch.zeros((SERVE_BATCH,) + img_shape, dtype=torch.float32)
+        for i, n in enumerate(group):
+            frames[i] = torch.from_numpy(
+                read_tiff_stack(str(frames_dir / n))[0])
+        frames = frames.to("cuda")
+        batch = frames if batch is None else batch
+        out = recon(frames).cpu()
+        for i, n in enumerate(group):
+            name = want_names[g + i]
+            vol = read_tiff_stack(str(out_dir / name), dtype=None)
+            if vol.shape != (nd, side, side) or vol.dtype != np.float32 \
+                    or not np.isfinite(vol).all():
+                fail(f"{what}: {name} is {vol.dtype} {vol.shape} or not "
+                     "finite")
+            if not torch.equal(torch.from_numpy(vol), out[i]):
+                d = (torch.from_numpy(vol) - out[i]).abs().max().item()
+                fail(f"{what}: {name} differs from the direct call by "
+                     f"max|d| {d:.3e}")
+    return recon, batch
+
+
+def phase_serving(dev, card, kernels, model, stats, img: int):
+    """The serving entry point, ``python -m cwfa_tpu_torch.cli.serve``, at
+    the flagship width, in its default configuration (int8 UNet) and with
+    ``--no_int8``, at batch 8 on 19 frames."""
+    root = Path(tempfile.mkdtemp(prefix="cwfa_serve_"))
+    try:
+        ckpt, lenslets, frames_dir = write_serving_inputs(root, dev, model,
+                                                          stats, img)
+        base = ["--pretrain_models_path", str(ckpt),
+                "--lenslet_file", str(lenslets), "--img_size", str(img),
+                "--in_dir", str(frames_dir), "--batch", str(SERVE_BATCH)]
+        for name in SERVE_PER_CALL:
+            kernels[name]["serve_launches"] = 0
+        for mode, extra in (("int8 UNet (default)", []),
+                            ("bf16 (--no_int8)", ["--no_int8"])):
+            out_dir = root / "volumes"
+            argv = base + extra + ["--out_dir", str(out_dir)]
+            reset_counts()
+            before = launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = serve.main(argv)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            calls = 1 + out["batches"]                # warm-up + batches
+            delta = check_counts(SERVE_PER_CALL, calls, f"serve {mode}",
+                                 before)
+            check_instance("fused_float_tower", btower.WGMMA_BF16,
+                           f"serve {mode}")
+            check_instance("cond_pair", cpair.TENSOR_CORES, f"serve {mode}")
+            for name, n in delta.items():
+                if name in SERVE_PER_CALL:
+                    kernels[name]["serve_launches"] += n
+            if (out["frames"], out["batches"], out["padded_frames"]) != (
+                    SERVE_FRAMES, 3, 5):
+                fail(f"serve {mode}: {out['frames']} frames, "
+                     f"{out['batches']} batches, {out['padded_frames']} "
+                     "padded; expected 19, 3, 5")
+            args = serve.build_parser().parse_args(argv)
+            recon, batch = check_served_volumes(args, out_dir, frames_dir,
+                                                f"serve {mode}")
+            fps = recon.throughput(batch, n_repeats=5)
+            p50, best = recon.latency_ms(batch[:1], n=10)
+            log(f"serve {mode}: {out['frames']} frames in {out['batches']} "
+                f"batches ({out['padded_frames']} padded), every volume "
+                f"(96, 512, 512) f32, finite and equal to the bit to the "
+                f"direct call; launches {delta} in {calls} calls; on {card}")
+            e2e = out["frames"] / (out["frames"] / out["throughput_fps"]
+                                   + out["writer_tail_seconds"])
+            log(f"serve {mode}: served {out['throughput_fps']} frames/s "
+                f"({e2e:.2f} frames/s until the last volume is written: "
+                f"the writer's tail {out['writer_tail_seconds']} s after the "
+                f"drain; {wall:.2f} s for main() with the model build, "
+                f"calibration and warm-up); batch latency p50 "
+                f"{out['batch_latency_p50_s']} s, p95 "
+                f"{out['batch_latency_p95_s']} s; fetch "
+                f"{out['fetch_seconds']} s, parse {out['parse_seconds']} s, "
+                f"submit {out['submit_seconds']} s, dispatch "
+                f"{out['dispatch_seconds']} s ({out['fetch_bytes'] / 1e9:.2f}"
+                f" GB fetched, {out['feed_bytes'] / 1e6:.1f} MB fed); peak "
+                f"memory {peak / 2**30:.2f} GiB; the same reconstructor: "
+                f"throughput() {fps:.2f} frames/s at batch {SERVE_BATCH} "
+                f"({1e3 / fps:.2f} ms/frame), latency_ms() at batch 1 p50 "
+                f"{p50:.2f} ms, min {best:.2f} ms; on {card}")
+            shutil.rmtree(out_dir)
+            del recon, batch
+            torch.cuda.empty_cache()
+        # the pace-setters alone: the batch's device-to-host copy into
+        # pinned memory, and one volume through the TIFF writer
+        vols = torch.randn((SERVE_BATCH, model.cfg.n_depths, 512, 512),
+                           device=dev)
+        host = torch.empty(vols.shape, pin_memory=True)
+        d2h = cuda_ms(lambda: host.copy_(vols, non_blocking=True))
+        vol = host[0].numpy()
+        times = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            write_tiff_stack(str(root / f"w{i}.tif"), vol)
+            times.append(time.perf_counter() - t0)
+        wms = float(np.median(times)) * 1e3
+        log(f"serving pace: device-to-host copy of a batch of "
+            f"{SERVE_BATCH} volumes ({vols.numel() * 4 / 1e9:.2f} GB, pinned)"
+            f" {d2h:.2f} ms ({vols.numel() * 4 / d2h / 1e6:.1f} GB/s); "
+            f"TIFF write of one volume ({vol.nbytes / 1e6:.0f} MB) "
+            f"{wms:.1f} ms ({vol.nbytes / wms / 1e6:.2f} GB/s) on one "
+            f"thread, {wms * SERVE_BATCH:.0f} ms a batch; on {card}")
+        del vols, host
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1248,7 +1449,12 @@ def main():
     if len(sys.argv) > 1:
         # python3 chip_smoke.py tower cond_pair: those kernel phases alone,
         # while a kernel is being worked on; not the check, and no "ok" line
-        alone = {**kernel_phases,
+        def serving(dev, kernels):
+            _, model, stats, _, img = flagship(
+                False, "cpu", torch.Generator().manual_seed(0))
+            phase_serving(dev, card, kernels, model, stats, img)
+
+        alone = {**kernel_phases, "serving": serving,
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -1278,6 +1484,8 @@ def main():
     torch.cuda.empty_cache()
     phase_likelihood_small(dev)
     phase_likelihood_flagship(dev, card, kernels, model, stats)
+    torch.cuda.empty_cache()
+    phase_serving(dev, card, kernels, model, stats, frames1.shape[-1])
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -1290,10 +1498,12 @@ def main():
          # the instance that fused_tower (__dp4a), cond_pair (CUDA cores),
          # chained_gemm and the out8 GEMM (mma.sync) ran before their
          # tensor-core ones, timed in this run; the probe script's own
-         # reading of the two s8 instances
+         # reading of the two s8 instances; the launches of the serving
+         # path's two runs
          **{key: v for key, v in k.items()
             if key.startswith("f32_") or key in (
-                "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms")}}
+                "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
+                "serve_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

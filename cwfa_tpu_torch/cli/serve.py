@@ -1,0 +1,142 @@
+"""Streaming reconstruction service CLI, on one CUDA card.
+
+Reconstructs every XLFM camera frame in a directory (optionally watching it
+for new files) into volume TIFFs, from a checkpoint directory of the JAX
+package's format (``model_step_<s>__ep_<e>.msgpack`` and
+``mean_vols_cache_ds_<i>.msgpack``, written by ``cwfa_tpu``'s trainer or by
+``cwfa_tpu_torch.engine.checkpoints``):
+
+  python -m cwfa_tpu_torch.cli.serve --pretrain_models_path runs/xyz \\
+      --lenslet_file lenslets.txt --in_dir frames/ --out_dir volumes/ \\
+      [--batch 8] [--watch 2.0] [--no_int8]
+
+The flags are those of ``python -m cwfa_tpu.cli.serve`` (every
+``CWFAConfig`` field, ``--img_size``, ``--in_dir``, ``--out_dir``,
+``--batch``, ``--watch``, ``--limit``, ``--no_int8``), and so are the steps
+(``cwfa_tpu/cli/serve.py:45-119``): statistics and mean-volume caches come
+from the checkpoint directory, lenslet centers from ``--lenslet_file``
+(+50, as the dataset applies), and unless ``--no_int8`` the UNet runs int8,
+calibrated on the first two frames of ``--in_dir``.  Volumes are written as
+``XLFM_stack_<frame id>.tif``; a JSON summary is printed at the end.
+
+The service runs on the card and raises without one; there is no device
+flag (``main``'s ``device`` keyword is for tests on the CPU).  Meshes
+(``--mesh_data_axis`` / ``--mesh_space_axis`` above 1) are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from cwfa_tpu_torch.cli.train import build_parser as _train_parser
+from cwfa_tpu_torch.config import CWFAConfig
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description=__doc__, parents=[_train_parser()], add_help=False,
+        conflict_handler="resolve",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-h", "--help", action="help")
+    p.add_argument("--in_dir", type=str, required=True)
+    p.add_argument("--out_dir", type=str, required=True)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--watch", type=float, default=0.0,
+                   help="poll the input dir every N seconds (0 = one pass)")
+    p.add_argument("--limit", type=int, default=0)
+    p.add_argument("--no_int8", action="store_true",
+                   help="run the UNet in the compute dtype, not int8")
+    return p
+
+
+def build_reconstructor(args, device="cuda"):
+    """The reconstructor of the CLI's flags ``args`` (parsed by
+    ``build_parser``) on ``device``: the model from the checkpoint
+    directory, its statistics and first mean-cache set, int8 UNet
+    calibration unless ``--no_int8``.  Returns (reconstructor, frame
+    shape).  Exits with a message when the directory lacks statistics or
+    mean caches, or asks for a mesh."""
+    from cwfa_tpu_torch.data.dataset import read_lenslet_centers
+    from cwfa_tpu_torch.data.tiff import read_tiff_stack
+    from cwfa_tpu_torch.data.views import make_view_indices
+    from cwfa_tpu_torch.engine.checkpoints import (load_mean_caches,
+                                                   load_model_checkpoints)
+    from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+    from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+
+    cfg = CWFAConfig(**{f.name: getattr(args, f.name)
+                        for f in dataclasses.fields(CWFAConfig)
+                        if hasattr(args, f.name)}).decode_lrs()
+    if not cfg.pretrain_models_path:
+        sys.exit("--pretrain_models_path (checkpoint dir) is required")
+    if int(cfg.mesh_data_axis) * int(cfg.mesh_space_axis) > 1:
+        sys.exit("--mesh_data_axis / --mesh_space_axis above 1: serving on "
+                 "more than one device is not ported (ROADMAP A17)")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the service runs on the card")
+
+    coords = read_lenslet_centers(cfg.lenslet_file) + 50
+    cfg = dataclasses.replace(cfg, n_lenslets=len(coords))
+    img_shape = (args.img_size, args.img_size)
+    side = cfg.volume_side_size
+    vidx = make_view_indices(coords, img_shape, (side, side))
+
+    model = CWFAModel.build(cfg, torch.Generator().manual_seed(cfg.seed))
+    stats, _ = load_model_checkpoints(
+        model, cfg.pretrain_models_path,
+        max_epoch=int(cfg.max_test_load_epoch))
+    if stats is None:
+        sys.exit("checkpoint has no dataset statistics")
+    caches = load_mean_caches(cfg.pretrain_models_path)
+    if not caches:
+        sys.exit("checkpoint has no mean-volume caches "
+                 "(retrain or pass a dir saved with them)")
+    mean_caches = next(iter(caches.values()))
+
+    calib = None
+    if not args.no_int8:
+        names = sorted(f for f in os.listdir(args.in_dir)
+                       if f.endswith(".tif"))[:2]
+        if names:
+            frames = [read_tiff_stack(os.path.join(args.in_dir, n))
+                      for n in names]
+            calib = np.stack([f[0] if f.ndim == 3 else f
+                              for f in frames]).astype(np.float32)
+        else:
+            print("warning: no frames in --in_dir to calibrate int8 on; "
+                  "serving with the UNet in the compute dtype. Pre-place a "
+                  "couple of frames or pass --no_int8 to silence this.",
+                  flush=True)
+    recon = XLFMReconstructor(
+        model, stats, vidx, mean_caches, device=device, deterministic=True,
+        compute_dtype=(torch.bfloat16 if cfg.use_half_precision
+                       else torch.float32),
+        use_int8=calib is not None, calib_frames=calib)
+    return recon, img_shape
+
+
+def main(argv=None, device="cuda"):
+    """Serve ``--in_dir`` into ``--out_dir``; prints and returns the
+    service's summary dict."""
+    from cwfa_tpu_torch.engine.serving import serve_directory
+
+    args = build_parser().parse_args(argv)
+    recon, img_shape = build_reconstructor(args, device)
+    recon.warmup(args.batch, img_shape)
+    out = serve_directory(recon, args.batch, img_shape, args.in_dir,
+                          args.out_dir, poll_seconds=args.watch,
+                          limit=args.limit or None)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -11,13 +11,16 @@ the LRNN in eval mode and draws nothing; its mean-volume branch is then
 computed once, at construction.  Two int8 options, as in JAX: ``use_int8``
 (the LRNN UNet; deterministic only) and ``use_int8_towers`` (the coupling
 towers, through the CUDA int8 tower kernel), both calibrated on
-``calib_frames``.  ``use_int8_cond`` and meshes are not ported.
+``calib_frames``.  ``warmup``, ``throughput`` and ``latency_ms`` time the
+reconstructor on CUDA events.  ``use_int8_cond`` and meshes are not ported.
 """
 
 from __future__ import annotations
 
 import copy
+import time
 
+import numpy as np
 import torch
 
 from cwfa_tpu_torch.data.stats import DatasetStatistics
@@ -100,3 +103,58 @@ class XLFMReconstructor:
             lrnn_mean_branch=self.mean_branch, unet_q=self.unet_q,
             qpacks=self.qpacks)
         return vol.float() * s.std_vols + s.mean_vols
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timer(self):
+        """start() -> stop() -> seconds between them: CUDA events on a
+        card (the device's time from the first call's launch to the last
+        one's end), the host clock on the CPU."""
+        if self.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+
+            def stop():
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            return stop
+        t0 = time.perf_counter()
+        return lambda: time.perf_counter() - t0
+
+    def warmup(self, batch_size: int, img_hw):
+        """One call on a zero batch, waited for (in the default mode it
+        draws from the generator like any other call)."""
+        self(torch.zeros((batch_size,) + tuple(img_hw), device=self.device))
+        self._sync()
+
+    def throughput(self, raw_images, n_repeats: int = 10) -> float:
+        """Frames per second over ``n_repeats`` calls enqueued back to back
+        on ``raw_images`` (moved to the device first), after one call that
+        is waited for (``inference.py:149-172``)."""
+        frames = torch.as_tensor(raw_images).to(self.device, torch.float32)
+        self(frames)
+        self._sync()
+        stop = self._timer()
+        for _ in range(n_repeats):
+            self(frames)
+        return frames.shape[0] * n_repeats / stop()
+
+    def latency_ms(self, raw_image, n: int = 20):
+        """(p50, min) in ms of ``n`` batch-1 calls, each timed on its own
+        and waited for, after one warm call (``inference.py:174-191``)."""
+        frames = torch.as_tensor(raw_image).to(self.device, torch.float32)
+        if frames.shape[0] != 1:
+            raise ValueError(f"latency_ms takes one frame, got "
+                             f"{tuple(frames.shape)}")
+        self(frames)
+        self._sync()
+        times = []
+        for _ in range(n):
+            stop = self._timer()
+            self(frames)
+            times.append(stop() * 1e3)
+        return float(np.percentile(times, 50)), float(np.min(times))

@@ -15,6 +15,9 @@ its module is ``up[i].conv_block``.  Conv weights are OIHW (OIDHW, OIK) on
 both sides and a transposed conv's is (I, O, kH, kW) on both sides, so
 nothing is transposed.
 
+``export_jax_params`` is the reverse: the port's modules as JAX-keyed numpy
+trees, the form the JAX package's checkpoints carry (``engine/checkpoints``).
+
 ``load_jax_int8_packs`` carries the JAX package's int8 packs across: the
 paired 128-wide tower packs are split into the port's 64-wide tower packs
 (in the layouts of the port's own kernels, ``ops/qtower.pack_convs``),
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cwfa_tpu_torch.engine.msgpack_io import restore_lists
 from cwfa_tpu_torch.models.unet import unet_site_conv
 from cwfa_tpu_torch.ops.qtower import pack_convs
 
@@ -75,12 +79,61 @@ def load_jax_params(model: nn.Module, params, state) -> None:
                        f"module entries with no JAX key: {missing}")
     with torch.no_grad():
         for key, arr in incoming.items():
-            src = torch.tensor(np.asarray(arr))
+            src = (arr.detach().cpu() if isinstance(arr, torch.Tensor)
+                   else torch.tensor(np.asarray(arr)))
             dst = target[key]
             if tuple(src.shape) != tuple(dst.shape):
                 raise ValueError(f"{key}: JAX shape {tuple(src.shape)} != "
                                  f"module shape {tuple(dst.shape)}")
             dst.copy_(src)
+
+
+_NORMS = (nn.BatchNorm2d, nn.LayerNorm)
+
+
+def _param_leaf(module: nn.Module, name: str) -> str:
+    """The JAX leaf name of ``module``'s parameter ``name``."""
+    if isinstance(module, nn.PReLU):
+        return "alpha"
+    if isinstance(module, _NORMS):
+        return {"weight": "scale", "bias": "bias"}[name]
+    return {"weight": "w", "bias": "b"}[name]
+
+
+def _put(tree: dict, path, value):
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def export_jax_params(model: nn.Module):
+    """The reverse of ``load_jax_params``: ``model``'s parameters and
+    persistent buffers as JAX ``(params, state)`` trees of numpy arrays,
+    nested dicts and lists as ``CWFAModel.init`` builds them (the BatchNorm
+    count as an int32 scalar, as JAX keeps it).  Arrays keep the module's
+    dtype; a bfloat16 one stays a torch tensor (numpy has no bfloat16)."""
+    def host(t):
+        t = t.detach().cpu()
+        return t if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+    params, state = {}, {}
+    for name, module in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        for pname, p in module.named_parameters(recurse=False):
+            _put(params, path + (_param_leaf(module, pname),), host(p))
+        skip = getattr(module, "_non_persistent_buffers_set", set())
+        for bname, b in module.named_buffers(recurse=False):
+            if bname in skip:
+                continue
+            leaf = {v: k for k, v in _STATE_LEAF.items()}[bname]
+            spath = path
+            if len(spath) >= 4 and spath[-2] == "conv_block" \
+                    and spath[-4] == "up":
+                spath = spath[:-2] + spath[-1:]
+            value = (np.asarray(int(b), np.int32) if leaf == "count"
+                     else host(b))
+            _put(state, spath + (leaf,), value)
+    return restore_lists(params), restore_lists(state)
 
 
 def _take(d: dict, keys, what: str):

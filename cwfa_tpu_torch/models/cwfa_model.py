@@ -12,7 +12,10 @@ deterministic (temperature 0, the LRNN in eval mode, optionally with the
 int8 UNet ``unet_q`` and int8 coupling towers ``qpacks``) or stochastic (z
 sampled at a temperature, the mean over ``n_samples``, the LRNN in train
 mode), every draw from one ``torch.Generator``; ``fast=False`` raises.
-Exact likelihood:
+Both force flags of the configuration are honoured: ``force_last_step_NF``
+builds one more flow step and starts the chain from zeros at the coarsest
+level (no LRNN call, no mean branch); ``force_all_steps_NF`` gives every
+step a zero views condition and runs no cond net.  Exact likelihood:
 ``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in the
 normalizing direction, per-frame NLLs) and ``make_mean_caches``.
 """
@@ -60,11 +63,12 @@ def check_empty_depths(generator: torch.Generator, vol):
 class CWFAModel(nn.Module):
     def __init__(self, cfg: CWFAConfig):
         super().__init__()
-        for flag in ("force_last_step_NF", "force_all_steps_NF"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is not ported")
         self.cfg = cfg
-        n_flow = cfg.INN_max_down_steps - 1
+        # force_last_step_NF (CWFA.py:489-510,781,880): the coarsest level
+        # comes from one more flow step instead of the LRNN, which is still
+        # built (the reference keeps it as cond_nets[-1])
+        n_flow = cfg.INN_max_down_steps - 1 + (1 if cfg.force_last_step_NF
+                                               else 0)
         self.step_specs = tuple(build_step_specs(
             n_depths=cfg.n_depths, spatial=cfg.volume_side_size,
             n_flow_steps=n_flow, n_blocks=cfg.INN_n_blocks,
@@ -119,6 +123,9 @@ class CWFAModel(nn.Module):
         (default: this model's) f32 towers.  Returns a list indexed by step
         (None where a step has fewer than two blocks)."""
         master = self if master is None else master
+        if self.cfg.force_all_steps_NF:
+            # the towers' condition is zero and the cond nets never run
+            return [None] * self.n_flow_steps
         c_views_all = cond_networks_batched(
             self.cond, cond_input[:max_calib_frames])
         return [quantize_cat_step(master.flow[k], c_views_all[k])
@@ -236,14 +243,24 @@ class CWFAModel(nn.Module):
             lrnn_train = generator is not None
         nf = self.n_flow_steps
         b = cond_input.shape[0]
-        mean_vol = mean_caches[nf - 1]
-        if lrnn_train:
-            # as JAX broadcasts the caches at entry: drop_path draws per frame
-            mean_vol = mean_vol.expand((b,) + tuple(mean_vol.shape[1:]))
-        up = self.lrnn(cond_input, mean_vol=mean_vol,
-                       mean_branch=lrnn_mean_branch, unet_q=unet_q,
-                       train=lrnn_train, generator=generator)
-        c_views_all = cond_networks_batched(self.cond, cond_input)
+        if self.cfg.force_last_step_NF:
+            # the chain starts from zeros at the coarsest level: no LRNN
+            last = self.step_specs[nf - 1]
+            up = torch.zeros((b, last.c_flow, last.spatial, last.spatial),
+                             dtype=cond_input.dtype, device=cond_input.device)
+        else:
+            mean_vol = mean_caches[nf - 1]
+            if lrnn_train:
+                # as JAX broadcasts the caches at entry: drop_path draws per
+                # frame
+                mean_vol = mean_vol.expand((b,) + tuple(mean_vol.shape[1:]))
+            up = self.lrnn(cond_input, mean_vol=mean_vol,
+                           mean_branch=lrnn_mean_branch, unet_q=unet_q,
+                           train=lrnn_train, generator=generator)
+        # force_all_steps_NF (CWFA.py:892-894): a zero views condition, and
+        # the cond nets do not run
+        c_views_all = (None if self.cfg.force_all_steps_NF
+                       else cond_networks_batched(self.cond, cond_input))
         for k in range(nf - 1, -1, -1):
             spec = self.step_specs[k]
             zshape = (b * n_samples, spec.c_flow, spec.spatial, spec.spatial)
@@ -252,7 +269,10 @@ class CWFAModel(nn.Module):
             else:
                 z = sample_z_truncated(generator, zshape, z_temperature).to(
                     device=up.device, dtype=up.dtype)
-            c_views, c_mean = c_views_all[k], mean_caches[k]
+            c_views = (torch.zeros((b,) + zshape[1:], dtype=cond_input.dtype,
+                                   device=cond_input.device)
+                       if c_views_all is None else c_views_all[k])
+            c_mean = mean_caches[k]
             if n_samples > 1:
                 tile = (n_samples, 1, 1, 1)
                 up, c_views = up.repeat(tile), c_views.repeat(tile)

@@ -241,7 +241,9 @@ def fused_float_tower(x, tower):
     ``fused_float_tower.by_instance``."""
     c, nout = _check(x, tower)
     if x.device.type == "cpu":
-        return float_tower_reference(tower, x).to(x.dtype)
+        # NCHW as the kernel writes it (a conv of a 1-channel x may come out
+        # channels-last)
+        return float_tower_reference(tower, x).to(x.dtype).contiguous()
     b, cin, h, w = x.shape
     weights, biases = pack_float_tower(tower)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)

@@ -14,6 +14,16 @@ from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 
 
+def lenslet_coords(n_lenslets: int, side: int, img: int) -> np.ndarray:
+    """The rig's synthetic lenslet centers: a square grid of ``side``-wide
+    views spread over an ``img``-wide frame, the first ``n_lenslets`` of
+    it, as (row, col) int64 rows (the +50 of the dataset included)."""
+    g = int(np.ceil(np.sqrt(n_lenslets)))
+    half = side // 2
+    xs = np.linspace(half, img - half, g).astype(np.int64)
+    return np.array([(x, y) for x in xs for y in xs][:n_lenslets])
+
+
 def flagship(small: bool, device, generator: torch.Generator):
     """Returns (cfg, model, stats, view_indices, img_side).
 
@@ -33,9 +43,6 @@ def flagship(small: bool, device, generator: torch.Generator):
     model = CWFAModel.build(cfg, generator).to(device)
     stats = DatasetStatistics(100.0, 50.0, 100.0, 50.0, 10.0, 5.0)
     side = cfg.volume_side_size
-    g = int(np.ceil(np.sqrt(cfg.n_lenslets)))
-    half = side // 2
-    xs = np.linspace(half, img - half, g).astype(np.int64)
-    coords = np.array([(x, y) for x in xs for y in xs][:cfg.n_lenslets])
+    coords = lenslet_coords(cfg.n_lenslets, side, img)
     vidx = make_view_indices(coords, (img, img), (side, side))
     return cfg, model, stats, vidx, img

@@ -1,6 +1,6 @@
 """The PyTorch port runs where JAX is not installed: no module of
 cwfa_tpu_torch, nor chip_smoke.py, nor a script that drives the port, imports
-JAX, the JAX package or Triton."""
+JAX, the JAX package, Triton, msgpack or PIL."""
 
 import ast
 from pathlib import Path
@@ -8,11 +8,15 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cwfa_tpu", "triton"}
+# msgpack and PIL are not installed beside the card either: the port reads
+# the JAX checkpoints with its own codec and TIFFs with the native runtime
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cwfa_tpu", "triton",
+             "msgpack", "PIL"}
 FILES = (sorted((ROOT / "cwfa_tpu_torch").rglob("*.py"))
          + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "scripts").glob("torch_*.py"))
-         + [ROOT / "scripts" / "profile_torch_port.py"])
+         + [ROOT / "scripts" / "profile_torch_port.py",
+            ROOT / "scripts" / "profile_torch_serving.py"])
 
 
 def _imported_roots(path: Path):

@@ -13,8 +13,6 @@ or under 32,768 elements (PERF.md).  On the CPU ``cat_affine`` and the
 towers run their plain versions and count no launch.
 """
 
-import dataclasses
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -351,7 +349,17 @@ def test_detect_ood_threshold_step_and_empty_case(rig):
 
 
 def test_unported_flags_still_raise():
-    cfg = CWFAConfig(**SMALL).decode_lrs()
-    for flag in ("force_last_step_NF", "force_all_steps_NF"):
-        with pytest.raises(NotImplementedError):
-            tmodel.CWFAModel(dataclasses.replace(cfg, **{flag: 1}))
+    """The two force flags are ported now: the model builds under each
+    (force_last_step_NF with one more flow step) and its forward pyramid
+    matches JAX's per frame."""
+    vol = _rand(1, D, S, S, seed=80)
+    for flag, nf in (("force_last_step_NF", 3), ("force_all_steps_NF", 2)):
+        jmodel, params, model = _build(**{flag: 1})
+        assert model.n_flow_steps == jmodel.n_flow_steps == nf
+        want = jmodel.forward_pyramid(_jnp(params), jnp.asarray(vol),
+                                      per_sample=True)
+        got = model.forward_pyramid(torch.from_numpy(vol), per_sample=True)
+        assert len(got[0]) == nf and len(got[1]) == nf + 1
+        for g_list, w_list in zip(got, want):
+            for g, w in zip(g_list, w_list):
+                assert_close(g, w)

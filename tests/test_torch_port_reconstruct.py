@@ -85,5 +85,7 @@ def test_unported_options_raise(rig):
     with pytest.raises(NotImplementedError):        # .train() is not ported
         model.lrnn.unet.train()(views[:, :2])
     model.eval()
-    with pytest.raises(NotImplementedError):
-        CWFAModel(dataclasses.replace(model.cfg, force_last_step_NF=1))
+    # the force flags are ported: force_last_step_NF builds one more step
+    assert CWFAModel(dataclasses.replace(
+        model.cfg, force_last_step_NF=1)).n_flow_steps == \
+        model.n_flow_steps + 1
