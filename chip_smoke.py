@@ -3,8 +3,8 @@
     python3 chip_smoke.py                      # the whole check
     python3 chip_smoke.py tower cond_pair      # phases alone (kernels,
                                                # tower, cond_pair, float_tower,
-                                               # probes, serving) while working
-                                               # on one: no verdict
+                                               # probes, serving, train) while
+                                               # working on one: no verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -93,15 +93,31 @@ code != 0) on the first phase that does not hold:
     of the bf16 path per call (warm-up and three batches), and the served
     frames/s, batch latency p50 / p95, the service's segment seconds, peak
     memory, ``throughput()`` at batch 8, ``latency_ms()`` at batch 1, and
-    the device-to-host copy and the TIFF writer timed alone.
+    the device-to-host copy and the TIFF writer timed alone;
+14. training: the three backward kernels (``cat_affine_backward``,
+    ``float_tower_backward``, ``cond_pair_backward``) against autograd
+    through their plain versions at every flagship step shape and at odd
+    ones, in f32 and bf16 (the pair with and without its Dropout3d scale),
+    each timed at step 0 beside its plain backward, its bound and the cuDNN
+    autograd chain for the same gradient; the small rig's LRNN step and
+    every flow step, card vs CPU in f32 with nothing drawn (losses within
+    1e-4, every gradient within 1e-3 of max|ref|); then the flagship trained
+    in bf16 at batch 1 through every stage (``CWFATrainer.train_epoch``,
+    epochs = INN_max_down_steps, on 3 random uint16 2160^2 frames and
+    96 x 512^2 volumes written in the dataset's layout): finite losses, each
+    stage's parameters changed and no other's, the launches per optimizer
+    step (FLOW_PER_STEP, LRNN_PER_STEP), ms per optimizer step and peak
+    memory per stage, and the checkpoints read back equal to the bit.
 
 Each path is driven with every launch count set to 0 just before it and
-read just after.  Prints a ``{"kernels": [...]}`` JSON line (nine kernels,
+read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
 each with its launches, error, time, plain version's time, bound and, where
 one PyTorch call computes the same function, that call's time; the float
 tower also with the ``f32_*`` numbers of its f32 instance, which the
 likelihood path runs; the serving path's kernels with ``serve_launches``,
-their launches in its two runs), then, as its
+their launches in its two runs; the three backward kernels with the
+training run's launches, the forward kernels of training with
+``train_launches``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -126,8 +142,12 @@ import torch.nn.functional as F
 
 from cwfa_tpu_torch.cli import serve
 from cwfa_tpu_torch.data.tiff import read_tiff_stack, write_tiff_stack
+from cwfa_tpu_torch.data.dataset import ConcatXLFMDataset, load_xlfm_data
+from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+from cwfa_tpu_torch.engine.optim import make_optimizers
+from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.engine.ood import PyramidScorer
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS
 from cwfa_tpu_torch.flow.subnets import WaveletFlowSubnet2d
@@ -177,6 +197,17 @@ KERNELS = {
                         "counter": "out8_launches"},
     "fma_probe": {"replaces": "scripts/probe_vpu_rate.py:24",
                   "source": PROBE_SRC, "wrapper": probes.fma_probe},
+    # the backward kernels of training (the TPU kernels have none: JAX
+    # differentiates its XLA forms); "replaces" names the TPU kernel whose
+    # function each differentiates
+    "cat_affine_bwd": {"replaces": "cwfa_tpu/ops/pallas_flow.py:146",
+                       "source": FLOW_SRC, "wrapper": fa.cat_affine_backward},
+    "float_tower_bwd": {"replaces": "cwfa_tpu/ops/btower.py:258",
+                        "source": "cwfa_tpu_torch/csrc/btower_bwd.cu",
+                        "wrapper": btower.float_tower_backward},
+    "cond_pair_bwd": {"replaces": "cwfa_tpu/ops/cond_pair.py:249",
+                      "source": "cwfa_tpu_torch/csrc/cond_pair_bwd.cu",
+                      "wrapper": cpair.cond_pair_backward},
 }
 # launches per call of each path (a kernel not named: none)
 BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "cond_pair": 4,
@@ -186,6 +217,18 @@ INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16,
 NLL_PER_CALL = {"cat_affine": 16, "fused_float_tower": 20}
 # the serving CLI: the int8 UNet (no custom kernel) or bf16, bf16 towers
 SERVE_PER_CALL = BF16_PER_CALL
+# launches per optimizer step of training: a flow step runs its five towers
+# (input block + 4 coupling blocks) once, on the views condition that both
+# directions read (CWFStep.towers), each with one backward that takes the
+# two directions' gradients summed; its 4 CAT affines in both directions
+# (the reverse for the reconstruction loss, the forward for step_nll), and
+# its cond net's 3-D pair once, each with its backward; the LRNN step runs
+# no kernel of the port (cuDNN)
+FLOW_PER_STEP = {"fused_float_tower": 5, "float_tower_bwd": 5,
+                 "cat_affine": 8, "cat_affine_bwd": 8, "cond_pair": 1,
+                 "cond_pair_bwd": 1}
+LRNN_PER_STEP = {}
+TRAIN_FRAMES = 3
 SERVE_FRAMES, SERVE_BATCH = 19, 8
 PROBE_US = (1, 4, 8, 16)           # the FMA probe's accumulator counts here
 # bounds of the two fused-conv kernels, as a share of max|ref|:
@@ -570,6 +613,286 @@ def phase_float_tower(dev, kernels):
     log(f"fused_float_tower instances checked: {ran}")
     if not all(ran.values()):
         fail(f"an instance of fused_float_tower was not checked: {ran}")
+
+
+# bounds of the backward kernels against their plain backward (autograd
+# through the plain forward), as a share of max|ref| of each gradient: f32
+# dx 1e-5 and dW 1e-4 (the kernel's sums run in another order, dW's over
+# 2.6e5 positions); bf16 2^-5 (the plain backward rounds each canvas's
+# gradient to bf16 where the kernels keep f32, and a recomputed canvas can
+# round one ulp the other way)
+BWD_BOUND = {(torch.float32, "dx"): 1e-5, (torch.float32, "dW"): 1e-4,
+             (torch.bfloat16, "dx"): 2.0 ** -5, (torch.bfloat16, "dW"): 2.0 ** -5}
+
+
+def grads_err(got, ref, dtype, what: str) -> float:
+    """The largest max|got - ref| / max|ref| over the gradients (dx first,
+    then the parameters'), failing where one is over its BWD_BOUND."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            continue
+        bound = BWD_BOUND[dtype, "dx" if i == 0 else "dW"]
+        share_err(g, r, bound, f"{what} gradient {i}")
+        scale = r.float().abs().max().item()
+        worst = max(worst, (g.float() - r.float()).abs().max().item()
+                    / max(scale, 1e-30))
+    return worst
+
+
+def cudnn_tower_grad(t, x, dy):
+    """The cuDNN autograd chain that would compute the tower's gradient:
+    forward through the module chain, then its backward."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        out = cudnn_tower(t, xr)
+        return torch.autograd.grad(out, [xr] + list(t.parameters()), dy)
+
+
+def cudnn_pair_grad(net, x, dz):
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        out = cudnn_pair(net, xr)
+        return torch.autograd.grad(out, [xr] + list(net.parameters()), dz)
+
+
+def phase_train_kernels(dev, kernels):
+    """The three backward kernels of training against their plain backward
+    (autograd through the plain forward) on the card, at every flagship
+    step's shape and at odd ones, in f32 and bf16, with f32 master weights;
+    times each at step 0 (bf16) beside its plain backward and the cuDNN
+    autograd chain for the same gradient."""
+    check_train_forwards(dev)
+    check_cat_affine_backward(dev, kernels)
+    check_float_tower_backward(dev, kernels)
+    check_cond_pair_backward(dev, kernels)
+
+
+def check_train_forwards(dev):
+    """The forward kernels as training calls them, against their plain
+    versions: f32 master weights under an x of the compute dtype (bf16 and
+    f32), so each must cast the weights itself and still run the compute
+    dtype's instance; the 3-D pair with the Dropout3d scale and without, at
+    every flagship depth and two odd shapes, through both instances; the
+    float tower at every flagship tower shape and an odd one.  Bounds as in
+    REL_BOUND (the plain versions round the master weights to x's dtype
+    too)."""
+    gen = torch.Generator().manual_seed(8)
+    shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
+    shapes += [(2, 5, 37, 53), (2, 8, 19, 35)]
+    by_instance = cpair.cond_pair.by_instance
+    ran = dict.fromkeys(by_instance, 0)
+    for shape in shapes:
+        net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                                   "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                                   "prelu": torch.nn.PReLU(1)})
+        reset_parameters_(net, gen)
+        with torch.no_grad():
+            net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        net = net.to(dev)                       # f32 master weights
+        mods = (net["c3a"], net["c3b"], net["prelu"])
+        x0 = torch.randn(shape, generator=gen)
+        # a Dropout3d scale as the cond net draws it: 0 or 1/keep, keep 0.5
+        keep = ((torch.rand((shape[0], 32), generator=gen) < 0.5).float()
+                * 2.0).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x0.to(dev, dtype)
+            own = cpair.kernel_instance(dtype, 32)
+            for scale in (keep, None):
+                with torch.inference_mode():
+                    want = cpair.cond_pair_reference(x, *mods, scale)
+                    for instance in dict.fromkeys((own, cpair.CUDA_CORES)):
+                        before = by_instance[instance]
+                        got = cpair.cond_pair(
+                            x, *mods, scale=scale,
+                            instance=None if instance == own else instance)
+                        if by_instance[instance] != before + 1:
+                            fail(f"cond_pair {shape} {dtype} f32 masters did "
+                                 f"not run the {instance} instance")
+                        ran[instance] += 1
+                        e, share = rel_err(
+                            got, want, "cond_pair", dtype,
+                            f"cond_pair {shape} {dtype} f32 master weights "
+                            f"scale={scale is not None} ({instance})")
+                        log(f"cond_pair {shape} {str(dtype):14s} f32 master "
+                            f"weights, Dropout3d scale {scale is not None!s:5s}"
+                            f" ({instance}): max|d| {e:.3e}, {share:.2e} of "
+                            f"the elements differ")
+                    del got, want
+    if not all(ran.values()):
+        fail(f"an instance of cond_pair was not checked with f32 master "
+             f"weights: {ran}")
+    gen = torch.Generator().manual_seed(9)
+    shapes = [(1, cin, SLICE_HW, SLICE_HW, nout)
+              for cin in TOWER_CIN for nout in (2 * cin, cin)]
+    shapes += [(2, 12, 37, 53, 24)]
+    for b, cin, h, w, nout in shapes:
+        tower = WaveletFlowSubnet2d(cin, nout, 64)
+        reset_parameters_(tower, gen)
+        tower = tower.to(dev)                   # f32 master weights
+        x0 = torch.randn((b, cin, h, w), generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x0.to(dev, dtype)
+            instance = btower.kernel_instance(dtype, 64, cin, nout)
+            with torch.inference_mode():
+                before = btower.fused_float_tower.by_instance[instance]
+                got = btower.fused_float_tower(x, tower)
+                if btower.fused_float_tower.by_instance[instance] != before + 1:
+                    fail(f"fused_float_tower {(b, cin, h, w)} {dtype} f32 "
+                         f"masters did not run the {instance} instance")
+                want = btower.float_tower_reference(tower, x).to(dtype)
+                e, share = rel_err(got, want, "fused_float_tower", dtype,
+                                   f"fused_float_tower {(b, cin, h, w)} Nout "
+                                   f"{nout} {dtype} f32 master weights")
+                del got, want
+            log(f"fused_float_tower B{b} Cin {cin:2d} {h}x{w} Nout {nout:2d} "
+                f"{str(dtype):14s} f32 master weights ({instance}): max|d| "
+                f"{e:.3e}, {share:.2e} of the elements differ")
+
+
+def check_cat_affine_backward(dev, kernels):
+    """K1 at every flagship step's c_flow (48, 24, 12, 6) and an odd shape,
+    every activation and direction."""
+    gen = torch.Generator().manual_seed(5)
+    k = kernels["cat_affine_bwd"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, shape in ([(c, (1, c, SLICE_HW, SLICE_HW)) for c in TOWER_CIN]
+                         + [(5, (2, 5, 37, 53))]):
+            x, dy = (torch.randn(shape, generator=gen).to(dev, dtype)
+                     for _ in range(2))
+            st = torch.randn((shape[0], 2 * c) + shape[2:],
+                             generator=gen).to(dev, dtype)
+            for act in CLAMP_ACTIVATIONS:
+                for rev in (True, False):
+                    kw = {"clamp": 2.0, "activation": act, "rev": rev}
+                    got = fa.cat_affine_backward(dy, x, st, **kw)
+                    ref = fa.cat_affine_backward_reference(dy, x, st, **kw)
+                    e = max(max_err(g, r, dtype, f"cat_affine_backward "
+                                    f"{shape} {dtype} {act} rev={rev}")
+                            for g, r in zip(got, ref))
+                    k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+            log(f"cat_affine_backward {shape} {str(dtype):14s} every "
+                f"activation, both directions: max|d| within the flow "
+                f"kernels' bound")
+            if dtype == torch.bfloat16 and shape[1] == SLICE_C:
+                kw = {"clamp": 2.0, "activation": "ATAN", "rev": True}
+                ms = time_ms(lambda: fa.cat_affine_backward(dy, x, st, **kw))
+                plain_ms = time_ms(lambda: fa.cat_affine_backward_reference(
+                    dy, x, st, **kw), 10)
+                n = x.numel()
+                k["ms"], k["plain_ms"] = ms, plain_ms
+                log(f"time cat_affine_backward {shape} bf16: kernel "
+                    f"{ms:.4f} ms ({7 * n * 2 / ms / 1e6:.1f} GB/s)  plain "
+                    f"{plain_ms:.4f} ms")
+                set_bound(k, 7 * n * x.element_size(), 14 * n, "f32",
+                          f"cat_affine_backward bf16 {shape}")
+
+
+def check_float_tower_backward(dev, kernels):
+    """K2 at every flagship tower shape and two odd ones."""
+    gen = torch.Generator().manual_seed(6)
+    k = kernels["float_tower_bwd"]
+    shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
+              for cin in TOWER_CIN for nout in (2 * cin, cin)]
+    shapes += [(2, 12, 37, 53, 64, 24), (2, 5, 19, 35, 20, 10)]
+    for b, cin, h, w, width, nout in shapes:
+        tower = WaveletFlowSubnet2d(cin, nout, width)
+        reset_parameters_(tower, gen)
+        tower = tower.to(dev)                   # f32 master weights
+        x0 = torch.randn((b, cin, h, w), generator=gen)
+        dy0 = torch.randn((b, nout, h, w), generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
+            got = btower.float_tower_backward(tower, x, dy)
+            ref = btower.float_tower_backward_reference(tower, x, dy)
+            flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2])
+                                       for t in pair]
+            e = grads_err(flat(got), flat(ref), dtype,
+                          f"float_tower_backward {(b, cin, h, w)} C {width} "
+                          f"Nout {nout} {dtype}")
+            k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
+                                   max((g - r).abs().max().item() for g, r in
+                                       zip(flat(got), flat(ref))))
+            log(f"float_tower_backward B{b} Cin {cin:2d} {h}x{w} C {width} "
+                f"Nout {nout:2d} {str(dtype):14s} max|d|/max|ref| {e:.3e}")
+            del got, ref
+            if not (b == 1 and cin == SLICE_C and nout == 2 * cin
+                    and h == SLICE_HW):
+                continue
+            flop = 2 * b * h * w * (cin * width + 3 * 10 * width * width
+                                    + 9 * width * nout)
+            ms = time_ms(lambda: btower.float_tower_backward(tower, x, dy), 5)
+            plain_ms = time_ms(lambda: btower.float_tower_backward_reference(
+                tower, x, dy), 3)
+            line = (f"time float_tower_backward (1, {cin}, {h}, {w}) -> {nout}"
+                    f" {dtype}: kernel {ms:.4f} ms ({2 * flop / ms / 1e6:.0f} "
+                    f"GFLOP/s of the backward)  plain {plain_ms:.4f} ms")
+            if dtype == torch.bfloat16:
+                t16 = copy.deepcopy(tower).to(torch.bfloat16)
+                lib_ms = time_ms(lambda: cudnn_tower_grad(t16, x, dy), 3)
+                line += f"  [cuDNN autograd chain, bf16: {lib_ms:.4f} ms]"
+                k["ms"], k["plain_ms"], k["library_ms"] = ms, plain_ms, lib_ms
+                # x and dy read, dx written (bf16), the weights' f32
+                # gradients written
+                wbytes = 4 * sum(p.numel() for p in tower.parameters())
+                set_bound(k, b * h * w * (2 * cin + nout) * 2 + wbytes,
+                          2 * flop, "bf16",
+                          f"float_tower_backward (1, {cin}, {h}, {w}) bf16")
+                log(f"bound float_tower_backward on f32 FMAs: "
+                    f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
+            else:
+                k["f32_ms"], k["f32_plain_ms"] = ms, plain_ms
+            log(line)
+
+
+def check_cond_pair_backward(dev, kernels):
+    """K3 at every flagship step's depth and two odd shapes, with and
+    without the Dropout3d scale."""
+    gen = torch.Generator().manual_seed(7)
+    k = kernels["cond_pair_bwd"]
+    shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
+    shapes += [(2, 5, 37, 53), (2, 8, 19, 35)]
+    for shape in shapes:
+        net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                                   "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                                   "prelu": torch.nn.PReLU(1)})
+        reset_parameters_(net, gen)
+        with torch.no_grad():
+            net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        net = net.to(dev)                       # f32 master weights
+        mods = (net["c3a"], net["c3b"], net["prelu"])
+        x0, dz0 = (torch.randn(shape, generator=gen) for _ in range(2))
+        keep = (torch.rand((shape[0], 32), generator=gen) < 0.5).float() * 2.0
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dz = x0.to(dev, dtype), dz0.to(dev, dtype)
+            for scale in (None, keep.to(dev)):
+                got = cpair.cond_pair_backward(x, dz, *mods, scale)
+                ref = cpair.cond_pair_backward_reference(x, dz, *mods, scale)
+                e = grads_err(got, ref, dtype, f"cond_pair_backward {shape} "
+                              f"{dtype} scale={scale is not None}")
+                k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
+                                       max((g - r).abs().max().item()
+                                           for g, r in zip(got, ref)))
+                log(f"cond_pair_backward {shape} {str(dtype):14s} Dropout3d "
+                    f"scale {scale is not None!s:5s} max|d|/max|ref| {e:.3e}")
+            if shape[1] != 48 or dtype != torch.bfloat16:
+                continue
+            sc = keep.to(dev)
+            ms = time_ms(lambda: cpair.cond_pair_backward(x, dz, *mods, sc), 5)
+            plain_ms = time_ms(lambda: cpair.cond_pair_backward_reference(
+                x, dz, *mods, sc), 3)
+            net16 = copy.deepcopy(net).to(torch.bfloat16)
+            lib_ms = time_ms(lambda: cudnn_pair_grad(net16, x, dz), 3)
+            flop = 2 * 2 * 27 * 32 * x.numel()
+            k["ms"], k["plain_ms"], k["library_ms"] = ms, plain_ms, lib_ms
+            log(f"time cond_pair_backward {shape} bf16: kernel {ms:.4f} ms "
+                f"({2 * flop / ms / 1e6:.0f} GFLOP/s)  plain {plain_ms:.4f} ms"
+                f"  [cuDNN autograd chain of the two Conv3d, bf16: "
+                f"{lib_ms:.4f} ms]")
+            set_bound(k, 3 * x.numel() * x.element_size(), 2 * flop, "bf16",
+                      f"cond_pair_backward {shape} bf16")
+            log(f"bound cond_pair_backward on f32 FMAs: "
+                f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
 
 
 def phase_small_rig(dev):
@@ -1419,6 +1742,245 @@ def phase_serving(dev, card, kernels, model, stats, img: int):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def train_grads(trainer, k, inputs):
+    """(loss terms, {group: [gradients]}) of the LRNN step (k None) or of
+    flow step k, nothing drawn."""
+    m = trainer.model
+    for p in m.parameters():
+        p.grad = None
+    if k is None:
+        m.lrnn.train()
+        loss, _ = trainer.lrnn_loss(*inputs, generator=None)
+        losses, groups = [loss], {"lrnn": m.lrnn}
+    else:
+        m.cond[k].train()
+        losses = trainer.flow_loss(k, *inputs, generator=None)[:3]
+        groups = {f"flow.{k}": m.flow[k], f"cond.{k}": m.cond[k]}
+    losses[0].backward()
+    m.eval()
+    return ([float(v.detach()) for v in losses],
+            {g: {n: p.grad.detach().cpu() for n, p in mod.named_parameters()}
+             for g, mod in groups.items()})
+
+
+def phase_train_small(dev):
+    """The small rig's LRNN step and every flow step's loss and gradients,
+    f32, nothing drawn: the card (kernels) against the CPU (plain)."""
+    _, model, stats, _, _ = flagship(True, "cpu",
+                                     torch.Generator().manual_seed(0))
+    cfg = model.cfg = dataclasses.replace(model.cfg, use_half_precision=0)
+    cpu = CWFATrainer(copy.deepcopy(model), stats, None, device="cpu")
+    card = CWFATrainer(model, stats, None, device=dev)
+    rng = np.random.RandomState(4)
+    s, b = cfg.volume_side_size, 2
+
+    def rand(c, scale=1.0):
+        return torch.as_tensor((rng.randn(b, c, s, s) * scale)
+                               .astype(np.float32))
+
+    d_lrnn = cfg.n_depths // 2 ** model.n_flow_steps
+    cases = [(None, [rand(cfg.n_lenslets), rand(d_lrnn, 0.3), rand(d_lrnn)])]
+    for k, spec in enumerate(model.step_specs):
+        cases.append((k, [rand(cfg.n_lenslets), rand(spec.c_flow, 0.3),
+                          rand(spec.d_in), rand(spec.c_flow)]))
+    for k, inputs in cases:
+        ref_l, ref_g = train_grads(cpu, k, inputs)
+        got_l, got_g = train_grads(card, k, [t.to(dev) for t in inputs])
+        loss_rel = max(abs(g - r) / max(abs(r), 1e-30)
+                       for g, r in zip(got_l, ref_l))
+        if not loss_rel <= 1e-4:
+            fail(f"small rig train step {k}: losses {got_l} vs {ref_l}")
+        worst, where = 0.0, ""
+        for group, refs in ref_g.items():
+            scale = max(r.abs().max().item() for r in refs.values())
+            d, leaf = max(((got_g[group][n] - r).abs().max().item(), n)
+                          for n, r in refs.items())
+            if d / scale >= worst:
+                worst, where = d / scale, f"{group}: {leaf}"
+            if not d <= 1e-3 * scale:
+                fail(f"small rig train step {k}, {group}: max|d| {d:.3e} "
+                     f"(at {leaf}) over 1e-3 x max|ref| {scale:.3e}")
+        # the bound is 1e-3, not f32's 1e-5: a PReLU input within rounding
+        # of zero takes the slope 1 on one side and alpha on the other, and
+        # every gradient upstream inherits the difference (scripts/
+        # torch_lrnn_grad_conditioning.py: f32 against f64)
+        log(f"small rig f32 {'LRNN step' if k is None else f'flow step {k}'}"
+            f", card vs CPU: losses {['%.6g' % v for v in got_l]} within "
+            f"{loss_rel:.2e} (bound 1e-4), gradients within {worst:.2e} of "
+            f"max|ref| (bound 1e-3), the worst at {where}")
+
+
+def write_train_dataset(root: Path, cfg, img: int):
+    """TRAIN_FRAMES random uint16 camera frames of img^2 in XLFMDataset's
+    layout (XLFM_image/XLFM_image_stack.tif, XLFM_stack/XLFM_stack_NNN.tif
+    volumes of the configuration's depth and side) and the rig's lenslet
+    file.  Returns (dataset dir, lenslet file)."""
+    side = cfg.volume_side_size
+    rng = np.random.RandomState(12)
+    (root / "XLFM_image").mkdir(parents=True)
+    (root / "XLFM_stack").mkdir()
+    write_tiff_stack(str(root / "XLFM_image" / "XLFM_image_stack.tif"),
+                     rng.randint(0, 4000, (TRAIN_FRAMES, img, img))
+                     .astype(np.uint16))
+    for i in range(TRAIN_FRAMES):
+        write_tiff_stack(str(root / "XLFM_stack" / f"XLFM_stack_{i:03d}.tif"),
+                         rng.randint(0, 1000, (cfg.n_depths, side, side))
+                         .astype(np.uint16))
+    lenslets = root / "lenslets.txt"
+    lenslets.write_text("".join(
+        f"{x - 50}\t{y - 50}\n"
+        for x, y in lenslet_coords(cfg.n_lenslets, side, img)))
+    return root, lenslets
+
+
+def phase_train_flagship(dev, card, kernels, img: int):
+    """The flagship trained on the card through every stage, bf16 (the JAX
+    default), batch 1: ``CWFATrainer.train_epoch`` for epochs =
+    INN_max_down_steps, one stage each, LRNN first, on TRAIN_FRAMES random
+    frames; losses finite, each stage's parameters changed and no other's,
+    launches per optimizer step held to FLOW_PER_STEP / LRNN_PER_STEP, ms
+    per optimizer step (CUDA events, the median after the first) and peak
+    memory per stage; then ``save_checkpoints`` read back equal to the
+    bit."""
+    root = Path(tempfile.mkdtemp(prefix="cwfa_train_"))
+    try:
+        t0 = time.perf_counter()
+        _, model, _, _, _ = flagship(False, "cpu",
+                                     torch.Generator().manual_seed(0))
+        # one epoch per stage
+        cfg = model.cfg = dataclasses.replace(
+            model.cfg, epochs=model.cfg.INN_max_down_steps)
+        data_dir, lenslets = write_train_dataset(root / "fish", cfg, img)
+        side = cfg.volume_side_size
+        ds = load_xlfm_data(str(data_dir), str(lenslets),
+                            vol_shape=(side, side, cfg.n_depths),
+                            img_shape=(img, img),
+                            images_to_use=list(range(TRAIN_FRAMES)),
+                            n_depths_to_fill=cfg.n_depths, ds_id="fish_0")
+        cat = ConcatXLFMDataset(ds)
+        stats = cat.get_statistics()
+        vidx = make_view_indices(ds.lenslet_coords, (img, img), (side, side))
+        tr = CWFATrainer(model, stats, vidx, device=dev)
+        log(f"train dataset: {TRAIN_FRAMES} uint16 frames of {img}^2 and "
+            f"volumes of {cfg.n_depths} x {side}^2 written and read in "
+            f"{time.perf_counter() - t0:.1f} s; use_half_precision "
+            f"{cfg.use_half_precision}, batch {cfg.batch_size}, epochs "
+            f"{cfg.epochs}")
+        # the caches the epochs read (views, GT pyramids, mean caches),
+        # built before the counted epochs: 4 f32 forward pyramids
+        reset_counts()
+        before = launch_counts()
+        tr.ensure_mean_caches(cat)
+        for ix in range(TRAIN_FRAMES):
+            tr._views_for(cat, "train", ix)
+            tr._gt_pyramid(cat, "train", ix)
+        check_counts(NLL_PER_CALL, TRAIN_FRAMES + 1, "train caches", before)
+        times = []
+
+        def timed(fn):
+            def run(*args):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out = fn(*args)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                return out
+            return run
+
+        tr._lrnn_step = timed(tr._lrnn_step)
+        tr._flow_step = timed(tr._flow_step)
+        groups = ["lrnn"] + [f"{g}.{k}" for k in range(model.n_flow_steps)
+                             for g in ("flow", "cond")]
+
+        def snapshot():
+            return {g: [p.detach().clone() for p in
+                        (model.lrnn if g == "lrnn" else
+                         getattr(model, g.split(".")[0])[int(g[-1])])
+                        .parameters()] for g in groups}
+
+        reset_counts()
+        totals = dict.fromkeys(KERNELS, 0)
+        for epoch in range(cfg.epochs):
+            stage = tr.stage_for_epoch(epoch)
+            before, params = launch_counts(), snapshot()
+            times.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss = tr.train_epoch(cat, epoch)
+            peak = torch.cuda.max_memory_allocated()
+            per = LRNN_PER_STEP if stage == model.n_flow_steps \
+                else FLOW_PER_STEP
+            delta = check_counts(per, TRAIN_FRAMES, f"train epoch {epoch}",
+                                 before)
+            for name, n in delta.items():
+                totals[name] += n
+            after = snapshot()
+            changed = sorted(g for g in groups if any(
+                not torch.equal(a, b) for a, b in zip(params[g], after[g])))
+            want = (["lrnn"] if stage == model.n_flow_steps
+                    else sorted([f"cond.{stage}", f"flow.{stage}"]))
+            if changed != want:
+                fail(f"train epoch {epoch} (stage {stage}) changed {changed}, "
+                     f"expected {want}")
+            if not np.isfinite(loss):
+                fail(f"train epoch {epoch}: loss {loss}")
+            if stage != model.n_flow_steps:
+                # bf16 activations under f32 master weights: the bf16
+                # instances, every launch since the counts were reset
+                check_instance("fused_float_tower", btower.WGMMA_BF16,
+                               f"train epoch {epoch}")
+                check_instance("cond_pair", cpair.TENSOR_CORES,
+                               f"train epoch {epoch}")
+            what = "LRNN" if stage == model.n_flow_steps else f"flow step {stage}"
+            log(f"flagship train bf16 batch 1, epoch {epoch} ({what}): mean "
+                f"loss {loss:.6g}; ms per optimizer step "
+                f"{float(np.median(times[1:])):.2f} (median after the first; "
+                f"all {['%.2f' % t for t in times]}); peak memory "
+                f"{peak / 2**30:.2f} GiB; changed {changed}; launches "
+                f"{ {n: c for n, c in delta.items() if c} }; on {card}")
+        for name in KERNELS:
+            if name in FLOW_PER_STEP:
+                key = "launches" if name.endswith("_bwd") else "train_launches"
+                kernels[name][key] = totals[name]
+        ckpt = root / "ckpt"
+        files = tr.save_checkpoints(cfg.epochs - 1, str(ckpt))
+        back = copy.deepcopy(model).cpu()
+        back.load_state_dict({k: torch.zeros_like(v)
+                              for k, v in back.state_dict().items()})
+        opts = make_optimizers(back)
+        _, steps = checkpoints.load_model_checkpoints(back, str(ckpt),
+                                                      optimizers=opts)
+        want, got = model.state_dict(), back.state_dict()
+        lions = [*tr.opt_flow, *tr.opt_cond, tr.opt_lrnn]
+        lions_back = [*opts[0], *opts[1], opts[2]]
+        same = steps == list(range(1, cfg.INN_max_down_steps + 1)) and all(
+            torch.equal(want[k].cpu(), got[k]) for k in want) and all(
+            a.count == b.count and all(torch.equal(x.cpu(), y)
+                                       for x, y in zip(a.mu, b.mu))
+            for a, b in zip(lions, lions_back))
+        if not same:
+            fail("train checkpoints: a parameter, BatchNorm buffer or Lion "
+                 "momentum read back differs from the trainer's")
+        mb = sum(os.path.getsize(f) for f in files) / 1e6
+        log(f"train checkpoints: {len(files)} files ({mb:.1f} MB) read back "
+            f"through engine/checkpoints equal to the bit (parameters, "
+            f"BatchNorm statistics, Lion momenta and counts)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train(dev, card, kernels, img: int):
+    """Training: the backward kernels against their plain backward, the
+    small rig's optimizer steps card vs CPU, the flagship through every
+    stage."""
+    phase_train_kernels(dev, kernels)
+    phase_train_small(dev)
+    torch.cuda.empty_cache()
+    phase_train_flagship(dev, card, kernels, img)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1436,6 +1998,8 @@ def main():
     libs = cuda_build.build_kernels()
     for mod in (fa, qtower, cpair, btower, probes):
         mod._lib()
+    btower._bwd_lib()
+    cpair._bwd_lib()
     root = cuda_build.BUILD_DIR.parents[1]
     names = ", ".join(str(p.relative_to(root)) for p in libs.values())
     log(f"kernels built from cwfa_tpu_torch/csrc/*.cu with nvcc "
@@ -1455,6 +2019,8 @@ def main():
             phase_serving(dev, card, kernels, model, stats, img)
 
         alone = {**kernel_phases, "serving": serving,
+                 "train": lambda dev, kernels: phase_train(dev, card, kernels,
+                                                           2160),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -1486,6 +2052,9 @@ def main():
     phase_likelihood_flagship(dev, card, kernels, model, stats)
     torch.cuda.empty_cache()
     phase_serving(dev, card, kernels, model, stats, frames1.shape[-1])
+    del model
+    torch.cuda.empty_cache()
+    phase_train(dev, card, kernels, frames1.shape[-1])
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -1494,16 +2063,17 @@ def main():
          "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
          "library_ms": k.get("library_ms"),
-         # the float tower's f32 instance (3xTF32): the likelihood path's;
+         # the float tower's f32 instance (3xTF32): the likelihood path's
+         # (and the f32 backward's time, K2);
          # the instance that fused_tower (__dp4a), cond_pair (CUDA cores),
          # chained_gemm and the out8 GEMM (mma.sync) ran before their
          # tensor-core ones, timed in this run; the probe script's own
          # reading of the two s8 instances; the launches of the serving
-         # path's two runs
+         # path's two runs and of the flagship's training
          **{key: v for key, v in k.items()
             if key.startswith("f32_") or key in (
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
-                "serve_launches")}}
+                "serve_launches", "train_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,12 @@
 // (cond_pair_fused, via _run_slab):
 //
 //   y = PReLU(Conv3d(1 -> K, 3x3x3)(x) + b_a)        rounded to x's type
+//   y = y * m[b, k]                                  (training only) rounded
 //   z = Conv3d(K -> 1, 3x3x3)(y) + b_b               rounded to x's type
+//
+// m is the Dropout3d of training (cwfa_tpu/models/cond_net.py:259-265): a
+// per-(sample, channel) scale, 0 or 1/keep, f32; without one (inference)
+// nothing is multiplied.  The backward is csrc/cond_pair_bwd.cu.
 //
 // over (H, W, depth) of x (B, D, H, W): the kernel dims (kh, kw, kd) of both
 // weights act on (H, W, depth), as nn.Conv3d does on the (B, 1, H, W, D)
@@ -92,6 +97,7 @@ struct Params {
   const void* wb;     // (1, K, 3, 3, 3)
   const void* bb;     // (1)
   const void* alpha;  // (1)
+  const float* scale; // (B, K) or null: the Dropout3d scale
   void* z;            // (B, D, H, W)
   int D, H, W, K, nchunks;
 };
@@ -153,6 +159,7 @@ __global__ void __launch_bounds__(kThreads) cond_pair_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < 27; ++i) w[i] = swa[k * 27 + i];
     const float bias_a = sba[k];
+    const float sk = p.scale ? p.scale[b * K + k] : 1.f;
     // one channel of y over the tile and its 1-voxel halo
     for (int it = threadIdx.x; it < kYCols; it += kThreads) {
       const int r = it / kYW, c = it % kYW;
@@ -182,6 +189,7 @@ __global__ void __launch_bounds__(kThreads) cond_pair_kernel(const Params p) {
         float v = acc[j] + bias_a;
         v = v > 0.f ? v : alpha * v;
         v = to_f(from_f<T>(v));
+        if (p.scale) v = to_f(from_f<T>(v * sk));
         ys[j * kYCols + it] = (in_hw && d >= 0 && d < D) ? v : 0.f;
       }
     }
@@ -294,6 +302,13 @@ cond_pair_tc_kernel(const Params p, int td) {
   }
   const float alpha = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.alpha));
   const float bias_b = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.bb));
+  // the Dropout3d scale of this thread's channels (1: none)
+  float sc[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      sc[nt][e] = p.scale ? p.scale[b * kK + 8 * nt + 2 * q + e] : 1.f;
   // offsets in the x window of this thread's taps of conv_a's A fragments
   // (tap t = 9 dh + 3 dw + dd; -1: one of the 5 that pad 27 to 32)
   int aoff[2][2][2];
@@ -357,6 +372,10 @@ cond_pair_tc_kernel(const Params p, int td) {
             float v0 = y[nt][2 * h] + bias_a[nt][0], v1 = y[nt][2 * h + 1] + bias_a[nt][1];
             v0 = v0 > 0.f ? v0 : alpha * v0;
             v1 = v1 > 0.f ? v1 : alpha * v1;
+            if (p.scale) {
+              v0 = __bfloat162float(__float2bfloat16_rn(v0)) * sc[nt][0];
+              v1 = __bfloat162float(__float2bfloat16_rn(v1)) * sc[nt][1];
+            }
             a[nt >> 1][2 * (nt & 1) + h] = in[h] ? pack2(v0, v1) : 0u;
           }
         // conv_b: every position's contribution to its 27 neighbours
@@ -451,11 +470,11 @@ int dispatch(const Params& p, int b, cudaStream_t stream) {
 
 // x, z: (B, D, H, W); wa (K, 1, 3, 3, 3), ba (K), wb (1, K, 3, 3, 3), bb (1),
 // alpha (1), all contiguous and of x's type: dtype 0 = float32,
-// 1 = bfloat16.  tensor_cores 1: the tensor-core instance (bfloat16 and
+// 1 = bfloat16; scale: (B, K) f32 or null.  tensor_cores 1: the tensor-core instance (bfloat16 and
 // k = 32 only), 0: the CUDA-core instance.
 extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
                               const void* wb, const void* bb, const void* alpha,
-                              void* z, int b, int d, int h, int w, int k,
+                              const float* scale, void* z, int b, int d, int h, int w, int k,
                               int dtype, int tensor_cores, int device,
                               void* stream) {
   if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1 ||
@@ -470,6 +489,7 @@ extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
   p.wb = wb;
   p.bb = bb;
   p.alpha = alpha;
+  p.scale = scale;
   p.z = z;
   p.D = d;
   p.H = h;

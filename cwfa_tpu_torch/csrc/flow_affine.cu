@@ -3,6 +3,9 @@
 // Replace the two Pallas TPU kernels of cwfa_tpu/ops/pallas_flow.py:
 //   cwfa_cat_affine          <- cat_affine         (pallas_flow.py:138)
 //   cwfa_haar_merge_affine   <- haar_merge_affine  (pallas_flow.py:118)
+// and give cat_affine the backward that training needs (the TPU kernel has
+// none: JAX differentiates its XLA form):
+//   cwfa_cat_affine_bwd      d(x) and d(s_raw | t) of cat_affine
 //
 // Bound: both are elementwise with a few flops per element, so device-memory
 // bytes bound them.  At bf16, cat_affine moves 8 bytes per element (read x,
@@ -97,6 +100,60 @@ __global__ void haar_merge_affine_kernel(const T* __restrict__ z, const T* __res
   }
 }
 
+// The backward of cat_affine, from dy, the affine's input x and the tower's
+// st.  With s = clamp * f(u), u = s_raw:
+//   rev  y = (x - t) e^-s:  dx = dy e^-s,  dt = -dy e^-s,
+//                           du = -dy (x - t) e^-s clamp f'(u)
+//   fwd  y = e^s x + t:     dx = dy e^s,   dt = dy,
+//                           du = dy x e^s clamp f'(u)
+// written into one (B, 2C, H, W) d(st) (du at channel c, dt at C + c).  The
+// log-det's own term reaches st through PyTorch's sum of the clamped s, not
+// here.  Bound: bytes, 7 elements a position (dy, x, s_raw, t in; dx, du, dt
+// out).  Products in the order of PyTorch's autograd through
+// cat_affine_reference, with the _rn intrinsics (no FMA contraction).
+template <typename T>
+__global__ void cat_affine_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                                      const T* __restrict__ st, T* __restrict__ dx,
+                                      T* __restrict__ dst, int64_t n, int64_t chw,
+                                      float clamp, int act, int rev) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const int64_t b = i / chw;
+    const int64_t js = i + b * chw;
+    const float u = load_f(st, js);
+    const float t = load_f(st, js + chw);
+    const float xv = load_f(x, i);
+    const float g = load_f(dy, i);
+    const float s = soft_clamp(u, clamp, act);
+    float ds, dt, dxv;
+    if (rev) {
+      const float e = expf(-s);
+      dxv = __fmul_rn(g, e);
+      dt = -dxv;
+      ds = -__fmul_rn(__fmul_rn(g, __fsub_rn(xv, t)), e);
+    } else {
+      const float e = expf(s);
+      dxv = __fmul_rn(g, e);
+      dt = g;
+      ds = __fmul_rn(__fmul_rn(g, xv), e);
+    }
+    // d/du of clamp * f(u), as autograd takes it: the clamp factor first
+    float du = __fmul_rn(ds, clamp);
+    if (act == 0) {
+      du = __fdiv_rn(__fmul_rn(du, 0.636f), __fadd_rn(__fmul_rn(u, u), 1.0f));
+    } else if (act == 1) {
+      const float th = tanhf(u);
+      du = __fmul_rn(du, __fsub_rn(1.0f, __fmul_rn(th, th)));
+    } else {
+      const float sg = 1.0f / (1.0f + expf(-u));
+      du = __fmul_rn(__fmul_rn(__fmul_rn(du, 2.0f), __fsub_rn(1.0f, sg)), sg);
+    }
+    store_f(dx, i, dxv);
+    store_f(dst, js, du);
+    store_f(dst, js + chw, dt);
+  }
+}
+
 int64_t n_blocks(int64_t n) {
   const int64_t b = (n + kThreads - 1) / kThreads;
   return b < kMaxBlocks ? b : kMaxBlocks;
@@ -150,6 +207,33 @@ extern "C" int cwfa_haar_merge_affine(const void* z, const void* s_raw, const vo
         static_cast<const __nv_bfloat16*>(z), static_cast<const __nv_bfloat16*>(s_raw),
         static_cast<const __nv_bfloat16*>(t), static_cast<const __nv_bfloat16*>(avg),
         static_cast<__nv_bfloat16*>(out), n, chw, hw, t_bstride, clamp, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dy, x, dx: (B, C, H, W); st, dst: (B, 2C, H, W); all contiguous, one dtype.
+extern "C" int cwfa_cat_affine_bwd(const void* dy, const void* x, const void* st,
+                                   void* dx, void* dst, int64_t b, int64_t c,
+                                   int64_t hw, float clamp, int act, int rev,
+                                   int dtype, int device, void* stream) {
+  if (act < 0 || act > 2 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t chw = c * hw;
+  const int64_t n = b * chw;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)n_blocks(n));
+  if (dtype == 0) {
+    cat_affine_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const float*>(x),
+        static_cast<const float*>(st), static_cast<float*>(dx),
+        static_cast<float*>(dst), n, chw, clamp, act, rev);
+  } else {
+    cat_affine_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(st), static_cast<__nv_bfloat16*>(dx),
+        static_cast<__nv_bfloat16*>(dst), n, chw, clamp, act, rev);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,9 @@
 """Dataset statistics and normalization.
 
-A verbatim copy of ``cwfa_tpu/data/stats.py`` (numpy only).
+A copy of ``cwfa_tpu/data/stats.py`` (numpy only), but for
+``fast_quantile``, which bins in float64: the datasets store their volumes
+in float16, and newer numpy refuses 10000 float16 bin edges over a range
+where neighbours round to the same value (a volume of 0..1000 already).
 
 Reference: XLFMDataset.py:315-395 (ConcatDataset.get_statistics /
 standarize), utils.py:84-102 (fast_quantile histogram quantile),
@@ -61,8 +64,9 @@ def unstandardize(x, mean, std):
 def fast_quantile(x: np.ndarray, quant: float = 0.95) -> float:
     """Histogram-based quantile exactly as the reference computes it
     (utils.py:84-102): 10000 bins, cumulative count excluding bin 0, returns
-    the left edge of the first bin at/after the quantile mass."""
-    h, ranges = np.histogram(x, bins=10000)
+    the left edge of the first bin at/after the quantile mass.  The bins
+    are float64 whatever x's dtype."""
+    h, ranges = np.histogram(np.asarray(x, np.float64), bins=10000)
     quant_numel = h[1:].sum() * quant
     cumulative = 0
     n_bin = 1

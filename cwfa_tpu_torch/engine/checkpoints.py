@@ -15,8 +15,10 @@ Step convention (``restore_params_from_payloads``): file step s fills flow
 step and cond net s-1; a step s > n_flow_steps fills the LRNN from its
 "condition_state_dict" and the UNet BatchNorm statistics from its
 "model_state_dict"; a step missing from the directory keeps the model's
-weights as they are.  The optimizer state is read with the file and not
-used (the port does not train yet).
+weights as they are.  The optimizer state is optax's Lion state in the
+JAX trainer's layout (``engine/optim.Lion.state_tree``): for a flow step
+{"flow": ..., "cond": ...}, for the LRNN step the LRNN's; the JAX trainer
+resumes from the port's files and the port from JAX's.
 """
 
 from __future__ import annotations
@@ -48,12 +50,12 @@ def _write_atomic(fname: str, data: bytes):
 def save_step_checkpoint(path: str, step: int, epoch: int, cfg: CWFAConfig,
                          inn_params=None, cond_params=None,
                          train_statistics: DatasetStatistics | None = None,
-                         model_state=None) -> str:
+                         model_state=None, opt_state=None) -> str:
     """Write ``<path>/model_step_<step>__ep_<epoch>.msgpack``.  The trees
     are JAX-keyed (nested dicts and lists of numpy arrays); "args" is the
     JSON of ``cfg.to_dict()``, which ``CWFAConfig.from_dict`` of either
-    package reads; the optimizer state is empty (the port does not train
-    yet), which both packages read as absent.  Returns the file name."""
+    package reads; ``opt_state`` None writes an empty optimizer state, which
+    both packages read as absent.  Returns the file name."""
     os.makedirs(path, exist_ok=True)
 
     def tree(t):
@@ -64,7 +66,7 @@ def save_step_checkpoint(path: str, step: int, epoch: int, cfg: CWFAConfig,
         "args": json.dumps(cfg.to_dict()),
         "INN_state_dict": tree(inn_params),
         "condition_state_dict": tree(cond_params),
-        "optimizer_state_dict": {},
+        "optimizer_state_dict": tree(opt_state),
         "model_state_dict": tree(model_state),
         "training_statistics": (list(train_statistics.astuple())
                                 if train_statistics is not None else []),
@@ -106,12 +108,23 @@ def load_step_checkpoint(fname: str):
     return payload, cfg, stats
 
 
+def _opt_state(optimizers, step: int, is_lrnn: bool):
+    if optimizers is None:
+        return None
+    flow, cond, lrnn = optimizers
+    if is_lrnn:
+        return lrnn.state_tree()
+    return {"flow": flow[step].state_tree(), "cond": cond[step].state_tree()}
+
+
 def save_model_checkpoints(model, path: str, epoch: int,
-                           stats: DatasetStatistics) -> list:
+                           stats: DatasetStatistics, optimizers=None) -> list:
     """The files of the JAX trainer's ``save_checkpoints`` for ``model``:
     steps 1..INN_max_down_steps, each with its flow step and cond net, the
     step past the last flow step with the LRNN and its BatchNorm
-    statistics; each with the step's config and ``stats``."""
+    statistics; each with the step's config and ``stats``, and with
+    ``optimizers`` ((flow Lions, cond Lions, LRNN Lion) of
+    ``engine/optim.make_optimizers``) their Lion state."""
     params, state = export_jax_params(model)
     cfg, nf = model.cfg, model.n_flow_steps
     written = []
@@ -122,19 +135,23 @@ def save_model_checkpoints(model, path: str, epoch: int,
             inn_params=None if is_lrnn else params["flow"][step],
             cond_params=params["lrnn"] if is_lrnn else params["cond"][step],
             model_state=state["lrnn"] if is_lrnn else None,
+            opt_state=_opt_state(optimizers, step, is_lrnn),
             train_statistics=stats))
     return written
 
 
-def load_model_checkpoints(model, path: str, max_epoch: int | None = None):
+def load_model_checkpoints(model, path: str, max_epoch: int | None = None,
+                           optimizers=None):
     """Fill ``model`` in place from the highest-epoch file of each step in
-    ``path``, by the convention of the module docstring.  Returns
-    (the first statistics found in step order or None, the steps loaded).
-    Raises KeyError / ValueError when a file's tree does not fit the model
-    (a key left over or missing, a shape that differs)."""
+    ``path``, by the convention of the module docstring, and with
+    ``optimizers`` ((flow Lions, cond Lions, LRNN Lion)) their Lion state
+    where a file has one.  Returns (the first statistics found in step
+    order or None, the steps loaded).  Raises KeyError / ValueError when a
+    file's tree does not fit the model (a key left over or missing, a shape
+    that differs)."""
     nf = model.n_flow_steps
     params, state = (to_state_dict(t) for t in export_jax_params(model))
-    stats, loaded = None, []
+    stats, loaded, opts = None, [], []
     found = discover_checkpoints(path, max_epoch=max_epoch)
     for step, (_, fname) in sorted(found.items()):
         payload, _, st = load_step_checkpoint(fname)
@@ -149,8 +166,17 @@ def load_model_checkpoints(model, path: str, max_epoch: int | None = None):
                 params["cond"][str(ix)] = payload["condition_state_dict"]
         if payload.get("model_state_dict") and ix >= nf:
             state = {"lrnn": payload["model_state_dict"]}
+        opt = payload.get("optimizer_state_dict")
+        if optimizers is not None and opt:
+            flow, cond, lrnn = optimizers
+            if ix >= nf:
+                opts.append((lrnn, opt))
+            else:
+                opts += [(flow[ix], opt["flow"]), (cond[ix], opt["cond"])]
         loaded.append(step)
     load_jax_params(model, params, state)
+    for lion, tree in opts:
+        lion.load_state_tree(tree)
     return stats, loaded
 
 

@@ -106,6 +106,35 @@ def _put(tree: dict, path, value):
     tree[path[-1]] = value
 
 
+def param_tree(module: nn.Module, value_of):
+    """``value_of(p)`` for every parameter p of ``module``, as a JAX-keyed
+    tree (the layout of ``export_jax_params``'s params; lists as lists)."""
+    tree = {}
+    for name, sub in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        for pname, p in sub.named_parameters(recurse=False):
+            _put(tree, path + (_param_leaf(sub, pname),), value_of(p))
+    return restore_lists(tree)
+
+
+def param_values(module: nn.Module, tree) -> dict:
+    """The reverse of ``param_tree``: {parameter name: array} of ``tree``
+    for ``module``'s parameters.  Raises KeyError on a key left unused on
+    either side and ValueError on a shape mismatch."""
+    incoming = {_key(path, _PARAM_LEAF): arr for path, arr in _flatten(tree)}
+    params = dict(module.named_parameters())
+    unused = sorted(set(incoming) - set(params))
+    missing = sorted(set(params) - set(incoming))
+    if unused or missing:
+        raise KeyError(f"tree keys with no parameter: {unused}; parameters "
+                       f"with no tree key: {missing}")
+    for name, arr in incoming.items():
+        if tuple(np.shape(arr)) != tuple(params[name].shape):
+            raise ValueError(f"{name}: tree shape {tuple(np.shape(arr))} != "
+                             f"parameter shape {tuple(params[name].shape)}")
+    return incoming
+
+
 def export_jax_params(model: nn.Module):
     """The reverse of ``load_jax_params``: ``model``'s parameters and
     persistent buffers as JAX ``(params, state)`` trees of numpy arrays,

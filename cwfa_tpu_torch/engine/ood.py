@@ -44,7 +44,8 @@ class PyramidScorer:
 
     ``model`` is used where it lies (move it to ``device`` first); the noise
     is drawn from ``generator`` on the generator's device, so one CPU
-    generator gives a card and the CPU the same noise.  ``noise_std`` is the
+    generator gives a card and the CPU the same noise; None draws nothing
+    (no guard noise, no dequantization noise).  ``noise_std`` is the
     reference's 1e-3 dequantization noise."""
 
     def __init__(self, model: CWFAModel, stats: DatasetStatistics, *, device,
@@ -70,9 +71,10 @@ class PyramidScorer:
         v = torch.as_tensor(vol_raw).to(self.device, torch.float32)
         v = (v - s.mean_vols) / s.std_vols
         v = check_empty_depths(self.generator, v)
-        noise = torch.randn(v.shape, generator=self.generator, dtype=v.dtype,
-                            device=self.generator.device)
-        v = v + self.noise_std * noise.to(v.device)
+        if self.generator is not None:
+            noise = torch.randn(v.shape, generator=self.generator,
+                                dtype=v.dtype, device=self.generator.device)
+            v = v + self.noise_std * noise.to(v.device)
         nlls, cache, priors, ljs = self.model.forward_pyramid(
             v, per_sample=True)
         return _sentinel(nlls), cache, _sentinel(priors), torch.stack(ljs)

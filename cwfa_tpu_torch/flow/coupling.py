@@ -33,7 +33,13 @@ def cat_transform(subnet, x, conds, rev=False, clamp: float = 2.0,
     tensors concatenated on channels; ``subnet`` maps sum(Ci) -> 2*C.
     Returns (y, per-sample logdet in f32)."""
     cond = conds[0] if len(conds) == 1 else torch.cat(list(conds), dim=1)
-    a = subnet(cond)
+    return cat_apply(subnet(cond), x, rev, clamp, clamp_activation)
+
+
+def cat_apply(a, x, rev=False, clamp: float = 2.0,
+              clamp_activation: str = "ATAN"):
+    """The CAT's affine of x from the subnet's output ``a`` = (s_raw | t)
+    (B, 2C, H, W).  Returns (y, per-sample logdet in f32)."""
     c = x.shape[1]
     s_raw, t = a[:, :c], a[:, c:]
     s = (clamp * clamp_fn(clamp_activation)(s_raw.float())).to(x.dtype)

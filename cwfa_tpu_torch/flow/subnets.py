@@ -11,7 +11,9 @@
 
 ``tower`` runs the whole tower in one call of
 ``ops/btower.fused_float_tower``: the CUDA kernel on a card, its plain
-version (f32 convs on canvases rounded to the compute dtype) on the CPU.
+version (f32 convs on canvases rounded to the compute dtype) on the CPU;
+through ``ops/btower.FloatTowerFn``, so that training differentiates it with
+the backward kernel.
 
 The ``_first`` variant (networks.py:684-706) is the input
 ConditionalAffineTransform's subnet: its input is [low_res_up_grad | cond];
@@ -28,7 +30,7 @@ import torch
 from torch import nn
 
 from cwfa_tpu_torch.nn import same_conv2d, subnet_init_small_
-from cwfa_tpu_torch.ops.btower import fused_float_tower
+from cwfa_tpu_torch.ops.btower import float_tower
 
 SQRT2_INV = 1.0 / math.sqrt(2.0)
 
@@ -49,7 +51,7 @@ class WaveletFlowSubnet2d(nn.Module):
         self.b7 = same_conv2d(n_ch, c_out, 3, use_bias)
 
     def tower(self, x):
-        return fused_float_tower(x.contiguous(), self)
+        return float_tower(x.contiguous(), self)
 
     def forward(self, x):
         return self.tower(x)

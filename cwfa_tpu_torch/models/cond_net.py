@@ -13,8 +13,12 @@ pair runs in one call of ``ops/cond_pair.cond_pair`` on the (B, D, H, W)
 features (the CUDA kernel on a card, its plain version on the CPU), with the
 reference layout's weights (``_conv3d_pair_direct``, ``cond_net.py:259-265``):
 the TPU's banded, depth-batched and block-diagonally paired forms are
-numerically equal rewrites and are not carried over.  Inference only: the
-Dropout3d of training is not ported.
+numerically equal rewrites and are not carried over.  In training mode
+(``.train()``) the pair's intermediate channels go through the Dropout3d
+of ``cond_network(train=True)`` (rate 0.5, a (B, K) mask drawn from the
+``generator`` given to ``forward``; none without one), and the pair is
+differentiated through ``ops/cond_pair.CondPairFn``, whose backward is a
+kernel too.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cwfa_tpu_torch.nn import same_conv2d
-from cwfa_tpu_torch.ops.cond_pair import cond_pair
+from cwfa_tpu_torch.nn import channel_dropout_scale, same_conv2d
+from cwfa_tpu_torch.ops.cond_pair import cond_pair_ad
 
 
 class CondNetwork(nn.Module):
+    # cond_network's dropout3d_rate (cwfa_tpu/models/cond_net.py:312)
+    dropout3d_rate = 0.5
+
     def __init__(self, c_in: int, c_out: int, chans_3d: int = 32):
         super().__init__()
         self.conv1 = same_conv2d(c_in, c_out, 3)
@@ -37,15 +44,19 @@ class CondNetwork(nn.Module):
         self.c3b = nn.Conv3d(chans_3d, 1, 3, padding=1)
         self.prelu = nn.PReLU(1)
 
-    def forward(self, x):
-        """x: (B, n_lenslets, H, W) -> contiguous (B, c_out, H, W)."""
-        if self.training:
-            raise NotImplementedError("cond net training is not ported")
+    def forward(self, x, generator=None):
+        """x: (B, n_lenslets, H, W) -> contiguous (B, c_out, H, W).
+        generator: the Dropout3d's draws in training mode."""
         out = self.prelu(self.conv1(x))
         out = self.conv2(out)
         out = self.prelu(out + self.down(x))
+        scale = channel_dropout_scale(
+            (x.shape[0], self.c3a.out_channels),
+            self.dropout3d_rate if self.training else 0.0, generator,
+            x.device)
         # the 3-D convs run over (H, W, depth)
-        return cond_pair(out.contiguous(), self.c3a, self.c3b, self.prelu)
+        return cond_pair_ad(out.contiguous(), self.c3a, self.c3b, self.prelu,
+                            scale)
 
 
 def cond_networks_batched(nets, x):

@@ -1,5 +1,5 @@
-"""Conditional Wavelet Flow steps, both directions, without gradients
-(counterpart of ``cwfa_tpu/models/cwf.py``).
+"""Conditional Wavelet Flow steps, both directions (counterpart of
+``cwfa_tpu/models/cwf.py``).
 
 Per-step graph (reference networks.py:305-366), for step k on a volume with
 D = n_depths/2^k depth-channels:
@@ -11,15 +11,17 @@ D = n_depths/2^k depth-channels:
   rev   inverts the chain; ``avg`` is the upsampled volume from the coarser
         step, z is zeros at temperature 0 (CWFA.py:47-64).
 
-Only the CAT block type is ported, under ``torch.inference_mode`` (the
-differentiable form comes with training): ``forward`` (normalizing, with
-f32 log-dets: the exact-likelihood path), ``reverse`` (its exact inverse,
-with log-dets) and ``reverse_fast`` (reconstruction: no log-det, the input
-affine fused with the inverse Haar).  The coupling towers run one by one
-(the TPU's 128-wide tower pairing is not carried over), each through the
-float tower kernel (``ops/btower.fused_float_tower``, via
-``WaveletFlowSubnet2d.tower``), and every coupling block's affine through
-``ops/flow_affine.cat_affine``.  With a ``qpack`` (``quantize_cat_step``)
+Only the CAT block type is ported: ``forward`` (normalizing, with f32
+log-dets: the exact-likelihood path and training's NLL), ``reverse`` (its
+exact inverse, with log-dets: training's reconstruction, JAX's
+``fast=False``), both differentiable, and ``reverse_fast``
+(reconstruction: no log-det, the input affine fused with the inverse Haar,
+no gradients).  The inference callers run them under
+``torch.inference_mode``.  The coupling towers run one by one (the TPU's
+128-wide tower pairing is not carried over), each through the float tower
+kernel (``ops/btower.FloatTowerFn``, via ``WaveletFlowSubnet2d.tower``),
+and every coupling block's affine through ``ops/flow_affine.CatAffineFn``;
+the backward of both is a kernel too.  With a ``qpack`` (``quantize_cat_step``)
 ``reverse_fast`` runs the coupling towers in int8 through the int8 tower
 kernel (``ops/qtower.fused_tower``).
 """
@@ -31,14 +33,15 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
-from cwfa_tpu_torch.flow.coupling import cat_transform, clamp_fn
+from cwfa_tpu_torch.flow.coupling import cat_apply, clamp_fn
 from cwfa_tpu_torch.flow.haar import haar1d_merge, haar1d_split
 from cwfa_tpu_torch.flow.permute import (
     ReferencePermReplayer, apply_channel_perm, apply_spatial_perm)
 from cwfa_tpu_torch.flow.subnets import (
     SQRT2_INV, WaveletFlowSubnet2d, WaveletFlowSubnet2dFirst)
 from cwfa_tpu_torch.ops import qtower
-from cwfa_tpu_torch.ops.flow_affine import cat_affine, haar_merge_affine
+from cwfa_tpu_torch.ops.flow_affine import (CatAffineFn, cat_affine,
+                                            haar_merge_affine)
 
 
 @dataclass(frozen=True)
@@ -128,36 +131,49 @@ class CWFStep(nn.Module):
             return apply_channel_perm(x, idx)
         return apply_spatial_perm(x, axis, idx)
 
-    def _input_block(self, x, c_views, c_mean, rev: bool):
-        """The input ConditionalAffineTransform, conditions concatenated as
-        [mean cache | views] (``_input_block``, ``cwf.py:414-425``).  A
-        batch-1 ``c_mean`` is expanded over the batch."""
-        spec = self.spec
-        if spec.disable_low_res_input:
-            conds = (c_views,)
-        else:
-            conds = (c_mean.expand(c_views.shape), c_views)
-        return cat_transform(self.input_block["subnet"], x, conds, rev=rev,
-                             clamp=spec.clamp,
-                             clamp_activation=spec.clamp_activation)
+    def towers(self, c_views):
+        """Every tower's output on the views condition: the input block's
+        (its s_raw, or its (s_raw | t) without the low-res input), then
+        the coupling blocks' (s_raw | t) in order.  All five read only
+        ``c_views``, so training computes them once per step and hands them
+        to both directions (``towers=``); autograd then sums the two
+        directions' gradients into one backward per tower."""
+        return [self.input_block["subnet"].tower(c_views)] + [
+            blk["subnet"].tower(c_views) for blk in self.blocks]
 
-    def _cat_chain(self, x, c_views, rev: bool):
+    def _input_block(self, x, c_views, c_mean, rev: bool, st=None):
+        """The input ConditionalAffineTransform, conditions concatenated as
+        [mean cache | views] (``_input_block``, ``cwf.py:414-425``): s_raw
+        from the tower on the views (``st``, where given), t the low-res
+        prior -c_mean/sqrt(2) (``WaveletFlowSubnet2dFirst``).  A batch-1
+        ``c_mean`` is expanded over the batch."""
+        spec = self.spec
+        if st is None:
+            st = self.input_block["subnet"].tower(c_views)
+        if not spec.disable_low_res_input:
+            st = torch.cat([st, c_mean.expand(c_views.shape) * -SQRT2_INV],
+                           dim=1)
+        return cat_apply(st, x, rev=rev, clamp=spec.clamp,
+                         clamp_activation=spec.clamp_activation)
+
+    def _cat_chain(self, x, c_views, rev: bool, towers=None):
         """The permute / CAT block chain (``_cat_chain``, ``cwf.py:386-411``):
-        each block's (s_raw | t) from its tower, the affine through
-        ``cat_affine`` (which clamps s itself), the log-det as the f32 sum of
-        the clamped s per sample."""
+        each block's (s_raw | t) from its tower (``towers[nn]``, where
+        given), the affine through ``CatAffineFn`` (which clamps s itself),
+        the log-det as the f32 sum of the clamped s per sample."""
         spec = self.spec
         n = spec.c_flow
-        kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
         fcl = clamp_fn(spec.clamp_activation)
         logdet = torch.zeros((x.shape[0],), dtype=torch.float32,
                              device=x.device)
 
         def block(nn_, x):
-            st = self.blocks[nn_ - 1]["subnet"](c_views)
+            st = (self.blocks[nn_ - 1]["subnet"].tower(c_views)
+                  if towers is None else towers[nn_])
             s = (spec.clamp * fcl(st[:, :n].float())).to(st.dtype)
             j = s.float().sum(dim=(1, 2, 3))
-            return cat_affine(x.contiguous(), st, rev=rev, **kw), j
+            return CatAffineFn.apply(x.contiguous(), st, spec.clamp,
+                                     spec.clamp_activation, rev), j
 
         if not rev:
             for nn_ in range(1, spec.n_blocks + 1):
@@ -175,26 +191,28 @@ class CWFStep(nn.Module):
                 x = self._perm(nn_ - 1, x, inverse=True)
         return x, logdet
 
-    @torch.inference_mode()
-    def forward(self, v, c_views, c_mean):
+    def forward(self, v, c_views, c_mean, towers=None):
         """Normalizing direction (``cwf_step_forward``, ``cwf.py:476-494``):
         volume -> (z, averages, logdet).
 
-        v: (B, D, H, W); c_views: (B, D/2, H, W); c_mean: (1 or B, D/2, H, W).
-        logdet: (B,) f32."""
+        v: (B, D, H, W); c_views: (B, D/2, H, W); c_mean: (1 or B, D/2, H, W);
+        towers: None (each tower runs where its block needs it) or
+        ``self.towers(c_views)``.  logdet: (B,) f32."""
         avg, diff, logdet = haar1d_split(v)
-        x, j = self._input_block(diff, c_views, c_mean, rev=False)
+        x, j = self._input_block(diff, c_views, c_mean, rev=False,
+                                 st=None if towers is None else towers[0])
         logdet = logdet + j
-        x, j = self._cat_chain(x, c_views, rev=False)
+        x, j = self._cat_chain(x, c_views, rev=False, towers=towers)
         return x, avg, logdet + j
 
-    @torch.inference_mode()
-    def reverse(self, z, avg, c_views, c_mean):
+    def reverse(self, z, avg, c_views, c_mean, towers=None):
         """Generative direction, the exact inverse of ``forward`` with its
         log-det (the non-fast ``cwf_step_reverse``, ``cwf.py:510-538``):
-        (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32)."""
-        x, logdet = self._cat_chain(z, c_views, rev=True)
-        x, j = self._input_block(x, c_views, c_mean, rev=True)
+        (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32).  towers:
+        as in ``forward``."""
+        x, logdet = self._cat_chain(z, c_views, rev=True, towers=towers)
+        x, j = self._input_block(x, c_views, c_mean, rev=True,
+                                 st=None if towers is None else towers[0])
         v, ld = haar1d_merge(avg, x)
         return v, logdet + j + ld
 

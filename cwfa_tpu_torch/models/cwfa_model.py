@@ -6,7 +6,7 @@ Structure for the default config (n_depths=96, 5 pyramid steps):
   cond nets k=0..3 mapping the views -> 96/2^{k+1} channels,
   LRNN producing the coarsest 6-depth volume from views + mean-volume prior.
 
-Two paths are ported, both without gradients.  Reconstruction:
+Three paths are ported.  Reconstruction, without gradients:
 ``reconstruct`` through the CUDA flow kernels (the JAX ``fast=True`` path),
 deterministic (temperature 0, the LRNN in eval mode, optionally with the
 int8 UNet ``unet_q`` and int8 coupling towers ``qpacks``) or stochastic (z
@@ -15,9 +15,11 @@ mode), every draw from one ``torch.Generator``; ``fast=False`` raises.
 Both force flags of the configuration are honoured: ``force_last_step_NF``
 builds one more flow step and starts the chain from zeros at the coarsest
 level (no LRNN call, no mean branch); ``force_all_steps_NF`` gives every
-step a zero views condition and runs no cond net.  Exact likelihood:
-``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in the
-normalizing direction, per-frame NLLs) and ``make_mean_caches``.
+step a zero views condition and runs no cond net.  Exact likelihood, without
+gradients: ``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in
+the normalizing direction, per-frame NLLs) and ``make_mean_caches``.
+Training (``engine/trainer.py``), with gradients: ``step_nll`` and the
+modules themselves (``CWFStep.reverse``, ``CondNetwork``, ``LRNN``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,10 @@ def sample_z_truncated(generator: torch.Generator, shape,
 def check_empty_depths(generator: torch.Generator, vol):
     """Add sigma = 1e-3 noise (drawn from ``generator`` on its device) to the
     all-constant depth slices of ``vol`` (B, D, H, W) and to no other
-    (``check_empty_depths``, ``cwfa_model.py:57-62``)."""
+    (``check_empty_depths``, ``cwfa_model.py:57-62``); without a generator
+    nothing is drawn and ``vol`` is returned as it is."""
+    if generator is None:
+        return vol
     empty = vol.std(dim=(2, 3), keepdim=True, correction=0) == 0
     noise = 0.001 * torch.randn(vol.shape, generator=generator,
                                 dtype=vol.dtype, device=generator.device)
@@ -144,6 +149,17 @@ class CWFAModel(nn.Module):
         prior_b = 0.5 * (z.float() ** 2).sum(dim=(1, 2, 3))
         return avg, prior_b, logdet, float(avg.numel())
 
+    def step_nll(self, k: int, gt_level, c_views, c_mean, towers=None):
+        """Conditioned NLL of flow step k for training (``step_nll``,
+        ``cwfa_model.py:189-202``): the GT level encoded with the real
+        conditions, (0.5 ||z||^2 - sum of the per-sample log-dets) / numel of
+        the level, f32; the log-dets are summed over the batch like the
+        prior.  towers: None or the step's ``CWFStep.towers(c_views)``.
+        Returns (nll, (z, avg))."""
+        z, avg, logdet = self.flow[k](gt_level, c_views, c_mean, towers)
+        prior = 0.5 * (z.float() ** 2).sum()
+        return (prior - logdet.sum()) / float(gt_level.numel()), (z, avg)
+
     @torch.inference_mode()
     def forward_pyramid(self, gt_volume, mean_caches=None,
                         per_sample: bool = False):
@@ -210,7 +226,7 @@ class CWFAModel(nn.Module):
                     z_temperature: float = 0.0, generator=None,
                     lrnn_train: bool | None = None, n_samples: int = 1,
                     fast: bool = True, lrnn_mean_branch=None, unet_q=None,
-                    qpacks=None):
+                    qpacks=None, return_pyramid: bool = False):
         """Full generative chain (CWFA.py:865-927): LRNN at the coarsest
         level, then invert flow steps k = n-1..0, doubling depth each time.
 
@@ -234,6 +250,8 @@ class CWFAModel(nn.Module):
         unet_q: optional int8 UNet pack (``quantize_unet_pack``); unused
           when the LRNN is in train mode.
         qpacks: optional per-step int8 tower packs (``quantize_steps``).
+        return_pyramid: also return {level: volume} of every level the chain
+          passes (n_flow_steps: the coarsest, 0: the result), as JAX's.
         """
         if not fast:
             raise NotImplementedError("fast=False is not ported")
@@ -257,6 +275,7 @@ class CWFAModel(nn.Module):
             up = self.lrnn(cond_input, mean_vol=mean_vol,
                            mean_branch=lrnn_mean_branch, unet_q=unet_q,
                            train=lrnn_train, generator=generator)
+        pyramid = {nf: up}
         # force_all_steps_NF (CWFA.py:892-894): a zero views condition, and
         # the cond nets do not run
         c_views_all = (None if self.cfg.force_all_steps_NF
@@ -283,5 +302,5 @@ class CWFAModel(nn.Module):
                 qpack=None if qpacks is None else qpacks[k])
             if n_samples > 1:
                 v = v.reshape((n_samples, b) + tuple(v.shape[1:])).mean(0)
-            up = v
-        return up
+            up = pyramid[k] = v
+        return (up, pyramid) if return_pyramid else up

@@ -1,6 +1,6 @@
 """LRNN — the coarsest-step generator (counterpart of
-``cwfa_tpu/models/lrnn.py:31-129``, reference networks.py:505-584), without
-gradients; the train mode that reconstruction runs it in is an argument.
+``cwfa_tpu/models/lrnn.py:31-129``, reference networks.py:505-584); the
+train mode that reconstruction and training run it in is an argument.
 
 Maps the lenslet views to the lowest-resolution volume
 (n_depths/2^{steps-1} = 6 depths at 512x512), corrected by a mean-volume

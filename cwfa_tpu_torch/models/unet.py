@@ -1,6 +1,5 @@
 """Padding U-Net with additive skips (counterpart of
-``cwfa_tpu/models/unet.py:27-268``, reference unet.py:9-195), without
-gradients.
+``cwfa_tpu/models/unet.py:27-268``, reference unet.py:9-195).
 
 - downsampling via max-pool to exactly half the size (unet.py:79);
 - up path: ConvTranspose2d(k=2, s=2) and an ADDITIVE skip (unet.py:190);
@@ -8,13 +7,14 @@ gradients.
 - per-site PReLU parameters; BatchNorm after each activation, from its
   running statistics.
 
-``forward(..., train=True)`` is the train mode that reconstruction runs the
-LRNN in (``cwfa_tpu/models/cwfa_model.py:267-276``): BatchNorm on the
-batch's own statistics and Dropout2d (``spec.drop_out``) after every pool
-and every up block.  The mode is an argument, as in JAX; the running
-statistics are left as they are (updating them is training's business, and
-a module put into training mode with ``.train()`` still raises).  The
-activation is PReLU, the one the LRNN uses.
+``forward(..., train=True)`` is the train mode that reconstruction and
+training run the LRNN in (``cwfa_tpu/models/cwfa_model.py:267-276``):
+BatchNorm on the batch's own statistics and Dropout2d (``spec.drop_out``)
+after every pool and every up block.  The mode is an argument, as in JAX;
+the running statistics move (momentum 0.1, unbiased variance, as JAX's
+mstate) only when the module is also in training mode (``.train()``, which
+the trainer sets for its LRNN step), and are left as they are otherwise.
+The activation is PReLU, the one the LRNN uses.
 
 The int8 path (``unet_calibrate``, ``quantize_unet``, ``unet_quantized``)
 runs every conv through the same forward with a conv hook, as the JAX
@@ -111,8 +111,6 @@ class UNet(nn.Module):
         conv goes through (the int8 path and its calibration).
         train: BatchNorm on the batch's statistics, and Dropout2d drawing
         from ``generator`` (none without one), ``unet.py:134-155``."""
-        if self.training:
-            raise NotImplementedError("UNet training is not ported")
         drop = self.spec.drop_out if train else 0.0
         blocks = []
         for i, block in enumerate(self.down):

@@ -9,10 +9,12 @@ parameter names.  This module adds:
   activation scales (the bits differ from JAX's);
 - the few pieces torch lacks as-is: SAME-padded convs, the LayerNorm over
   trailing (C, S, S) computed in f32, and the half-size max-pool;
-- the train-mode pieces that reconstruction runs (the LRNN stays in train
-  mode at inference, ``cwfa_tpu/models/cwfa_model.py:267-276``): BatchNorm
-  on the batch's own statistics, ``dropout2d`` and ``drop_path`` drawing
-  from an explicit ``torch.Generator``.
+- the train-mode pieces (reconstruction runs them too: the LRNN stays in
+  train mode at inference, ``cwfa_tpu/models/cwfa_model.py:267-276``):
+  BatchNorm on the batch's own statistics, with the running statistics
+  updated when the module is in training mode; ``dropout2d``, ``drop_path``
+  and the Dropout3d scale ``channel_dropout_scale``, drawing from an
+  explicit ``torch.Generator``.  All of them carry gradients.
 
 A PReLU shared across sites (``cwfa_tpu/models/cond_net.py:13-18``) is one
 ``nn.PReLU(1)`` called at each site.
@@ -140,7 +142,15 @@ class LayerNormF32(nn.LayerNorm):
 def batch_norm_batch_stats(bn: nn.BatchNorm2d, x):
     """``bn`` on the statistics of the batch ``x`` itself (f32 sums, the
     biased variance: the train branch of ``cwfa_tpu/nn.py:302-325``), in x's
-    dtype.  The module's running statistics are neither read nor updated."""
+    dtype.  When ``bn`` is in training mode (``bn.train()``) its running
+    statistics move as JAX's mstate does: momentum 0.1, the unbiased
+    variance, the count up by one; otherwise they are neither read nor
+    updated."""
+    if bn.training:
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, True, 0.1, bn.eps)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
@@ -160,6 +170,23 @@ def dropout2d(x, rate: float, generator):
     mask = mask.to(x.device).reshape(x.shape[:2] + (1,) * (x.dim() - 2))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def channel_dropout_scale(shape, rate: float, generator, device):
+    """The scale of a channel dropout over ``shape`` = (B, C): f32, 0 where
+    a (sample, channel) map is dropped and 1 / (1 - rate) where it is kept;
+    the mask is drawn as ``dropout2d`` draws it.  None (nothing to scale)
+    when ``generator`` is None or the rate 0; zeros at a rate of 1 or more.
+    The cond nets' Dropout3d (``cwfa_tpu/nn.py:372``) hands it to the 3-D
+    pair kernel."""
+    if generator is None or rate == 0.0:
+        return None
+    if rate >= 1.0:
+        return torch.zeros(shape, device=device)
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=generator,
+                      device=generator.device) < keep
+    return mask.to(device, torch.float32) / keep
 
 
 def drop_path(x, rate: float, generator):

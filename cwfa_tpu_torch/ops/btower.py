@@ -23,6 +23,12 @@ CUDA cores (``csrc/btower.cu``), any width whose canvases fit in shared
 memory at the smallest tile (400 wide in bf16, 240 in f32).  Each reads the weights from a pack in its
 own layout, built once per set of weights by ``pack_float_tower`` and kept
 on the module.
+
+The weights may be f32 master weights under a bf16 x (training): the
+kernel and the plain version then use them rounded to bf16, and the biases
+as they are.  ``FloatTowerFn`` differentiates the tower; its backward is a
+kernel too (``float_tower_backward``, ``csrc/btower_bwd.cu``; the TPU kernel
+has none, JAX trains through its XLA convs).
 """
 
 from __future__ import annotations
@@ -44,25 +50,70 @@ def _elu(v):
     return torch.where(v > 0, v, torch.exp(torch.clamp_max(v, 0.0)) - 1.0)
 
 
-def float_tower_reference(tower, x):
-    """The kernel's math in plain PyTorch: f32 convs on inputs rounded to
-    x's dtype.  x: (B, Cin, H, W).  Returns (B, Nout, H, W) f32."""
+def round_through(v, dtype):
+    """f32 v with the values of v rounded to ``dtype`` and v's own gradient:
+    the rounding of a canvas between convs, whose derivative is the
+    identity; the backward kernels keep the gradient in f32 as this does
+    (a cast would round the gradient to ``dtype`` as well)."""
+    if dtype == torch.float32:
+        return v
+    return v + (v.to(dtype).float() - v).detach()
+
+
+def _tower_params(tower):
+    """[(weight, bias or None)] of the eight convs, in ``CONVS`` order."""
+    return [(getattr(tower, n).weight, getattr(tower, n).bias) for n in CONVS]
+
+
+def _tower_math(params, x):
+    """``float_tower_reference`` on explicit (weight, bias) pairs."""
     dt = x.dtype
+    convs = dict(zip(CONVS, params))
 
     def conv(name, v):
-        c = getattr(tower, name)
-        b = None if c.bias is None else c.bias.float()
-        return F.conv2d(v.float(), c.weight.float(), b,
-                        padding=c.weight.shape[-1] // 2)
+        w, b = convs[name]
+        return F.conv2d(v.float(), w.to(dt).float(),
+                        None if b is None else b.float(),
+                        padding=w.shape[-1] // 2)
 
     def block(a, b, e):
-        return _elu(conv(b, _elu(conv(a, e)).to(dt)) + e.float()).to(dt)
+        return round_through(_elu(conv(b, round_through(_elu(conv(a, e)), dt))
+                                  + e), dt)
 
-    r1 = conv("b1", x).to(dt)
+    r1 = round_through(conv("b1", x), dt)
     e2 = block("b2a", "b2b", r1)
     e4 = block("b4a", "b4b", e2)
     e6 = block("b6a", "b6b", e4)
     return conv("b7", e6)
+
+
+def float_tower_reference(tower, x):
+    """The kernel's math in plain PyTorch: f32 convs on inputs and weights
+    rounded to x's dtype, f32 biases; each canvas between convs rounded to
+    x's dtype (``round_through``).  x: (B, Cin, H, W).  Returns (B, Nout,
+    H, W) f32."""
+    return _tower_math(_tower_params(tower), x)
+
+
+def float_tower_backward_reference(tower, x, dy):
+    """(dx, [dW], [db]) of the tower's output in x's dtype (``fused_float_
+    tower``) for the output gradient dy: autograd through the plain version.
+    dW in each conv's OIHW layout, f32 like the weights it differentiates;
+    db None where a conv has no bias."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        params = [(w.detach().float().requires_grad_(),
+                   None if b is None else b.detach().float().requires_grad_())
+                  for w, b in _tower_params(tower)]
+        flat = [t for pair in params for t in pair if t is not None]
+        out = _tower_math(params, xr).to(x.dtype)
+        grads = iter(torch.autograd.grad(out, [xr] + flat, dy))
+        dx = next(grads)
+        dws, dbs = [], []
+        for _, b in params:
+            dws.append(next(grads))
+            dbs.append(None if b is None else next(grads))
+    return dx, dws, dbs
 
 
 WGMMA_BF16, WGMMA_3XTF32, CUDA_CORES = "wgmma bf16", "wgmma 3xTF32", "CUDA cores"
@@ -166,26 +217,28 @@ def _pack(tower, instance: str):
     return torch.cat(weights), torch.cat(biases)
 
 
-def _instance_of(tower) -> str:
-    return kernel_instance(tower.b1.weight.dtype, tower.b1.out_channels,
+def _instance_of(tower, dtype) -> str:
+    return kernel_instance(dtype, tower.b1.out_channels,
                            tower.b1.in_channels, tower.b7.out_channels)
 
 
-def pack_float_tower(tower):
+def pack_float_tower(tower, dtype=None):
     """The tower's kernel pack (weights, biases): the weights of b1, b2a,
     b2b, b4a, b4b, b6a, b6b and b7 in turn, each in the layout of
     ``_pack_conv`` for the tower's instance (``kernel_instance``), and the
     eight biases in f32 (zeros where a conv has none; for the CUDA cores
-    those of b1..b6b padded with zeros to a multiple of 8).  Built at first use
-    and kept on the module until a weight changes (in place or by
-    replacement)."""
-    key = tuple((t.device, t.dtype, t.data_ptr(),
-                 None if t.is_inference() else t._version)
-                for t in tower.parameters())
+    those of b1..b6b padded with zeros to a multiple of 8).  ``dtype``: the
+    compute dtype whose instance the pack is for (default: the weights').
+    Built at first use and kept on the module until a weight changes (in
+    place or by replacement) or another dtype asks."""
+    dtype = tower.b1.weight.dtype if dtype is None else dtype
+    key = (dtype,) + tuple((t.device, t.dtype, t.data_ptr(),
+                            None if t.is_inference() else t._version)
+                           for t in tower.parameters())
     cached = getattr(tower, "_float_tower_pack", None)
     if cached is None or cached[0] != key:
         with torch.no_grad():
-            cached = (key, _pack(tower, _instance_of(tower)))
+            cached = (key, _pack(tower, _instance_of(tower, dtype)))
         tower._float_tower_pack = cached
     return cached[1]
 
@@ -200,6 +253,19 @@ def _lib():
     wg.cwfa_btower_wg.argtypes = [p] * 4 + [i32] * 7 + [p]
     wg.cwfa_btower_wg.restype = i32
     return lib, wg
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = cuda_build.load("btower_bwd")
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.cwfa_btower_bwd.argtypes = [p] * 10 + [i32] * 7 + [i32, p]
+    lib.cwfa_btower_bwd.restype = i32
+    lib.cwfa_btower_bwd_scratch.argtypes = [i32] * 4
+    lib.cwfa_btower_bwd_scratch.restype = i64
+    lib.cwfa_btower_bwd_part.argtypes = [i32] * 5
+    lib.cwfa_btower_bwd_part.restype = i64
+    return lib
 
 
 def _check(x, tower):
@@ -222,9 +288,11 @@ def _check(x, tower):
             raise ValueError(f"{name}.weight shape {tuple(conv.weight.shape)}"
                              f" != {(o, i, k, k)}")
         for t in (conv.weight, conv.bias):
-            if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            if t is not None and (t.dtype not in (x.dtype, torch.float32)
+                                  or t.device != x.device):
                 raise TypeError(f"{name} is {t.dtype} on {t.device}; x is "
-                                f"{x.dtype} on {x.device}")
+                                f"{x.dtype} on {x.device} (weights of x's "
+                                "dtype, or f32 master weights)")
     return c, tower.b7.out_channels
 
 
@@ -233,7 +301,8 @@ def fused_float_tower(x, tower):
     ``cwfa_tpu/ops/btower.py:235``).
 
     x: (B, Cin, H, W), contiguous, f32 or bf16; tower: a
-    ``WaveletFlowSubnet2d`` with weights of x's dtype and device.  Returns
+    ``WaveletFlowSubnet2d`` with weights of x's dtype or f32, on x's device
+    (f32 weights under a bf16 x run rounded to bf16).  Returns
     the tower's output (B, Nout, H, W) in x's dtype, NCHW.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
@@ -245,7 +314,7 @@ def fused_float_tower(x, tower):
         # channels-last)
         return float_tower_reference(tower, x).to(x.dtype).contiguous()
     b, cin, h, w = x.shape
-    weights, biases = pack_float_tower(tower)
+    weights, biases = pack_float_tower(tower, x.dtype)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
     instance = kernel_instance(x.dtype, c, cin, nout)
     lib, wg = _lib()
@@ -269,3 +338,102 @@ def fused_float_tower(x, tower):
 fused_float_tower.launches = 0              # every launch of the kernel
 # ... and of each instance
 fused_float_tower.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0, CUDA_CORES: 0}
+
+
+def _bwd_layouts(w, dgrad: bool):
+    """An OIHW weight (f32 values of the compute dtype) as the backward's
+    direct conv reads it: [tap][Ci padded to 8][Co padded to 64] for the
+    forward; for the dgrad the taps flipped and I, O swapped."""
+    if dgrad:
+        w = w.flip(2, 3).transpose(0, 1)
+    o, i, k, _ = w.shape
+    out = torch.zeros((k * k, _round_up(i, 8), _round_up(o, 64)),
+                      device=w.device)
+    out[:, :i, :o] = w.permute(2, 3, 1, 0).reshape(k * k, i, o)
+    return out
+
+
+def float_tower_backward(tower, x, dy):
+    """The tower's backward: (dx in x's dtype, [dW], [db]) for the gradient
+    dy (B, Nout, H, W) of ``fused_float_tower(x, tower)``.  dW in each
+    conv's OIHW layout and db, f32 (the weights' gradients also when they
+    are bf16); db None where a conv has no bias.
+
+    A CPU tensor runs the plain version (``float_tower_backward_reference``);
+    a CUDA tensor launches the kernel (``csrc/btower_bwd.cu``, one host entry)
+    or raises.  Counts every launch."""
+    c, nout = _check(x, tower)
+    b, cin, h, w = x.shape
+    if tuple(dy.shape) != (b, nout, h, w) or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}"
+                         f", expected {(b, nout, h, w)} {x.dtype} on "
+                         f"{x.device}")
+    if x.device.type == "cpu":
+        return float_tower_backward_reference(tower, x, dy)
+    dt = x.dtype
+    params = _tower_params(tower)
+    ws = [wt.detach().to(dt).float() for wt, _ in params]
+    bs = [torch.zeros(wt.shape[0], device=x.device) if bi is None
+          else bi.detach().float() for wt, bi in params]
+    wf = [_bwd_layouts(wt, False) for wt in ws]
+    wd = [_bwd_layouts(wt, True) for wt in ws]
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.cwfa_btower_bwd_scratch(b, h, w, c),
+                          device=x.device)
+    part = torch.empty(lib.cwfa_btower_bwd_part(b, h, cin, c, nout),
+                       device=x.device)
+    dx = torch.empty((b, cin, h, w), device=x.device)
+    dws = [torch.empty_like(wt) for wt in ws]
+    dbs = [torch.empty_like(bi) for bi in bs]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    # held until the launch is queued: a temporary's memory would go back to
+    # the allocator, and the next one of the same size would take it
+    x32, dy32 = x.float().contiguous(), dy.float().contiguous()
+    rc = lib.cwfa_btower_bwd(
+        x32.data_ptr(), dy32.data_ptr(),
+        ptrs(wf), ptrs(wd), ptrs(bs), dx.data_ptr(), ptrs(dws), ptrs(dbs),
+        scratch.data_ptr(), part.data_ptr(), b, h, w, cin, c, nout,
+        int(dt == torch.bfloat16), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch(rc, "float_tower_backward")
+    float_tower_backward.launches += 1
+    return (dx.to(dt), dws,
+            [None if bi is None else db for (_, bi), db in zip(params, dbs)])
+
+
+float_tower_backward.launches = 0
+
+
+class FloatTowerFn(torch.autograd.Function):
+    """``fused_float_tower`` with its backward kernel: apply(x, tower,
+    *tower.parameters()) -> the tower's output in x's dtype.  The
+    parameters are passed so that autograd tracks them; the gradients of
+    f32 master weights come back f32."""
+
+    @staticmethod
+    def forward(ctx, x, tower, *params):
+        ctx.tower = tower
+        ctx.save_for_backward(x, *params)
+        return fused_float_tower(x, tower)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x = ctx.saved_tensors[0]
+        dx, dws, dbs = float_tower_backward(ctx.tower, x, dy.contiguous())
+        flat = []
+        for dw, db in zip(dws, dbs):
+            flat.append(dw)
+            if db is not None:
+                flat.append(db)
+        return (dx, None, *[g.to(p.dtype) for g, p in
+                            zip(flat, ctx.saved_tensors[1:])])
+
+
+def float_tower(x, tower):
+    """The tower's output (``fused_float_tower``), differentiable through
+    ``FloatTowerFn``."""
+    return FloatTowerFn.apply(x, tower, *tower.parameters())

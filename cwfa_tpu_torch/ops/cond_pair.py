@@ -5,6 +5,7 @@ is ``csrc/cond_pair.cu``).
 Over (H, W, depth) of the cond features x (B, D, H, W):
 
     y = PReLU(Conv3d(1 -> K, 3x3x3)(x) + b_a)      rounded to x's dtype
+    y = y * scale[b, k]                            (training) rounded
     z = Conv3d(K -> 1, 3x3x3)(y) + b_b             rounded to x's dtype
 
 with SAME (zero) padding in all three dims for both convs, one PReLU alpha,
@@ -17,6 +18,14 @@ The kernel has two instances (``kernel_instance``): bf16 with K = 32 runs
 both convs as products on the tensor cores and z as the shift-and-add of
 conv_b's 27 per-tap planes (``cond_pair_products`` is that form in plain
 PyTorch); f32, and bf16 with another K, run on the CUDA cores.
+
+``scale`` is the Dropout3d of training (``cond_net.py:259-265``): a (B, K)
+f32 scale of the intermediate channels, 0 or 1/keep; None (inference)
+multiplies nothing.  The weights may be f32 master weights under a bf16 x
+(training): they then run rounded to bf16.  ``CondPairFn`` differentiates
+the pair; its backward is a kernel too (``cond_pair_backward``,
+``csrc/cond_pair_bwd.cu``; the TPU kernel has none, JAX trains through its
+XLA convs).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from cwfa_tpu_torch.ops import cuda_build
+from cwfa_tpu_torch.ops.btower import round_through
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
@@ -42,15 +52,43 @@ def kernel_instance(dtype, k: int) -> str:
     return CUDA_CORES
 
 
-def cond_pair_reference(x, c3a, c3b, prelu):
-    """The kernel's math in plain PyTorch: two f32 ``conv3d`` on the
-    (B, 1, H, W, D) view, y rounded to x's dtype in between.  Returns
-    (B, D, H, W) in x's dtype, contiguous."""
+def _pair_math(x, wa, ba, wb, bb, alpha, scale=None):
+    dt = x.dtype
+
+    def q(t):                   # a weight as the kernel reads it
+        return t.to(dt).float()
+
     v = x.float().permute(0, 2, 3, 1).unsqueeze(1)
-    y = F.conv3d(v, c3a.weight.float(), c3a.bias.float(), padding=1)
-    y = F.prelu(y, prelu.weight.float()).to(x.dtype).float()
-    z = F.conv3d(y, c3b.weight.float(), c3b.bias.float(), padding=1)
-    return z[:, 0].permute(0, 3, 1, 2).to(x.dtype).contiguous()
+    y = F.conv3d(v, q(wa), q(ba), padding=1)
+    y = round_through(F.prelu(y, q(alpha)), dt)
+    if scale is not None:
+        y = round_through(y * scale[:, :, None, None, None], dt)
+    z = F.conv3d(y, q(wb), q(bb), padding=1)
+    return z[:, 0].permute(0, 3, 1, 2).to(dt).contiguous()
+
+
+def _pair_params(c3a, c3b, prelu):
+    return c3a.weight, c3a.bias, c3b.weight, c3b.bias, prelu.weight
+
+
+def cond_pair_reference(x, c3a, c3b, prelu, scale=None):
+    """The kernel's math in plain PyTorch: two f32 ``conv3d`` on the
+    (B, 1, H, W, D) view with weights rounded to x's dtype, y rounded to
+    x's dtype in between (and again after the scale, where there is one).
+    Returns (B, D, H, W) in x's dtype, contiguous."""
+    return _pair_math(x, *_pair_params(c3a, c3b, prelu), scale)
+
+
+def cond_pair_backward_reference(x, dz, c3a, c3b, prelu, scale=None):
+    """(dx, dW_a, db_a, dW_b, db_b, dalpha) of ``cond_pair_reference`` for
+    the output gradient dz: autograd through the plain version; dx in x's
+    dtype, the rest f32 in the parameters' shapes."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        ps = [t.detach().float().requires_grad_()
+              for t in _pair_params(c3a, c3b, prelu)]
+        z = _pair_math(xr, *ps, scale)
+        return torch.autograd.grad(z, [xr] + ps, dz)
 
 
 def cond_pair_products(x, c3a, c3b, prelu):
@@ -81,12 +119,23 @@ def cond_pair_products(x, c3a, c3b, prelu):
 def _lib():
     lib = cuda_build.load("cond_pair")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cwfa_cond_pair.argtypes = [p] * 7 + [i32] * 8 + [p]
+    lib.cwfa_cond_pair.argtypes = [p] * 8 + [i32] * 8 + [p]
     lib.cwfa_cond_pair.restype = i32
     return lib
 
 
-def _check(x, c3a, c3b, prelu) -> int:
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = cuda_build.load("cond_pair_bwd")
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.cwfa_cond_pair_bwd.argtypes = [p] * 10 + [i32] * 7 + [p]
+    lib.cwfa_cond_pair_bwd.restype = i32
+    lib.cwfa_cond_pair_bwd_part.argtypes = [i32] * 5
+    lib.cwfa_cond_pair_bwd_part.restype = ctypes.c_int64
+    return lib
+
+
+def _check(x, c3a, c3b, prelu, scale=None) -> int:
     if x.dim() != 4 or x.numel() == 0 or not x.is_contiguous():
         raise ValueError("x must be a contiguous non-empty (B, D, H, W) "
                          f"tensor, got shape {tuple(x.shape)}")
@@ -105,37 +154,54 @@ def _check(x, c3a, c3b, prelu) -> int:
             raise ValueError(f"{name}: shape "
                              f"{None if t is None else tuple(t.shape)}, "
                              f"expected {shape}")
-        if t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
+        if (t.dtype not in (x.dtype, torch.float32) or t.device != x.device
+                or not t.is_contiguous()):
             raise TypeError(f"{name} is {t.dtype} on {t.device}; x is "
                             f"{x.dtype} on {x.device} (contiguous weights of "
-                            "x's dtype and device)")
+                            "x's dtype or f32, on x's device)")
+    if scale is not None and (tuple(scale.shape) != (x.shape[0], k)
+                              or scale.dtype != torch.float32
+                              or scale.device != x.device
+                              or not scale.is_contiguous()):
+        raise ValueError(f"scale is {tuple(scale.shape)} {scale.dtype} on "
+                         f"{scale.device}; expected a contiguous "
+                         f"{(x.shape[0], k)} float32 on {x.device}")
     return k
 
 
-def cond_pair(x, c3a, c3b, prelu, *, instance=None):
+def _kernel_params(x, c3a, c3b, prelu):
+    """The five parameters in x's dtype, contiguous (no copy when they are
+    already)."""
+    return [t.detach().to(x.dtype).contiguous()
+            for t in _pair_params(c3a, c3b, prelu)]
+
+
+def cond_pair(x, c3a, c3b, prelu, *, scale=None, instance=None):
     """Conv3d(1->K) -> PReLU -> Conv3d(K->1) over (H, W, depth) of x
     (``cond_pair_fused``, ``cwfa_tpu/ops/cond_pair.py:276``).
 
     x: (B, D, H, W), contiguous, f32 or bf16; c3a, c3b: the ``nn.Conv3d``
-    modules (with biases), prelu: the ``nn.PReLU(1)``, all of x's dtype and
-    device.  Returns z (B, D, H, W) in x's dtype.
+    modules (with biases), prelu: the ``nn.PReLU(1)``, of x's dtype or f32,
+    on x's device; scale: None or the (B, K) f32 Dropout3d scale.  Returns z
+    (B, D, H, W) in x's dtype.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises.  instance: ``CUDA_CORES`` runs that instance where
     ``kernel_instance`` would pick the tensor cores (to time the two side by
     side).  Counts every launch, and per instance in
     ``cond_pair.by_instance``."""
-    k = _check(x, c3a, c3b, prelu)
+    k = _check(x, c3a, c3b, prelu, scale)
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
-        return cond_pair_reference(x, c3a, c3b, prelu)
+        return cond_pair_reference(x, c3a, c3b, prelu, scale)
     instance = instance or kernel_instance(x.dtype, k)
     b, d, h, w = x.shape
     z = torch.empty_like(x)
+    params = _kernel_params(x, c3a, c3b, prelu)
     rc = _lib().cwfa_cond_pair(
-        x.data_ptr(), c3a.weight.data_ptr(), c3a.bias.data_ptr(),
-        c3b.weight.data_ptr(), c3b.bias.data_ptr(), prelu.weight.data_ptr(),
+        x.data_ptr(), *[t.data_ptr() for t in params],
+        None if scale is None else scale.data_ptr(),
         z.data_ptr(), b, d, h, w, k, _DTYPES[x.dtype],
         int(instance == TENSOR_CORES), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -147,3 +213,72 @@ def cond_pair(x, c3a, c3b, prelu, *, instance=None):
 
 cond_pair.launches = 0                      # every launch of the kernel
 cond_pair.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}   # ... per instance
+
+
+def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None):
+    """The pair's backward: (dx in x's dtype, dW_a, db_a, dW_b, db_b,
+    dalpha), the last five f32 in the parameters' shapes, for the gradient
+    dz of ``cond_pair(x, c3a, c3b, prelu, scale=scale)``.  dalpha is this
+    site's share: the cond net's PReLU alpha is shared with its 2-D stack,
+    whose shares autograd adds.
+
+    A CPU tensor runs the plain version (``cond_pair_backward_reference``);
+    a CUDA tensor launches the kernel (``csrc/cond_pair_bwd.cu``) or raises.
+    Counts every launch."""
+    k = _check(x, c3a, c3b, prelu, scale)
+    if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device \
+            or not dz.is_contiguous():
+        raise ValueError(f"dz is {tuple(dz.shape)} {dz.dtype} on {dz.device}"
+                         f"; expected x's {tuple(x.shape)} {x.dtype}, "
+                         "contiguous")
+    if x.device.type == "cpu":
+        return cond_pair_backward_reference(x, dz, c3a, c3b, prelu, scale)
+    b, d, h, w = x.shape
+    lib = _bwd_lib()
+    wa, ba, wb, _, alpha = _kernel_params(x, c3a, c3b, prelu)
+    dx = torch.empty_like(x)
+    grads = torch.empty(k * 56 + 1, device=x.device)
+    part = torch.empty(lib.cwfa_cond_pair_bwd_part(b, d, h, w, k),
+                       device=x.device)
+    rc = lib.cwfa_cond_pair_bwd(
+        x.data_ptr(), dz.data_ptr(), wa.data_ptr(), ba.data_ptr(),
+        wb.data_ptr(), alpha.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), part.data_ptr(), b, d, h, w, k,
+        _DTYPES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch(rc, "cond_pair_backward")
+    cond_pair_backward.launches += 1
+    per = grads[:k * 56].view(k, 56)
+    return (dx, per[:, :27].reshape(k, 1, 3, 3, 3), per[:, 54].contiguous(),
+            per[:, 27:54].reshape(1, k, 3, 3, 3), grads[k * 56:],
+            per[:, 55].sum().reshape(1))
+
+
+cond_pair_backward.launches = 0
+
+
+class CondPairFn(torch.autograd.Function):
+    """``cond_pair`` with its backward kernel: apply(x, c3a.weight,
+    c3a.bias, c3b.weight, c3b.bias, prelu.weight, scale, (c3a, c3b, prelu))
+    -> z.  The parameters are passed so that autograd tracks them; the
+    gradients of f32 master weights come back f32."""
+
+    @staticmethod
+    def forward(ctx, x, wa, ba, wb, bb, alpha, scale, mods):
+        ctx.mods = mods
+        ctx.save_for_backward(x, wa, ba, wb, bb, alpha, scale)
+        return cond_pair(x, *mods, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, *params, scale = ctx.saved_tensors
+        grads = cond_pair_backward(x, dz.contiguous(), *ctx.mods, scale)
+        return (grads[0], *[g.to(p.dtype) for g, p in zip(grads[1:], params)],
+                None, None)
+
+
+def cond_pair_ad(x, c3a, c3b, prelu, scale=None):
+    """``cond_pair``, differentiable through ``CondPairFn``."""
+    return CondPairFn.apply(x, *_pair_params(c3a, c3b, prelu), scale,
+                            (c3a, c3b, prelu))

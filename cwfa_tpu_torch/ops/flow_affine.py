@@ -14,6 +14,10 @@ Unlike the TPU kernels, both take the PRE-clamp ``s_raw`` and apply the soft
 clamp ``s = clamp * f(s_raw)`` inside the kernel, in f32; the math is f32 and
 the output keeps the storage dtype (f32 or bf16).
 
+Training differentiates ``cat_affine`` through ``CatAffineFn``, whose
+backward is a kernel too (``cat_affine_backward``: d(x) and d(s_raw | t);
+the TPU kernel has none, JAX differentiates its XLA form).
+
 A wrapper dispatches on the device of its inputs: CPU tensors take the plain
 version; CUDA tensors launch the kernel (or raise).  Each wrapper counts its
 launches in ``<wrapper>.launches``; the plain path does not count.
@@ -53,6 +57,18 @@ def cat_affine_reference(x, st, *, clamp: float, activation: str, rev: bool):
     return y.to(x.dtype)
 
 
+def cat_affine_backward_reference(dy, x, st, *, clamp: float,
+                                  activation: str, rev: bool):
+    """(dx, d(st)) of ``cat_affine_reference`` at (x, st) for the output
+    gradient dy: autograd through the plain version."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_()
+        sr = st.detach().requires_grad_()
+        y = cat_affine_reference(xr, sr, clamp=clamp, activation=activation,
+                                 rev=rev)
+        return torch.autograd.grad(y, (xr, sr), dy)
+
+
 def haar_merge_affine_reference(z, s_raw, t, avg, *, clamp: float,
                                 activation: str):
     s = _clamped(s_raw, clamp, activation)
@@ -81,6 +97,9 @@ def _lib():
     lib.cwfa_haar_merge_affine.argtypes = [p, p, p, p, p, i64, i64, i64, i64,
                                            f32, i32, i32, i32, p]
     lib.cwfa_haar_merge_affine.restype = i32
+    lib.cwfa_cat_affine_bwd.argtypes = [p, p, p, p, p, i64, i64, i64, f32,
+                                        i32, i32, i32, i32, p]
+    lib.cwfa_cat_affine_bwd.restype = i32
     return lib
 
 
@@ -138,6 +157,60 @@ def cat_affine(x, st, *, clamp: float, activation: str, rev: bool):
 
 
 cat_affine.launches = 0
+
+
+def cat_affine_backward(dy, x, st, *, clamp: float, activation: str,
+                        rev: bool):
+    """The backward of ``cat_affine``: (dx, d(st)) for the output gradient
+    dy, from the affine's input x and the tower's (s_raw | t) st.  d(st)
+    holds d(s_raw) in its first C channels and dt in the rest; the log-det's
+    own gradient is not in it (it reaches st through PyTorch's sum of the
+    clamped s).  All contiguous, one dtype and device.
+
+    A CPU tensor runs the plain version (autograd through
+    ``cat_affine_reference``); a CUDA tensor launches the kernel or raises.
+    Counts every launch."""
+    _check_common({"dy": dy, "x": x, "st": st}, "x")
+    b, c, h, w = x.shape
+    if tuple(st.shape) != (b, 2 * c, h, w) or dy.shape != x.shape:
+        raise ValueError(f"shapes dy {tuple(dy.shape)}, x {tuple(x.shape)}, "
+                         f"st {tuple(st.shape)}")
+    if not (dy.is_contiguous() and x.is_contiguous() and st.is_contiguous()):
+        raise ValueError("cat_affine_backward takes contiguous dy, x and st")
+    act = _activation_code(activation)
+    if x.device.type == "cpu":
+        return cat_affine_backward_reference(dy, x, st, clamp=clamp,
+                                             activation=activation, rev=rev)
+    dx = torch.empty_like(x)
+    dst = torch.empty_like(st)
+    rc = _lib().cwfa_cat_affine_bwd(
+        dy.data_ptr(), x.data_ptr(), st.data_ptr(), dx.data_ptr(),
+        dst.data_ptr(), b, c, h * w, float(clamp), act, int(bool(rev)),
+        _DTYPES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch(rc, "cat_affine_backward")
+    cat_affine_backward.launches += 1
+    return dx, dst
+
+
+cat_affine_backward.launches = 0
+
+
+class CatAffineFn(torch.autograd.Function):
+    """``cat_affine`` with its backward kernel: apply(x, st, clamp,
+    activation, rev) -> y.  Saves x and st."""
+
+    @staticmethod
+    def forward(ctx, x, st, clamp, activation, rev):
+        ctx.save_for_backward(x, st)
+        ctx.kw = {"clamp": clamp, "activation": activation, "rev": rev}
+        return cat_affine(x, st, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, st = ctx.saved_tensors
+        dx, dst = cat_affine_backward(dy.contiguous(), x, st, **ctx.kw)
+        return dx, dst, None, None, None
 
 
 def haar_merge_affine(z, s_raw, t, avg, *, clamp: float, activation: str):

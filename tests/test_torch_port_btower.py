@@ -315,8 +315,8 @@ def test_fused_float_tower_rejects_what_the_kernel_does_not_take():
         tbt.fused_float_tower(x.double(), m.double())
     with pytest.raises(TypeError):                  # unsupported dtype
         tbt.fused_float_tower(x.half(), m.half())
-    with pytest.raises(TypeError):                  # weights of another dtype
-        tbt.fused_float_tower(x.to(torch.bfloat16), m.float())
+    with pytest.raises(TypeError):                  # weights neither x's
+        tbt.fused_float_tower(x.to(torch.bfloat16), m.half())  # dtype nor f32
     with pytest.raises(ValueError):                 # wrong Cin
         tbt.fused_float_tower(x[:, :5].contiguous(), m.float())
     with pytest.raises(ValueError):                 # not contiguous

@@ -29,6 +29,11 @@ def _imported_roots(path: Path):
 
 def test_port_files_found():
     assert len(FILES) > 15
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    # the training slice's modules are among them
+    assert {"cwfa_tpu_torch/engine/trainer.py", "cwfa_tpu_torch/engine/optim.py",
+            "cwfa_tpu_torch/engine/losses.py",
+            "cwfa_tpu_torch/data/dataset.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

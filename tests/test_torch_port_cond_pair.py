@@ -22,6 +22,8 @@ On the CPU ``cond_pair`` runs the plain version and counts no launch; the
 CUDA kernel is held to the plain version on the card by chip_smoke.py.
 """
 
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -132,8 +134,9 @@ def test_cond_pair_rejects_what_the_kernel_does_not_take():
         tcp.cond_pair(x[0], *mods)
     with pytest.raises(ValueError):                 # not contiguous
         tcp.cond_pair(x.transpose(2, 3), *mods)
-    with pytest.raises(TypeError):                  # weights of another dtype
-        tcp.cond_pair(x.to(torch.bfloat16), *mods)
+    with pytest.raises(TypeError):                  # weights neither x's
+        tcp.cond_pair(x.to(torch.bfloat16),           # dtype nor f32
+                      *[copy.deepcopy(m).half() for m in mods])
     wide = torch.nn.Conv3d(32, 2, 3, padding=1)     # conv_b with 2 outputs
     with pytest.raises(ValueError):
         tcp.cond_pair(x, net.c3a, wide, net.prelu)

@@ -166,8 +166,9 @@ def test_forward_then_reverse_is_the_identity(rig, k):
     v, cv, cm = map(torch.from_numpy, _step_inputs(k, 40 + k))
     cm = cm[:1]                      # a batch-1 mean cache is broadcast
     step = model.flow[k]
-    z, avg, ld = step(v, cv, cm)
-    back, ld_rev = step.reverse(z, avg, cv, cm)
+    with torch.no_grad():            # both directions carry gradients
+        z, avg, ld = step(v, cv, cm)
+        back, ld_rev = step.reverse(z, avg, cv, cm)
     assert_close(back, v)
     assert_close(ld + ld_rev, np.zeros(B, np.float32))
     # the fast reverse (no log-det) reconstructs the same volume

@@ -6,6 +6,7 @@ f32: max|d| <= 1e-4 * max|ref|.  The port's bf16 output is held to its own
 f32 output within 5e-2 of max|f32|, the bound __graft_entry__.py uses.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -82,8 +83,18 @@ def test_unported_options_raise(rig):
         model.reconstruct(views, mcs, fast=False)
     with pytest.raises(ValueError):                 # nothing to draw z from
         model.reconstruct(views, mcs, z_temperature=1.0)
-    with pytest.raises(NotImplementedError):        # .train() is not ported
-        model.lrnn.unet.train()(views[:, :2])
+    # training mode is ported: BatchNorm on batch statistics moves the
+    # running statistics only in a module put into training mode
+    unet = copy.deepcopy(model.lrnn.unet)
+    bn = unet.down[0].bn1
+    x = torch.randn((1, unet.spec.in_channels, 32, 32),
+                    generator=torch.Generator().manual_seed(0))
+    before = bn.running_mean.clone()
+    unet.eval()(x, train=True)
+    assert torch.equal(bn.running_mean, before)
+    unet.train()(x, train=True)
+    assert not torch.equal(bn.running_mean, before)
+    assert int(bn.num_batches_tracked) == 1
     model.eval()
     # the force flags are ported: force_last_step_NF builds one more step
     assert CWFAModel(dataclasses.replace(
