@@ -97,17 +97,21 @@ code != 0) on the first phase that does not hold:
 14. training: the three backward kernels (``cat_affine_backward``,
     ``float_tower_backward``, ``cond_pair_backward``) against autograd
     through their plain versions at every flagship step shape and at odd
-    ones, in f32 and bf16 (the pair with and without its Dropout3d scale),
-    each timed at step 0 beside its plain backward, its bound and the cuDNN
-    autograd chain for the same gradient; the small rig's LRNN step and
-    every flow step, card vs CPU in f32 with nothing drawn (losses within
+    ones, in f32 and bf16 (the pair with and without its Dropout3d scale;
+    K2 and K3 through their tensor-core instances in bf16 at the flagship
+    shapes, their CUDA-core ones in f32, and both at the odd shapes), each
+    timed at step 0 beside its plain backward, its bound and the cuDNN
+    autograd chain for the same gradient (K2 and K3 in turns with their
+    CUDA-core instances, K2 also at every step's shape); the small rig's
+    LRNN step and every flow step, card vs CPU in f32 with nothing drawn (losses within
     1e-4, every gradient within 1e-3 of max|ref|); then the flagship trained
     in bf16 at batch 1 through every stage (``CWFATrainer.train_epoch``,
     epochs = INN_max_down_steps, on 3 random uint16 2160^2 frames and
     96 x 512^2 volumes written in the dataset's layout): finite losses, each
     stage's parameters changed and no other's, the launches per optimizer
-    step (FLOW_PER_STEP, LRNN_PER_STEP), ms per optimizer step and peak
-    memory per stage, and the checkpoints read back equal to the bit.
+    step (FLOW_PER_STEP, LRNN_PER_STEP; every K2 and K3 launch the
+    tensor-core instance), ms per optimizer step and peak memory per stage,
+    and the checkpoints read back equal to the bit.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -202,8 +206,10 @@ KERNELS = {
     # function each differentiates
     "cat_affine_bwd": {"replaces": "cwfa_tpu/ops/pallas_flow.py:146",
                        "source": FLOW_SRC, "wrapper": fa.cat_affine_backward},
+    # the 64-wide bf16 instance (wgmma) of training; f32 and the other
+    # widths' CUDA-core instance is csrc/btower_bwd.cu
     "float_tower_bwd": {"replaces": "cwfa_tpu/ops/btower.py:258",
-                        "source": "cwfa_tpu_torch/csrc/btower_bwd.cu",
+                        "source": "cwfa_tpu_torch/csrc/btower_bwd_wg.cu",
                         "wrapper": btower.float_tower_backward},
     "cond_pair_bwd": {"replaces": "cwfa_tpu/ops/cond_pair.py:249",
                       "source": "cwfa_tpu_torch/csrc/cond_pair_bwd.cu",
@@ -789,67 +795,126 @@ def check_cat_affine_backward(dev, kernels):
 
 
 def check_float_tower_backward(dev, kernels):
-    """K2 at every flagship tower shape and two odd ones."""
+    """K2 at every flagship tower shape (the wgmma bf16 instance in bf16, the
+    CUDA-core one in f32), at two odd shapes (64 wide through both
+    instances in bf16) and at width 20 (CUDA cores), each launch repeated
+    and held equal to the bit; then, at step 0 in
+    bf16, the two instances timed in turns beside the plain backward and the
+    cuDNN autograd chain, and the wgmma instance at every step's shape."""
     gen = torch.Generator().manual_seed(6)
     k = kernels["float_tower_bwd"]
+    by_instance = btower.float_tower_backward.by_instance
+    ran = dict.fromkeys(by_instance, 0)
     shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
               for cin in TOWER_CIN for nout in (2 * cin, cin)]
-    shapes += [(2, 12, 37, 53, 64, 24), (2, 5, 19, 35, 20, 10)]
+    shapes += [(2, 12, 37, 53, 64, 24), (1, 64, 40, 24, 64, 80),
+               (2, 5, 19, 35, 20, 10)]
+    flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2]) for t in pair]
+    step_ms = {}
     for b, cin, h, w, width, nout in shapes:
         tower = WaveletFlowSubnet2d(cin, nout, width)
         reset_parameters_(tower, gen)
         tower = tower.to(dev)                   # f32 master weights
         x0 = torch.randn((b, cin, h, w), generator=gen)
         dy0 = torch.randn((b, nout, h, w), generator=gen)
+        flagship_shape = b == 1 and h == SLICE_HW
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
-            got = btower.float_tower_backward(tower, x, dy)
+            own = btower.bwd_instance(dtype, width, cin, nout)
             ref = btower.float_tower_backward_reference(tower, x, dy)
-            flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2])
-                                       for t in pair]
-            e = grads_err(flat(got), flat(ref), dtype,
-                          f"float_tower_backward {(b, cin, h, w)} C {width} "
-                          f"Nout {nout} {dtype}")
-            k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
-                                   max((g - r).abs().max().item() for g, r in
-                                       zip(flat(got), flat(ref))))
-            log(f"float_tower_backward B{b} Cin {cin:2d} {h}x{w} C {width} "
-                f"Nout {nout:2d} {str(dtype):14s} max|d|/max|ref| {e:.3e}")
-            del got, ref
-            if not (b == 1 and cin == SLICE_C and nout == 2 * cin
-                    and h == SLICE_HW):
+            # the older instance also where the new one is picked, at the odd
+            # shapes
+            also = [] if flagship_shape else [btower.CUDA_CORES]
+            for instance in dict.fromkeys([own] + also):
+                run = lambda: btower.float_tower_backward(
+                    tower, x, dy, instance=None if instance == own else instance)
+                got = one_launch_of(
+                    btower.float_tower_backward, instance, run,
+                    f"float_tower_backward {(b, cin, h, w)} {dtype}")
+                ran[instance] += 1
+                # no atomics: a second launch gives the same gradients
+                for g, again in zip(flat(got), flat(run())):
+                    if g is not None:
+                        exact_equal(again, g, f"float_tower_backward "
+                                    f"{(b, cin, h, w)} {dtype} ({instance}), "
+                                    f"second launch")
+                e = grads_err(flat(got), flat(ref), dtype,
+                              f"float_tower_backward {(b, cin, h, w)} C "
+                              f"{width} Nout {nout} {dtype} ({instance})")
+                k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
+                                       max((g - r).abs().max().item() for g, r
+                                           in zip(flat(got), flat(ref))
+                                           if r is not None))
+                log(f"float_tower_backward B{b} Cin {cin:2d} {h}x{w} C {width} "
+                    f"Nout {nout:2d} {str(dtype):14s} ({instance}) "
+                    f"max|d|/max|ref| {e:.3e}")
+                del got
+            del ref
+            if not flagship_shape:
+                continue
+            if dtype == torch.bfloat16:
+                step_ms[(cin, nout)] = time_ms(
+                    lambda: btower.float_tower_backward(tower, x, dy), 10)
+            if not (cin == SLICE_C and nout == 2 * cin):
                 continue
             flop = 2 * b * h * w * (cin * width + 3 * 10 * width * width
                                     + 9 * width * nout)
-            ms = time_ms(lambda: btower.float_tower_backward(tower, x, dy), 5)
             plain_ms = time_ms(lambda: btower.float_tower_backward_reference(
                 tower, x, dy), 3)
-            line = (f"time float_tower_backward (1, {cin}, {h}, {w}) -> {nout}"
-                    f" {dtype}: kernel {ms:.4f} ms ({2 * flop / ms / 1e6:.0f} "
-                    f"GFLOP/s of the backward)  plain {plain_ms:.4f} ms")
-            if dtype == torch.bfloat16:
-                t16 = copy.deepcopy(tower).to(torch.bfloat16)
-                lib_ms = time_ms(lambda: cudnn_tower_grad(t16, x, dy), 3)
-                line += f"  [cuDNN autograd chain, bf16: {lib_ms:.4f} ms]"
-                k["ms"], k["plain_ms"], k["library_ms"] = ms, plain_ms, lib_ms
-                # x and dy read, dx written (bf16), the weights' f32
-                # gradients written
-                wbytes = 4 * sum(p.numel() for p in tower.parameters())
-                set_bound(k, b * h * w * (2 * cin + nout) * 2 + wbytes,
-                          2 * flop, "bf16",
-                          f"float_tower_backward (1, {cin}, {h}, {w}) bf16")
-                log(f"bound float_tower_backward on f32 FMAs: "
-                    f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
-            else:
+            if dtype == torch.float32:
+                ms = time_ms(lambda: btower.float_tower_backward(tower, x, dy),
+                             5)
                 k["f32_ms"], k["f32_plain_ms"] = ms, plain_ms
-            log(line)
+                log(f"time float_tower_backward (1, {cin}, {h}, {w}) -> {nout}"
+                    f" f32 (CUDA cores): kernel {ms:.4f} ms  plain "
+                    f"{plain_ms:.4f} ms")
+                continue
+            side = instances_side_by_side(
+                lambda inst: btower.float_tower_backward(
+                    tower, x, dy,
+                    instance=None if inst == btower.WGMMA_BF16 else inst),
+                btower.WGMMA_BF16, btower.CUDA_CORES, 5)
+            ms = statistics.median(side[btower.WGMMA_BF16])
+            t16 = copy.deepcopy(tower).to(torch.bfloat16)
+            lib_ms = time_ms(lambda: cudnn_tower_grad(t16, x, dy), 5)
+            k["ms"], k["plain_ms"], k["library_ms"] = ms, plain_ms, lib_ms
+            k["cuda_cores_ms"] = statistics.median(side[btower.CUDA_CORES])
+            log(f"time float_tower_backward (1, {cin}, {h}, {w}) -> {nout} "
+                f"bf16, in turns new/old/new/old/new: wgmma bf16 "
+                f"{['%.4f' % t for t in side[btower.WGMMA_BF16]]}, CUDA cores "
+                f"{['%.4f' % t for t in side[btower.CUDA_CORES]]} ms; median "
+                f"{ms:.4f} ms ({2 * flop / ms / 1e9:.1f} TFLOP/s of the "
+                f"backward)  plain {plain_ms:.4f} ms  [cuDNN autograd chain, "
+                f"bf16: {lib_ms:.4f} ms]")
+            # x and dy read, dx written (bf16), the weights' f32 gradients
+            # written
+            wbytes = 4 * sum(p.numel() for p in tower.parameters())
+            set_bound(k, b * h * w * (2 * cin + nout) * 2 + wbytes,
+                      2 * flop, "bf16",
+                      f"float_tower_backward (1, {cin}, {h}, {w}) bf16")
+            log(f"bound float_tower_backward on f32 FMAs: "
+                f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
+    k["step_ms"] = {f"{cin}->{nout}": round(t, 4)
+                    for (cin, nout), t in step_ms.items()}
+    log(f"time float_tower_backward bf16 (wgmma) at every step's shape, "
+        f"(1, Cin, 512, 512) -> Nout: "
+        f"{ {key: '%.4f ms' % t for key, t in k['step_ms'].items()} }")
+    log(f"float_tower_backward instances checked: {ran}")
+    if not all(ran.values()):
+        fail(f"an instance of float_tower_backward was not checked: {ran}")
 
 
 def check_cond_pair_backward(dev, kernels):
-    """K3 at every flagship step's depth and two odd shapes, with and
-    without the Dropout3d scale."""
+    """K3 at every flagship step's depth (the tensor-core instance in bf16,
+    the CUDA-core one in f32) and two odd shapes (bf16 through both
+    instances), with and without the Dropout3d scale, each launch repeated
+    and held equal to the bit; at step 0 in bf16 the
+    two instances timed in turns beside the plain backward and the cuDNN
+    autograd chain."""
     gen = torch.Generator().manual_seed(7)
     k = kernels["cond_pair_bwd"]
+    by_instance = cpair.cond_pair_backward.by_instance
+    ran = dict.fromkeys(by_instance, 0)
     shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
     shapes += [(2, 5, 37, 53), (2, 8, 19, 35)]
     for shape in shapes:
@@ -863,36 +928,64 @@ def check_cond_pair_backward(dev, kernels):
         mods = (net["c3a"], net["c3b"], net["prelu"])
         x0, dz0 = (torch.randn(shape, generator=gen) for _ in range(2))
         keep = (torch.rand((shape[0], 32), generator=gen) < 0.5).float() * 2.0
+        flagship_shape = shape[2] == SLICE_HW
         for dtype in (torch.float32, torch.bfloat16):
             x, dz = x0.to(dev, dtype), dz0.to(dev, dtype)
+            own = cpair.bwd_instance(dtype, 32)
+            also = [] if flagship_shape else [cpair.CUDA_CORES]
             for scale in (None, keep.to(dev)):
-                got = cpair.cond_pair_backward(x, dz, *mods, scale)
                 ref = cpair.cond_pair_backward_reference(x, dz, *mods, scale)
-                e = grads_err(got, ref, dtype, f"cond_pair_backward {shape} "
-                              f"{dtype} scale={scale is not None}")
-                k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
-                                       max((g - r).abs().max().item()
-                                           for g, r in zip(got, ref)))
-                log(f"cond_pair_backward {shape} {str(dtype):14s} Dropout3d "
-                    f"scale {scale is not None!s:5s} max|d|/max|ref| {e:.3e}")
+                for instance in dict.fromkeys([own] + also):
+                    run = lambda: cpair.cond_pair_backward(
+                        x, dz, *mods, scale,
+                        instance=None if instance == own else instance)
+                    got = one_launch_of(
+                        cpair.cond_pair_backward, instance, run,
+                        f"cond_pair_backward {shape} {dtype}")
+                    ran[instance] += 1
+                    # no atomics: a second launch gives the same gradients
+                    for g, again in zip(got, run()):
+                        exact_equal(again, g, f"cond_pair_backward {shape} "
+                                    f"{dtype} ({instance}), second launch")
+                    e = grads_err(got, ref, dtype, f"cond_pair_backward "
+                                  f"{shape} {dtype} scale={scale is not None}"
+                                  f" ({instance})")
+                    k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
+                                           max((g - r).abs().max().item()
+                                               for g, r in zip(got, ref)))
+                    log(f"cond_pair_backward {shape} {str(dtype):14s} "
+                        f"Dropout3d scale {scale is not None!s:5s} "
+                        f"({instance}) max|d|/max|ref| {e:.3e}")
             if shape[1] != 48 or dtype != torch.bfloat16:
                 continue
             sc = keep.to(dev)
-            ms = time_ms(lambda: cpair.cond_pair_backward(x, dz, *mods, sc), 5)
+            side = instances_side_by_side(
+                lambda inst: cpair.cond_pair_backward(
+                    x, dz, *mods, sc,
+                    instance=None if inst == cpair.TENSOR_CORES else inst),
+                cpair.TENSOR_CORES, cpair.CUDA_CORES, 5)
+            ms = statistics.median(side[cpair.TENSOR_CORES])
             plain_ms = time_ms(lambda: cpair.cond_pair_backward_reference(
                 x, dz, *mods, sc), 3)
             net16 = copy.deepcopy(net).to(torch.bfloat16)
             lib_ms = time_ms(lambda: cudnn_pair_grad(net16, x, dz), 3)
             flop = 2 * 2 * 27 * 32 * x.numel()
             k["ms"], k["plain_ms"], k["library_ms"] = ms, plain_ms, lib_ms
-            log(f"time cond_pair_backward {shape} bf16: kernel {ms:.4f} ms "
-                f"({2 * flop / ms / 1e6:.0f} GFLOP/s)  plain {plain_ms:.4f} ms"
-                f"  [cuDNN autograd chain of the two Conv3d, bf16: "
-                f"{lib_ms:.4f} ms]")
+            k["cuda_cores_ms"] = statistics.median(side[cpair.CUDA_CORES])
+            log(f"time cond_pair_backward {shape} bf16, in turns "
+                f"new/old/new/old/new: tensor cores "
+                f"{['%.4f' % t for t in side[cpair.TENSOR_CORES]]}, CUDA "
+                f"cores {['%.4f' % t for t in side[cpair.CUDA_CORES]]} ms; "
+                f"median {ms:.4f} ms ({2 * flop / ms / 1e9:.1f} TFLOP/s)  "
+                f"plain {plain_ms:.4f} ms  [cuDNN autograd chain of the two "
+                f"Conv3d, bf16: {lib_ms:.4f} ms]")
             set_bound(k, 3 * x.numel() * x.element_size(), 2 * flop, "bf16",
                       f"cond_pair_backward {shape} bf16")
             log(f"bound cond_pair_backward on f32 FMAs: "
                 f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
+    log(f"cond_pair_backward instances checked: {ran}")
+    if not all(ran.values()):
+        fail(f"an instance of cond_pair_backward was not checked: {ran}")
 
 
 def phase_small_rig(dev):
@@ -982,7 +1075,8 @@ def reset_counts():
     for k in KERNELS.values():
         setattr(k["wrapper"], k.get("counter", "launches"), 0)
     for wrapper in (btower.fused_float_tower, qtower.fused_tower,
-                    cpair.cond_pair, probes.tiled_gemm, probes.chained_gemm):
+                    cpair.cond_pair, probes.tiled_gemm, probes.chained_gemm,
+                    btower.float_tower_backward, cpair.cond_pair_backward):
         for name in wrapper.by_instance:
             wrapper.by_instance[name] = 0
 
@@ -1933,6 +2027,10 @@ def phase_train_flagship(dev, card, kernels, img: int):
                                f"train epoch {epoch}")
                 check_instance("cond_pair", cpair.TENSOR_CORES,
                                f"train epoch {epoch}")
+                check_instance("float_tower_bwd", btower.WGMMA_BF16,
+                               f"train epoch {epoch}")
+                check_instance("cond_pair_bwd", cpair.TENSOR_CORES,
+                               f"train epoch {epoch}")
             what = "LRNN" if stage == model.n_flow_steps else f"flow step {stage}"
             log(f"flagship train bf16 batch 1, epoch {epoch} ({what}): mean "
                 f"loss {loss:.6g}; ms per optimizer step "
@@ -1944,6 +2042,9 @@ def phase_train_flagship(dev, card, kernels, img: int):
             if name in FLOW_PER_STEP:
                 key = "launches" if name.endswith("_bwd") else "train_launches"
                 kernels[name][key] = totals[name]
+        for name in ("float_tower_bwd", "cond_pair_bwd"):
+            kernels[name]["launches_by_instance"] = dict(
+                KERNELS[name]["wrapper"].by_instance)
         ckpt = root / "ckpt"
         files = tr.save_checkpoints(cfg.epochs - 1, str(ckpt))
         back = copy.deepcopy(model).cpu()
@@ -2065,15 +2166,17 @@ def main():
          "library_ms": k.get("library_ms"),
          # the float tower's f32 instance (3xTF32): the likelihood path's
          # (and the f32 backward's time, K2);
-         # the instance that fused_tower (__dp4a), cond_pair (CUDA cores),
-         # chained_gemm and the out8 GEMM (mma.sync) ran before their
-         # tensor-core ones, timed in this run; the probe script's own
-         # reading of the two s8 instances; the launches of the serving
-         # path's two runs and of the flagship's training
+         # the instance that fused_tower (__dp4a), cond_pair and the two
+         # backward kernels K2, K3 (CUDA cores), chained_gemm and the out8
+         # GEMM (mma.sync) ran before their tensor-core ones, timed in this
+         # run; the probe script's own reading of the two s8 instances; the
+         # launches of the serving path's two runs and of the flagship's
+         # training, K2's and K3's by instance; K2 at every step's shape
          **{key: v for key, v in k.items()
             if key.startswith("f32_") or key in (
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
-                "serve_launches", "train_launches")}}
+                "serve_launches", "train_launches", "launches_by_instance",
+                "step_ms")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -19,18 +19,47 @@
 //   dW_a[k, t] = sum_p dpre_k(p) x(p + t),   db_a[k] = sum_p dpre_k(p)
 //   dalpha = sum_p dy_k(p) pre_k(p) [pre_k(p) <= 0]
 //
-// Design: one block of 256 threads per (batch, 8 depths, 8 x 32 H x W tile),
-// as the forward's CUDA-core instance.  x and dz with a 2-voxel halo are
-// staged once into shared memory as f32, zero outside the volume.  For each
-// intermediate channel k: pre_k and conv_b^T(dz)_k are recomputed over the
-// tile and its 1-voxel halo (y never reaches device memory, as in the
-// forward), y_k and dpre_k go to shared memory, then every thread adds the
-// channel's conv_a^T term to the dx of its own (h, w) column and sums its
-// column's 27 + 27 weight terms; the block's sums per channel (warp shuffles,
-// then the 8 warps in a fixed order) go to a partial-sum buffer, and a
-// second pass (two, above 64 blocks) sums the blocks in a fixed order.  No
-// atomics: the result is the same from run to run.  CUDA-core FMAs; speed is
-// later work.
+// Two instances.  bf16 with K = 32 runs the four products on the tensor
+// cores (cond_pair_bwd_tc_kernel); f32, and bf16 with another K, run on the
+// CUDA cores (cond_pair_bwd_kernel).
+//
+// Design of the tensor-core instance (mma.sync m16n8k16 bf16, f32 sums, the
+// products of the forward's cond_pair_tc_kernel):
+//   - One block of 256 threads per (batch, depth chunk of <= 48, 8 x 32 H x
+//     W tile).  x and dz with a 2-voxel halo are staged once as bf16, and a
+//     copy of dz that is zero outside the block's own voxels.
+//   - Per depth plane of the tile and its 1-voxel halo (10 x 34 positions,
+//     22 tiles of 16 a warp walks): pre = the im2col of x in registers . W_a
+//     (27 taps padded to 32); dy = the im2col of dz . the flipped W_b^T; then
+//     y = R(R(PReLU(pre)) m) and dpre = dy m PReLU'(pre) on the CUDA cores,
+//     db_a and dalpha summed there too.  A pre within 2^-16 of 0 is summed
+//     again there as the CUDA-core instance sums it (in f32, tap by tap), so
+//     that both instances take the same side of PReLU's kink.  dpre rounded to bf16 is, as it sits
+//     in the sum registers, the A operand of dx's product: (positions x K) .
+//     (K x 27, W_a flipped), 27 planes in shared memory, then the
+//     shift-and-add of the forward's conv_b into three rolling dx sums.  y
+//     never reaches device memory.
+//   - dW_a[k, t] = sum_p dpre_k(p) x(p + t) over the block's own positions
+//     and dW_b[k, t] = sum_p' y_k(p') dz_own(p' - t) over the plane's: (K x
+//     positions) . (positions x 32 taps), the K-side read from the plane's
+//     bf16 dpre and y in shared memory with ldmatrix.trans, the tap side
+//     gathered from the staged x and own dz; f32 sums in registers for the
+//     whole block, then summed over the 8 warps in order.  Only dpre is
+//     rounded (once, as an operand); y is the forward's own rounding.
+//
+// Design of the CUDA-core instance: one block of 256 threads per (batch, 8
+// depths, 8 x 32 H x W tile), as the forward's CUDA-core instance.  x and dz
+// with a 2-voxel halo are staged once into shared memory as f32, zero
+// outside the volume.  For each intermediate channel k: pre_k and
+// conv_b^T(dz)_k are recomputed over the tile and its 1-voxel halo (y never
+// reaches device memory, as in the forward), y_k and dpre_k go to shared
+// memory, then every thread adds the channel's conv_a^T term to the dx of
+// its own (h, w) column and sums its column's 27 + 27 weight terms; the
+// block's sums per channel (warp shuffles, then the 8 warps in a fixed
+// order) go to a partial-sum buffer.
+//
+// Both: a second pass (two, above 64 blocks) sums the blocks' partials in a
+// fixed order.  No atomics: the result is the same from run to run.
 //
 // Bound at step 0 of the flagship (1, 48, 512, 512), K = 32: operations,
 // 2 x 43.49 GFLOP, 0.088 ms on bf16 tensor cores, 1.30 ms on f32 FMAs.
@@ -275,6 +304,416 @@ __global__ void __launch_bounds__(kThreads) cond_pair_bwd_kernel(const Params p)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core instance: bf16, K = 32
+// ---------------------------------------------------------------------------
+
+constexpr int kK = 32;
+constexpr int kYTiles = (kYCols + 15) / 16;     // 22 tiles of 16 positions
+constexpr int kYRows = kYTiles * 16;            // 352: the plane's rows, padded
+constexpr int kPStride = 356;                   // floats per contribution plane
+constexpr int kDPitch = 40;                     // bf16 a row of the dpre / y
+                                                // planes: 80 bytes, so the 8
+                                                // rows of an ldmatrix hit
+                                                // distinct banks
+constexpr int kMaxTDtc = 48;                  // depths a block (x, dz, own dz
+                                                // of 52 x 12 x 36 bf16 fit)
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 b16 matrices, transposed: lane l gives the address of row l % 8
+// of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* row) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
+
+__device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// offset in the x window of tap t = 9 dh + 3 dw + dd (-1: a tap that pads 27
+// to 32)
+__device__ __forceinline__ int tap_off(int t) {
+  return t < 27 ? (t % 3) * kXCols + (t / 9) * kXW + (t / 3) % 3 : -1;
+}
+
+// A pre-activation this close to 0 is summed again: where pre is within
+// rounding of 0, the side of 0 it lands on depends on the order of its f32
+// sums, and the other side takes PReLU's other slope, a jump of dpre that dx
+// carries to 27 neighbours.  The tensor cores' sums truncate; near the kink
+// pre is summed as the CUDA-core instance sums it, so that the two instances
+// take the same slope.
+constexpr uint32_t kKinkBits = 0x37800000u;     // |pre| < 2^-16, as f32 bits
+
+// pre + b_a of channel ch at x-window position base, as cond_pair_bwd_kernel
+// sums it: the 27 products in tap order with fused multiply-adds, then the
+// bias.  Unrolled, so that the 54 loads are in flight together.
+__device__ __noinline__ float f32_pre(const uint16_t* xs, int base, const uint16_t* gwa,
+                                      int ch, float bias) {
+  float s = 0.f;
+#pragma unroll
+  for (int t = 0; t < 27; ++t) s = fmaf(bf(gwa[ch * 27 + t]), bf(xs[base + tap_off(t)]), s);
+  return s + bias;
+}
+
+// p.nchunks depth chunks of td depths each.
+__global__ void __launch_bounds__(kThreads, 1) cond_pair_bwd_tc_kernel(const Params p, int td) {
+  extern __shared__ __align__(16) float smem[];
+  float* pbuf = smem;                                            // (27, kPStride)
+  uint16_t* dpl = reinterpret_cast<uint16_t*>(pbuf + 27 * kPStride);   // (352, kDPitch)
+  uint16_t* ypl = dpl + kYRows * kDPitch;                        // (352, kDPitch)
+  uint16_t* xs = ypl + kYRows * kDPitch;                         // (td+4, kXH, kXW)
+  uint16_t* dzs = xs + (td + 4) * kXCols;
+  uint16_t* dzm = dzs + (td + 4) * kXCols;                       // dz, own voxels only
+  const int D = p.D, H = p.H, W = p.W;
+  const int b = blockIdx.z / p.nchunks;
+  const int d0 = (blockIdx.z % p.nchunks) * td;
+  const int h0 = blockIdx.y * kTH, w0 = blockIdx.x * kTW;
+  const int64_t vol = (int64_t)D * H * W;
+  const uint16_t* x = static_cast<const uint16_t*>(p.x) + b * vol;
+  const uint16_t* dz = static_cast<const uint16_t*>(p.dz) + b * vol;
+  const int64_t blk = blockIdx.x + (int64_t)gridDim.x * (blockIdx.y + (int64_t)gridDim.y * blockIdx.z);
+  float* part = p.part + blk * (kK * kNV + 1);
+
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) {
+    const int dd = i / kXCols, rc = i % kXCols, r = rc / kXW, c = rc % kXW;
+    const int d = d0 - 2 + dd, h = h0 - 2 + r, w = w0 - 2 + c;
+    uint16_t xv = 0, gv = 0;
+    const bool in = d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
+    if (in) {
+      const int64_t o = ((int64_t)d * H + h) * W + w;
+      xv = x[o];
+      gv = dz[o];
+    }
+    const bool own = in && dd >= 2 && dd < td + 2 && r >= 2 && r < kTH + 2 && c >= 2 &&
+                     c < kTW + 2;
+    xs[i] = xv;
+    dzs[i] = gv;
+    dzm[i] = own ? gv : 0;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const uint16_t* gwa = static_cast<const uint16_t*>(p.wa);
+  const uint16_t* gwb = static_cast<const uint16_t*>(p.wb);
+  // B fragments (k = 16 ks + 8 r + 2 q, + 1 in the two halves; n = 8 nt + g):
+  // fa: pre = im2col(x) . W_a, [tap][channel]; fb: dy = im2col(dz) . the
+  // flipped W_b^T, [tap][channel]; fc: dx's contributions = dpre . the
+  // flipped W_a, [channel][tap]; the taps beyond 27 zero
+  uint32_t fa[2][4][2], fb[2][4][2], fc[2][4][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k0 = 16 * ks + 8 * r + 2 * q, n = 8 * nt + g;
+        const uint32_t a_lo = k0 < 27 ? gwa[n * 27 + k0] : 0;
+        const uint32_t a_hi = k0 + 1 < 27 ? gwa[n * 27 + k0 + 1] : 0;
+        fa[ks][nt][r] = a_lo | (a_hi << 16);
+        const uint32_t b_lo = k0 < 27 ? gwb[n * 27 + 26 - k0] : 0;
+        const uint32_t b_hi = k0 + 1 < 27 ? gwb[n * 27 + 25 - k0] : 0;
+        fb[ks][nt][r] = b_lo | (b_hi << 16);
+        const uint32_t c_lo = n < 27 ? gwa[k0 * 27 + 26 - n] : 0;
+        const uint32_t c_hi = n < 27 ? gwa[(k0 + 1) * 27 + 26 - n] : 0;
+        fc[ks][nt][r] = c_lo | (c_hi << 16);
+      }
+  const __nv_bfloat16* gba = static_cast<const __nv_bfloat16*>(p.ba);
+  float bias_a[4][2], sc[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias_a[nt][e] = __bfloat162float(gba[8 * nt + 2 * q + e]);
+      sc[nt][e] = p.scale ? p.scale[b * kK + 8 * nt + 2 * q + e] : 1.f;
+    }
+  const float alpha = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.alpha));
+  int aoff[2][2][2];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) aoff[ks][r][e] = tap_off(16 * ks + 8 * r + 2 * q + e);
+  // the tap side of the weight gradients: tap 8 nt + g of x (dW_a) and of dz
+  // flipped (dW_b)
+  int xo[4], zo[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int t = 8 * nt + g;
+    xo[nt] = tap_off(t);
+    zo[nt] = t < 27 ? tap_off(26 - t) : -1;
+  }
+
+  float wa_acc[2][4][4], wb_acc[2][4][4], dba[4][2], dal[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wa_acc[mt][nt][i] = wb_acc[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) dba[nt][0] = dba[nt][1] = dal[nt][0] = dal[nt][1] = 0.f;
+
+  const int zr = threadIdx.x / kTW, zc = threadIdx.x % kTW;
+  const int zh = h0 + zr, zw = w0 + zc;
+  uint16_t* dxo = static_cast<uint16_t*>(p.dx) + b * vol;
+  float x2 = 0.f, x1 = 0.f, x0 = 0.f;   // dx at depths plane - 1, plane, plane + 1
+  // ldmatrix: lane -> (position in the 16 of a chunk, channel offset)
+  const int lrow = ((lane >> 4) & 1) * 8 + (lane & 7), lch = ((lane >> 3) & 1) * 8;
+
+  __syncthreads();
+  for (int j = 0; j < td + 2; ++j) {
+    const int dj = d0 - 1 + j;          // this plane's depth
+    const bool live = dj >= 0 && dj < D;
+    const bool own_plane = live && j >= 1 && j <= td;
+    if (live) {
+      for (int tile = warp; tile < kYTiles; tile += kThreads / 32) {
+        int base[2];
+        bool in[2], own[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = 16 * tile + g + 8 * h;
+          const int r = pos < kYCols ? pos / kYW : 0, c = pos < kYCols ? pos % kYW : 0;
+          base[h] = j * kXCols + r * kXW + c;
+          const int yh = h0 - 1 + r, yw = w0 - 1 + c;
+          in[h] = pos < kYCols && yh >= 0 && yh < H && yw >= 0 && yw < W;
+          own[h] = in[h] && own_plane && r >= 1 && r <= kTH && c >= 1 && c <= kTW;
+        }
+        // the im2col fragments of x and dz, gathered from the windows
+        uint32_t ax[2][4], az[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int o0 = aoff[ks][r][0], o1 = aoff[ks][r][1];
+              ax[ks][2 * r + h] = (o0 >= 0 ? (uint32_t)xs[base[h] + o0] : 0u) |
+                                  ((o1 >= 0 ? (uint32_t)xs[base[h] + o1] : 0u) << 16);
+              az[ks][2 * r + h] = (o0 >= 0 ? (uint32_t)dzs[base[h] + o0] : 0u) |
+                                  ((o1 >= 0 ? (uint32_t)dzs[base[h] + o1] : 0u) << 16);
+            }
+        float pre[4][4], gy[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pre[nt][i] = gy[nt][i] = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            mma_bf16(pre[nt], ax[ks], fa[ks][nt][0], fa[ks][nt][1]);
+            mma_bf16(gy[nt], az[ks], fb[ks][nt][0], fb[ks][nt][1]);
+          }
+        }
+        // pre + b_a; near the kink (rare: a warp with none skips the loop),
+        // summed again as the CUDA-core instance sums it (outside the volume
+        // too: those positions are zeroed below)
+        bool kink = false;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pre[nt][i] += bias_a[nt][i & 1];
+            kink |= (__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits;
+          }
+        if (__any_sync(0xffffffffu, kink)) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if ((__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits)
+                pre[nt][i] = f32_pre(xs, base[i >> 1], gwa, 8 * nt + 2 * q + (i & 1),
+                                     bias_a[nt][i & 1]);
+        }
+        // y and dpre; dpre's channel tiles 2 ks, 2 ks + 1 are dx's A
+        // fragment ks
+        uint32_t ad[2][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float yv[2], gp[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = pre[nt][2 * h + e];
+              // y rounded as the forward rounds it (the last rounding is
+              // the bf16 pack's)
+              float yy = v > 0.f ? v : alpha * v;
+              if (p.scale) yy = rnd(yy) * sc[nt][e];
+              const float gd = gy[nt][2 * h + e] * sc[nt][e];
+              const float gq = v > 0.f ? gd : gd * alpha;
+              yv[e] = in[h] ? yy : 0.f;
+              gp[e] = in[h] ? gq : 0.f;
+              if (own[h]) {
+                dba[nt][e] += gq;
+                if (!(v > 0.f)) dal[nt][e] += gd * v;
+              }
+            }
+            const int row = (16 * tile + g + 8 * h) * kDPitch + 8 * nt + 2 * q;
+            const uint32_t dp = pack2(gp[0], gp[1]);
+            *reinterpret_cast<uint32_t*>(ypl + row) = pack2(yv[0], yv[1]);
+            *reinterpret_cast<uint32_t*>(dpl + row) = dp;
+            ad[nt >> 1][2 * (nt & 1) + h] = dp;
+          }
+        // dx's contributions: every position's to its 27 neighbours
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float cc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) mma_bf16(cc, ad[ks], fc[ks][nt][0], fc[ks][nt][1]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * nt + 2 * q + e;
+            if (t < 27) {
+              pbuf[t * kPStride + 16 * tile + g] = cc[e];
+              pbuf[t * kPStride + 16 * tile + g + 8] = cc[2 + e];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      // dpre at depth dj reaches dx at depth dj - dd + 1 through depth tap dd
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw) {
+          const float* c = pbuf + (9 * dh + 3 * dw) * kPStride + (zr + dh) * kYW + zc + dw;
+          x0 += c[0];
+          x1 += c[kPStride];
+          x2 += c[2 * kPStride];
+        }
+      // dW_a over the plane's own positions: 16 chunks of 16 (a row half)
+      if (own_plane)
+        for (int ch = warp; ch < 2 * kTH; ch += kThreads / 32) {
+          const int rr = ch / 2 + 1, cs = (ch % 2) * 16 + 1;
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldsm_x4_t(a[mt], dpl + (rr * kYW + cs + lrow) * kDPitch + 16 * mt + lch);
+          const int xb = j * kXCols + rr * kXW + cs;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            uint32_t bb[2] = {0u, 0u};
+            if (xo[nt] >= 0)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const uint16_t* s = xs + xb + xo[nt] + 2 * q + 8 * r;
+                bb[r] = (uint32_t)s[0] | ((uint32_t)s[1] << 16);
+              }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_bf16(wa_acc[mt][nt], a[mt], bb[0], bb[1]);
+          }
+        }
+      // dW_b over the plane's 352 rows: y there against dz at the block's own
+      // positions (zero elsewhere, and y is zero on the padding rows)
+      for (int ch = warp; ch < kYTiles; ch += kThreads / 32) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldsm_x4_t(a[mt], ypl + (16 * ch + lrow) * kDPitch + 16 * mt + lch);
+        int zb[2][2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pos = 16 * ch + 2 * q + 8 * r + e;
+            const int pc = pos < kYCols ? pos : 0;
+            zb[r][e] = j * kXCols + (pc / kYW) * kXW + pc % kYW;
+          }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t bb[2] = {0u, 0u};
+          if (zo[nt] >= 0)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              bb[r] = (uint32_t)dzm[zb[r][0] + zo[nt]] | ((uint32_t)dzm[zb[r][1] + zo[nt]] << 16);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_bf16(wb_acc[mt][nt], a[mt], bb[0], bb[1]);
+        }
+      }
+    }
+    const int dxd = dj - 1;             // x2 is complete
+    if (j >= 2 && dxd < D && zh < H && zw < W) {
+      const __nv_bfloat16 v = __float2bfloat16_rn(x2);
+      dxo[((int64_t)dxd * H + zh) * W + zw] = *reinterpret_cast<const uint16_t*>(&v);
+    }
+    x2 = x1;
+    x1 = x0;
+    x0 = 0.f;
+    __syncthreads();
+  }
+
+  // the block's sums, in a fixed order: the 8 warps' weight sums through
+  // shared memory (over the planes' buffers), the channel sums by shuffles
+  float* red = smem;                                   // (8, 2, 32, 32)
+  float* red2 = red + 8 * 2 * kK * kK;                 // (8, 2, 32)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * mt + g + 8 * (i >> 1), t = 8 * nt + 2 * q + (i & 1);
+        red[((warp * 2 + 0) * kK + k) * kK + t] = wa_acc[mt][nt][i];
+        red[((warp * 2 + 1) * kK + k) * kK + t] = wb_acc[mt][nt][i];
+      }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s0 = dba[nt][e], s1 = dal[nt][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) {
+        red2[(warp * 2 + 0) * kK + 8 * nt + 2 * q + e] = s0;
+        red2[(warp * 2 + 1) * kK + 8 * nt + 2 * q + e] = s1;
+      }
+    }
+  float dbb = 0.f;
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) dbb += bf(dzm[i]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kK * kNV; i += kThreads) {
+    const int k = i / kNV, t = i % kNV;
+    float s = 0.f;
+    if (t < 54) {
+      const int which = t / 27, tt = t % 27;
+      for (int wi = 0; wi < kThreads / 32; ++wi) s += red[((wi * 2 + which) * kK + k) * kK + tt];
+    } else {
+      for (int wi = 0; wi < kThreads / 32; ++wi) s += red2[(wi * 2 + t - 54) * kK + k];
+    }
+    part[i] = s;
+  }
+  float v[1] = {dbb};
+  __syncthreads();
+  block_sum<1>(v, red2 + 16 * kK, part + kK * kNV);
+}
+
+int tc_blocks(int b, int d, int h, int w, int* nchunks, int* td) {
+  *nchunks = (d + kMaxTDtc - 1) / kMaxTDtc;
+  *td = (d + *nchunks - 1) / *nchunks;
+  return ((w + kTW - 1) / kTW) * ((h + kTH - 1) / kTH) * b * *nchunks;
+}
+
 // out[c][i] = sum of part[blk][i] over the blocks c*chunk .. (c+1)*chunk - 1,
 // in block order.
 __global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -304,20 +743,23 @@ extern "C" int64_t cwfa_cond_pair_bwd_part(int b, int d, int h, int w, int k) {
 
 // x, dz, dx: (B, D, H, W); wa (K, 1, 3, 3, 3), ba (K), wb (1, K, 3, 3, 3),
 // alpha (1), all contiguous and of x's type (dtype 0 = float32,
-// 1 = bfloat16); scale: (B, K) f32 or null.  grads: f32, K * 56 + 1 floats:
+// 1 = bfloat16); scale: (B, K) f32 or null.  tensor_cores 1: the
+// tensor-core instance (bfloat16 and k = 32 only), 0: the CUDA-core one.  grads: f32, K * 56 + 1 floats:
 // per channel k, [k * 56 + t] dW_a (t < 27), dW_b (27 + t), db_a (54),
 // dalpha's share (55); then db_b.  part: cwfa_cond_pair_bwd_part floats.
 extern "C" int cwfa_cond_pair_bwd(const void* x, const void* dz, const void* wa,
                                   const void* ba, const void* wb, const void* alpha,
                                   const float* scale, void* dx, float* grads,
                                   float* part, int b, int d, int h, int w, int k,
-                                  int dtype, int device, void* stream) {
-  if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1)
+                                  int dtype, int tensor_cores, int device, void* stream) {
+  if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1 ||
+      (tensor_cores && (dtype != 1 || k != kK)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int nchunks;
-  const int nblk = blocks_of(b, d, h, w, &nchunks);
+  int nchunks, td = kTD;
+  const int nblk = tensor_cores ? tc_blocks(b, d, h, w, &nchunks, &td)
+                                : blocks_of(b, d, h, w, &nchunks);
   if ((int64_t)b * nchunks > 65535) return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -338,7 +780,13 @@ extern "C" int cwfa_cond_pair_bwd(const void* x, const void* dz, const void* wa,
   const int smem = ((kTD + 4) * kXCols * 2 + (kTD + 2) * kYCols * 2 + k * 55 +
                     (kThreads / 32) * 28) * 4;
   const dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, b * nchunks);
-  if (dtype == 0) {
+  if (tensor_cores) {
+    const int tsmem = 27 * kPStride * 4 + 2 * kYRows * kDPitch * 2 + 3 * (td + 4) * kXCols * 2;
+    err = cudaFuncSetAttribute(cond_pair_bwd_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tsmem);
+    if (err != cudaSuccess) return (int)err;
+    cond_pair_bwd_tc_kernel<<<grid, kThreads, tsmem, s>>>(p, td);
+  } else if (dtype == 0) {
     err = cudaFuncSetAttribute(cond_pair_bwd_kernel<float>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;

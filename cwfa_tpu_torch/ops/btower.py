@@ -27,8 +27,12 @@ on the module.
 The weights may be f32 master weights under a bf16 x (training): the
 kernel and the plain version then use them rounded to bf16, and the biases
 as they are.  ``FloatTowerFn`` differentiates the tower; its backward is a
-kernel too (``float_tower_backward``, ``csrc/btower_bwd.cu``; the TPU kernel
-has none, JAX trains through its XLA convs).
+kernel too (``float_tower_backward``; the TPU kernel has none, JAX trains
+through its XLA convs), with two instances (``bwd_instance``): a 64-wide
+tower in bf16 on the warpgroup tensor cores (``csrc/btower_bwd_wg.cu``,
+weights packed by ``pack_float_tower_bwd``, its arithmetic in plain PyTorch
+``float_tower_backward_products``), every other on the CUDA cores
+(``csrc/btower_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -257,7 +261,8 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
-    lib = cuda_build.load("btower_bwd")
+    """(the CUDA-core library, the wgmma library) of the backward"""
+    lib, wg = cuda_build.load("btower_bwd"), cuda_build.load("btower_bwd_wg")
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.cwfa_btower_bwd.argtypes = [p] * 10 + [i32] * 7 + [i32, p]
     lib.cwfa_btower_bwd.restype = i32
@@ -265,7 +270,11 @@ def _bwd_lib():
     lib.cwfa_btower_bwd_scratch.restype = i64
     lib.cwfa_btower_bwd_part.argtypes = [i32] * 5
     lib.cwfa_btower_bwd_part.restype = i64
-    return lib
+    wg.cwfa_btower_bwd_wg.argtypes = [p] * 8 + [i32] * 6 + [p]
+    wg.cwfa_btower_bwd_wg.restype = i32
+    wg.cwfa_btower_bwd_wg_scratch.argtypes = [i32] * 6
+    wg.cwfa_btower_bwd_wg_scratch.restype = i64
+    return lib, wg
 
 
 def _check(x, tower):
@@ -340,12 +349,136 @@ fused_float_tower.launches = 0              # every launch of the kernel
 fused_float_tower.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0, CUDA_CORES: 0}
 
 
+def bwd_instance(dtype, c: int, cin: int, nout: int) -> str:
+    """Which instance of the backward kernel runs a tower of width ``c``
+    with ``cin`` inputs and ``nout`` outputs in ``dtype``."""
+    if (dtype == torch.bfloat16 and c == WGMMA_WIDTH and cin <= WGMMA_WIDTH
+            and nout <= WGMMA_NOUT[-1]):
+        return WGMMA_BF16
+    return CUDA_CORES
+
+
+# the order of the wgmma backward's weight slices: the forward convs it
+# recomputes, then the dgrads from the top
+BWD_FORWARD = CONVS[:7]
+BWD_DGRAD = CONVS[::-1]
+
+
+def _wg_slices(w, npad: int = 16):
+    """An OIHW weight as wgmma's K-major B operand, flattened: [tap][I/8][O][8]
+    bf16, I padded with zeros to a multiple of 16, O to a multiple of
+    ``npad``."""
+    o, i, k, _ = w.shape
+    t = _taps(w, 16, _round_up(o, npad))                  # [tap][O][I]
+    t = t.reshape(k * k, t.shape[1], -1, 8).permute(0, 2, 1, 3)
+    return t.reshape(-1).to(torch.bfloat16)
+
+
+def dgrad_weight(w):
+    """The weight of a conv's dgrad: the taps flipped, in and out swapped
+    (OIHW -> the OIHW of the transposed conv)."""
+    return w.flip(2, 3).transpose(0, 1)
+
+
+def pack_float_tower_bwd(tower):
+    """The wgmma backward's pack (weights, biases): the weights rounded to
+    bf16 as ``_wg_slices`` of b1 .. b6b (``BWD_FORWARD``, the recomputed
+    forward), then of the dgrad weights (``dgrad_weight``) of b7 .. b1
+    (``BWD_DGRAD``); the biases of b1 .. b6b, f32 (zeros where a conv has
+    none).  Built at first use and kept on the module until a weight
+    changes."""
+    key = tuple((t.device, t.dtype, t.data_ptr(),
+                 None if t.is_inference() else t._version)
+                for t in tower.parameters())
+    cached = getattr(tower, "_float_tower_bwd_pack", None)
+    if cached is None or cached[0] != key:
+        with torch.no_grad():
+            ws = {n: getattr(tower, n).weight.detach().to(torch.bfloat16)
+                  .float() for n in CONVS}
+            weights = [_wg_slices(ws[n]) for n in BWD_FORWARD]
+            weights += [_wg_slices(dgrad_weight(ws[n])) for n in BWD_DGRAD]
+            biases = [torch.zeros(WGMMA_WIDTH, device=ws["b1"].device)
+                      if getattr(tower, n).bias is None
+                      else getattr(tower, n).bias.detach().float()
+                      for n in BWD_FORWARD]
+            cached = (key, (torch.cat(weights), torch.cat(biases)))
+        tower._float_tower_bwd_pack = cached
+    return cached[1]
+
+
+def _conv_bwd_parts(params):
+    """{name: (weight rounded to bf16, f32 bias or zeros)}."""
+    out = {}
+    for n, (w, b) in zip(CONVS, params):
+        w = w.detach().to(torch.bfloat16).float()
+        out[n] = (w, torch.zeros(w.shape[0], device=w.device) if b is None
+                  else b.detach().float())
+    return out
+
+
+def float_tower_backward_products(tower, x, dy):
+    """The wgmma bf16 instance's arithmetic in plain PyTorch (x, dy bf16):
+    the forward recomputed with its canvases rounded to bf16 as the forward
+    rounds them; then each gradient with ELU' taken from the stored canvas
+    (``min(e, 0) + 1``), the residual chain in f32, and the gradient rounded
+    to bf16 as the operand of each product (dgrad, wgrad, bias sum) that
+    reads it.  Same results as ``float_tower_backward``."""
+    c = _conv_bwd_parts(_tower_params(tower))
+
+    def rnd(v):
+        return v.to(torch.bfloat16).float()
+
+    def conv(n, v):
+        w, b = c[n]
+        return F.conv2d(v, w, b, padding=w.shape[-1] // 2)
+
+    def dgrad(n, g):
+        w = c[n][0]
+        return F.conv_transpose2d(g, w, padding=w.shape[-1] // 2)
+
+    def wgrad(n, g, v):
+        w = c[n][0]
+        return torch.nn.grad.conv2d_weight(v, w.shape, g,
+                                           padding=w.shape[-1] // 2)
+
+    def elu_grad(e):
+        return torch.clamp_max(e, 0.0) + 1.0
+
+    xf, g_out = x.float(), dy.float()
+    cv = {"r1": rnd(conv("b1", xf))}
+    below = "r1"
+    for a, e, ca, cb in (("a2", "e2", "b2a", "b2b"), ("a4", "e4", "b4a", "b4b"),
+                         ("a6", "e6", "b6a", "b6b")):
+        cv[a] = rnd(_elu(conv(ca, cv[below])))
+        cv[e] = rnd(_elu(conv(cb, cv[a]) + cv[below]))
+        below = e
+    dws, dbs = {}, {}
+    dws["b7"], dbs["b7"] = wgrad("b7", g_out, cv["e6"]), g_out.sum((0, 2, 3))
+    g_e = dgrad("b7", g_out) * elu_grad(cv["e6"])            # f32 chain
+    for a, e, ca, cb, lower in (("a6", "e6", "b6a", "b6b", "e4"),
+                                ("a4", "e4", "b4a", "b4b", "e2"),
+                                ("a2", "e2", "b2a", "b2b", "r1")):
+        ge = rnd(g_e)
+        g_a = rnd(dgrad(cb, ge) * elu_grad(cv[a]))
+        dws[cb], dbs[cb] = wgrad(cb, ge, cv[a]), ge.sum((0, 2, 3))
+        g_e = dgrad(ca, g_a) + g_e
+        if lower != "r1":
+            g_e = g_e * elu_grad(cv[lower])
+        dws[ca], dbs[ca] = wgrad(ca, g_a, cv[lower]), g_a.sum((0, 2, 3))
+    g_r1 = rnd(g_e)
+    dx = dgrad("b1", g_r1).to(torch.bfloat16)
+    dws["b1"], dbs["b1"] = wgrad("b1", g_r1, xf), g_r1.sum((0, 2, 3))
+    params = _tower_params(tower)
+    return (dx, [dws[n] for n in CONVS],
+            [None if b is None else dbs[n] for n, (_, b) in zip(CONVS, params)])
+
+
 def _bwd_layouts(w, dgrad: bool):
-    """An OIHW weight (f32 values of the compute dtype) as the backward's
-    direct conv reads it: [tap][Ci padded to 8][Co padded to 64] for the
-    forward; for the dgrad the taps flipped and I, O swapped."""
+    """An OIHW weight (f32 values of the compute dtype) as the CUDA-core
+    backward's direct conv reads it: [tap][Ci padded to 8][Co padded to 64]
+    for the forward; for the dgrad the taps flipped and I, O swapped."""
     if dgrad:
-        w = w.flip(2, 3).transpose(0, 1)
+        w = dgrad_weight(w)
     o, i, k, _ = w.shape
     out = torch.zeros((k * k, _round_up(i, 8), _round_up(o, 64)),
                       device=w.device)
@@ -353,24 +486,12 @@ def _bwd_layouts(w, dgrad: bool):
     return out
 
 
-def float_tower_backward(tower, x, dy):
-    """The tower's backward: (dx in x's dtype, [dW], [db]) for the gradient
-    dy (B, Nout, H, W) of ``fused_float_tower(x, tower)``.  dW in each
-    conv's OIHW layout and db, f32 (the weights' gradients also when they
-    are bf16); db None where a conv has no bias.
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
-    A CPU tensor runs the plain version (``float_tower_backward_reference``);
-    a CUDA tensor launches the kernel (``csrc/btower_bwd.cu``, one host entry)
-    or raises.  Counts every launch."""
-    c, nout = _check(x, tower)
+
+def _backward_cuda_cores(tower, x, dy, c, nout):
     b, cin, h, w = x.shape
-    if tuple(dy.shape) != (b, nout, h, w) or dy.dtype != x.dtype \
-            or dy.device != x.device:
-        raise ValueError(f"dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}"
-                         f", expected {(b, nout, h, w)} {x.dtype} on "
-                         f"{x.device}")
-    if x.device.type == "cpu":
-        return float_tower_backward_reference(tower, x, dy)
     dt = x.dtype
     params = _tower_params(tower)
     ws = [wt.detach().to(dt).float() for wt, _ in params]
@@ -378,7 +499,7 @@ def float_tower_backward(tower, x, dy):
           else bi.detach().float() for wt, bi in params]
     wf = [_bwd_layouts(wt, False) for wt in ws]
     wd = [_bwd_layouts(wt, True) for wt in ws]
-    lib = _bwd_lib()
+    lib = _bwd_lib()[0]
     scratch = torch.empty(lib.cwfa_btower_bwd_scratch(b, h, w, c),
                           device=x.device)
     part = torch.empty(lib.cwfa_btower_bwd_part(b, h, cin, c, nout),
@@ -386,26 +507,78 @@ def float_tower_backward(tower, x, dy):
     dx = torch.empty((b, cin, h, w), device=x.device)
     dws = [torch.empty_like(wt) for wt in ws]
     dbs = [torch.empty_like(bi) for bi in bs]
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
     # held until the launch is queued: a temporary's memory would go back to
     # the allocator, and the next one of the same size would take it
     x32, dy32 = x.float().contiguous(), dy.float().contiguous()
     rc = lib.cwfa_btower_bwd(
         x32.data_ptr(), dy32.data_ptr(),
-        ptrs(wf), ptrs(wd), ptrs(bs), dx.data_ptr(), ptrs(dws), ptrs(dbs),
+        _ptrs(wf), _ptrs(wd), _ptrs(bs), dx.data_ptr(), _ptrs(dws), _ptrs(dbs),
         scratch.data_ptr(), part.data_ptr(), b, h, w, cin, c, nout,
         int(dt == torch.bfloat16), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check_launch(rc, "float_tower_backward")
+    cuda_build.check_launch(rc, f"float_tower_backward ({CUDA_CORES})")
+    return dx.to(dt), dws, dbs
+
+
+def _backward_wgmma(tower, x, dy, nout):
+    b, cin, h, w = x.shape
+    wg = _bwd_lib()[1]
+    weights, biases = pack_float_tower_bwd(tower)
+    nbytes = wg.cwfa_btower_bwd_wg_scratch(b, h, w, cin, nout, x.device.index)
+    if nbytes < 0:
+        raise RuntimeError("float_tower_backward: no device attributes")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    dws = [torch.empty(getattr(tower, n).weight.shape, device=x.device)
+           for n in CONVS]
+    dbs = [torch.empty(getattr(tower, n).out_channels, device=x.device)
+           for n in CONVS]
+    rc = wg.cwfa_btower_bwd_wg(
+        x.data_ptr(), dy.data_ptr(), weights.data_ptr(), biases.data_ptr(),
+        dx.data_ptr(), _ptrs(dws), _ptrs(dbs), scratch.data_ptr(),
+        b, h, w, cin, nout, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check_launch(rc, f"float_tower_backward ({WGMMA_BF16})")
+    return dx, dws, dbs
+
+
+def float_tower_backward(tower, x, dy, *, instance=None):
+    """The tower's backward: (dx in x's dtype, [dW], [db]) for the gradient
+    dy (B, Nout, H, W) of ``fused_float_tower(x, tower)``.  dW in each
+    conv's OIHW layout and db, f32 (the weights' gradients also when they
+    are bf16); db None where a conv has no bias.
+
+    A CPU tensor runs the plain version (``float_tower_backward_reference``);
+    a CUDA tensor launches the instance that ``bwd_instance`` picks
+    (``csrc/btower_bwd_wg.cu`` or ``csrc/btower_bwd.cu``, one host entry
+    each) or raises.  instance: ``CUDA_CORES`` runs that instance where the
+    wgmma one would be picked (to time the two side by side).  Counts every
+    launch, and per instance in ``float_tower_backward.by_instance``."""
+    c, nout = _check(x, tower)
+    b, cin, h, w = x.shape
+    if tuple(dy.shape) != (b, nout, h, w) or dy.dtype != x.dtype \
+            or dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy is {tuple(dy.shape)} {dy.dtype} on {dy.device}"
+                         f", expected a contiguous {(b, nout, h, w)} "
+                         f"{x.dtype} on {x.device}")
+    if instance not in (None, CUDA_CORES):
+        raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
+    if x.device.type == "cpu":
+        return float_tower_backward_reference(tower, x, dy)
+    instance = instance or bwd_instance(x.dtype, c, cin, nout)
+    if instance == WGMMA_BF16:
+        dx, dws, dbs = _backward_wgmma(tower, x, dy, nout)
+    else:
+        dx, dws, dbs = _backward_cuda_cores(tower, x, dy, c, nout)
     float_tower_backward.launches += 1
-    return (dx.to(dt), dws,
-            [None if bi is None else db for (_, bi), db in zip(params, dbs)])
+    float_tower_backward.by_instance[instance] += 1
+    return (dx, dws, [None if conv.bias is None else db for conv, db in
+                      zip((getattr(tower, n) for n in CONVS), dbs)])
 
 
-float_tower_backward.launches = 0
+float_tower_backward.launches = 0             # every launch of the kernel
+# ... and of each instance
+float_tower_backward.by_instance = {WGMMA_BF16: 0, CUDA_CORES: 0}
 
 
 class FloatTowerFn(torch.autograd.Function):

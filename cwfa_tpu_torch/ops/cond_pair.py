@@ -25,7 +25,9 @@ multiplies nothing.  The weights may be f32 master weights under a bf16 x
 (training): they then run rounded to bf16.  ``CondPairFn`` differentiates
 the pair; its backward is a kernel too (``cond_pair_backward``,
 ``csrc/cond_pair_bwd.cu``; the TPU kernel has none, JAX trains through its
-XLA convs).
+XLA convs), with the forward's two instances (``bwd_instance``): bf16 with
+K = 32 on the tensor cores (its arithmetic in plain PyTorch
+``cond_pair_backward_products``), the rest on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -50,6 +52,12 @@ def kernel_instance(dtype, k: int) -> str:
     if dtype == torch.bfloat16 and k == TENSOR_CORE_K:
         return TENSOR_CORES
     return CUDA_CORES
+
+
+def bwd_instance(dtype, k: int) -> str:
+    """Which instance of the backward kernel runs a pair with ``k``
+    intermediate channels in ``dtype`` (the forward's choice)."""
+    return kernel_instance(dtype, k)
 
 
 def _pair_math(x, wa, ba, wb, bb, alpha, scale=None):
@@ -128,7 +136,7 @@ def _lib():
 def _bwd_lib():
     lib = cuda_build.load("cond_pair_bwd")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cwfa_cond_pair_bwd.argtypes = [p] * 10 + [i32] * 7 + [p]
+    lib.cwfa_cond_pair_bwd.argtypes = [p] * 10 + [i32] * 8 + [p]
     lib.cwfa_cond_pair_bwd.restype = i32
     lib.cwfa_cond_pair_bwd_part.argtypes = [i32] * 5
     lib.cwfa_cond_pair_bwd_part.restype = ctypes.c_int64
@@ -215,7 +223,39 @@ cond_pair.launches = 0                      # every launch of the kernel
 cond_pair.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}   # ... per instance
 
 
-def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None):
+def cond_pair_backward_products(x, dz, c3a, c3b, prelu, scale=None):
+    """The tensor-core instance's arithmetic in plain PyTorch (x, dz bf16):
+    pre and dy = conv_b^T(dz) from bf16 operands with f32 sums; y rounded as
+    the forward rounds it; dpre = dy m PReLU'(pre) in f32, rounded to bf16
+    once as the operand of dx's and dW_a's products; db_a and dalpha from
+    the f32 values.  Same results as ``cond_pair_backward``."""
+    dt = torch.bfloat16
+
+    def q(t):
+        return t.detach().to(dt).float()
+
+    wa, ba, wb, _, alpha = (q(t) for t in _pair_params(c3a, c3b, prelu))
+    v = x.float().permute(0, 2, 3, 1).unsqueeze(1)            # (B, 1, H, W, D)
+    g = dz.float().permute(0, 2, 3, 1).unsqueeze(1)
+    pre = F.conv3d(v, wa, ba, padding=1)
+    y = F.prelu(pre, alpha).to(dt).float()
+    m = torch.ones_like(pre[:, :, :1, :1, :1]) if scale is None \
+        else scale[:, :, None, None, None]
+    if scale is not None:
+        y = (y * m).to(dt).float()
+    gy = F.conv_transpose3d(g, wb, padding=1) * m            # dL/dPReLU(pre)
+    neg = pre <= 0
+    dpre = torch.where(neg, gy * alpha, gy)
+    dal = (gy * pre * neg).sum()
+    dq = dpre.to(dt).float()
+    dx = F.conv_transpose3d(dq, wa, padding=1)
+    dwa = torch.nn.grad.conv3d_weight(v, wa.shape, dq, padding=1)
+    dwb = torch.nn.grad.conv3d_weight(y, wb.shape, g, padding=1)
+    return (dx[:, 0].permute(0, 3, 1, 2).to(dt).contiguous(), dwa,
+            dpre.sum((0, 2, 3, 4)), dwb, g.sum().reshape(1), dal.reshape(1))
+
+
+def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
     """The pair's backward: (dx in x's dtype, dW_a, db_a, dW_b, db_b,
     dalpha), the last five f32 in the parameters' shapes, for the gradient
     dz of ``cond_pair(x, c3a, c3b, prelu, scale=scale)``.  dalpha is this
@@ -223,16 +263,22 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None):
     whose shares autograd adds.
 
     A CPU tensor runs the plain version (``cond_pair_backward_reference``);
-    a CUDA tensor launches the kernel (``csrc/cond_pair_bwd.cu``) or raises.
-    Counts every launch."""
+    a CUDA tensor launches the instance that ``bwd_instance`` picks
+    (``csrc/cond_pair_bwd.cu``) or raises.  instance: ``CUDA_CORES`` runs
+    that instance where the tensor-core one would be picked (to time the
+    two side by side).  Counts every launch, and per instance in
+    ``cond_pair_backward.by_instance``."""
     k = _check(x, c3a, c3b, prelu, scale)
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device \
             or not dz.is_contiguous():
         raise ValueError(f"dz is {tuple(dz.shape)} {dz.dtype} on {dz.device}"
                          f"; expected x's {tuple(x.shape)} {x.dtype}, "
                          "contiguous")
+    if instance not in (None, CUDA_CORES):
+        raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
         return cond_pair_backward_reference(x, dz, c3a, c3b, prelu, scale)
+    instance = instance or bwd_instance(x.dtype, k)
     b, d, h, w = x.shape
     lib = _bwd_lib()
     wa, ba, wb, _, alpha = _kernel_params(x, c3a, c3b, prelu)
@@ -245,17 +291,20 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None):
         wb.data_ptr(), alpha.data_ptr(),
         None if scale is None else scale.data_ptr(),
         dx.data_ptr(), grads.data_ptr(), part.data_ptr(), b, d, h, w, k,
-        _DTYPES[x.dtype], x.device.index,
+        _DTYPES[x.dtype], int(instance == TENSOR_CORES), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check_launch(rc, "cond_pair_backward")
+    cuda_build.check_launch(rc, f"cond_pair_backward ({instance})")
     cond_pair_backward.launches += 1
+    cond_pair_backward.by_instance[instance] += 1
     per = grads[:k * 56].view(k, 56)
     return (dx, per[:, :27].reshape(k, 1, 3, 3, 3), per[:, 54].contiguous(),
             per[:, 27:54].reshape(1, k, 3, 3, 3), grads[k * 56:],
             per[:, 55].sum().reshape(1))
 
 
-cond_pair_backward.launches = 0
+cond_pair_backward.launches = 0             # every launch of the kernel
+# ... and of each instance
+cond_pair_backward.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}
 
 
 class CondPairFn(torch.autograd.Function):

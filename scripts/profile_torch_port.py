@@ -1,8 +1,8 @@
-"""Where the time goes in the PyTorch port's reconstruction slice, or in its
-exact-likelihood path, on one GPU.
+"""Where the time goes in the PyTorch port's reconstruction slice, in its
+exact-likelihood path, or in a training step, on one GPU.
 
     python3 scripts/profile_torch_port.py [--batch 8] [--int8 | --nll
-                                           | --stochastic]
+                                           | --stochastic | --train]
 
 Builds the flagship rig (``cwfa_tpu_torch.rig.flagship``, random weights
 from seed 0) as a deterministic bf16 ``XLFMReconstructor`` — with
@@ -27,6 +27,11 @@ instance of ``fused_float_tower`` on the zero views condition), the 16
 forward ``cat_affine`` launches, the 20 permutations, the four Haar splits,
 and the reductions (16 log-det sums of the clamped s, four priors) with the
 four input blocks' plain affines.
+
+With ``--train`` the call is one flow optimizer step of each stage
+(``CWFATrainer._flow_step``, steps 3 .. 0, bf16, batch 1 whatever
+``--batch`` says, random inputs from seed 0): the step's time (CUDA events,
+median of 5 after a warm-up) and one step under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
 from cwfa_tpu_torch.engine.ood import PyramidScorer
+from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.flow.coupling import clamp_fn
 from cwfa_tpu_torch.flow.haar import haar1d_split
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
@@ -184,6 +190,33 @@ def profile_nll(model, stats, batch: int, dev):
     profile_call(lambda: scorer(vols))
 
 
+def profile_train(model, stats, dev):
+    """Training: one flow optimizer step of each stage, batch 1, the
+    model's compute dtype (bf16 for the flagship), inputs of the step's
+    shapes from seed 0."""
+    cfg = model.cfg
+    tr = CWFATrainer(model, stats, None, device=dev)
+    rng = np.random.RandomState(0)
+    side = cfg.volume_side_size
+
+    def rand(c, scale=1.0):
+        return torch.as_tensor((rng.randn(1, c, side, side) * scale)
+                               .astype(np.float32)).to(dev)
+
+    for k in reversed(range(model.n_flow_steps)):
+        spec = model.step_specs[k]
+        inputs = [rand(cfg.n_lenslets), rand(spec.c_flow, 0.3),
+                  rand(spec.d_in), rand(spec.c_flow)]
+
+        def step():
+            tr._flow_step(k, *inputs)
+
+        print(f"flow step {k} (c_flow {spec.c_flow}, batch 1, "
+              f"{tr.compute_dtype}): {cuda_ms(step):.3f} ms per optimizer "
+              f"step")
+        profile_call(step)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
@@ -191,6 +224,7 @@ def main():
     mode.add_argument("--int8", action="store_true")
     mode.add_argument("--nll", action="store_true")
     mode.add_argument("--stochastic", action="store_true")
+    mode.add_argument("--train", action="store_true")
     args = ap.parse_args()
     batch = args.batch
     if not torch.cuda.is_available():
@@ -201,6 +235,8 @@ def main():
         False, "cpu", torch.Generator().manual_seed(0))
     if args.nll:
         return profile_nll(model, stats, batch, dev)
+    if args.train:
+        return profile_train(model, stats, dev)
     rng = np.random.RandomState(0)
     side = cfg.volume_side_size
     caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)

@@ -5,8 +5,8 @@ comes from, so the header is generated.
     python3 scripts/torch_gen_wgmma_header.py          # print the header
     python3 scripts/torch_gen_wgmma_header.py --write  # replace the file
 
-To add a width, add it to ``SS_BF16``, ``RS_BF16``, ``RS_TF32``, ``SS_S8`` or
-``RS_S8`` and write the header anew; ``tests/test_torch_port_probes.py`` holds the committed
+To add a width, add it to ``SS_BF16``, ``SS_BF16_T``, ``RS_BF16``, ``RS_TF32``,
+``SS_S8`` or ``RS_S8`` and write the header anew; ``tests/test_torch_port_probes.py`` holds the committed
 header to this script's output.
 """
 
@@ -18,6 +18,7 @@ from pathlib import Path
 HEADER = (Path(__file__).resolve().parents[1] / "cwfa_tpu_torch" / "csrc"
           / "wgmma.cuh")
 SS_BF16 = (16, 32, 48, 64, 96, 128, 256)   # A and B from shared memory
+SS_BF16_T = (16, 32, 48, 64)           # ... both MN-major (transposed)
 RS_BF16 = (64,)                            # A from registers
 RS_TF32 = (16, 32, 48, 64, 96)
 SS_S8 = (16, 32, 48, 64, 96, 128)          # int8, int32 sums
@@ -32,12 +33,13 @@ def regs(n: int, start: int = 0) -> str:
     return ", ".join(f"%{i}" for i in range(start, start + n))
 
 
-def inst(kind: str, n: int, rs: bool) -> str:
+def inst(kind: str, n: int, rs: bool, mn_major: bool = False) -> str:
     """One wrapper: ``kind`` "bf16" (k16), "tf32" (k8) or "s8" (k32), N =
-    ``n``, A from registers (``rs``) or from shared memory."""
+    ``n``, A from registers (``rs``) or from shared memory; ``mn_major``
+    (bf16 from shared memory only): both operands MN-major."""
     nacc = n // 2
     k, types, ctype, constraint = KINDS[kind]
-    name = f"wgmma_{'rs' if rs else 'ss'}_{kind}"
+    name = f"wgmma_{'rs' if rs else 'ss'}_{kind}{'_t' if mn_major else ''}"
     a_arg = "const uint32_t* a" if rs else "uint64_t da"
     # the s8 products take scale-d as an argument (0: d = A B, the old sums
     # ignored); the float ones always add
@@ -50,6 +52,8 @@ def inst(kind: str, n: int, rs: bool) -> str:
     tail = {("bf16", True): "p, 1, 1, 0", ("bf16", False): "p, 1, 1, 0, 0",
             ("tf32", True): "p, 1, 1", ("s8", True): "p",
             ("s8", False): "p"}[kind, rs]
+    if mn_major:
+        tail = "p, 1, 1, 1, 1"
     out = ["template <>",
            f"__device__ __forceinline__ void {name}<{n}>({ctype}* d, {a_arg}, "
            f"uint64_t db{sd_arg}) {{",
@@ -86,7 +90,11 @@ HEAD = '''// Hopper (sm_90a) warpgroup matrix multiply (wgmma) building blocks: 
 // A warpgroup is four consecutive warps (128 threads, the first warp's index
 // a multiple of 4); all of them execute every instruction here together.
 // Both operands are K-major: a core matrix is 8 rows (M of A, N of B) of 16
-// bytes of K.
+// bytes of K.  The _t products (bf16, both from shared memory) take both
+// operands MN-major instead: a core matrix is 8 rows of K, each 16 bytes of
+// 8 consecutive M (or N) elements, 128 contiguous bytes; lbo = bytes
+// between the two core matrices of one product along K, sbo = bytes between
+// 8-element groups along M (N).
 //
 // Sum layout (d, N / 2 floats per thread), lane = 4 g + q of warp w:
 //   d[4 j + 0], d[4 j + 1]: row 16 w + g,     columns 8 j + 2 q, 8 j + 2 q + 1
@@ -156,6 +164,8 @@ __device__ __forceinline__ void fence_proxy_async() {
 template <int N>
 __device__ __forceinline__ void wgmma_ss_bf16(float* d, uint64_t da, uint64_t db);
 template <int N>
+__device__ __forceinline__ void wgmma_ss_bf16_t(float* d, uint64_t da, uint64_t db);
+template <int N>
 __device__ __forceinline__ void wgmma_rs_bf16(float* d, const uint32_t* a, uint64_t db);
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a, uint64_t db);
@@ -170,6 +180,7 @@ __device__ __forceinline__ void wgmma_rs_s8(int32_t* d, const uint32_t* a, uint6
 def render() -> str:
     parts = [HEAD]
     parts += [inst("bf16", n, False) for n in SS_BF16]
+    parts += [inst("bf16", n, False, mn_major=True) for n in SS_BF16_T]
     parts += [inst("bf16", n, True) for n in RS_BF16]
     parts += [inst("tf32", n, True) for n in RS_TF32]
     parts += [inst("s8", n, False) for n in SS_S8]
