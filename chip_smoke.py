@@ -3,8 +3,9 @@
     python3 chip_smoke.py                      # the whole check
     python3 chip_smoke.py tower cond_pair      # phases alone (kernels,
                                                # tower, cond_pair, float_tower,
-                                               # probes, serving, train) while
-                                               # working on one: no verdict
+                                               # probes, serving, train,
+                                               # train_cli) while working on
+                                               # one: no verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -111,7 +112,28 @@ code != 0) on the first phase that does not hold:
     stage's parameters changed and no other's, the launches per optimizer
     step (FLOW_PER_STEP, LRNN_PER_STEP; every K2 and K3 launch the
     tensor-core instance), ms per optimizer step and peak memory per stage,
-    and the checkpoints read back equal to the bit.
+    and the checkpoints read back equal to the bit;
+15. the non-fast reconstruction (``reconstruct(fast=False)``, what
+    evaluation runs): the small rig card vs CPU in f32; the flagship in
+    bf16 at batch 1 against the fast path and against its own f32 run, its
+    launches per call (EVAL_PER_CALL, the bf16 instances) and ms per frame;
+    then the training entry point, ``python -m cwfa_tpu_torch.cli.train``
+    (``cli.train.main``) at the flagship width and the configuration's
+    defaults, on two fish of 3 random uint16 2160^2 frames and 96 x 512^2
+    volumes in the CLI's layout with a neuron-coordinates file each: fold
+    0, ``--max_samples 3 --epochs 5 --eval_every 5`` (one epoch a stage,
+    then evaluation of train / val / test, 3 / 1 / 3 frames, the
+    checkpoints and the OOD screen); the launches of every flow epoch
+    (FLOW_PER_STEP a frame, every tower, pair, K2 and K3 launch on its
+    tensor-core instance), of every evaluation reconstruction
+    (EVAL_PER_CALL) and NLL refresh (NLL_PER_CALL a frame) and of the OOD
+    screen; finite losses, PSNRs and NLLs, the frames per tag, the 15 TB
+    PSNR scalars read back, 14 finite volume TIFFs of (96, 512, 512), no
+    BatchNorm buffer moved by ``evaluate``, the 5 step checkpoints read
+    back equal to the bit; and the CLI's seconds by segment (data load,
+    statistics, ms per optimizer step and peak memory per stage, the
+    reconstruction ms and host seconds per evaluated frame, peak memory
+    of ``evaluate``, the OOD screen).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -121,7 +143,8 @@ tower also with the ``f32_*`` numbers of its f32 instance, which the
 likelihood path runs; the serving path's kernels with ``serve_launches``,
 their launches in its two runs; the three backward kernels with the
 training run's launches, the forward kernels of training with
-``train_launches``), then, as its
+``train_launches``; every kernel's launches in the training CLI's
+evaluation as ``eval_launches``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -145,6 +168,7 @@ import torch
 import torch.nn.functional as F
 
 from cwfa_tpu_torch.cli import serve
+from cwfa_tpu_torch.config import CWFAConfig
 from cwfa_tpu_torch.data.tiff import read_tiff_stack, write_tiff_stack
 from cwfa_tpu_torch.data.dataset import ConcatXLFMDataset, load_xlfm_data
 from cwfa_tpu_torch.data.views import make_view_indices
@@ -235,6 +259,14 @@ FLOW_PER_STEP = {"fused_float_tower": 5, "float_tower_bwd": 5,
                  "cond_pair_bwd": 1}
 LRNN_PER_STEP = {}
 TRAIN_FRAMES = 3
+# launches per evaluation reconstruction (the non-fast chain, batch 1):
+# every step reverses its 4 coupling blocks (tower + cat_affine each) and
+# its input block (tower; the affine is plain torch), then merges with the
+# plain inverse Haar, so haar_merge_affine does not run; the 4 cond nets
+# run their 3-D pair once each
+EVAL_PER_CALL = {"fused_float_tower": 20, "cat_affine": 16, "cond_pair": 4}
+# the training CLI's frames per tag: --max_samples 3, fold 0 of two fish
+CLI_FRAMES = {"train": 3, "val": 1, "test": 3}
 SERVE_FRAMES, SERVE_BATCH = 19, 8
 PROBE_US = (1, 4, 8, 16)           # the FMA probe's accumulator counts here
 # bounds of the two fused-conv kernels, as a share of max|ref|:
@@ -1904,13 +1936,13 @@ def phase_train_small(dev):
             f"max|ref| (bound 1e-3), the worst at {where}")
 
 
-def write_train_dataset(root: Path, cfg, img: int):
+def write_train_dataset(root: Path, cfg, img: int, seed: int = 12):
     """TRAIN_FRAMES random uint16 camera frames of img^2 in XLFMDataset's
     layout (XLFM_image/XLFM_image_stack.tif, XLFM_stack/XLFM_stack_NNN.tif
     volumes of the configuration's depth and side) and the rig's lenslet
     file.  Returns (dataset dir, lenslet file)."""
     side = cfg.volume_side_size
-    rng = np.random.RandomState(12)
+    rng = np.random.RandomState(seed)
     (root / "XLFM_image").mkdir(parents=True)
     (root / "XLFM_stack").mkdir()
     write_tiff_stack(str(root / "XLFM_image" / "XLFM_image_stack.tif"),
@@ -2047,29 +2079,37 @@ def phase_train_flagship(dev, card, kernels, img: int):
                 KERNELS[name]["wrapper"].by_instance)
         ckpt = root / "ckpt"
         files = tr.save_checkpoints(cfg.epochs - 1, str(ckpt))
-        back = copy.deepcopy(model).cpu()
-        back.load_state_dict({k: torch.zeros_like(v)
-                              for k, v in back.state_dict().items()})
-        opts = make_optimizers(back)
-        _, steps = checkpoints.load_model_checkpoints(back, str(ckpt),
-                                                      optimizers=opts)
-        want, got = model.state_dict(), back.state_dict()
-        lions = [*tr.opt_flow, *tr.opt_cond, tr.opt_lrnn]
-        lions_back = [*opts[0], *opts[1], opts[2]]
-        same = steps == list(range(1, cfg.INN_max_down_steps + 1)) and all(
-            torch.equal(want[k].cpu(), got[k]) for k in want) and all(
-            a.count == b.count and all(torch.equal(x.cpu(), y)
-                                       for x, y in zip(a.mu, b.mu))
-            for a, b in zip(lions, lions_back))
-        if not same:
-            fail("train checkpoints: a parameter, BatchNorm buffer or Lion "
-                 "momentum read back differs from the trainer's")
-        mb = sum(os.path.getsize(f) for f in files) / 1e6
-        log(f"train checkpoints: {len(files)} files ({mb:.1f} MB) read back "
-            f"through engine/checkpoints equal to the bit (parameters, "
-            f"BatchNorm statistics, Lion momenta and counts)")
+        check_checkpoints(tr, ckpt, files, "train")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def check_checkpoints(tr, ckpt: Path, files: list, what: str):
+    """The step files in ``ckpt`` read back through engine/checkpoints into
+    a zeroed copy of the trainer's model equal to the bit: parameters,
+    BatchNorm statistics, Lion momenta and counts."""
+    model, cfg = tr.model, tr.cfg
+    back = copy.deepcopy(model).cpu()
+    back.load_state_dict({k: torch.zeros_like(v)
+                          for k, v in back.state_dict().items()})
+    opts = make_optimizers(back)
+    _, steps = checkpoints.load_model_checkpoints(back, str(ckpt),
+                                                  optimizers=opts)
+    want, got = model.state_dict(), back.state_dict()
+    lions = [*tr.opt_flow, *tr.opt_cond, tr.opt_lrnn]
+    lions_back = [*opts[0], *opts[1], opts[2]]
+    same = steps == list(range(1, cfg.INN_max_down_steps + 1)) and all(
+        torch.equal(want[k].cpu(), got[k]) for k in want) and all(
+        a.count == b.count and all(torch.equal(x.cpu(), y)
+                                   for x, y in zip(a.mu, b.mu))
+        for a, b in zip(lions, lions_back))
+    if not same:
+        fail(f"{what} checkpoints: a parameter, BatchNorm buffer or Lion "
+             "momentum read back differs from the trainer's")
+    mb = sum(os.path.getsize(f) for f in files) / 1e6
+    log(f"{what} checkpoints: {len(files)} files ({mb:.1f} MB), steps "
+        f"{steps}, read back through engine/checkpoints equal to the bit "
+        f"(parameters, BatchNorm statistics, Lion momenta and counts)")
 
 
 def phase_train(dev, card, kernels, img: int):
@@ -2080,6 +2120,369 @@ def phase_train(dev, card, kernels, img: int):
     phase_train_small(dev)
     torch.cuda.empty_cache()
     phase_train_flagship(dev, card, kernels, img)
+
+
+def phase_nonfast(dev, card, kernels):
+    """The non-fast reconstruction (``reconstruct(fast=False)``, what
+    evaluation runs): the small rig card vs CPU in f32, deterministic; the
+    flagship at batch 1, deterministic, in bf16 against the fast path and
+    against its own f32 run, its launches per call (EVAL_PER_CALL, the
+    bf16 instances) and ms per frame beside the fast path's."""
+    def chain(recon, frames, fast):
+        with torch.inference_mode():
+            return recon.model.reconstruct(
+                recon._normalized_views(frames), recon.mean_caches, fast=fast,
+                lrnn_mean_branch=recon.mean_branch).float()
+
+    _, small, stats, vidx, img = flagship(True, "cpu",
+                                          torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(5)
+    side = small.cfg.volume_side_size
+    caches = [rng.randn(1, small.cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(small.n_flow_steps + 1)]
+    frames = (rng.rand(2, img, img) * 1000).astype(np.float32)
+    ref = chain(XLFMReconstructor(small, stats, vidx, caches, device="cpu",
+                                  deterministic=True), frames, False)
+    got = chain(XLFMReconstructor(small, stats, vidx, caches, device=dev,
+                                  deterministic=True), frames, False).cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"small rig f32 reconstruct(fast=False), card vs CPU: max|d|/max|ref| "
+        f"{rel:.3e} (bound 1e-4)")
+    if not rel <= 1e-4:
+        fail(f"small rig non-fast card vs CPU {rel:.3e} > 1e-4")
+
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    side = cfg.volume_side_size
+    caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(model.n_flow_steps + 1)]
+    frames = torch.as_tensor(
+        rng.rand(1, img, img).astype(np.float32) * 1000).to(dev)
+    recon16 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                deterministic=True,
+                                compute_dtype=torch.bfloat16)
+    reset_counts()
+    before = launch_counts()
+    slow16 = chain(recon16, frames, False)
+    check_counts(EVAL_PER_CALL, 1, "flagship bf16 reconstruct(fast=False)",
+                 before)
+    check_instance("fused_float_tower", btower.WGMMA_BF16,
+                   "flagship bf16 reconstruct(fast=False)")
+    check_instance("cond_pair", cpair.TENSOR_CORES,
+                   "flagship bf16 reconstruct(fast=False)")
+    fast16 = chain(recon16, frames, True)
+    if not (bool(torch.isfinite(slow16).all())
+            and slow16.shape == (1, cfg.n_depths, side, side)):
+        fail(f"flagship non-fast: shape {tuple(slow16.shape)} or non-finite")
+    rel_fast = ((slow16 - fast16).abs().max() / fast16.abs().max()).item()
+    ms_slow = event_ms(lambda: chain(recon16, frames, False))
+    ms_fast = event_ms(lambda: chain(recon16, frames, True))
+    del recon16
+    recon32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                deterministic=True)
+    slow32 = chain(recon32, frames, False)
+    del recon32
+    rel32 = ((slow16 - slow32).abs().max() / slow32.abs().max()).item()
+    log(f"flagship reconstruct(fast=False), batch 1: bf16 vs the fast path "
+        f"max|d|/max|fast| {rel_fast:.3e} (bound 5e-2), bf16 vs its f32 run "
+        f"{rel32:.3e} (bound 5e-2); launches per call {EVAL_PER_CALL}, the "
+        f"bf16 instances; bf16 ms per frame {np.median(ms_slow):.2f} "
+        f"(fast path {np.median(ms_fast):.2f}; {ms_slow} / {ms_fast}); on "
+        f"{card}")
+    if not rel_fast <= 5e-2:
+        fail(f"flagship non-fast vs fast {rel_fast:.3e} > 5e-2")
+    if not rel32 <= 5e-2:
+        fail(f"flagship non-fast bf16 vs f32 {rel32:.3e} > 5e-2")
+    torch.cuda.empty_cache()
+
+
+def write_cli_tree(root: Path, cfg, img: int) -> Path:
+    """Two fish in the training CLI's layout (``<root>/<fish>/
+    SLNet_preprocessed``, as ``use_sparse_for_all`` = 1 reads), each with
+    TRAIN_FRAMES frames and volumes (``write_train_dataset``) and a
+    ``Neural_activity_coordinates.csv`` of four neurons inside the volume,
+    one at its edge.  Returns the first fish's lenslet file."""
+    lenslets = None
+    for fi in range(2):
+        data, lens = write_train_dataset(
+            root / f"fish_{fi}" / "SLNet_preprocessed", cfg, img,
+            seed=12 + fi)
+        lenslets = lenslets or lens
+        (data / "Neural_activity_coordinates.csv").write_text(
+            "patch_n,coord_x,coord_y,coord_z,corr_coeff,is_gt\n"
+            "0,100,200,0,1,1\n1,256,256,10,1,1\n2,2,509,-30,1,1\n"
+            "3,400,50,40,1,1\n")
+    return lenslets
+
+
+def phase_train_cli(dev, card, kernels, img: int):
+    """The training entry point, ``cli.train.main``, at the flagship width
+    and the configuration's defaults (bf16, batch 1, 4 CAT steps x 4
+    blocks, 64-wide towers) on two fish of TRAIN_FRAMES random frames:
+    fold 0, ``--max_samples 3 --epochs 5 --eval_every 5`` — one epoch a
+    stage, then ``evaluate`` of train / val / test (3 / 1 / 3 frames), the
+    checkpoints and the OOD screen of the test frames.  The trainer's
+    methods are wrapped to hold the launches of every flow epoch
+    (FLOW_PER_STEP a frame), evaluation reconstruction (EVAL_PER_CALL) and
+    NLL refresh (NLL_PER_CALL a frame), each on its tensor-core instance,
+    and to time the CLI's segments."""
+    from cwfa_tpu_torch.cli import train as train_cli
+    from cwfa_tpu_torch.utils.tb_writer import read_event_file
+
+    root = Path(tempfile.mkdtemp(prefix="cwfa_cli_"))
+    seg: dict = {}
+    state = {"eval": None, "trainer": None, "ood": None, "files": None}
+    patches = []
+
+    def add(name, v):
+        seg.setdefault(name, []).append(v)
+
+    def patch(obj, name, make):
+        orig = getattr(obj, name)
+        patches.append((obj, name, orig))
+        setattr(obj, name, make(orig))
+
+    def host_timed(name):
+        def make(fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                add(name if state["eval"] is None
+                    else f"{name}/{state['eval']}", time.perf_counter() - t0)
+                return out
+            return run
+        return make
+
+    def instances():
+        return {n: dict(KERNELS[n]["wrapper"].by_instance)
+                for n in ("fused_float_tower", "cond_pair", "float_tower_bwd",
+                          "cond_pair_bwd")}
+
+    def on_instance(before, counts, name, instance, what):
+        got = KERNELS[name]["wrapper"].by_instance[instance] \
+            - before[name][instance]
+        n = launch_counts()[name] - counts[name]
+        if got != n:
+            fail(f"{what}: {got} of its {n} {name} launches ran the "
+                 f"{instance} instance")
+
+    def step_timed(fn):
+        def run(self, *args):
+            stage = args[0] if fn.__name__ == "_flow_step" \
+                else self.model.n_flow_steps
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(self, *args)
+            end.record()
+            torch.cuda.synchronize()
+            add(f"step_ms/{stage}", start.elapsed_time(end))
+            return out
+        return run
+
+    def epoch_checked(fn):
+        def run(self, dataset, epoch, *args, **kw):
+            stage = self.stage_for_epoch(epoch)
+            nf = self.model.n_flow_steps
+            counts, inst = launch_counts(), instances()
+            torch.cuda.reset_peak_memory_stats()
+            loss = fn(self, dataset, epoch, *args, **kw)
+            what = f"train_cli epoch {epoch} (stage {stage})"
+            if stage == nf:
+                # the first epoch: the 3 GT pyramids and the mean caches
+                check_counts(NLL_PER_CALL, TRAIN_FRAMES + 1, what, counts)
+            else:
+                check_counts(FLOW_PER_STEP, TRAIN_FRAMES, what, counts)
+                for name, instance in (
+                        ("fused_float_tower", btower.WGMMA_BF16),
+                        ("cond_pair", cpair.TENSOR_CORES),
+                        ("float_tower_bwd", btower.WGMMA_BF16),
+                        ("cond_pair_bwd", cpair.TENSOR_CORES)):
+                    on_instance(inst, counts, name, instance, what)
+            add("loss", loss)
+            add(f"train_peak/{stage}", torch.cuda.max_memory_allocated())
+            return loss
+        return run
+
+    def recon_checked(fn):
+        def run(self, *args):
+            counts, inst = launch_counts(), instances()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(self, *args)
+            end.record()
+            torch.cuda.synchronize()
+            add(f"recon_ms/{state['eval']}", start.elapsed_time(end))
+            what = f"train_cli evaluate {state['eval']} reconstruction"
+            check_counts(EVAL_PER_CALL, 1, what, counts)
+            on_instance(inst, counts, "fused_float_tower", btower.WGMMA_BF16,
+                        what)
+            on_instance(inst, counts, "cond_pair", cpair.TENSOR_CORES, what)
+            return out
+        return run
+
+    def eval_checked(fn):
+        def run(self, dataset, tag="val", *args, **kw):
+            state["trainer"] = self
+            buffers = {k: v.clone() for k, v in self.model.named_buffers()}
+            counts = launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state["eval"] = tag
+            t0 = time.perf_counter()
+            try:
+                res = fn(self, dataset, tag, *args, **kw)
+            finally:
+                state["eval"] = None
+            torch.cuda.synchronize()
+            add(f"eval_s/{tag}", time.perf_counter() - t0)
+            add(f"eval_peak/{tag}", torch.cuda.max_memory_allocated())
+            n = len(dataset)
+            delta = check_counts({k: EVAL_PER_CALL.get(k, 0)
+                                  + NLL_PER_CALL.get(k, 0)
+                                  for k in KERNELS}, n,
+                                 f"train_cli evaluate {tag}", counts)
+            for name, d in delta.items():
+                kernels[name]["eval_launches"] = \
+                    kernels[name].get("eval_launches", 0) + d
+            moved = [k for k, v in self.model.named_buffers()
+                     if not torch.equal(v, buffers[k])]
+            if moved:
+                fail(f"train_cli evaluate {tag} moved the buffers {moved}")
+            return res
+        return run
+
+    def ood_checked(fn):
+        def run(trainer, dataset, *args, **kw):
+            counts = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(trainer, dataset, *args, **kw)
+            add("ood_s", time.perf_counter() - t0)
+            check_counts(NLL_PER_CALL, len(dataset), "train_cli OOD screen",
+                         counts)
+            state["ood"] = out
+            return out
+        return run
+
+    def files_kept(fn):
+        def run(self, *args, **kw):
+            state["files"] = fn(self, *args, **kw)
+            return state["files"]
+        return run
+
+    try:
+        t0 = time.perf_counter()
+        cfg = CWFAConfig()                          # the defaults
+        lenslets = write_cli_tree(root / "data", cfg, img)
+        log(f"train_cli tree: 2 fish x {TRAIN_FRAMES} uint16 frames of "
+            f"{img}^2 and volumes of {cfg.n_depths} x "
+            f"{cfg.volume_side_size}^2 written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        T = CWFATrainer
+        patch(train_cli, "load_xlfm_data", host_timed("load"))
+        patch(ConcatXLFMDataset, "get_statistics", host_timed("statistics"))
+        patch(T, "_lrnn_step", step_timed)
+        patch(T, "_flow_step", step_timed)
+        patch(T, "train_epoch", epoch_checked)
+        patch(T, "_recon_eval", recon_checked)
+        patch(T, "_batch_inputs", host_timed("inputs_s"))
+        patch(T, "_refresh_nlls", host_timed("refresh_s"))
+        patch(T, "evaluate", eval_checked)
+        patch(T, "save_checkpoints", files_kept)
+        patch(train_cli, "detect_ood", ood_checked)
+        argv = ["--main_data_path", str(root / "data"), "--lenslet_file",
+                str(lenslets), "--output_testing_path", str(root / "runs") + "/",
+                "--cross_validation_nFold", "0", "--max_samples", "3",
+                "--epochs", "5", "--eval_every", "5", "--img_size", str(img)]
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            results = train_cli.main(argv)
+        finally:
+            for obj, name, orig in reversed(patches):
+                setattr(obj, name, orig)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        _check_train_cli(root, results, seg, state, total, card, kernels,
+                         read_event_file)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _check_train_cli(root, results, seg, state, total, card, kernels,
+                     read_event_file):
+    tr = state["trainer"]
+    nf = tr.model.n_flow_steps
+    (run_dir,) = list((root / "runs").iterdir())
+    if not all(np.isfinite(seg["loss"])):
+        fail(f"train_cli losses {seg['loss']}")
+    for tag, n in CLI_FRAMES.items():
+        res = results[tag]
+        if not (len(res["psnr"]) == len(res["nll"]) == len(res["times"]) == n):
+            fail(f"train_cli {tag}: {len(res['psnr'])} frames evaluated, "
+                 f"expected {n}")
+        if not (np.isfinite(np.asarray(res["psnr"])).all()
+                and np.isfinite(np.asarray(res["nll"])).all()):
+            fail(f"train_cli {tag}: non-finite PSNR or NLL")
+    (events,) = run_dir.glob("events.out.tfevents.*")
+    scalars = {e["tag"]: e["value"] for e in read_event_file(str(events))
+               if e["kind"] == "scalar"}
+    want = [f"fine_tune/psnr/{tag}/step_{k}" for tag in CLI_FRAMES
+            for k in range(nf + 1)]
+    missing = [t for t in want if not np.isfinite(scalars.get(t, np.nan))]
+    if missing:
+        fail(f"train_cli event file: no finite {missing}")
+    vols = sorted(run_dir.glob("stacks/*/*/*.tif"))
+    cfg = tr.cfg
+    shape = (cfg.n_depths, cfg.volume_side_size, cfg.volume_side_size)
+    bad = [str(p.relative_to(run_dir)) for p in vols
+           if (lambda v: v.shape != shape or not np.isfinite(v).all())(
+               read_tiff_stack(str(p)))]
+    if len(vols) != 2 * sum(CLI_FRAMES.values()) or bad:
+        fail(f"train_cli volume TIFFs: {len(vols)} found, bad {bad}")
+    check_checkpoints(tr, run_dir, state["files"], "train_cli")
+    ood = state["ood"]
+    if ood.nll_per_frame.shape != (CLI_FRAMES["test"], nf) or not \
+            np.isfinite(ood.nll_per_frame).all():
+        fail(f"train_cli OOD NLLs {ood.nll_per_frame}")
+
+    def med(key):
+        return float(np.median(seg[key]))
+    steps = "; ".join(
+        f"{'LRNN' if k == nf else f'flow step {k}'} "
+        f"{med(f'step_ms/{k}'):.2f} ms ({['%.2f' % t for t in seg[f'step_ms/{k}']]})"
+        f", peak {max(seg[f'train_peak/{k}']) / 2**30:.2f} GiB"
+        for k in range(nf, -1, -1))
+    log(f"train_cli: finite losses {['%.5g' % v for v in seg['loss']]}; "
+        f"frames per tag {CLI_FRAMES}; {len(want)} TB PSNR scalars; "
+        f"{len(vols)} volume TIFFs of {shape}, finite; OOD NLLs "
+        f"{np.round(ood.nll_per_frame, 4).tolist()}; on {card}")
+    log(f"train_cli segments: main {total:.1f} s; data load "
+        f"{sum(seg['load']):.1f} s ({len(seg['load'])} fish datasets), "
+        f"statistics {sum(seg['statistics']):.2f} s; ms per optimizer step "
+        f"(CUDA events): {steps}; OOD screen of {CLI_FRAMES['test']} frames "
+        f"{sum(seg['ood_s']):.2f} s")
+    for tag, n in CLI_FRAMES.items():
+        recon = seg[f"recon_ms/{tag}"]
+        inputs = sum(seg.get(f"inputs_s/{tag}", []))
+        refresh = sum(seg.get(f"refresh_s/{tag}", []))
+        wall = sum(seg[f"eval_s/{tag}"])
+        host = (wall - inputs - refresh - sum(recon) / 1e3) / n
+        log(f"train_cli evaluate {tag} ({n} frames): reconstruction "
+            f"{np.median(recon):.2f} ms/frame (CUDA events; "
+            f"{['%.2f' % t for t in recon]}; res['times'] "
+            f"{['%.2f' % (t * 1e3) for t in results[tag]['times']]}); "
+            f"GT pyramids + views {inputs:.2f} s, NLL refresh {refresh:.2f} s; "
+            f"host {host:.2f} s/frame (metrics, projections, TIFF puts, "
+            f"copies); wall {wall:.2f} s; peak "
+            f"{max(seg[f'eval_peak/{tag}']) / 2**30:.2f} GiB")
+    log(f"train_cli launches in evaluate (reconstruction + NLL refresh): "
+        f"{ {k: v['eval_launches'] for k, v in kernels.items() if v.get('eval_launches')} }")
 
 
 def main():
@@ -2122,6 +2525,9 @@ def main():
         alone = {**kernel_phases, "serving": serving,
                  "train": lambda dev, kernels: phase_train(dev, card, kernels,
                                                            2160),
+                 "train_cli": lambda dev, kernels: (
+                     phase_nonfast(dev, card, kernels),
+                     phase_train_cli(dev, card, kernels, 2160)),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -2156,6 +2562,9 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_train(dev, card, kernels, frames1.shape[-1])
+    torch.cuda.empty_cache()
+    phase_nonfast(dev, card, kernels)
+    phase_train_cli(dev, card, kernels, frames1.shape[-1])
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -2176,7 +2585,7 @@ def main():
             if key.startswith("f32_") or key in (
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
                 "serve_launches", "train_launches", "launches_by_instance",
-                "step_ms")}}
+                "step_ms", "eval_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

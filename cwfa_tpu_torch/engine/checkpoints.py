@@ -141,20 +141,26 @@ def save_model_checkpoints(model, path: str, epoch: int,
 
 
 def load_model_checkpoints(model, path: str, max_epoch: int | None = None,
-                           optimizers=None):
+                           optimizers=None, steps=None, configs=None):
     """Fill ``model`` in place from the highest-epoch file of each step in
-    ``path``, by the convention of the module docstring, and with
-    ``optimizers`` ((flow Lions, cond Lions, LRNN Lion)) their Lion state
-    where a file has one.  Returns (the first statistics found in step
-    order or None, the steps loaded).  Raises KeyError / ValueError when a
-    file's tree does not fit the model (a key left over or missing, a shape
-    that differs)."""
+    ``path`` (epochs above ``max_epoch`` ignored; only the file steps in
+    ``steps``, where given), by the convention of the module docstring,
+    and with ``optimizers`` ((flow Lions, cond Lions, LRNN Lion)) their
+    Lion state where a file has one.  ``configs``, where a dict is given,
+    receives {step: the step's CWFAConfig}.  Returns (the first statistics
+    found in step order or None, the steps loaded).  Raises KeyError /
+    ValueError when a file's tree does not fit the model (a key left over
+    or missing, a shape that differs)."""
     nf = model.n_flow_steps
     params, state = (to_state_dict(t) for t in export_jax_params(model))
     stats, loaded, opts = None, [], []
     found = discover_checkpoints(path, max_epoch=max_epoch)
     for step, (_, fname) in sorted(found.items()):
-        payload, _, st = load_step_checkpoint(fname)
+        if steps is not None and step not in steps:
+            continue
+        payload, cfg, st = load_step_checkpoint(fname)
+        if configs is not None:
+            configs[step] = cfg
         stats = stats or st
         ix = step - 1
         if ix < nf and payload["INN_state_dict"]:

@@ -29,6 +29,23 @@ from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.models.lrnn import lrnn_mean_branch
 
 
+def device_timer(device: torch.device):
+    """Starts a timer; returns stop() -> seconds since: CUDA events on a
+    card (the device's time from the first launch after the start to the
+    last one's end), the host clock on the CPU."""
+    if device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+
+        def stop():
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return stop
+    t0 = time.perf_counter()
+    return lambda: time.perf_counter() - t0
+
+
 class XLFMReconstructor:
     """Callable: raw camera frames (B, H, W) -> volumes (B, D, S, S), f32.
 
@@ -108,23 +125,6 @@ class XLFMReconstructor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _timer(self):
-        """start() -> stop() -> seconds between them: CUDA events on a
-        card (the device's time from the first call's launch to the last
-        one's end), the host clock on the CPU."""
-        if self.device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-
-            def stop():
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end) / 1e3
-            return stop
-        t0 = time.perf_counter()
-        return lambda: time.perf_counter() - t0
-
     def warmup(self, batch_size: int, img_hw):
         """One call on a zero batch, waited for (in the default mode it
         draws from the generator like any other call)."""
@@ -138,7 +138,7 @@ class XLFMReconstructor:
         frames = torch.as_tensor(raw_images).to(self.device, torch.float32)
         self(frames)
         self._sync()
-        stop = self._timer()
+        stop = device_timer(self.device)
         for _ in range(n_repeats):
             self(frames)
         return frames.shape[0] * n_repeats / stop()
@@ -154,7 +154,7 @@ class XLFMReconstructor:
         self._sync()
         times = []
         for _ in range(n):
-            stop = self._timer()
+            stop = device_timer(self.device)
             self(frames)
             times.append(stop() * 1e3)
         return float(np.percentile(times, 50)), float(np.min(times))

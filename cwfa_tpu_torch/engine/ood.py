@@ -7,9 +7,12 @@ flags novel samples.  Decision rule: NLL above the threshold (lower
 likelihood than the threshold) => out-of-distribution.
 
 ``PyramidScorer`` is the scoring function the JAX trainer builds as
-``pyramid_fn`` (``cwfa_tpu/engine/trainer.py:233-255``) and nothing else of
-the trainer.  It keeps no per-frame cache, so there is no cache tag that two
-datasets could share.  The finetune loop and the CLI are not ported.
+``pyramid_fn`` (``cwfa_tpu/engine/trainer.py:233-255``); it keeps no
+per-frame cache.  ``detect_ood`` scores either raw volumes through a
+scorer, or a dataset through a ``CWFATrainer``'s version-stamped NLL cache
+(``cwfa_tpu/engine/ood.py:34-71``), under a cache tag of the dataset's own
+``cache_tag`` (never ``id()``, which CPython reuses).  The finetune loop and
+its CLI are not ported.
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ class OODResult:
     step_used: int
 
 
-def _sentinel(values):
+def sentinel(values):
+    """The (n_steps, B) stack of per-step NLLs (or priors) with NaN / Inf
+    replaced by the reference's 1e15 (CWFA.py:825-828)."""
     return torch.nan_to_num(torch.stack(values), nan=NLL_SENTINEL,
                             posinf=NLL_SENTINEL, neginf=NLL_SENTINEL)
 
@@ -77,7 +82,7 @@ class PyramidScorer:
             v = v + self.noise_std * noise.to(v.device)
         nlls, cache, priors, ljs = self.model.forward_pyramid(
             v, per_sample=True)
-        return _sentinel(nlls), cache, _sentinel(priors), torch.stack(ljs)
+        return sentinel(nlls), cache, sentinel(priors), torch.stack(ljs)
 
     def score(self, volumes) -> np.ndarray:
         """(n_frames, n_flow_steps) NLLs of ``volumes`` (n_frames, n_depths,
@@ -87,23 +92,47 @@ class PyramidScorer:
         return np.concatenate(out).astype(np.float32)
 
 
-def detect_ood(scorer: PyramidScorer, volumes,
-               step_ll_to_use: int | None = None,
-               threshold: float | None = None) -> OODResult:
-    """Score every frame's forward NLL and threshold it.
-
-    volumes: (n_frames, n_depths, H, W) raw volumes (numpy or tensor; may be
-    empty).  ``step_ll_to_use`` and ``threshold`` default to the model
-    config's ``step_LL_to_use`` and ``step_LL_ths_to_use``."""
-    cfg = scorer.model.cfg
-    step = cfg.step_LL_to_use if step_ll_to_use is None else step_ll_to_use
-    ths = cfg.step_LL_ths_to_use if threshold is None else threshold
-    if len(volumes) == 0:
-        empty = np.zeros((0, scorer.model.n_flow_steps), np.float32)
-        return OODResult(nll_per_frame=empty, scores=empty[:, 0],
-                         is_ood=empty[:, 0] > ths, threshold=ths,
-                         step_used=step)
-    nlls = scorer.score(volumes)
+def _result(nlls: np.ndarray, step: int, ths: float) -> OODResult:
     scores = nlls[:, step]
     return OODResult(nll_per_frame=nlls, scores=scores, is_ood=scores > ths,
                      threshold=ths, step_used=step)
+
+
+def detect_ood(source, data, step_ll_to_use: int | None = None,
+               threshold: float | None = None,
+               tag: str | None = None) -> OODResult:
+    """Score every frame's forward NLL and threshold it.
+
+    ``detect_ood(scorer, volumes)``: a ``PyramidScorer`` and (n_frames,
+    n_depths, H, W) raw volumes (numpy or tensor; may be empty).
+
+    ``detect_ood(trainer, dataset)``: a ``CWFATrainer`` and a
+    ``ConcatXLFMDataset``; the frames are scored in the trainer's
+    mini-batches through its NLL cache under ``tag`` (default
+    ``"ood:<dataset.cache_tag>"``, one per dataset object and version;
+    pass ``"train"`` to share the caches of a training loop over the same
+    dataset), so a first pass uploads each volume once and primes its GT
+    pyramid, and a pass after an optimizer step recomputes from the cached
+    pyramids.
+
+    ``step_ll_to_use`` and ``threshold`` default to the model config's
+    ``step_LL_to_use`` and ``step_LL_ths_to_use``."""
+    scorer = isinstance(source, PyramidScorer)
+    cfg = source.model.cfg
+    step = cfg.step_LL_to_use if step_ll_to_use is None else step_ll_to_use
+    ths = cfg.step_LL_ths_to_use if threshold is None else threshold
+    if len(data) == 0:
+        return _result(np.zeros((0, source.model.n_flow_steps), np.float32),
+                       step, ths)
+    if scorer:
+        if tag is not None:
+            raise ValueError("a PyramidScorer keeps no cache: no tag")
+        return _result(source.score(data), step, ths)
+    if tag is None:
+        tag = f"ood:{data.cache_tag}"
+    source.ensure_mean_caches(data)
+    for _, ixs in source._batches(data):
+        source._refresh_nlls(data, tag, ixs)
+    nlls = np.stack([source._frame_nll(data, tag, ix)
+                     for ix in range(len(data))])
+    return _result(nlls, step, ths)

@@ -22,8 +22,8 @@ no gradients).  The inference callers run them under
 kernel (``ops/btower.FloatTowerFn``, via ``WaveletFlowSubnet2d.tower``),
 and every coupling block's affine through ``ops/flow_affine.CatAffineFn``;
 the backward of both is a kernel too.  With a ``qpack`` (``quantize_cat_step``)
-``reverse_fast`` runs the coupling towers in int8 through the int8 tower
-kernel (``ops/qtower.fused_tower``).
+``reverse_fast`` and ``towers`` (which ``reverse`` takes) run the coupling
+towers in int8 through the int8 tower kernel (``ops/qtower.fused_tower``).
 """
 
 from __future__ import annotations
@@ -90,6 +90,17 @@ def build_step_specs(n_depths: int, spatial: int, n_flow_steps: int,
     return specs
 
 
+def _quantized_condition(c_views, qpack):
+    """``c_views`` quantized for the int8 towers of ``qpack``, or None when
+    no tower of the step is int8.  Every tower's input scale row is the
+    absmax of the same c_views: one quantization serves the whole step
+    (``cwf.py:308-311``)."""
+    if qpack is None or all(pk is None for pk in qpack):
+        return None
+    first = next(pk for pk in qpack if pk is not None)
+    return qtower.quantize_input(c_views, first["scales"][0])
+
+
 class CWFStep(nn.Module):
     """One CAT step: the input block (``_first`` subnet) and ``n_blocks``
     coupling blocks, each holding its tower as ``subnet`` (the parameter
@@ -131,15 +142,29 @@ class CWFStep(nn.Module):
             return apply_channel_perm(x, idx)
         return apply_spatial_perm(x, axis, idx)
 
-    def towers(self, c_views):
+    def towers(self, c_views, qpack=None):
         """Every tower's output on the views condition: the input block's
         (its s_raw, or its (s_raw | t) without the low-res input), then
         the coupling blocks' (s_raw | t) in order.  All five read only
         ``c_views``, so training computes them once per step and hands them
         to both directions (``towers=``); autograd then sums the two
-        directions' gradients into one backward per tower."""
+        directions' gradients into one backward per tower.  qpack: as in
+        ``reverse_fast``, coupling block i's tower in int8 where
+        ``qpack[i]`` is not None (inference only)."""
+        xq = _quantized_condition(c_views, qpack)
         return [self.input_block["subnet"].tower(c_views)] + [
-            blk["subnet"].tower(c_views) for blk in self.blocks]
+            self._coupling_tower(i, c_views, xq, qpack)
+            for i in range(self.spec.n_blocks)]
+
+    def _coupling_tower(self, i: int, c_views, xq, qpack):
+        """Coupling block i's (s_raw | t): the int8 tower kernel where
+        ``qpack[i]`` is a pack (``xq`` the quantized condition), else the
+        float tower."""
+        pk = None if xq is None else qpack[i]
+        if pk is not None:
+            return qtower.fused_tower(xq, pk["qw"], pk["scales"],
+                                      out_dtype=c_views.dtype)
+        return self.blocks[i]["subnet"].tower(c_views)
 
     def _input_block(self, x, c_views, c_mean, rev: bool, st=None):
         """The input ConditionalAffineTransform, conditions concatenated as
@@ -228,22 +253,12 @@ class CWFStep(nn.Module):
         Returns the volume (B, 2C, H, W)."""
         spec = self.spec
         kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
-        xq = None
-        if qpack is not None and any(pk is not None for pk in qpack):
-            # every tower's input scale row is the absmax of the same
-            # c_views: one quantization serves the whole step (cwf.py:308-311)
-            first = next(pk for pk in qpack if pk is not None)
-            xq = qtower.quantize_input(c_views, first["scales"][0])
+        xq = _quantized_condition(c_views, qpack)
         x = z
         if spec.use_final_perm:
             x = self._perm(spec.n_blocks, x, inverse=True)
         for nn_ in range(spec.n_blocks, 0, -1):
-            pk = None if xq is None else qpack[nn_ - 1]
-            if pk is not None:
-                st = qtower.fused_tower(xq, pk["qw"], pk["scales"],
-                                        out_dtype=c_views.dtype)
-            else:
-                st = self.blocks[nn_ - 1]["subnet"](c_views)
+            st = self._coupling_tower(nn_ - 1, c_views, xq, qpack)
             x = cat_affine(x, st, rev=True, **kw)
             x = self._perm(nn_ - 1, x, inverse=True)
         if spec.disable_low_res_input:

@@ -7,11 +7,14 @@ Structure for the default config (n_depths=96, 5 pyramid steps):
   LRNN producing the coarsest 6-depth volume from views + mean-volume prior.
 
 Three paths are ported.  Reconstruction, without gradients:
-``reconstruct`` through the CUDA flow kernels (the JAX ``fast=True`` path),
-deterministic (temperature 0, the LRNN in eval mode, optionally with the
-int8 UNet ``unet_q`` and int8 coupling towers ``qpacks``) or stochastic (z
-sampled at a temperature, the mean over ``n_samples``, the LRNN in train
-mode), every draw from one ``torch.Generator``; ``fast=False`` raises.
+``reconstruct``, deterministic (temperature 0, the LRNN in eval mode,
+optionally with the int8 UNet ``unet_q`` and int8 coupling towers
+``qpacks``) or stochastic (z sampled at a temperature, the mean over
+``n_samples``, the LRNN in train mode), every draw from one
+``torch.Generator``; each step through ``CWFStep.reverse_fast`` (the JAX
+``fast=True`` path: the input affine fused with the inverse Haar) or, with
+``fast=False``, ``CWFStep.reverse`` (the exact inverse of the forward, its
+log-det dropped; what evaluation runs).
 Both force flags of the configuration are honoured: ``force_last_step_NF``
 builds one more flow step and starts the chain from zeros at the coarsest
 level (no LRNN call, no mean branch); ``force_all_steps_NF`` gives every
@@ -105,6 +108,14 @@ class CWFAModel(nn.Module):
     @property
     def n_flow_steps(self) -> int:
         return len(self.step_specs)
+
+    def param_counts(self) -> dict:
+        """Parameters of the flow steps, the cond nets and the LRNN, printed
+        at start-up by the training CLI (``cwfa_model.py:377``)."""
+        def cnt(m):
+            return sum(p.numel() for p in m.parameters())
+        return {"WF": cnt(self.flow), "Omega": cnt(self.cond),
+                "LRNN": cnt(self.lrnn)}
 
     @torch.inference_mode()
     def quantize_unet_pack(self, cond_input, master=None):
@@ -249,12 +260,13 @@ class CWFAModel(nn.Module):
         lrnn_mean_branch: optional precomputed LRNN mean-branch output.
         unet_q: optional int8 UNet pack (``quantize_unet_pack``); unused
           when the LRNN is in train mode.
+        fast: each step through ``CWFStep.reverse_fast``; False through
+          ``CWFStep.reverse`` (``cwf_step_reverse(fast=False)``), the
+          log-det dropped.  The two differ only in the step call.
         qpacks: optional per-step int8 tower packs (``quantize_steps``).
         return_pyramid: also return {level: volume} of every level the chain
           passes (n_flow_steps: the coarsest, 0: the result), as JAX's.
         """
-        if not fast:
-            raise NotImplementedError("fast=False is not ported")
         if z_temperature != 0 and generator is None:
             raise ValueError("z_temperature > 0 needs a generator")
         if lrnn_train is None:
@@ -297,9 +309,14 @@ class CWFAModel(nn.Module):
                 up, c_views = up.repeat(tile), c_views.repeat(tile)
                 if c_mean.shape[0] != 1:
                     c_mean = c_mean.repeat(tile)
-            v = self.flow[k].reverse_fast(
-                z, up, c_views, c_mean,
-                qpack=None if qpacks is None else qpacks[k])
+            qpack = None if qpacks is None else qpacks[k]
+            if fast:
+                v = self.flow[k].reverse_fast(z, up, c_views, c_mean,
+                                              qpack=qpack)
+            else:
+                towers = (None if qpack is None
+                          else self.flow[k].towers(c_views, qpack))
+                v, _ = self.flow[k].reverse(z, up, c_views, c_mean, towers)
             if n_samples > 1:
                 v = v.reshape((n_samples, b) + tuple(v.shape[1:])).mean(0)
             up = pyramid[k] = v
