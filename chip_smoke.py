@@ -4,8 +4,9 @@
     python3 chip_smoke.py tower cond_pair      # phases alone (kernels,
                                                # tower, cond_pair, float_tower,
                                                # probes, serving, train,
-                                               # train_cli) while working on
-                                               # one: no verdict
+                                               # train_cli, ood_cli, deconv)
+                                               # while working on one: no
+                                               # verdict
 
 Builds the CUDA kernels from ``cwfa_tpu_torch/csrc/``, then, failing (exit
 code != 0) on the first phase that does not hold:
@@ -133,7 +134,33 @@ code != 0) on the first phase that does not hold:
     back equal to the bit; and the CLI's seconds by segment (data load,
     statistics, ms per optimizer step and peak memory per stage, the
     reconstruction ms and host seconds per evaluated frame, peak memory
-    of ``evaluate``, the OOD screen).
+    of ``evaluate``, the OOD screen);
+16. the OOD entry point, ``python -m cwfa_tpu_torch.cli.ood``
+    (``cli.ood.main``), at the flagship width on a checkpoint directory of
+    the flagship written by the port and one fish of 3 random uint16 2160^2
+    frames and 96 x 512^2 volumes: ``--finetune 1 --create_dist_plots 1
+    --epochs 5`` with a threshold that flags every frame; the report (finite
+    scores, all flagged, steps 1-5 with 2 finite losses each, the scores
+    after finetune finite and moved), the PNG, one volume upload a frame
+    across detect -> finetune -> re-score, the launches of detect and
+    re-score (NLL_PER_CALL a frame) and of every finetune epoch
+    (FLOW_PER_STEP a frame in a flow epoch, on the tensor-core instances;
+    none in the LRNN's), the three segments' seconds and peak memory;
+17. Richardson–Lucy deconvolution: ``xlfm_deconvolve`` at a small size card
+    vs CPU in f32 (fourier_sum on and off, a ragged depth chunk, batch 2
+    with one NaN frame, init_obj chaining; bound 1e-4 of max|ref|) and the
+    nonzero median card == CPU; then the deconvolution entry point,
+    ``python -m cwfa_tpu_torch.cli.deconvolve`` (``cli.deconvolve.main``),
+    at the JAX CLI's defaults (120 depths, 600^2 volumes, 2160^2 frames,
+    50 iterations, canvas 2880^2) on a seeded PSF computed on the card with
+    the synthetic PSF's formula and two frames projected from blob volumes,
+    the RL loop under ``torch.cuda.set_sync_debug_mode("error")``: two
+    volume TIFFs finite, >= 0 and zero outside the ROI depths, the first
+    equal to the bit to a direct call (else within 1e-6 of max), the
+    re-projection residual after 50 iterations below that after 1,
+    ``--mesh_depth_axis 2`` exits; ms per RL iteration at
+    ``--n_split_fourier`` 1 and 4, seconds per frame, peak memory and the
+    OTF's build time.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -144,7 +171,8 @@ likelihood path runs; the serving path's kernels with ``serve_launches``,
 their launches in its two runs; the three backward kernels with the
 training run's launches, the forward kernels of training with
 ``train_launches``; every kernel's launches in the training CLI's
-evaluation as ``eval_launches``), then, as its
+evaluation as ``eval_launches``, in the OOD CLI's run as
+``ood_launches``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -167,10 +195,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cwfa_tpu_torch.cli import deconvolve
+from cwfa_tpu_torch.cli import ood as ood_cli
 from cwfa_tpu_torch.cli import serve
 from cwfa_tpu_torch.config import CWFAConfig
+from cwfa_tpu_torch.data.psf import load_psf_otf
 from cwfa_tpu_torch.data.tiff import read_tiff_stack, write_tiff_stack
-from cwfa_tpu_torch.data.dataset import ConcatXLFMDataset, load_xlfm_data
+from cwfa_tpu_torch.data.dataset import (ConcatXLFMDataset, _center_crop_img,
+                                         _pad_to_square_img, load_xlfm_data)
 from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
@@ -186,6 +218,10 @@ from cwfa_tpu_torch.ops import btower
 from cwfa_tpu_torch.ops import cond_pair as cpair
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops import flow_affine as fa
+from cwfa_tpu_torch.ops.deconv import _median_nonzero_batch, xlfm_deconvolve
+from cwfa_tpu_torch.ops.fft_conv import (_pad_center, fftshift2d_real,
+                                         precompute_otf, rfft2_padded,
+                                         shifted_crop, xlfm_forward_project)
 from cwfa_tpu_torch.ops import probes
 from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
@@ -1692,16 +1728,14 @@ def phase_likelihood_flagship(dev, card, kernels, model, stats):
         f"{n32} (all the f32 instance, {btower.WGMMA_3XTF32})")
 
 
-def write_serving_inputs(root: Path, dev, model, stats, img: int):
-    """The serving phase's inputs under ``root``: the flagship model as a
-    checkpoint directory through the port's writer (with the mean caches
-    of a seeded mean volume, computed on the card), the rig's lenslet
-    centers - 50, and SERVE_FRAMES uint16 camera frames.  Fails unless the
-    directory reads back equal to the bit."""
+def write_checkpoint_dir(root: Path, dev, model, stats):
+    """``model`` as a checkpoint directory ``root/ckpt`` through the port's
+    writer, with the mean caches of a seeded mean volume (computed on the
+    card) as dataset 0's.  Fails unless it reads back equal to the bit.
+    Returns (directory, files)."""
     cfg = model.cfg
     side = cfg.volume_side_size
     ckpt = root / "ckpt"
-    t0 = time.perf_counter()
     files = checkpoints.save_model_checkpoints(model, str(ckpt), epoch=0,
                                                stats=stats)
     card_model = copy.deepcopy(model).to(dev).eval()
@@ -1713,7 +1747,8 @@ def write_serving_inputs(root: Path, dev, model, stats, img: int):
     reloaded = CWFAModel.build(cfg, torch.Generator().manual_seed(1))
     got_stats, steps = checkpoints.load_model_checkpoints(reloaded, str(ckpt))
     want, got = model.state_dict(), reloaded.state_dict()
-    if steps != [1, 2, 3, 4, 5] or got_stats.astuple() != stats.astuple() \
+    if steps != list(range(1, cfg.INN_max_down_steps + 1)) \
+            or got_stats.astuple() != stats.astuple() \
             or set(want) != set(got) \
             or not all(torch.equal(want[k], got[k]) for k in want):
         fail(f"checkpoint reload: steps {steps}, or a parameter or buffer "
@@ -1722,6 +1757,17 @@ def write_serving_inputs(root: Path, dev, model, stats, img: int):
     if len(back) != len(caches) or not all(
             np.array_equal(a, b) for a, b in zip(back, caches)):
         fail("mean caches read back differ from the written ones")
+    return ckpt, files
+
+
+def write_serving_inputs(root: Path, dev, model, stats, img: int):
+    """The serving phase's inputs under ``root``: the flagship model as a
+    checkpoint directory (``write_checkpoint_dir``), the rig's lenslet
+    centers - 50, and SERVE_FRAMES uint16 camera frames."""
+    cfg = model.cfg
+    side = cfg.volume_side_size
+    t0 = time.perf_counter()
+    ckpt, files = write_checkpoint_dir(root, dev, model, stats)
     coords = lenslet_coords(cfg.n_lenslets, side, img)
     lenslets = root / "lenslets.txt"
     lenslets.write_text("".join(f"{x - 50}\t{y - 50}\n" for x, y in coords))
@@ -2485,6 +2531,626 @@ def _check_train_cli(root, results, seg, state, total, card, kernels,
         f"{ {k: v['eval_launches'] for k, v in kernels.items() if v.get('eval_launches')} }")
 
 
+# --------------------------------------------------------------- deconv
+# the JAX deconvolution CLI's defaults: 120 depths, 600^2 volumes from
+# 2160^2 frames, 50 RL iterations; the canvas 600 + 2160 = 2760 rounds to
+# the 5-smooth 2880
+RL_DEPTHS, RL_VOL, RL_ITERS, RL_FRAMES = 120, 600, 50, 2
+RL_ROI = 90                         # roi_depths = min(90, n_depths)
+
+
+def phase_deconv_small(dev):
+    """``xlfm_deconvolve`` at a small size, card vs CPU in f32: fourier_sum
+    on and off, unchunked and a ragged depth chunk, batch 2 with one NaN
+    frame (frozen at the ones init, the other updated), init_obj chaining;
+    and the nonzero median card vs CPU equal, at small sizes and at the
+    ratio's full canvas."""
+    rng = np.random.RandomState(31)
+    d, s, p = 6, 24, 40
+    psf = np.abs(rng.rand(1, d, p, p)).astype(np.float32)
+    psf /= psf.sum(axis=(-2, -1), keepdims=True)
+    vol = np.abs(rng.rand(2, d, s, s)).astype(np.float32)
+    otf_c, hw = precompute_otf(torch.from_numpy(psf), (s, s))
+    otf_g, _ = precompute_otf(torch.from_numpy(psf).to(dev), (s, s))
+    img = xlfm_forward_project(torch.from_numpy(vol), otf_c, hw,
+                               psf_hw=(p, p))
+    img[0, 0, 5, 7] = float("nan")
+    worst = 0.0
+    for fourier_sum in (True, False):
+        for chunk in (None, 4):
+            kw = dict(n_iter=8, obj_hw=(s, s), roi_depths=d, full_hw=hw,
+                      depth_chunk=chunk, fourier_sum=fourier_sum)
+            ref, ref_est = xlfm_deconvolve(otf_c, img, **kw)
+            got, got_est = xlfm_deconvolve(otf_g, img.to(dev), **kw)
+            what = f"deconv small fourier_sum={fourier_sum} chunk={chunk}"
+            for g, r in ((got, ref), (got_est, ref_est)):
+                err = (g.cpu() - r).abs().max().item()
+                scale = r.abs().max().item()
+                worst = max(worst, err / scale)
+                if not err <= 1e-4 * scale:
+                    fail(f"{what}: card vs CPU {err:.3e} > 1e-4 * {scale:.3e}")
+            if not (torch.equal(got[0].cpu(), torch.ones(d, s, s))
+                    and not torch.equal(got[1].cpu(), torch.ones(d, s, s))):
+                fail(f"{what}: the NaN frame was not frozen, or the other "
+                     "not updated")
+    kw = dict(obj_hw=(s, s), roi_depths=d, full_hw=hw)
+    one, _ = xlfm_deconvolve(otf_g, img.to(dev), n_iter=8, **kw)
+    mid, _ = xlfm_deconvolve(otf_g, img.to(dev), n_iter=5, **kw)
+    two, _ = xlfm_deconvolve(otf_g, img.to(dev), n_iter=3, init_obj=mid,
+                             **kw)
+    chain = ((two - one).abs().max() / one.abs().max()).item()
+    if not chain <= 1e-6:
+        fail(f"deconv init_obj chaining 5 + 3 vs 8 iterations: {chain:.3e}")
+    x = rng.randn(3, 4099).astype(np.float32)
+    x[:, ::3] = 0
+    x[1, :2000] = np.round(x[1, :2000])      # duplicates
+    x[2] = 0
+    full = rng.rand(1, 2880 * 2880).astype(np.float32)
+    full[:, rng.rand(2880 * 2880) < 0.4] = 0
+    for m in (x, full):
+        got = _median_nonzero_batch(torch.from_numpy(m).to(dev)).cpu()
+        if not torch.equal(got, _median_nonzero_batch(torch.from_numpy(m))):
+            fail(f"nonzero median of {m.shape} card != CPU")
+    log(f"deconv small (6 depths, 24^2 from 40^2, batch 2 with a NaN frame, "
+        f"8 iterations): card vs CPU within {worst:.2e} of max|ref| (bound "
+        f"1e-4) for fourier_sum on/off and depth chunk none/4 (ragged), the "
+        f"NaN frame frozen and the other updated; init_obj 5 + 3 vs 8 "
+        f"{chain:.1e}; nonzero median card == CPU at (3, 4099) and "
+        f"(1, 2880^2)")
+
+
+def card_psf(dev, n_depths: int, size: int, coords, seed: int):
+    """``data/synthetic.synthetic_psf``'s formula on the card, (1, D, P, P)
+    f32, each plane normalized to unit sum: per lenslet (dataset-frame
+    centers) a gaussian of sigma 1.2 + 0.12|dz| shifted by the depth's
+    parallax and a seeded tilt.  Each gaussian is the outer product of its
+    two 1-D factors, so a plane is one product of (P, L) and (L, P)."""
+    rng = np.random.RandomState(seed)
+    tilt = torch.as_tensor(rng.uniform(-0.25, 0.25, (len(coords), 2)),
+                           dtype=torch.float64, device=dev)
+    c = torch.as_tensor(np.asarray(coords), dtype=torch.float64, device=dev)
+    grid = torch.arange(size, dtype=torch.float64, device=dev)
+    center = size / 2.0
+    psf = torch.empty((1, n_depths, size, size), device=dev)
+    for d in range(n_depths):
+        dz = d - n_depths / 2.0
+        sigma = 1.2 + 0.12 * abs(dz)
+        mu = c + (c - center) / center * dz * 0.8 + tilt * dz     # (L, 2)
+        gy = torch.exp(-(grid[None] - mu[:, :1]) ** 2 / (2 * sigma ** 2))
+        gx = torch.exp(-(grid[None] - mu[:, 1:]) ** 2 / (2 * sigma ** 2))
+        plane = (gy.T @ gx).float()
+        psf[0, d] = plane / plane.sum().clamp(min=1e-30)
+    return psf
+
+
+def blob_volumes(dev, n: int, depths: int, side: int, seed: int):
+    """(n, D, S, S) f32 volumes of 12 gaussian blobs (centers in the middle
+    60% of each axis) whose amplitudes differ per volume, on the card."""
+    rng = np.random.RandomState(seed)
+    k = 12
+    centre = rng.uniform(0.2, 0.8, (k, 3)) * [depths, side, side]
+    sig = np.stack([rng.uniform(1.0, depths / 12, k),
+                    rng.uniform(side / 40 + 1, side / 16 + 2, k),
+                    rng.uniform(side / 40 + 1, side / 16 + 2, k)], 1)
+    amp = torch.as_tensor(rng.uniform(0.3, 1.0, (n, k)), dtype=torch.float32,
+                          device=dev)
+
+    def g(axis, size):
+        t = torch.arange(size, dtype=torch.float32, device=dev)[None]
+        mu = torch.as_tensor(centre[:, axis:axis + 1], dtype=torch.float32,
+                             device=dev)
+        sd = torch.as_tensor(sig[:, axis:axis + 1], dtype=torch.float32,
+                             device=dev)
+        return torch.exp(-((t - mu) / sd) ** 2 / 2)
+    return torch.einsum("nk,kd,kh,kw->ndhw", amp, g(0, depths), g(1, side),
+                        g(2, side))
+
+
+def write_deconv_inputs(root: Path, dev, img: int):
+    """A seeded RL_DEPTHS x img^2 PSF (``card_psf`` at the rig's 29 lenslet
+    centers) written as a TIFF, and RL_FRAMES frames formed from seeded blob
+    volumes by ``xlfm_forward_project`` through its OTF, scaled to a peak of
+    5000, as a fish's ``XLFM_image/XLFM_image_stack.tif``.  Returns (PSF
+    file, fish directory, seconds)."""
+    t0 = time.perf_counter()
+    coords = lenslet_coords(29, 512, img)
+    psf = card_psf(dev, RL_DEPTHS, img, coords, seed=5)
+    otf, hw = precompute_otf(psf, (RL_VOL, RL_VOL))
+    psf_file = root / "psf.tif"
+    write_tiff_stack(str(psf_file), psf[0].cpu().numpy())
+    del psf
+    vols = blob_volumes(dev, RL_FRAMES, RL_DEPTHS, RL_VOL, seed=6)
+    frames = torch.cat([xlfm_forward_project(vols[i:i + 1], otf, hw,
+                                             psf_hw=(img, img),
+                                             depth_chunk=24)
+                        for i in range(RL_FRAMES)])[:, 0]
+    frames *= 5000.0 / frames.max()
+    fish = root / "fish"
+    (fish / "XLFM_image").mkdir(parents=True)
+    write_tiff_stack(str(fish / "XLFM_image" / "XLFM_image_stack.tif"),
+                     frames.cpu().numpy())
+    del otf, vols, frames
+    torch.cuda.synchronize()
+    return psf_file, fish, time.perf_counter() - t0
+
+
+def phase_deconv(dev, card):
+    """Richardson–Lucy deconvolution: ``phase_deconv_small``, then the
+    deconvolution CLI (``cli.deconvolve.main``) at the JAX CLI's defaults on
+    the full-width inputs of ``write_deconv_inputs``, the RL loop run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it):
+    the volume TIFFs' shape, finiteness, sign and ROI zeros, the first
+    volume against a direct ``xlfm_deconvolve`` call on the same frame,
+    the re-projection residual after 50 iterations below that after 1,
+    ``--mesh_depth_axis 2`` exits; then ms per RL iteration (CUDA events,
+    median of 7) at ``--n_split_fourier`` 1 and 4, peak device memory, the
+    OTF build, seconds per frame."""
+    phase_deconv_small(dev)
+    torch.cuda.empty_cache()
+    img = 2160
+    root = Path(tempfile.mkdtemp(prefix="cwfa_deconv_"))
+    seg: dict = {}
+    try:
+        psf_file, fish, t_in = write_deconv_inputs(root, dev, img)
+        log(f"deconv inputs: PSF {RL_DEPTHS} x {img}^2 f32 on the card "
+            f"({os.path.getsize(psf_file) / 1e9:.2f} GB TIFF), {RL_FRAMES} "
+            f"frames projected from blob volumes of {RL_DEPTHS} x "
+            f"{RL_VOL}^2; {t_in:.1f} s")
+        argv = ["--data_folder", str(fish), "--psf_file", str(psf_file),
+                "--images_to_use", *map(str, range(RL_FRAMES)),
+                "--n_it", str(RL_ITERS), "--posfix", "_smoke"]
+        try:
+            deconvolve.main(argv + ["--mesh_depth_axis", "2"])
+            fail("deconv CLI --mesh_depth_axis 2 did not exit")
+        except SystemExit as e:
+            if "A17" not in str(e):
+                fail(f"deconv CLI --mesh_depth_axis 2: {e}")
+        real = {n: getattr(deconvolve, n) for n in
+                ("xlfm_deconvolve", "load_psf_otf", "write_tiff_stack")}
+
+        def timed_otf(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["load_psf_otf"](*a, **k)
+            torch.cuda.synchronize()
+            seg["otf_s"] = time.perf_counter() - t0
+            return out
+
+        def checked_rl(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real["xlfm_deconvolve"](*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            seg.setdefault("enqueue_s", []).append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            seg.setdefault("rl_ms", []).append(start.elapsed_time(end))
+            return out
+
+        def timed_write(*a, **k):
+            t0 = time.perf_counter()
+            real["write_tiff_stack"](*a, **k)
+            seg.setdefault("write_s", []).append(time.perf_counter() - t0)
+
+        deconvolve.load_psf_otf = timed_otf
+        deconvolve.xlfm_deconvolve = checked_rl
+        deconvolve.write_tiff_stack = timed_write
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out_dir = Path(deconvolve.main(argv))
+        finally:
+            for n, fn in real.items():
+                setattr(deconvolve, n, fn)
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        mem1 = torch.cuda.memory_stats()
+        seg["allocator"] = {k: mem1.get(k, 0) - mem0.get(k, 0) for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries")}
+        _check_deconv(dev, card, out_dir, psf_file, fish, img, seg, total,
+                      peak)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _check_deconv(dev, card, out_dir, psf_file, fish, img, seg, total, peak):
+    names = sorted(os.listdir(out_dir))
+    want = [f"XLFM_stack_{i:03d}.tif" for i in range(RL_FRAMES)] + [
+        "arguments.txt", "preview_MIP.tif"]
+    if names != sorted(want):
+        fail(f"deconv CLI wrote {names}, expected {want}")
+    lo, hi = RL_DEPTHS // 2 - RL_ROI // 2, RL_DEPTHS // 2 + RL_ROI // 2
+    vols = []
+    for i in range(RL_FRAMES):
+        v = read_tiff_stack(str(out_dir / f"XLFM_stack_{i:03d}.tif"))
+        # >= 0 up to the FFT's roundoff: the update multiplies by a
+        # correlation whose exact value is >= 0 and whose computed value
+        # can dip below 0 by roundoff where the ratio is ~0
+        if v.shape != (RL_DEPTHS, RL_VOL, RL_VOL) or not np.isfinite(v).all() \
+                or v.min() < -1e-6 * v.max():
+            fail(f"deconv volume {i}: shape {v.shape}, not finite, or min "
+                 f"{v.min():.3e} below -1e-6 * max {v.max():.3e}")
+        seg.setdefault("min_rel", []).append(float(v.min() / v.max()))
+        if v[:lo].any() or v[hi:].any() or not v[lo:hi].any():
+            fail(f"deconv volume {i}: depths outside [{lo}, {hi}) not zero, "
+                 "or none inside nonzero")
+        vols.append(v)
+    # the first frame again, directly, as the CLI prepared it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    otf, _, hw = load_psf_otf(str(psf_file), (RL_VOL, RL_VOL, RL_DEPTHS),
+                              device=dev)
+    torch.cuda.synchronize()
+    otf_again = time.perf_counter() - t0
+    frame = read_tiff_stack(str(fish / "XLFM_image" / "XLFM_image_stack.tif"),
+                            pages=[0])[0]
+    frame = _center_crop_img(_pad_to_square_img(
+        np.clip(np.nan_to_num(frame), 0, 50000)), (img, img))
+    f = torch.from_numpy(np.asarray(frame[None, None] - 0.0,
+                                    np.float32)).to(dev)
+    kw = dict(obj_hw=(RL_VOL, RL_VOL), roi_depths=RL_ROI, full_hw=hw)
+    direct, _ = xlfm_deconvolve(otf, f, n_iter=RL_ITERS, **kw)
+    got = torch.from_numpy(vols[0]).to(dev)[None]
+    if torch.equal(direct, got):
+        same = "equal to the bit"
+    else:
+        err = ((direct - got).abs().max() / direct.abs().max()).item()
+        if not err <= 1e-6:
+            fail(f"deconv CLI volume 0 vs a direct call: {err:.3e} of max "
+                 "> 1e-6")
+        same = f"within {err:.2e} of max (not equal to the bit)"
+    one, _ = xlfm_deconvolve(otf, f, n_iter=1, **kw)
+
+    def residual(v):
+        p = xlfm_forward_project(v, otf, hw, psf_hw=(img, img),
+                                 depth_chunk=24)
+        return ((p - f).norm() / f.norm()).item()
+    r1, r50 = residual(one), residual(direct)
+    if not r50 < r1:
+        fail(f"deconv: re-projection residual {r50:.4f} after {RL_ITERS} "
+             f"iterations not below {r1:.4f} after 1")
+    del one, direct, got
+    # ms per RL iteration: chained one-iteration calls, in turns
+    times, peaks = {1: [], 4: []}, {}
+    obj = {n: None for n in times}
+    for rep in range(8):
+        for n_split in (1, 4):
+            chunk = None if n_split == 1 else RL_DEPTHS // n_split
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            obj[n_split], _ = xlfm_deconvolve(
+                otf, f, n_iter=1, init_obj=obj[n_split], depth_chunk=chunk,
+                obj_hw=(RL_VOL, RL_VOL), roi_depths=RL_DEPTHS, full_hw=hw)
+            end.record()
+            torch.cuda.synchronize()
+            if rep:                      # the first is the warm-up
+                times[n_split].append(start.elapsed_time(end))
+            peaks[n_split] = torch.cuda.max_memory_allocated()
+    parts = rl_segments(otf, f, hw)
+    otf_gb = otf.numel() * otf.element_size() / 2**30
+    del otf, obj
+    per_frame = [ms / 1e3 + w for ms, w in zip(seg["rl_ms"], seg["write_s"])]
+    log(f"deconv CLI (cli.deconvolve.main, {RL_FRAMES} frames of {img}^2 -> "
+        f"{RL_DEPTHS} x {RL_VOL}^2, canvas {hw[0]}^2, {RL_ITERS} iterations, "
+        f"n_split_fourier 1): {RL_FRAMES} volumes finite, >= 0 to roundoff "
+        f"(min / max {['%.1e' % m for m in seg['min_rel']]}), zero outside "
+        f"depths [{lo}, {hi}); volume 0 {same} to a direct call; residual "
+        f"||P(v) - frame|| / ||frame|| {r1:.4f} after 1 iteration, {r50:.4f} "
+        f"after {RL_ITERS}; the RL loop under set_sync_debug_mode('error') "
+        f"(enqueue {['%.3f' % t for t in seg['enqueue_s']]} s; allocator "
+        f"in the CLI {seg['allocator']}); "
+        f"--mesh_depth_axis 2 exits; on {card}")
+    log(f"deconv times: RL per frame {['%.1f' % t for t in seg['rl_ms']]} ms "
+        f"(CUDA events), TIFF write {['%.2f' % t for t in seg['write_s']]} s, "
+        f"{['%.2f' % t for t in per_frame]} s a frame; OTF build (PSF TIFF "
+        f"read, normalize, rfft2 of {RL_DEPTHS} planes, {otf_gb:.2f} GiB) "
+        f"{seg['otf_s']:.2f} s in the CLI, {otf_again:.2f} s again; main "
+        f"{total:.1f} s; peak {peak / 2**30:.2f} GiB in the CLI")
+    log(f"deconv ms per RL iteration (CUDA events, median of 7 chained "
+        f"one-iteration calls, in turns): n_split_fourier 1 "
+        f"{statistics.median(times[1]):.2f} ms "
+        f"({['%.2f' % t for t in times[1]]}), peak "
+        f"{peaks[1] / 2**30:.2f} GiB; n_split_fourier 4 "
+        f"{statistics.median(times[4]):.2f} ms "
+        f"({['%.2f' % t for t in times[4]]}), peak {peaks[4] / 2**30:.2f} GiB")
+    log(f"deconv RL iteration by segment (each alone, CUDA events, median of "
+        f"5 after a warm-up): {parts['segments']}; host enqueue of 10 iterations "
+        f"{parts['enqueue_ms']:.1f} ms against {parts['device_ms']:.1f} ms "
+        f"of device time; allocator {parts['allocator']}")
+    log(f"deconv one iteration under torch.profiler: device idle "
+        f"{parts['idle']:.3f}, {parts['events']} device events; by kernel "
+        f"(ms, count): {parts['kernels']}")
+
+
+def rl_segments(otf, f, hw) -> dict:
+    """One unchunked RL iteration at the CLI's shapes cut into its three
+    segments, each run alone (as ``xlfm_deconvolve``'s loop runs them):
+    the forward projection, the ratio with its median clamp, the back
+    projection (and within it the 120-plane irfft2); the host's enqueue
+    time of 10 iterations against their device time, with the caching
+    allocator's device calls; one iteration under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    obj = torch.ones((1, RL_DEPTHS, RL_VOL, RL_VOL), device=otf.device)
+    img_exp = _pad_center(f, hw)
+    pad = ((hw[0] - RL_VOL) // 2, (hw[1] - RL_VOL) // 2)
+    est = torch.relu(fftshift2d_real(torch.fft.irfft2(
+        (rfft2_padded(obj, hw) * otf).sum(1, keepdim=True), s=hw)))
+    ratio = img_exp / (est + 1e-8)
+    ratio_fft = torch.fft.rfft2(ratio)
+
+    def forward():
+        spec = rfft2_padded(obj, hw).mul_(otf).sum(1, keepdim=True)
+        torch.relu(fftshift2d_real(torch.fft.irfft2(spec, s=hw)))
+
+    def clamp():
+        r = img_exp / (est + 1e-8)
+        lim = _median_nonzero_batch(r).reshape(-1, 1, 1, 1) * 10.0
+        torch.minimum(torch.clamp(r, min=0.0), lim)
+
+    def backward():
+        corr = torch.fft.irfft2(torch.fft.rfft2(ratio) * otf.conj(), s=hw)
+        obj * shifted_crop(corr, pad, (RL_VOL, RL_VOL))
+
+    def iteration():
+        xlfm_deconvolve(otf, f, n_iter=1, obj_hw=(RL_VOL, RL_VOL),
+                        roi_depths=RL_DEPTHS, full_hw=hw)
+
+    segments = {name: round(cuda_ms(fn, 5), 3)
+                for name, fn in (
+                    ("iteration", iteration), ("forward projection", forward),
+                    ("ratio + median clamp", clamp),
+                    ("median", lambda: _median_nonzero_batch(ratio)),
+                    ("back projection", backward),
+                    ("back projection's irfft2", lambda: torch.fft.irfft2(
+                        ratio_fft * otf.conj(), s=hw)))}
+    mem0 = torch.cuda.memory_stats()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    xlfm_deconvolve(otf, f, n_iter=10, obj_hw=(RL_VOL, RL_VOL),
+                    roi_depths=RL_DEPTHS, full_hw=hw)
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iteration()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    rows = sorted(((getattr(a, "self_device_time_total", 0) / 1e3, a.count,
+                    a.key[:40]) for a in prof.key_averages()
+                   if getattr(a, "self_device_time_total", 0) > 0),
+                  reverse=True)[:10]
+    return {"segments": segments, "enqueue_ms": enqueue_ms,
+            "device_ms": start.elapsed_time(end),
+            "allocator": {k: mem1.get(k, 0) - mem0.get(k, 0) for k in (
+                "num_device_alloc", "num_device_free", "num_alloc_retries")},
+            "idle": 1 - busy / max(wall_us, 1e-9), "events": len(spans),
+            "kernels": [(round(t, 3), n, k) for t, n, k in rows]}
+
+
+# ------------------------------------------------------------- ood_cli
+OOD_FRAMES, OOD_EPOCHS_PER_STEP = 3, 2
+# a flow epoch's stage input reconstructed for a frame whose handed-off
+# input is of another level (the finetune's second epoch of a stage, after
+# its first captured its own outputs; JAX's trainer does the same): the
+# fast chain in f32, the trainer's master weights, so its towers run the
+# 3xTF32 instance and its pairs the CUDA cores
+STAGE_INPUT_PER_CALL = BF16_PER_CALL
+
+
+def phase_ood_cli(dev, card, kernels, img: int):
+    """The OOD entry point, ``cli.ood.main``, at the flagship width: the
+    flagship (random weights from a seed) as a checkpoint directory
+    (``write_checkpoint_dir``), one fish of OOD_FRAMES random uint16 frames
+    and 96 x 512^2 volumes, ``--max_samples 3 --finetune 1
+    --create_dist_plots 1 --epochs 5 --step_LL_ths_to_use=-1e30`` (every
+    frame flagged, so the finetune runs every step).  Holds the report
+    (finite scores, all flagged, steps 1-5 with 2 finite losses each, the
+    scores after finetune finite and moved), the PNG's signature, one
+    volume upload a frame across detect -> finetune -> re-score, and the
+    launches: NLL_PER_CALL a frame in detect and in the re-score,
+    FLOW_PER_STEP a frame in each flow epoch (every tower, pair, K2 and K3
+    launch of the steps on its tensor-core instance) and
+    STAGE_INPUT_PER_CALL a reconstructed stage input (the second epoch of
+    each flow stage but the finest, one a frame), none in the LRNN's; times the three
+    segments and peak memory."""
+    root = Path(tempfile.mkdtemp(prefix="cwfa_ood_"))
+    seg: dict = {}
+    state: dict = {"trainer": None}
+    real = {n: getattr(ood_cli, n) for n in ("detect_ood",
+                                              "finetune_on_novel")}
+    real_epoch = CWFATrainer.train_epoch
+    real_recon = CWFAModel.reconstruct
+    try:
+        t0 = time.perf_counter()
+        cfg, model, stats, _, _ = flagship(False, "cpu",
+                                           torch.Generator().manual_seed(3))
+        ckpt, files = write_checkpoint_dir(root, dev, model, stats)
+        del model
+        data, lenslets = write_train_dataset(
+            root / "data" / "fish_0" / "SLNet_preprocessed", cfg, img,
+            seed=21)
+        log(f"ood_cli inputs: flagship checkpoint directory of {len(files)} "
+            f"files read back equal to the bit; 1 fish of {TRAIN_FRAMES} "
+            f"uint16 frames of {img}^2 and volumes of {cfg.n_depths} x "
+            f"{cfg.volume_side_size}^2; {time.perf_counter() - t0:.1f} s")
+
+        def segment(name, per_frame):
+            def run(fn):
+                def wrapped(trainer, dataset, *a, **k):
+                    state["trainer"] = trainer
+                    counts = launch_counts()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    out = fn(trainer, dataset, *a, **k)
+                    torch.cuda.synchronize()
+                    seg.setdefault(name, []).append(time.perf_counter() - t)
+                    seg.setdefault(f"{name}_peak", []).append(
+                        torch.cuda.max_memory_allocated())
+                    seg.setdefault(f"{name}_uploads", []).append(
+                        trainer.transfer_log["volume_uploads"])
+                    if per_frame is not None:
+                        check_counts(per_frame, len(dataset),
+                                     f"ood_cli {name}", counts)
+                    return out
+                return wrapped
+            return run
+
+        def recon_counted(self, *a, **k):
+            state["recons"] = state.get("recons", 0) + 1
+            return real_recon(self, *a, **k)
+
+        def epoch_checked(self, dataset, epoch, *a, **k):
+            stage = self.stage_for_epoch(epoch)
+            counts, recons = launch_counts(), state.get("recons", 0)
+            inst = {n: dict(KERNELS[n]["wrapper"].by_instance)
+                    for n in ("fused_float_tower", "cond_pair",
+                              "float_tower_bwd", "cond_pair_bwd")}
+            loss = real_epoch(self, dataset, epoch, *a, **k)
+            what = f"ood_cli finetune epoch {epoch} (stage {stage})"
+            n, rec = len(dataset), state.get("recons", 0) - recons
+            if stage == self.model.n_flow_steps:
+                check_counts(LRNN_PER_STEP, n, what, counts)
+            else:
+                check_counts({k: FLOW_PER_STEP.get(k, 0) * n
+                              + STAGE_INPUT_PER_CALL.get(k, 0) * rec
+                              for k in KERNELS}, 1, what, counts)
+                for name, instance, want in (
+                        ("fused_float_tower", btower.WGMMA_BF16, 5 * n),
+                        ("fused_float_tower", btower.WGMMA_3XTF32, 20 * rec),
+                        ("cond_pair", cpair.TENSOR_CORES, n),
+                        ("cond_pair", cpair.CUDA_CORES, 4 * rec),
+                        ("float_tower_bwd", btower.WGMMA_BF16, 5 * n),
+                        ("cond_pair_bwd", cpair.TENSOR_CORES, n)):
+                    got = KERNELS[name]["wrapper"].by_instance[instance] \
+                        - inst[name][instance]
+                    if got != want:
+                        fail(f"{what}: {got} {name} launches ran the "
+                             f"{instance} instance, expected {want}")
+            seg.setdefault("epochs", []).append(stage)
+            seg.setdefault("recons", []).append(rec)
+            return loss
+
+        def detect_checked(trainer, dataset, **k):
+            name = "rescore" if "finetune" in seg else "detect"
+            return segment(name, NLL_PER_CALL)(real["detect_ood"])(
+                trainer, dataset, **k)
+
+        ood_cli.detect_ood = detect_checked
+        ood_cli.finetune_on_novel = segment("finetune", None)(
+            real["finetune_on_novel"])
+        CWFATrainer.train_epoch = epoch_checked
+        CWFAModel.reconstruct = recon_counted
+        report_path = root / "ood_report.json"
+        argv = ["--main_data_path", str(root / "data"), "--lenslet_file",
+                str(lenslets), "--pretrain_models_path", str(ckpt),
+                "--cross_validation_nFold", "0", "--max_samples",
+                str(OOD_FRAMES), "--finetune", "1", "--create_dist_plots",
+                "1", "--epochs", "5", "--step_LL_ths_to_use=-1e30",
+                "--img_size", str(img), "--report", str(report_path)]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            report = ood_cli.main(argv)
+        finally:
+            for n, fn in real.items():
+                setattr(ood_cli, n, fn)
+            CWFATrainer.train_epoch = real_epoch
+            CWFAModel.reconstruct = real_recon
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        for name, n in launch_counts().items():
+            kernels[name]["ood_launches"] = n
+        _check_ood_cli(report, report_path, seg, state["trainer"], total,
+                       card, kernels)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _check_ood_cli(report, report_path, seg, trainer, total, card, kernels):
+    n_steps = trainer.cfg.INN_max_down_steps
+    with open(report_path) as f:
+        if json.load(f) != report:
+            fail("ood_cli: the report file differs from main's return")
+    scores, after = (np.asarray(report[k]) for k in
+                     ("scores", "scores_after_finetune"))
+    if scores.shape != (OOD_FRAMES,) or not np.isfinite(scores).all() \
+            or report["is_ood"] != [1] * OOD_FRAMES:
+        fail(f"ood_cli scores {report['scores']}, is_ood {report['is_ood']}")
+    losses = report["finetune_losses"]
+    if sorted(losses) != [str(s) for s in range(1, n_steps + 1)] or not all(
+            len(v) == OOD_EPOCHS_PER_STEP and np.isfinite(v).all()
+            for v in losses.values()):
+        fail(f"ood_cli finetune_losses {losses}")
+    if after.shape != scores.shape or not np.isfinite(after).all() \
+            or np.array_equal(after, scores):
+        fail(f"ood_cli scores after finetune {after} (before {scores})")
+    png = report_path.with_name(report_path.stem + "_dist.png")
+    with open(png, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            fail(f"ood_cli {png.name} is not a PNG")
+    if seg["detect_uploads"] != [OOD_FRAMES] or seg["finetune_uploads"] != \
+            [OOD_FRAMES] or seg["rescore_uploads"] != [OOD_FRAMES]:
+        fail(f"ood_cli volume uploads after detect / finetune / re-score: "
+             f"{seg['detect_uploads']} / {seg['finetune_uploads']} / "
+             f"{seg['rescore_uploads']}, expected {OOD_FRAMES} each")
+    want = [s for s in range(n_steps - 1, -1, -1)
+            for _ in range(OOD_EPOCHS_PER_STEP)]
+    if seg["epochs"] != want:
+        fail(f"ood_cli finetune ran stages {seg['epochs']}, expected {want}")
+    # a stage's second epoch reconstructs every frame's input: its first
+    # captured outputs of its own level (all but the finest stage capture)
+    want_recons = ([0] * OOD_EPOCHS_PER_STEP + [0, OOD_FRAMES] * (n_steps - 2)
+                   + [0, 0])
+    if seg["recons"] != want_recons:
+        fail(f"ood_cli stage inputs reconstructed per epoch {seg['recons']}, "
+             f"expected {want_recons}")
+    log(f"ood_cli (cli.ood.main at the flagship, {OOD_FRAMES} frames): "
+        f"scores {np.round(scores, 4).tolist()}, all flagged; finetune "
+        f"losses by step { {k: ['%.5g' % x for x in v] for k, v in losses.items()} }; "
+        f"scores after {np.round(after, 4).tolist()}; {png.name} written "
+        f"(the numpy drawing); "
+        f"{OOD_FRAMES} volume uploads across detect -> finetune -> "
+        f"re-score; stages {seg['epochs']}, stage inputs reconstructed "
+        f"{seg['recons']}; on {card}")
+    log(f"ood_cli segments: main {total:.1f} s; detect {seg['detect'][0]:.2f}"
+        f" s (peak {seg['detect_peak'][0] / 2**30:.2f} GiB), finetune "
+        f"{seg['finetune'][0]:.2f} s for {len(seg['epochs'])} epochs of "
+        f"{OOD_FRAMES} frames (peak {seg['finetune_peak'][0] / 2**30:.2f} "
+        f"GiB), re-score {seg['rescore'][0]:.2f} s (peak "
+        f"{seg['rescore_peak'][0] / 2**30:.2f} GiB)")
+    log(f"ood_cli launches: "
+        f"{ {k: v['ood_launches'] for k, v in kernels.items() if v.get('ood_launches')} }")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2528,6 +3194,9 @@ def main():
                  "train_cli": lambda dev, kernels: (
                      phase_nonfast(dev, card, kernels),
                      phase_train_cli(dev, card, kernels, 2160)),
+                 "ood_cli": lambda dev, kernels: phase_ood_cli(
+                     dev, card, kernels, 2160),
+                 "deconv": lambda dev, kernels: phase_deconv(dev, card),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -2565,6 +3234,9 @@ def main():
     torch.cuda.empty_cache()
     phase_nonfast(dev, card, kernels)
     phase_train_cli(dev, card, kernels, frames1.shape[-1])
+    torch.cuda.empty_cache()
+    phase_ood_cli(dev, card, kernels, frames1.shape[-1])
+    phase_deconv(dev, card)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -2580,12 +3252,13 @@ def main():
          # GEMM (mma.sync) ran before their tensor-core ones, timed in this
          # run; the probe script's own reading of the two s8 instances; the
          # launches of the serving path's two runs and of the flagship's
-         # training, K2's and K3's by instance; K2 at every step's shape
+         # training, K2's and K3's by instance; K2 at every step's shape;
+         # the launches of the training CLI's evaluation and of the OOD CLI
          **{key: v for key, v in k.items()
             if key.startswith("f32_") or key in (
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
                 "serve_launches", "train_launches", "launches_by_instance",
-                "step_ms", "eval_launches")}}
+                "step_ms", "eval_launches", "ood_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -11,8 +11,9 @@ likelihood than the threshold) => out-of-distribution.
 per-frame cache.  ``detect_ood`` scores either raw volumes through a
 scorer, or a dataset through a ``CWFATrainer``'s version-stamped NLL cache
 (``cwfa_tpu/engine/ood.py:34-71``), under a cache tag of the dataset's own
-``cache_tag`` (never ``id()``, which CPython reuses).  The finetune loop and
-its CLI are not ported.
+``cache_tag`` (never ``id()``, which CPython reuses).  ``finetune_on_novel``
+is the fast adaptation to the flagged frames (``cwfa_tpu/engine/ood.py:
+74-123``); ``python -m cwfa_tpu_torch.cli.ood`` drives the two.
 """
 
 from __future__ import annotations
@@ -136,3 +137,43 @@ def detect_ood(source, data, step_ll_to_use: int | None = None,
     nlls = np.stack([source._frame_nll(data, tag, ix)
                      for ix in range(len(data))])
     return _result(nlls, step, ths)
+
+
+def finetune_on_novel(trainer, dataset, optimize_steps=(1, 2, 3, 4, 5),
+                      epochs_per_step: int = 2, verbose: bool = False,
+                      reuse_caches: bool = False) -> dict:
+    """The ~5-minute adaptation loop: retrain the selected pyramid steps of
+    a ``CWFATrainer`` on ``dataset``, coarsest selected step first
+    (reference --fine_tune_optimize_steps, CWFA.py:403-412,586-613,748-771).
+
+    ``optimize_steps`` is 1-based as in the reference: step S =
+    INN_max_down_steps is the LRNN, 1 the finest flow step.  Each step runs
+    ``epochs_per_step`` epochs of ``trainer.train_epoch`` inside its stage's
+    epoch window.  The stage-handoff cache depends on the parameters and is
+    always dropped.  reuse_caches: keep the ``"train"`` views, GT pyramids
+    and NLL entries, as after ``detect_ood(trainer, dataset, tag="train")``
+    on the same dataset: the pyramids are parameter-independent Haar
+    averages, so the epochs and a re-score run without uploading a volume
+    again.  Returns {step: [mean loss of each epoch]}."""
+    cfg = trainer.cfg
+    n_steps = cfg.INN_max_down_steps
+    trainer.upsampled_cache.entries.clear()
+    if not reuse_caches:
+        trainer.clear_gt_cache("train")
+        for cache in (trainer.nll_cache, trainer.views_cache.entries):
+            for key in [k for k in cache if k[0] == "train"]:
+                del cache[key]
+    eps = max(cfg.epochs // n_steps, 1)
+    losses = {}
+    for s in sorted(set(optimize_steps), reverse=True):
+        # base_epoch puts stage_for_epoch on the stage of step s (the LRNN
+        # for s == n_steps); e % eps stays inside that stage's window
+        base_epoch = (n_steps - s) * eps
+        stage_losses = []
+        for e in range(epochs_per_step):
+            loss = trainer.train_epoch(dataset, base_epoch + (e % eps))
+            stage_losses.append(loss)
+            if verbose:
+                print(f"finetune step {s} epoch {e}: loss={loss:.5f}")
+        losses[s] = stage_losses
+    return losses

@@ -45,8 +45,9 @@ volume TIFFs on a background thread and logs to TensorBoard
 (``utils/tb_writer``, PNGs by ``utils/png``).  Per-frame NLLs come from a
 cache stamped with ``_params_version``: the port updates its parameters in
 place, so every optimizer step and checkpoint load bumps the stamp
-explicitly.  Not here: the reference torch checkpoints
-(``load_torch_checkpoints``) and the OOD finetune.
+explicitly.  The OOD finetune over these caches is
+``engine/ood.finetune_on_novel``.  Not here: the reference torch checkpoints
+(``load_torch_checkpoints``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """The PyTorch port runs where JAX is not installed: no module of
 cwfa_tpu_torch, nor chip_smoke.py, nor a script that drives the port, imports
-JAX, the JAX package, Triton, msgpack or PIL, and none imports matplotlib
-when it is imported (only inside the function that plots, as the card's host
-has none)."""
+JAX, the JAX package, Triton, msgpack or PIL, and none imports matplotlib or
+h5py when it is imported (only inside the function that plots or reads an
+HDF5 PSF, as the card's host has neither)."""
 
 import ast
 from pathlib import Path
@@ -59,6 +59,11 @@ def test_port_files_found():
             "cwfa_tpu_torch/utils/seeding.py", "cwfa_tpu_torch/utils/plots.py",
             "cwfa_tpu_torch/utils/png.py",
             "cwfa_tpu_torch/utils/tb_writer.py"} <= names
+    # and those of the OOD and deconvolution CLIs
+    assert {"cwfa_tpu_torch/cli/ood.py", "cwfa_tpu_torch/cli/deconvolve.py",
+            "cwfa_tpu_torch/engine/ood.py", "cwfa_tpu_torch/ops/fft_conv.py",
+            "cwfa_tpu_torch/ops/deconv.py", "cwfa_tpu_torch/data/psf.py",
+            "cwfa_tpu_torch/data/synthetic.py"} <= names
 
 
 def test_import_time_scan_sees_nested_imports(tmp_path):
@@ -72,6 +77,11 @@ def test_import_time_scan_sees_nested_imports(tmp_path):
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_no_matplotlib_at_import_time(path):
     assert "matplotlib" not in set(_import_time_roots(path))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_no_h5py_at_import_time(path):
+    assert "h5py" not in set(_import_time_roots(path))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
