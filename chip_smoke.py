@@ -4,7 +4,8 @@
     python3 chip_smoke.py tower cond_pair      # phases alone (kernels,
                                                # tower, cond_pair, float_tower,
                                                # probes, serving, train,
-                                               # train_cli, ood_cli, deconv)
+                                               # train_cli, ood_cli, deconv,
+                                               # torch_ckpt, xlfmnet)
                                                # while working on one: no
                                                # verdict
 
@@ -160,7 +161,26 @@ code != 0) on the first phase that does not hold:
     re-projection residual after 50 iterations below that after 1,
     ``--mesh_depth_axis 2`` exits; ms per RL iteration at
     ``--n_split_fourier`` 1 and 4, seconds per frame, peak memory and the
-    OTF's build time.
+    OTF's build time;
+18. the reference's PyTorch checkpoints at the flagship width: the
+    flagship (its LRNN's BatchNorm statistics moved off their init, random
+    Lion momenta) saved as the port's msgpack set, written as the
+    reference's torch files by ``python -m cwfa_tpu_torch.cli.export_torch``
+    in a process of its own, two entries of one permutation of step 1
+    swapped in the files, the set loaded into a fresh trainer on the card by
+    ``CWFATrainer.load_torch_checkpoints`` and reconstructed at batch 1,
+    bf16, deterministic: the volume equal to the bit to the source model's
+    under the same permutation and unequal to its own, the launches per
+    call the flagship's, the export and load seconds and the files' bytes;
+19. XLFMNet (``--INN_net_type 2``): a small rig card vs CPU in f32 (the
+    forward within 1e-4 of max|ref|, three Lion steps: losses within 1e-4,
+    parameters within 1e-3); at the flagship width (29 views of 512^2 -> 96
+    depths, UNet depth 5, wf 6, f32) the forward's ms/frame at batch 1 and
+    8 and a training step at ``cfg.batch_size``, by segment, with peak
+    memory; then ``cli.train.main`` with ``--INN_net_type 2`` on two fish of
+    3 random 2160^2 frames: finite losses and PSNRs, the checkpoint
+    written, ``load_xlfmnet``'s forward equal to the bit to the trained
+    model's.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -172,7 +192,8 @@ their launches in its two runs; the three backward kernels with the
 training run's launches, the forward kernels of training with
 ``train_launches``; every kernel's launches in the training CLI's
 evaluation as ``eval_launches``, in the OOD CLI's run as
-``ood_launches``), then, as its
+``ood_launches``, in the reconstruction from the reference's checkpoints
+as ``ckpt_launches``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -186,6 +207,7 @@ import json
 import os
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -206,6 +228,7 @@ from cwfa_tpu_torch.data.dataset import (ConcatXLFMDataset, _center_crop_img,
 from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+from cwfa_tpu_torch.engine.losses import recon_loss
 from cwfa_tpu_torch.engine.optim import make_optimizers
 from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.engine.ood import PyramidScorer
@@ -3151,6 +3174,364 @@ def _check_ood_cli(report, report_path, seg, trainer, total, card, kernels):
         f"{ {k: v['ood_launches'] for k, v in kernels.items() if v.get('ood_launches')} }")
 
 
+# ---------------------------------------------------------------------------
+# the reference's PyTorch checkpoints, and the XLFMNet baseline
+# ---------------------------------------------------------------------------
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir() if f.is_file())
+
+
+def _swap_perm(path: Path, step: int, module: int):
+    """Swap entries 0 and 1 of ``module_list.<module>.perm`` in the torch
+    file of ``step``, with perm_inv fixed to match.  Returns the step's
+    (perm, inv) pairs as the file now holds them."""
+    (fname,) = path.glob(f"model_step_{step}__ep_*")
+    payload = torch.load(fname, weights_only=False)
+    sd = payload["INN_state_dict"]
+    perm = sd[f"module_list.{module}.perm"].clone()
+    perm[[0, 1]] = perm[[1, 0]]
+    sd[f"module_list.{module}.perm"] = perm
+    sd[f"module_list.{module}.perm_inv"] = torch.argsort(perm)
+    torch.save(payload, fname)
+    return [(sd[f"module_list.{m}.perm"].numpy().astype(np.int32),
+             sd[f"module_list.{m}.perm_inv"].numpy().astype(np.int32))
+            for m in sorted(int(k.split(".")[1]) for k in sd
+                            if k.endswith(".perm"))]
+
+
+def phase_torch_ckpt(dev, card, kernels):
+    """The reference's checkpoint format at the flagship width: the
+    flagship (random weights from a seed, the LRNN's BatchNorm statistics
+    moved off their init, random Lion momenta) saved as the port's msgpack
+    set, written as the reference's torch files by ``python -m
+    cwfa_tpu_torch.cli.export_torch``, one permutation of step 1 altered in
+    the files, then loaded into a fresh trainer on the card with
+    ``CWFATrainer.load_torch_checkpoints`` and reconstructed at batch 1,
+    bf16, deterministic: the volume equal to the bit to the source model's
+    under the same altered permutation and unequal to the source model's
+    own, the launches per call the flagship's (BF16_PER_CALL)."""
+    from cwfa_tpu_torch.engine import torch_convert as tc
+
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for m in model.lrnn.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.num_batches_tracked.fill_(7)
+    opts = make_optimizers(model)
+    for lion in opts[0] + opts[1] + [opts[2]]:
+        for mu in lion.mu:
+            mu.normal_(0.0, 1e-3, generator=g)
+    root = Path(tempfile.mkdtemp(prefix="cwfa_tckpt_"))
+    try:
+        src, out = root / "msgpack", root / "torch"
+        checkpoints.save_model_checkpoints(model, str(src), epoch=7,
+                                           stats=stats, optimizers=opts)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cwfa_tpu_torch.cli.export_torch",
+             "--pretrain_models_path", str(src), "--output_path", str(out)],
+            cwd=Path(__file__).resolve().parent, capture_output=True,
+            text=True, timeout=600)
+        export_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"cli.export_torch exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        names = sorted(p.name for p in out.iterdir())
+        nf = model.n_flow_steps
+        if names != [f"model_step_{s}__ep_7" for s in range(1, nf + 2)] \
+                or len(proc.stdout.splitlines()) != nf + 2:
+            fail(f"cli.export_torch wrote {names}: {proc.stdout}")
+        perms = _swap_perm(out, step=1, module=3)
+
+        fresh = flagship(False, "cpu", torch.Generator().manual_seed(5))[1]
+        tr = CWFATrainer(fresh, None, vidx, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = tr.load_torch_checkpoints(str(out))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if loaded != list(range(1, nf + 2)) \
+                or tr.stats.astuple() != stats.astuple():
+            fail(f"load_torch_checkpoints: steps {loaded}, stats {tr.stats}")
+        for k in range(nf):
+            want = tr.model.flow[k].spec.perms
+            if not all(np.array_equal(a[-2], b[-2]) for a, b in zip(
+                    want, (perms if k == 0 else model.step_specs[k].perms))):
+                fail(f"step {k}: the loaded permutations are not the file's")
+        got_bn = [m.running_mean.cpu() for m in tr.model.lrnn.modules()
+                  if isinstance(m, torch.nn.BatchNorm2d)]
+        want_bn = [m.running_mean for m in model.lrnn.modules()
+                   if isinstance(m, torch.nn.BatchNorm2d)]
+        if not all(torch.equal(a, b) for a, b in zip(got_bn, want_bn)):
+            fail("the LRNN's BatchNorm statistics did not come across")
+
+        rng = np.random.RandomState(9)
+        side = cfg.volume_side_size
+        caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+                  .astype(np.float32) for k in range(nf + 1)]
+        frames = torch.as_tensor(
+            rng.rand(1, img, img).astype(np.float32) * 1000).to(dev)
+
+        def volume(m, s):
+            recon = XLFMReconstructor(m, s, vidx, caches, device=dev,
+                                      deterministic=True,
+                                      compute_dtype=torch.bfloat16)
+            out_ = recon(frames)
+            torch.cuda.synchronize()
+            return out_
+
+        reset_counts()
+        before = launch_counts()
+        got = volume(tr.model, tr.stats)
+        delta = check_counts(BF16_PER_CALL, 1, "torch_ckpt reload", before)
+        for name, n in delta.items():
+            if name in BF16_PER_CALL:
+                kernels[name]["ckpt_launches"] = n
+        ref = copy.deepcopy(model)
+        ref.set_step_spec(0, tc.apply_perm_overrides(ref.step_specs[0],
+                                                     perms))
+        want = volume(ref, stats)
+        plain = volume(model, stats)
+        if tuple(got.shape) != (1, cfg.n_depths, side, side) \
+                or not bool(torch.isfinite(got).all()):
+            fail(f"torch_ckpt volume {tuple(got.shape)} not finite")
+        if not torch.equal(got, want):
+            fail(f"torch_ckpt: the reloaded volume differs from the source "
+                 f"model's under the altered permutation by "
+                 f"{float((got.float() - want.float()).abs().max()):.3e}")
+        if torch.equal(got, plain):
+            fail("torch_ckpt: the altered permutation did not change the "
+                 "volume")
+        log(f"torch_ckpt: msgpack set {_dir_bytes(src)} B -> "
+            f"cli.export_torch {export_s:.2f} s (a process of its own) -> "
+            f"{len(names)} reference files {_dir_bytes(out)} B; "
+            f"load_torch_checkpoints {load_s:.2f} s on the card; the "
+            f"reloaded batch-1 bf16 volume equal to the bit to the source "
+            f"model's under the altered perm (step 1, module 3), unequal "
+            f"without it (max |d| "
+            f"{float((plain.float() - got.float()).abs().max()):.3e}); "
+            f"launches {delta} in 1 call; on {card}")
+        del tr, fresh, ref
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_xlfmnet_small(dev):
+    """XLFMNet on a small rig, card vs CPU in f32 (TF32 off): the eval
+    forward within 1e-4 of max|ref|; three ``train_xlfmnet`` steps from one
+    init on the same batches, losses within 1e-4 relative, parameters and
+    BatchNorm statistics within 1e-3 of each tree's max|ref|."""
+    from cwfa_tpu_torch.engine import xlfmnet_train as xt
+    from cwfa_tpu_torch.models.unet import UNetSpec
+    from cwfa_tpu_torch.models.xlfmnet import XLFMNetSpec
+
+    spec = XLFMNetSpec(in_views=4, out_depths=16, unet=UNetSpec(
+        in_channels=16, n_classes=16, depth=3, wf=6, batch_norm=True,
+        skip_conn=False, drop_out=0.0, activation="elu"))
+    cpu = xt.build_xlfmnet(spec, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu).to(dev)
+    rng = np.random.RandomState(0)
+    views = rng.randn(4, 4, 32, 32).astype(np.float32)
+    vols = rng.randn(4, 16, 32, 32).astype(np.float32)
+    with torch.inference_mode():
+        want = cpu(torch.as_tensor(views))
+        got = card_model(torch.as_tensor(views).to(dev)).cpu()
+    err = share_err(got, want, 1e-4, "xlfmnet small forward card vs CPU")
+    lr = CWFAConfig().decode_lrs().learning_rate_first_step
+    res = [xt.train_xlfmnet(spec, views, vols, n_steps=3, learning_rate=lr,
+                            batch_size=2, model=m, device=d)
+           for m, d in ((cpu, "cpu"), (card_model, dev))]
+    (m_cpu, l_cpu), (m_dev, l_dev) = res
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    if not lerr <= 1e-4:
+        fail(f"xlfmnet small Lion steps: losses {l_dev} vs {l_cpu}")
+    m_dev = m_dev.cpu()
+    for what, tensors in (
+            ("parameters", lambda m: [p.detach() for p in m.parameters()]),
+            ("BatchNorm statistics", lambda m: [
+                b for n, b in m.named_buffers()
+                if not n.endswith("num_batches_tracked")])):
+        want_t, got_t = tensors(m_cpu), tensors(m_dev)
+        scale = max(float(t.abs().max()) for t in want_t)
+        e = max(float((a - b).abs().max()) for a, b in zip(got_t, want_t))
+        if not e <= 1e-3 * scale:
+            fail(f"xlfmnet small Lion steps: {what} differ by {e:.3e} "
+                 f"(bound {1e-3 * scale:.3e})")
+    log(f"xlfmnet small rig (4 views -> 16 depths at 32^2, UNet depth 3), "
+        f"card vs CPU f32: forward max|d| {err:.3e} (bound 1e-4 x "
+        f"max|ref|); 3 Lion steps: losses within {lerr:.3e} relative "
+        f"(bound 1e-4), parameters and BatchNorm statistics within 1e-3 of "
+        f"max|ref|")
+
+
+def xlfmnet_flop(spec, side: int) -> float:
+    """Multiply-adds x 2 of one XLFMNet forward at ``side``^2 (convs and
+    transposed convs; BatchNorm and activations not counted)."""
+    u = spec.unet
+    flop = 2 * 9 * spec.in_views * spec.out_depths * side * side
+    prev, s = u.in_channels, side
+    for i in range(u.depth):
+        c = 2 ** (u.wf + i)
+        flop += 2 * 9 * (prev * c + c * c) * s * s
+        prev = c
+        if i != u.depth - 1:
+            s //= 2
+    for i in reversed(range(u.depth - 1)):
+        c = 2 ** (u.wf + i)
+        s *= 2
+        flop += 2 * prev * c * s * s + 2 * 9 * 2 * c * c * s * s
+        prev = c
+    return flop + 2 * prev * u.n_classes * s * s
+
+
+def phase_xlfmnet(dev, card, img: int):
+    """XLFMNet (``--INN_net_type 2``): the small rig card vs CPU; the
+    flagship width (29 views of 512^2 -> 96 depths, UNet depth 5, wf 6),
+    f32, forward ms/frame at batch 1 and 8 and a training step at
+    ``cfg.batch_size``, CUDA events, the median of 3 after a warm-up, with
+    peak memory; then ``cli.train.main`` with ``--INN_net_type 2`` on two
+    fish of TRAIN_FRAMES random frames (fold 0, ``--max_samples 3 --epochs
+    2``): finite losses and PSNRs, the checkpoint written, and
+    ``load_xlfmnet`` giving back the trained model's forward to the bit."""
+    from cwfa_tpu_torch.cli import train as train_cli
+    from cwfa_tpu_torch.engine import xlfmnet_train as xt
+    from cwfa_tpu_torch.engine.optim import Lion
+
+    phase_xlfmnet_small(dev)
+    cfg = CWFAConfig().decode_lrs()
+    side = cfg.volume_side_size
+    spec = xt.build_xlfmnet_spec(cfg)
+    model = xt.build_xlfmnet(spec, torch.Generator().manual_seed(0)).to(dev)
+    flop = xlfmnet_flop(spec, side)
+    rng = np.random.RandomState(1)
+    x8 = torch.as_tensor(rng.randn(8, spec.in_views, side, side)
+                         .astype(np.float32)).to(dev)
+    fwd = {}
+    for batch in (1, 8):
+        x = x8[:batch]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out = model(x)
+            torch.cuda.synchronize()
+            if tuple(out.shape) != (batch, cfg.n_depths, side, side) \
+                    or not bool(torch.isfinite(out).all()):
+                fail(f"xlfmnet flagship forward {tuple(out.shape)}")
+            ms = event_ms(lambda: model(x))
+        fwd[batch] = (float(np.median(ms)) / batch,
+                      torch.cuda.max_memory_allocated())
+        log(f"xlfmnet flagship forward batch {batch}: "
+            f"{fwd[batch][0]:.3f} ms/frame (median of {ms} ms per call), "
+            f"{flop / 1e12:.4f} TFLOP a frame, "
+            f"{flop / (fwd[batch][0] * 1e-3) / 1e12:.1f} TFLOP/s f32, "
+            f"peak memory {fwd[batch][1] / 2**30:.2f} GiB; on {card}")
+    del out, x8
+    bs = max(int(cfg.batch_size), 1)
+    v = torch.as_tensor(rng.randn(bs, spec.in_views, side, side)
+                        .astype(np.float32)).to(dev)
+    gt = torch.as_tensor(rng.randn(bs, cfg.n_depths, side, side)
+                         .astype(np.float32)).to(dev)
+    lion = Lion(model, cfg.learning_rate_first_step,
+                weight_decay=xt.LION_WEIGHT_DECAY)
+    model.train()
+    losses, marks = [], []
+
+    def step():
+        """One optimizer step, with events between its three segments."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        lion.zero_grad()
+        loss = recon_loss(cfg.loss_func_first_step, gt, model(v, train=True))
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        lion.step()
+        ev[3].record()
+        losses.append(loss.detach())
+        marks.append(ev)
+
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    ms = event_ms(step)
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    if not all(bool(torch.isfinite(l_)) for l_ in losses):
+        fail(f"xlfmnet flagship training losses {losses}")
+    step_ms = float(np.median(ms))
+    segs = {name: float(np.median([ev[i].elapsed_time(ev[i + 1])
+                                   for ev in marks[1:]]))
+            for i, name in enumerate(("forward + loss", "backward",
+                                      "Lion"))}
+    log(f"xlfmnet flagship training step at batch {bs}: {step_ms:.3f} ms "
+        f"(median of {ms}), {3 * flop * bs / 1e12:.4f} TFLOP (3x the "
+        f"forward), peak memory {peak / 2**30:.2f} GiB; by segment "
+        f"(medians, ms) {segs}; on {card}")
+    del model, lion, v, gt
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="cwfa_xlfmnet_"))
+    trained = {}
+    orig = xt.train_xlfmnet
+
+    def keep(*args, **kw):
+        out_ = orig(*args, **kw)
+        trained["model"], trained["losses"] = out_
+        return out_
+
+    try:
+        lenslets = write_cli_tree(root / "data", cfg, img)
+        argv = ["--main_data_path", str(root / "data"), "--lenslet_file",
+                str(lenslets), "--output_testing_path",
+                str(root / "runs") + "/", "--cross_validation_nFold", "0",
+                "--max_samples", "3", "--epochs", "2", "--img_size",
+                str(img), "--n_depths", str(cfg.n_depths),
+                "--volume_side_size", str(side), "--INN_net_type", "2"]
+        xt.train_xlfmnet = keep
+        t0 = time.perf_counter()
+        try:
+            results = train_cli.main(argv)
+        finally:
+            xt.train_xlfmnet = orig
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        (run_dir,) = list((root / "runs").iterdir())
+        losses = trained["losses"]
+        if len(losses) != 2 * TRAIN_FRAMES or not np.isfinite(losses).all():
+            fail(f"xlfmnet CLI losses {losses}")
+        for tag in ("train", "test"):
+            psnr = [r[0] for r in results[tag]["psnr"]]
+            if len(psnr) != TRAIN_FRAMES or not np.isfinite(psnr).all():
+                fail(f"xlfmnet CLI {tag} PSNRs {psnr}")
+        ckpt = run_dir / "xlfmnet_step_0__ep_1.msgpack"
+        if not ckpt.is_file():
+            fail(f"xlfmnet CLI: no {ckpt.name} in {sorted(os.listdir(run_dir))}")
+        back, _, _ = xt.load_xlfmnet(str(run_dir), device=dev)
+        x = torch.as_tensor(np.random.RandomState(2).randn(
+            1, spec.in_views, side, side).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            same = torch.equal(back(x), trained["model"](x))
+        if not same:
+            fail("xlfmnet: load_xlfmnet's forward differs from the trained "
+                 "model's")
+        log(f"xlfmnet CLI (--INN_net_type 2, fold 0, {TRAIN_FRAMES} train / "
+            f"{TRAIN_FRAMES} test frames of {img}^2, 2 epochs, batch "
+            f"{bs}): {total:.1f} s; losses {np.round(losses, 5).tolist()}; "
+            f"level-0 PSNR train "
+            f"{np.mean([r[0] for r in results['train']['psnr']]):.3f} test "
+            f"{np.mean([r[0] for r in results['test']['psnr']]):.3f}; "
+            f"{ckpt.name} {ckpt.stat().st_size} B, load_xlfmnet's forward "
+            f"equal to the bit; eval s/frame "
+            f"{np.mean(results['test']['times']):.4f}; on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3197,6 +3578,10 @@ def main():
                  "ood_cli": lambda dev, kernels: phase_ood_cli(
                      dev, card, kernels, 2160),
                  "deconv": lambda dev, kernels: phase_deconv(dev, card),
+                 "torch_ckpt": lambda dev, kernels: phase_torch_ckpt(
+                     dev, card, kernels),
+                 "xlfmnet": lambda dev, kernels: phase_xlfmnet(dev, card,
+                                                               2160),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -3237,6 +3622,9 @@ def main():
     torch.cuda.empty_cache()
     phase_ood_cli(dev, card, kernels, frames1.shape[-1])
     phase_deconv(dev, card)
+    torch.cuda.empty_cache()
+    phase_torch_ckpt(dev, card, kernels)
+    phase_xlfmnet(dev, card, frames1.shape[-1])
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -3253,12 +3641,14 @@ def main():
          # run; the probe script's own reading of the two s8 instances; the
          # launches of the serving path's two runs and of the flagship's
          # training, K2's and K3's by instance; K2 at every step's shape;
-         # the launches of the training CLI's evaluation and of the OOD CLI
+         # the launches of the training CLI's evaluation, of the OOD CLI
+         # and of the reconstruction from the reference's checkpoints
          **{key: v for key, v in k.items()
             if key.startswith("f32_") or key in (
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
                 "serve_launches", "train_launches", "launches_by_instance",
-                "step_ms", "eval_launches", "ood_launches")}}
+                "step_ms", "eval_launches", "ood_launches",
+                "ckpt_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

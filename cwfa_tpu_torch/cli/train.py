@@ -17,11 +17,12 @@ ones by their exact NLL (``detect_ood``).  The run directory is
 
 The flags are those of ``python -m cwfa_tpu.cli.train``: every
 ``CWFAConfig`` field (integer-encoded learning rates included),
-``--img_size`` and ``--max_samples``.  The run is on the card and raises
+``--img_size`` and ``--max_samples``.  ``--INN_net_type 2`` trains,
+evaluates and saves the XLFMNet baseline instead
+(``engine/xlfmnet_train.run_xlfmnet``).  The run is on the card and raises
 without one (``main``'s ``device`` keyword is for tests on the CPU).  Not
 ported: meshes (``--mesh_data_axis`` / ``--mesh_space_axis`` above 1, or
-``CWFA_DISTRIBUTED`` set; ROADMAP A17) and XLFMNet (``--INN_net_type 2``;
-ROADMAP A15).
+``CWFA_DISTRIBUTED`` set; ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.engine.metrics import read_neural_coordinates
 from cwfa_tpu_torch.engine.ood import detect_ood
 from cwfa_tpu_torch.engine.trainer import CWFATrainer
+from cwfa_tpu_torch.engine.xlfmnet_train import run_xlfmnet
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.utils.seeding import set_all_seeds
 
@@ -175,8 +177,6 @@ def main(argv=None, device="cuda"):
         sys.exit("--mesh_data_axis / --mesh_space_axis above 1 or "
                  "CWFA_DISTRIBUTED: training on more than one device is not "
                  "ported (ROADMAP A17)")
-    if cfg.INN_net_type == 2:
-        sys.exit("--INN_net_type 2 (XLFMNet) is not ported (ROADMAP A15)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: training runs on the card")
@@ -239,6 +239,18 @@ def main(argv=None, device="cuda"):
         cfg.output_testing_path,
         f"{datetime.now().strftime('%Y_%m_%d__%H_%M_%S')}_{marker}"
         f"{cfg.epochs}E_{prefix}_")
+
+    if cfg.INN_net_type == 2:
+        # the XLFMNet baseline (main.py:99; the reference's switch never
+        # constructs it, cwfa_tpu/cli/train.py:218-230)
+        results = run_xlfmnet(cfg, train_ds, test_ds, stats, vidx,
+                              output_path=out, device=device)
+        for tag, res in results.items():
+            if res["psnr"]:
+                print(f"[{tag}] XLFMNet level-0 PSNR "
+                      f"{np.mean([r[0] for r in res['psnr']]):.3f}")
+        print(f"Saving directory: {out}")
+        return results
 
     model = CWFAModel.build(cfg, torch.Generator().manual_seed(cfg.seed))
     trainer = CWFATrainer(model, stats, vidx, output_path=out, device=device)

@@ -50,12 +50,15 @@ def _write_atomic(fname: str, data: bytes):
 def save_step_checkpoint(path: str, step: int, epoch: int, cfg: CWFAConfig,
                          inn_params=None, cond_params=None,
                          train_statistics: DatasetStatistics | None = None,
-                         model_state=None, opt_state=None) -> str:
-    """Write ``<path>/model_step_<step>__ep_<epoch>.msgpack``.  The trees
+                         model_state=None, opt_state=None,
+                         prefix: str = "model_step_") -> str:
+    """Write ``<path>/<prefix><step>__ep_<epoch>.msgpack``.  The trees
     are JAX-keyed (nested dicts and lists of numpy arrays); "args" is the
     JSON of ``cfg.to_dict()``, which ``CWFAConfig.from_dict`` of either
     package reads; ``opt_state`` None writes an empty optimizer state, which
-    both packages read as absent.  Returns the file name."""
+    both packages read as absent.  A model other than the CWFA (the XLFMNet
+    baseline) takes its own ``prefix``, so that the CWFA's discovery never
+    maps its file onto a flow step.  Returns the file name."""
     os.makedirs(path, exist_ok=True)
 
     def tree(t):
@@ -71,29 +74,38 @@ def save_step_checkpoint(path: str, step: int, epoch: int, cfg: CWFAConfig,
         "training_statistics": (list(train_statistics.astuple())
                                 if train_statistics is not None else []),
     }
-    fname = os.path.join(path, f"model_step_{step}__ep_{epoch}.msgpack")
+    fname = os.path.join(path, f"{prefix}{step}__ep_{epoch}.msgpack")
     _write_atomic(fname, packb(payload))
     return fname
 
 
-def discover_checkpoints(path: str, max_epoch: int | None = None) -> dict:
-    """The highest-epoch ``model_step_*__ep_*`` file per step (reference
-    load_INN_steps, networks.py:732-756): {step: (epoch, filename)}.
-    Epochs above ``max_epoch`` are ignored, and so is a step below 1 (flow
-    steps are 1-based)."""
+def discover_checkpoints(path: str, prefix: str = "model_step_*__ep_*",
+                         max_epoch: int | None = None) -> dict:
+    """The highest-epoch file per step among those matching the glob
+    ``prefix`` (reference load_INN_steps, networks.py:732-756):
+    {step: (epoch, filename)}.  Epochs above ``max_epoch`` are ignored, and
+    so is a CWFA step below 1 (flow steps are 1-based; another family's
+    prefix, ``xlfmnet_step_*``, keeps its step 0).  The default glob
+    matches both formats; ``MSGPACK_GLOB`` and ``TORCH_GLOB`` one each."""
     best = {}
-    for m in glob.glob(os.path.join(path, "model_step_*__ep_*")):
+    for m in glob.glob(os.path.join(path, prefix)):
         nums = re.findall(r"\d+", os.path.basename(m))
         if len(nums) < 2:
             continue
         step, ep = int(nums[0]), int(nums[1])
-        if step < 1:
+        if step < 1 and prefix.startswith("model_step_"):
             continue
         if max_epoch is not None and ep > max_epoch:
             continue
         if step not in best or ep > best[step][0]:
             best[step] = (ep, m)
     return best
+
+
+# the port's and the JAX package's files; the reference's torch files,
+# whose names end in the epoch's digits
+MSGPACK_GLOB = "model_step_*__ep_*.msgpack"
+TORCH_GLOB = "model_step_*__ep_*[0-9]"
 
 
 def load_step_checkpoint(fname: str):
@@ -142,8 +154,9 @@ def save_model_checkpoints(model, path: str, epoch: int,
 
 def load_model_checkpoints(model, path: str, max_epoch: int | None = None,
                            optimizers=None, steps=None, configs=None):
-    """Fill ``model`` in place from the highest-epoch file of each step in
-    ``path`` (epochs above ``max_epoch`` ignored; only the file steps in
+    """Fill ``model`` in place from the highest-epoch ``.msgpack`` file of
+    each step in ``path`` (a reference torch file beside them is not
+    read; epochs above ``max_epoch`` ignored; only the file steps in
     ``steps``, where given), by the convention of the module docstring,
     and with ``optimizers`` ((flow Lions, cond Lions, LRNN Lion)) their
     Lion state where a file has one.  ``configs``, where a dict is given,
@@ -154,7 +167,7 @@ def load_model_checkpoints(model, path: str, max_epoch: int | None = None,
     nf = model.n_flow_steps
     params, state = (to_state_dict(t) for t in export_jax_params(model))
     stats, loaded, opts = None, [], []
-    found = discover_checkpoints(path, max_epoch=max_epoch)
+    found = discover_checkpoints(path, MSGPACK_GLOB, max_epoch=max_epoch)
     for step, (_, fname) in sorted(found.items()):
         if steps is not None and step not in steps:
             continue

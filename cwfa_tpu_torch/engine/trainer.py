@@ -46,8 +46,9 @@ volume TIFFs on a background thread and logs to TensorBoard
 cache stamped with ``_params_version``: the port updates its parameters in
 place, so every optimizer step and checkpoint load bumps the stamp
 explicitly.  The OOD finetune over these caches is
-``engine/ood.finetune_on_novel``.  Not here: the reference torch checkpoints
-(``load_torch_checkpoints``).
+``engine/ood.finetune_on_novel``.  ``load_torch_checkpoints`` reads the
+reference's own PyTorch checkpoints (``engine/torch_convert``); the reverse
+is ``engine/torch_export``.
 """
 
 from __future__ import annotations
@@ -68,7 +69,9 @@ from cwfa_tpu_torch.data.tiff import BackgroundTiffWriter, write_tiff_stack
 from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine import losses as L
+from cwfa_tpu_torch.engine import torch_convert as tc
 from cwfa_tpu_torch.engine.inference import device_timer
+from cwfa_tpu_torch.engine.jax_params import load_jax_params
 from cwfa_tpu_torch.engine.metrics import (RoiTraceAccumulator,
                                            compute_step_performance)
 from cwfa_tpu_torch.engine.ood import PyramidScorer, sentinel
@@ -526,6 +529,53 @@ class CWFATrainer:
                 if step - 1 < self.model.n_flow_steps:
                     self.opt_flow[step - 1].lr = \
                         cfg.decode_lrs().learning_rate
+        self._params_version += 1
+        return loaded
+
+    def load_torch_checkpoints(self, path: str, steps=None) -> list:
+        """The reference's own PyTorch checkpoints (``trainer.py:1169-1225``):
+        the highest-epoch ``model_step_*__ep_*`` torch file of each step in
+        ``path`` up to epoch ``cfg.max_test_load_epoch`` (only the file steps
+        in ``steps``, where given), read by ``engine/torch_convert`` into
+        the flow steps (with the file's permutations, each spatial one on
+        the axis the step replayed; the input subnet's variant from the
+        step's ``disable_low_res_input``), the cond nets and the LRNN (its
+        BatchNorm statistics, each count at 0).  Only torch files are
+        discovered, before the highest epoch is picked: a ``.msgpack`` file
+        beside them never hides a step (the JAX trainer filters after
+        picking).  The statistics come from the first file that has them
+        when the trainer has none.  The Lion states are not touched (the
+        reference's files carry none it reads).  Returns the steps loaded.
+        The files are pickles: load them only from a source you trust."""
+        nf = self.model.n_flow_steps
+        found = checkpoints.discover_checkpoints(
+            path, checkpoints.TORCH_GLOB,
+            max_epoch=int(self.cfg.max_test_load_epoch))
+        loaded = []
+        for step, (_, fname) in sorted(found.items()):
+            if steps is not None and step not in steps:
+                continue
+            payload = tc.load_torch_state_dict(fname)
+            ts = payload.get("training_statistics")
+            if self.stats is None and ts and len(ts) == 6:
+                self.stats = DatasetStatistics(*[float(t) for t in ts])
+            ix = step - 1
+            if ix < nf and payload["INN_state_dict"]:
+                spec = self.model.step_specs[ix]
+                flow, perms = tc.convert_graph_inn(
+                    payload["INN_state_dict"], n_blocks=self.cfg.INN_n_blocks,
+                    use_final_perm=self.cfg.INN_use_perm == 1,
+                    first=not spec.disable_low_res_input)
+                load_jax_params(self.model.flow[ix], flow, {})
+                self.model.set_step_spec(
+                    ix, tc.apply_perm_overrides(spec, perms))
+            cond = payload["condition_state_dict"]
+            if cond and ix >= nf:
+                load_jax_params(self.model.lrnn, *tc.convert_lrnn(cond))
+            elif cond:
+                load_jax_params(self.model.cond[ix],
+                                tc.convert_cond_network(cond), {})
+            loaded.append(step)
         self._params_version += 1
         return loaded
 

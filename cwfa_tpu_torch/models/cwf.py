@@ -111,7 +111,6 @@ class CWFStep(nn.Module):
         if spec.block_type != "CAT":
             raise NotImplementedError(
                 f"block type {spec.block_type!r}: only CAT is ported")
-        self.spec = spec
         n = spec.c_flow
         # without the low-res input the input block is an ordinary CAT on
         # the views condition alone (cwf.py:148-150,417-419)
@@ -125,15 +124,24 @@ class CWFStep(nn.Module):
             nn.ModuleDict({"subnet": WaveletFlowSubnet2d(
                 n, 2 * n, n_ch=spec.internal_ch, use_bias=spec.use_bias)})
             for _ in range(spec.n_blocks))
-        # permutations and their inverses as non-persistent buffers: they
-        # follow the module's device and stay out of the state dict
+        self.set_spec(spec)
+
+    def set_spec(self, spec: CWFStepSpec):
+        """Take ``spec``, which may differ from the step's only in its
+        permutations (a checkpoint's, ``engine/torch_convert.
+        apply_perm_overrides``): the permutations and their inverses become
+        non-persistent buffers, on the device of the step's parameters, out
+        of the state dict."""
+        device = next(self.parameters()).device
+        self.spec = spec
         self._perm_axes = []
         for i, entry in enumerate(spec.perms):
             self._perm_axes.append(1 if entry[0] == "channel" else entry[1])
             for name, idx in (("fwd", entry[-2]), ("inv", entry[-1])):
-                self.register_buffer(f"perm_{name}_{i}",
-                                     torch.as_tensor(idx, dtype=torch.long),
-                                     persistent=False)
+                self.register_buffer(
+                    f"perm_{name}_{i}",
+                    torch.as_tensor(idx, dtype=torch.long, device=device),
+                    persistent=False)
 
     def _perm(self, i: int, x, inverse: bool):
         idx = getattr(self, f"perm_{'inv' if inverse else 'fwd'}_{i}")

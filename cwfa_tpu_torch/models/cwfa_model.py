@@ -109,6 +109,14 @@ class CWFAModel(nn.Module):
     def n_flow_steps(self) -> int:
         return len(self.step_specs)
 
+    def set_step_spec(self, k: int, spec):
+        """Flow step k takes ``spec`` (its permutations replaced by a
+        checkpoint's, ``engine/torch_convert.apply_perm_overrides``)."""
+        self.flow[k].set_spec(spec)
+        specs = list(self.step_specs)
+        specs[k] = spec
+        self.step_specs = tuple(specs)
+
     def param_counts(self) -> dict:
         """Parameters of the flow steps, the cond nets and the LRNN, printed
         at start-up by the training CLI (``cwfa_model.py:377``)."""

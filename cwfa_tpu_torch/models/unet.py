@@ -4,8 +4,11 @@
 - downsampling via max-pool to exactly half the size (unet.py:79);
 - up path: ConvTranspose2d(k=2, s=2) and an ADDITIVE skip (unet.py:190);
 - 'last' head = 1x1 conv + activation (unet.py:67-69);
-- per-site PReLU parameters; BatchNorm after each activation, from its
-  running statistics.
+- the activation of ``spec.activation`` after every conv and in the head:
+  PReLU (the default, the LRNN's) with a parameter per site, or ELU,
+  LeakyReLU (0.01) or Softplus, which have none (XLFMNet's ELU,
+  ``models/xlfmnet.py``); BatchNorm after each activation, from its running
+  statistics.
 
 ``forward(..., train=True)`` is the train mode that reconstruction and
 training run the LRNN in (``cwfa_tpu/models/cwfa_model.py:267-276``):
@@ -14,7 +17,6 @@ after every pool and every up block.  The mode is an argument, as in JAX;
 the running statistics move (momentum 0.1, unbiased variance, as JAX's
 mstate) only when the module is also in training mode (``.train()``, which
 the trainer sets for its LRNN step), and are left as they are otherwise.
-The activation is PReLU, the one the LRNN uses.
 
 The int8 path (``unet_calibrate``, ``quantize_unet``, ``unet_quantized``)
 runs every conv through the same forward with a conv hook, as the JAX
@@ -49,6 +51,21 @@ class UNetSpec:
     use_bias: bool = False
     skip_conn: bool = False
     drop_out: float = 0.0
+    activation: str = "prelu"   # prelu | elu | leaky_relu | softplus
+
+
+def make_activation(activation: str) -> nn.Module:
+    """The activation module of a UNet site (``unet.py:40-53``); only PReLU
+    has a parameter."""
+    if activation == "prelu":
+        return nn.PReLU(1)
+    if activation == "elu":
+        return nn.ELU()
+    if activation == "leaky_relu":
+        return nn.LeakyReLU(0.01)
+    if activation == "softplus":
+        return nn.Softplus()
+    raise ValueError(f"unknown activation {activation!r}")
 
 
 def _plain_conv(_site, conv, x):
@@ -56,12 +73,12 @@ def _plain_conv(_site, conv, x):
 
 
 class ConvBlock(nn.Module):
-    def __init__(self, c_in, c_out, batch_norm, use_bias):
+    def __init__(self, c_in, c_out, batch_norm, use_bias, activation):
         super().__init__()
         self.conv1 = same_conv2d(c_in, c_out, 3, use_bias)
-        self.act1 = nn.PReLU(1)
+        self.act1 = make_activation(activation)
         self.conv2 = same_conv2d(c_out, c_out, 3, use_bias)
-        self.act2 = nn.PReLU(1)
+        self.act2 = make_activation(activation)
         self.bn1 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
         self.bn2 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
 
@@ -77,11 +94,12 @@ class ConvBlock(nn.Module):
 
 
 class UpBlock(nn.Module):
-    def __init__(self, c_in, c_out, batch_norm, use_bias):
+    def __init__(self, c_in, c_out, batch_norm, use_bias, activation):
         super().__init__()
         self.up = nn.ConvTranspose2d(c_in, c_out, 2, stride=2, bias=use_bias)
         # the skip is ADDITIVE, so the conv block's input width is c_out
-        self.conv_block = ConvBlock(c_out, c_out, batch_norm, use_bias)
+        self.conv_block = ConvBlock(c_out, c_out, batch_norm, use_bias,
+                                    activation)
 
 
 class UNet(nn.Module):
@@ -92,17 +110,18 @@ class UNet(nn.Module):
         prev = spec.in_channels
         for i in range(spec.depth):
             self.down.append(ConvBlock(prev, 2 ** (spec.wf + i),
-                                       spec.batch_norm, spec.use_bias))
+                                       spec.batch_norm, spec.use_bias,
+                                       spec.activation))
             prev = 2 ** (spec.wf + i)
         self.up = nn.ModuleList()
         for i in reversed(range(spec.depth - 1)):
             out_size = 2 ** (spec.wf + i)
             self.up.append(UpBlock(prev, out_size, spec.batch_norm,
-                                   spec.use_bias))
+                                   spec.use_bias, spec.activation))
             prev = out_size
         self.last = nn.ModuleDict({
             "conv": same_conv2d(prev, spec.n_classes, 1, spec.use_bias),
-            "act": nn.PReLU(1)})
+            "act": make_activation(spec.activation)})
 
     def forward(self, x, conv_fn=_plain_conv, train=False, generator=None):
         """x: (B, C, H, W); H, W divisible by 2^(depth-1).

@@ -13,8 +13,9 @@ two flow steps of two 8-wide blocks, f32, ``--epochs 3 --eval_every 3
 - ``--pretrain_models_path`` to a directory written by the JAX trainer,
   with ``--fine_tune_load_checkpoints`` and ``--fine_tune_use_model_args``,
   loads the same parameters and learning rates.
-- Mesh flags, ``CWFA_DISTRIBUTED`` and ``--INN_net_type 2`` exit naming the
-  ROADMAP items; without ``device="cpu"`` it raises here (no card).
+- Mesh flags and ``CWFA_DISTRIBUTED`` exit naming the ROADMAP item;
+  without ``device="cpu"`` it raises here (no card).  (``--INN_net_type 2``
+  is ``tests/test_torch_port_xlfmnet.py``.)
 """
 
 import os
@@ -209,7 +210,7 @@ def test_pretrained_jax_run_is_loaded(tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags, item", [
     (["--mesh_data_axis", "2"], "A17"), (["--mesh_space_axis", "2"], "A17"),
-    ([], "A17"), (["--INN_net_type", "2"], "A15")])
+    ([], "A17")])
 def test_unported_paths_exit_naming_the_item(tree, tmp_path, monkeypatch,
                                              flags, item):
     if not flags:
