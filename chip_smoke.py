@@ -5,7 +5,7 @@
                                                # tower, cond_pair, float_tower,
                                                # probes, serving, train,
                                                # train_cli, ood_cli, deconv,
-                                               # torch_ckpt, xlfmnet)
+                                               # torch_ckpt, xlfmnet, blocks)
                                                # while working on one: no
                                                # verdict
 
@@ -180,7 +180,23 @@ code != 0) on the first phase that does not hold:
     memory; then ``cli.train.main`` with ``--INN_net_type 2`` on two fish of
     3 random 2160^2 frames: finite losses and PSNRs, the checkpoint
     written, ``load_xlfmnet``'s forward equal to the bit to the trained
-    model's.
+    model's;
+20. every other coupling type (``INN_block_type`` RNVP, GLOW, GIN, NICE,
+    AI1): the float tower and K2 at the coupling-tower shapes they add (Cin
+    72 -> 24 / 48 at step 0, on the CUDA cores, and 36 / 18 / 9 on
+    ``wgmma``), f32 and bf16, each launch against its plain version with
+    its instance, timed in bf16; the small rig of each type card vs CPU in
+    f32 (``reconstruct`` fast and not, the NLLs; bound 1e-4) and every
+    step's forward then reverse; the flagship of each type (its blocks
+    replaced, random weights from seed 0): bf16 deterministic
+    reconstruction at batch 1 (ms/frame, peak memory, launches by kernel
+    and by tower instance, bf16 vs f32 within 5e-2), ``PyramidScorer`` at
+    batch 1, one flow optimizer step at step 0 in bf16 (finite loss, every
+    parameter tensor of the step moved, AI1's ``w_perm`` not, launches by
+    kernel and K2 by instance, ms and peak); then ``cli.train.main
+    --INN_block_type AI1`` at the flagship width on two fish of 2 random
+    frames, 2 epochs, and its msgpack checkpoint reloaded into a fresh
+    trainer, whose reconstruction equals the run's own to the bit.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -193,17 +209,22 @@ training run's launches, the forward kernels of training with
 ``train_launches``; every kernel's launches in the training CLI's
 evaluation as ``eval_launches``, in the OOD CLI's run as
 ``ood_launches``, in the reconstruction from the reference's checkpoints
-as ``ckpt_launches``), then, as its
+as ``ckpt_launches``, per reconstruction of each non-CAT type as
+``blocks_launches``, the tower's and K2's bf16 times at its shapes as
+``blocks_step0_ms``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import importlib.util
+import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -2005,8 +2026,9 @@ def phase_train_small(dev):
             f"max|ref| (bound 1e-3), the worst at {where}")
 
 
-def write_train_dataset(root: Path, cfg, img: int, seed: int = 12):
-    """TRAIN_FRAMES random uint16 camera frames of img^2 in XLFMDataset's
+def write_train_dataset(root: Path, cfg, img: int, seed: int = 12,
+                        frames: int = TRAIN_FRAMES):
+    """``frames`` random uint16 camera frames of img^2 in XLFMDataset's
     layout (XLFM_image/XLFM_image_stack.tif, XLFM_stack/XLFM_stack_NNN.tif
     volumes of the configuration's depth and side) and the rig's lenslet
     file.  Returns (dataset dir, lenslet file)."""
@@ -2015,9 +2037,9 @@ def write_train_dataset(root: Path, cfg, img: int, seed: int = 12):
     (root / "XLFM_image").mkdir(parents=True)
     (root / "XLFM_stack").mkdir()
     write_tiff_stack(str(root / "XLFM_image" / "XLFM_image_stack.tif"),
-                     rng.randint(0, 4000, (TRAIN_FRAMES, img, img))
+                     rng.randint(0, 4000, (frames, img, img))
                      .astype(np.uint16))
-    for i in range(TRAIN_FRAMES):
+    for i in range(frames):
         write_tiff_stack(str(root / "XLFM_stack" / f"XLFM_stack_{i:03d}.tif"),
                          rng.randint(0, 1000, (cfg.n_depths, side, side))
                          .astype(np.uint16))
@@ -2266,17 +2288,18 @@ def phase_nonfast(dev, card, kernels):
     torch.cuda.empty_cache()
 
 
-def write_cli_tree(root: Path, cfg, img: int) -> Path:
+def write_cli_tree(root: Path, cfg, img: int,
+                   frames: int = TRAIN_FRAMES) -> Path:
     """Two fish in the training CLI's layout (``<root>/<fish>/
     SLNet_preprocessed``, as ``use_sparse_for_all`` = 1 reads), each with
-    TRAIN_FRAMES frames and volumes (``write_train_dataset``) and a
+    ``frames`` frames and volumes (``write_train_dataset``) and a
     ``Neural_activity_coordinates.csv`` of four neurons inside the volume,
     one at its edge.  Returns the first fish's lenslet file."""
     lenslets = None
     for fi in range(2):
         data, lens = write_train_dataset(
             root / f"fish_{fi}" / "SLNet_preprocessed", cfg, img,
-            seed=12 + fi)
+            seed=12 + fi, frames=frames)
         lenslets = lenslets or lens
         (data / "Neural_activity_coordinates.csv").write_text(
             "patch_n,coord_x,coord_y,coord_z,corr_coeff,is_gt\n"
@@ -3532,6 +3555,398 @@ def phase_xlfmnet(dev, card, img: int):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ blocks
+
+NON_CAT = ("RNVP", "GLOW", "GIN", "NICE", "AI1")
+BLOCK_FRAMES = 2                   # a fish's frames in the AI1 CLI run
+
+
+def model_towers(model, steps=None):
+    """Every float tower of the model's flow steps (all, or those in
+    ``steps``): each step's input block's and its coupling blocks'."""
+    return [m for k, step in enumerate(model.flow)
+            if steps is None or k in steps
+            for m in step.modules() if isinstance(m, WaveletFlowSubnet2d)]
+
+
+def tower_instances(towers, dtype, backward: bool = False) -> dict:
+    """{instance: count} of the towers' launches in ``dtype``, by the
+    kernel's own choice (``btower.kernel_instance`` / ``bwd_instance``)."""
+    pick = btower.bwd_instance if backward else btower.kernel_instance
+    out = {}
+    for t in towers:
+        inst = pick(dtype, t.b2a.in_channels, t.b1.in_channels,
+                    t.b7.out_channels)
+        out[inst] = out.get(inst, 0) + 1
+    return out
+
+
+def check_by_instance(wrapper, want: dict, calls: int, what: str):
+    """Fails unless ``wrapper``'s launches by instance since reset_counts()
+    are ``want`` times ``calls``."""
+    got = {k: n for k, n in wrapper.by_instance.items() if n}
+    want = {k: n * calls for k, n in want.items()}
+    log(f"{what}: launches by instance {got}")
+    if got != want:
+        fail(f"{what}: launches by instance {got}, expected {want}")
+
+
+def non_cat_tower_shapes(cin_list=TOWER_CIN):
+    """(Cin, Nout) of every coupling tower of the non-CAT types at the
+    flagship's steps: the two-sided halves [x half | c_views] -> the other
+    half (RNVP, NICE) or its (s | t) (GLOW, GIN, AI1)."""
+    shapes = []
+    for c in cin_list:
+        l1, l2 = c // 2, c - c // 2
+        for shape in ((l1 + c, l2), (l2 + c, l1), (l1 + c, 2 * l2),
+                      (l2 + c, 2 * l1)):
+            if shape not in shapes:
+                shapes.append(shape)
+    return shapes
+
+
+def check_block_towers(dev, kernels) -> dict:
+    """The float tower (forward) and K2 (backward) at every coupling-tower
+    shape of the non-CAT types (Cin 72 / 36 / 18 / 9 at 512^2, 64 wide),
+    each launch against its plain version, f32 and bf16, logging the
+    instance that ran; times the bf16 forward and K2 at each shape.
+    Returns {(cin, nout): (forward ms, K2 ms)} in bf16."""
+    gen = torch.Generator().manual_seed(14)
+    flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2]) for t in pair]
+    fwd, bwd = kernels["fused_float_tower"], kernels["float_tower_bwd"]
+    times = {}
+    for cin, nout in non_cat_tower_shapes():
+        tower = WaveletFlowSubnet2d(cin, nout, 64)
+        reset_parameters_(tower, gen)
+        tower = tower.to(dev)                   # f32 master weights
+        x0 = torch.randn((1, cin, SLICE_HW, SLICE_HW), generator=gen)
+        dy0 = torch.randn((1, nout, SLICE_HW, SLICE_HW), generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
+            t = copy.deepcopy(tower).to(dtype).eval()
+            inst = btower.kernel_instance(dtype, 64, cin, nout)
+            with torch.inference_mode():
+                got = one_launch_of(
+                    btower.fused_float_tower, inst,
+                    lambda: btower.fused_float_tower(x, t),
+                    f"blocks tower {cin}->{nout} {dtype}")
+                want = btower.float_tower_reference(t, x).to(dtype)
+                e, share = rel_err(got, want, "fused_float_tower", dtype,
+                                   f"blocks tower {cin}->{nout} {dtype}")
+            fwd["max_abs_err"] = max(fwd.get("max_abs_err", 0.0), e)
+            del got, want
+            binst = btower.bwd_instance(dtype, 64, cin, nout)
+            got = one_launch_of(
+                btower.float_tower_backward, binst,
+                lambda: btower.float_tower_backward(tower, x, dy),
+                f"blocks K2 {cin}->{nout} {dtype}")
+            ref = btower.float_tower_backward_reference(tower, x, dy)
+            eb = grads_err(flat(got), flat(ref), dtype,
+                           f"blocks K2 {cin}->{nout} {dtype} ({binst})")
+            bwd["max_abs_err"] = max(bwd.get("max_abs_err", 0.0), max(
+                (g - r).abs().max().item()
+                for g, r in zip(flat(got), flat(ref)) if r is not None))
+            del got, ref
+            line = (f"blocks tower (1, {cin}, 512, 512) -> {nout} "
+                    f"{str(dtype)[6:]}: forward ({inst}) max|d| {e:.3e}, "
+                    f"{share:.2e} of the elements differ; K2 ({binst}) "
+                    f"max|d|/max|ref| {eb:.3e}")
+            if dtype == torch.bfloat16:
+                with torch.inference_mode():
+                    f_ms = time_ms(lambda: btower.fused_float_tower(x, t), 5)
+                b_ms = time_ms(lambda: btower.float_tower_backward(
+                    tower, x, dy), 3, warmup=1)
+                times[(cin, nout)] = (f_ms, b_ms)
+                line += f"; time forward {f_ms:.4f} ms, K2 {b_ms:.4f} ms"
+            log(line)
+    return times
+
+
+def phase_blocks_small(dev):
+    """Small rig, f32, each non-CAT type: reconstruct (fast and not) and
+    the per-frame NLLs, card vs CPU within 1e-4; every step forward then
+    reverse on the card."""
+    rng = np.random.RandomState(15)
+    for bt in NON_CAT:
+        cfg, model, _, _, _ = flagship(
+            True, "cpu", torch.Generator().manual_seed(0), bt)
+        model.eval()
+        card = copy.deepcopy(model).to(dev)
+        side, nf = cfg.volume_side_size, model.n_flow_steps
+        views = torch.as_tensor(rng.randn(2, cfg.n_lenslets, side, side)
+                                .astype(np.float32))
+        caches = [torch.as_tensor(rng.randn(1, cfg.n_depths // 2 ** (k + 1),
+                                            side, side).astype(np.float32))
+                  for k in range(nf + 1)]
+        errs = []
+        for fast in (True, False):
+            ref = model.reconstruct(views, caches, fast=fast)
+            got = card.reconstruct(views.to(dev), [c.to(dev) for c in caches],
+                                   fast=fast)
+            errs.append(share_err(got.cpu(), ref, 1e-4,
+                                  f"blocks small rig {bt} fast={fast}"))
+        gt = torch.as_tensor(rng.randn(2, cfg.n_depths, side, side)
+                             .astype(np.float32) * 3)
+        ref = torch.stack(model.forward_pyramid(gt, per_sample=True)[0])
+        got = torch.stack(card.forward_pyramid(gt.to(dev),
+                                               per_sample=True)[0])
+        e_nll = nll_bound(got, ref, f"blocks small rig {bt} NLLs")
+        rt = []
+        with torch.no_grad():
+            for k, step in enumerate(card.flow):
+                d = cfg.n_depths // 2 ** k
+                v, cv, cm = (torch.randn((2, c, side, side), device=dev)
+                             for c in (d, d // 2, d // 2))
+                z, avg, ld = step(v, cv, cm)
+                back, ld_rev = step.reverse(z, avg, cv, cm)
+                rt.append(share_err(back, v, 1e-4,
+                                    f"blocks {bt} step {k} round trip"))
+                nll_bound(ld + ld_rev, torch.zeros_like(ld),
+                          f"blocks {bt} step {k} log-dets")
+        log(f"blocks small rig f32 {bt}, card vs CPU: reconstruct fast "
+            f"{errs[0]:.3e}, non-fast {errs[1]:.3e} (bound 1e-4 max|ref|); "
+            f"NLLs max|d| {e_nll:.3e} (bound 1e-4 max(1, |ref|)); forward "
+            f"then reverse on the card max|d| {max(rt):.3e}")
+
+
+def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
+    """The flagship with ``INN_block_type`` = bt: bf16 deterministic
+    reconstruction at batch 1 (ms/frame, peak, launches by kernel and
+    instance), bf16 vs f32, ``PyramidScorer`` at batch 1, and one flow
+    optimizer step at step 0 in bf16 (ms, peak, finite loss, parameters
+    moved, AI1's w_perm unchanged).  Returns the figures."""
+    t0 = time.perf_counter()
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0), bt)
+    built = time.perf_counter() - t0
+    nf, side = model.n_flow_steps, cfg.volume_side_size
+    rng = np.random.RandomState(0)
+    caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(nf + 1)]
+    frames1 = torch.as_tensor(rng.rand(1, img, img).astype(np.float32)
+                              * 1000).to(dev)
+    towers = model_towers(model)
+    out = {"towers_per_call": len(towers), "build_s": built}
+    per_call = {"fused_float_tower": len(towers), "haar_merge_affine": nf,
+                "cond_pair": nf}
+
+    recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=True,
+                              compute_dtype=torch.bfloat16)
+    reset_counts()
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out16 = recon(frames1)
+    torch.cuda.synchronize()
+    if tuple(out16.shape) != (1, cfg.n_depths, side, side) or not bool(
+            torch.isfinite(out16).all()):
+        fail(f"blocks {bt} flagship bf16: {tuple(out16.shape)} or not finite")
+    ms = event_ms(lambda: recon(frames1))
+    peak = torch.cuda.max_memory_allocated()
+    delta = check_counts(per_call, 4, f"blocks {bt} flagship bf16", before)
+    check_by_instance(btower.fused_float_tower,
+                      tower_instances(towers, torch.bfloat16), 4,
+                      f"blocks {bt} flagship bf16 towers")
+    check_instance("cond_pair", cpair.TENSOR_CORES,
+                   f"blocks {bt} flagship bf16")
+    for name, n in delta.items():
+        kernels[name].setdefault("blocks_launches", {})[bt] = n // 4
+    out.update(ms=float(np.median(ms)), peak=peak / 2 ** 30,
+               by_instance={k: n // 4 for k, n in
+                            btower.fused_float_tower.by_instance.items() if n})
+    del recon
+    recon32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                deterministic=True,
+                                compute_dtype=torch.float32)
+    out32 = recon32(frames1)
+    rel = ((out16 - out32).abs().max() / out32.abs().max()).item()
+    out["bf16_vs_f32"] = rel
+    del recon32, out16, out32
+    if not rel <= 5e-2:
+        fail(f"blocks {bt} flagship bf16 vs f32 {rel:.3e} > 5e-2")
+    log(f"blocks {bt} flagship bf16 batch 1: built on the CPU in "
+        f"{built:.1f} s; {out['ms']:.2f} ms/frame (median of {ms} ms); "
+        f"peak memory {out['peak']:.2f} GiB; launches {delta} in 4 calls; "
+        f"towers by instance per call {out['by_instance']}; bf16 vs f32 "
+        f"max|d|/max|f32| {rel:.3e} (bound 5e-2); on {card}")
+
+    card_model = copy.deepcopy(model).to(dev).eval()
+    scorer = PyramidScorer(card_model, stats, device=dev, batch_size=1,
+                           generator=torch.Generator(device=dev).manual_seed(5))
+    vols = torch.as_tensor((rng.rand(1, cfg.n_depths, side, side) * 20)
+                           .astype(np.float16)).to(dev)
+    reset_counts()
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    nlls = scorer(vols)[0]
+    torch.cuda.synchronize()
+    if tuple(nlls.shape) != (nf, 1) or not bool(torch.isfinite(nlls).all()) \
+            or bool((nlls == 1e15).any()):
+        fail(f"blocks {bt} flagship NLLs {nlls.tolist()}")
+    nll_ms = event_ms(lambda: scorer(vols))
+    nll_peak = torch.cuda.max_memory_allocated()
+    check_counts({"fused_float_tower": len(towers)}, 4,
+                 f"blocks {bt} flagship NLL", before)
+    check_by_instance(btower.fused_float_tower,
+                      tower_instances(towers, torch.float32), 4,
+                      f"blocks {bt} flagship NLL towers")
+    out.update(nll_ms=float(np.median(nll_ms)), nll_peak=nll_peak / 2 ** 30)
+    log(f"blocks {bt} flagship NLL f32 batch 1: "
+        f"{[round(v, 4) for v in nlls[:, 0].tolist()]}; {out['nll_ms']:.2f} "
+        f"ms/frame (median of {nll_ms}); peak {out['nll_peak']:.2f} GiB; "
+        f"on {card}")
+    del scorer, card_model, vols
+
+    tr = CWFATrainer(model, stats, vidx, device=dev)
+    spec = model.step_specs[0]
+    d = spec.d_in
+    gen = torch.Generator(device=dev).manual_seed(6)
+    inputs = (torch.randn((1, cfg.n_lenslets, side, side), device=dev,
+                          generator=gen),
+              torch.randn((1, d // 2, side, side), device=dev,
+                          generator=gen) * 0.3,
+              torch.randn((1, d, side, side), device=dev, generator=gen),
+              torch.randn((1, d // 2, side, side), device=dev, generator=gen))
+    step_towers = model_towers(model, steps={0})
+    fixed = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith("w_perm")}
+    if (bt == "AI1") != bool(fixed):
+        fail(f"blocks {bt}: w_perm buffers {sorted(fixed)}")
+    params0 = [p.detach().clone() for p in model.flow[0].parameters()]
+    reset_counts()
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss = tr._flow_step(0, *inputs)[0]
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(float(loss)):
+        fail(f"blocks {bt} flow step 0 loss {float(loss)}")
+    n_t = 2 * len(step_towers)
+    check_counts({"fused_float_tower": n_t, "float_tower_bwd": n_t,
+                  "cond_pair": 1, "cond_pair_bwd": 1}, 1,
+                 f"blocks {bt} flow step 0", before)
+    check_by_instance(btower.float_tower_backward,
+                      tower_instances(step_towers, torch.bfloat16,
+                                      backward=True), 2,
+                      f"blocks {bt} flow step 0 K2")
+    moved = sum(not torch.equal(p0, p) for p0, p in
+                zip(params0, model.flow[0].parameters()))
+    if moved != len(params0):
+        fail(f"blocks {bt} flow step 0: {moved} of {len(params0)} "
+             "parameters moved")
+    for n, b in model.named_buffers():
+        if n in fixed and not torch.equal(b, fixed[n]):
+            fail(f"blocks {bt}: the optimizer step moved {n}")
+    step_ms = event_ms(lambda: tr._flow_step(0, *inputs), 2)
+    out.update(step_ms=float(np.median(step_ms)), step_peak=step_peak / 2 ** 30,
+               loss=float(loss),
+               k2_by_instance={k: n for k, n in
+                               btower.float_tower_backward.by_instance.items()
+                               if n})
+    log(f"blocks {bt} flow optimizer step 0 bf16 batch 1: loss "
+        f"{float(loss):.4f}, all {moved} parameter tensors of step 0 moved"
+        f"{', w_perm unchanged' if fixed else ''}; {out['step_ms']:.2f} ms "
+        f"(events {step_ms}); peak {out['step_peak']:.2f} GiB; towers and K2 "
+        f"{n_t} each, K2 by instance in the 3 steps {out['k2_by_instance']};"
+        f" on {card}")
+    del tr, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_blocks_cli(dev, card, kernels, img: int):
+    """``cli.train.main --INN_block_type AI1`` at the flagship width on two
+    fish of BLOCK_FRAMES random frames, 2 epochs (the LRNN stage, then the
+    coarsest flow step), evaluation and the checkpoints at the end; the
+    checkpoint directory read into a fresh trainer, whose reconstruction of
+    a frame equals the trained model's to the bit."""
+    from cwfa_tpu_torch.cli import train as train_cli
+
+    root = Path(tempfile.mkdtemp(prefix="cwfa_blocks_"))
+    state = {}
+    orig = CWFATrainer.save_checkpoints
+
+    def save(self, *args, **kw):
+        files = orig(self, *args, **kw)
+        state.update(files=files, trainer=self, sd={
+            k: v.detach().clone() for k, v in self.model.state_dict().items()})
+        return files
+
+    try:
+        cfg = CWFAConfig(INN_block_type="AI1")
+        lenslets = write_cli_tree(root / "data", cfg, img,
+                                  frames=BLOCK_FRAMES)
+        argv = ["--main_data_path", str(root / "data"), "--lenslet_file",
+                str(lenslets), "--output_testing_path",
+                str(root / "runs") + "/", "--INN_block_type", "AI1",
+                "--cross_validation_nFold", "0", "--max_samples",
+                str(BLOCK_FRAMES), "--epochs", "2", "--eval_every", "2",
+                "--img_size", str(img), "--save_tiff_volumes", "0"]
+        CWFATrainer.save_checkpoints = save
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                results = train_cli.main(argv)
+        finally:
+            CWFATrainer.save_checkpoints = orig
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if "files" not in state:
+            fail("blocks AI1 CLI: no checkpoint written")
+        for tag, res in results.items():
+            if not (np.isfinite(np.asarray(res["nll"])).all()
+                    and np.isfinite(np.asarray(res["psnr"])).all()):
+                fail(f"blocks AI1 CLI: {tag} NLLs / PSNRs not finite")
+        run_dir = os.path.dirname(state["files"][0])
+        trained = state["trainer"]
+        mcfg = trained.model.cfg
+        gen = torch.Generator().manual_seed(1)
+        mine = CWFAModel.build(mcfg, gen)
+        mine.load_state_dict(state["sd"])
+        fresh = CWFATrainer(CWFAModel.build(mcfg, gen), None, None,
+                            device=dev)
+        loaded = fresh.load_checkpoints(run_dir)
+        if loaded != list(range(1, mcfg.INN_max_down_steps + 1)):
+            fail(f"blocks AI1 CLI: loaded steps {loaded}")
+        side = mcfg.volume_side_size
+        vidx = make_view_indices(lenslet_coords(mcfg.n_lenslets, side, img),
+                                 (img, img), (side, side))
+        caches = [c.cpu().numpy() for c in fresh.mean_caches[0]]
+        frame = np.random.RandomState(16).rand(1, img, img).astype(
+            np.float32) * 1000
+        vols = [XLFMReconstructor(m, fresh.stats, vidx, caches, device=dev,
+                                  deterministic=True,
+                                  compute_dtype=torch.bfloat16)(frame)
+                for m in (mine, fresh.model)]
+        exact_equal(vols[1], vols[0], "blocks AI1 CLI checkpoint reloaded")
+        if not bool(torch.isfinite(vols[0]).all()):
+            fail("blocks AI1 CLI reconstruction not finite")
+        log(f"blocks AI1 CLI: main {total:.1f} s (2 fish x {BLOCK_FRAMES} "
+            f"frames, 2 epochs, evaluation {sorted(results)}), "
+            f"{len(state['files'])} files; the msgpack checkpoint reloaded "
+            f"into a fresh trainer reconstructs equal to the bit; on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_blocks(dev, card, kernels, img: int):
+    """Every other coupling type on the card: the tower shapes they add,
+    the small rig card vs CPU, the flagship of each type, the AI1 CLI."""
+    times = check_block_towers(dev, kernels)
+    kernels["float_tower_bwd"]["blocks_step0_ms"] = {
+        f"{cin}->{nout}": round(t[1], 4) for (cin, nout), t in times.items()}
+    kernels["fused_float_tower"]["blocks_step0_ms"] = {
+        f"{cin}->{nout}": round(t[0], 4) for (cin, nout), t in times.items()}
+    torch.cuda.empty_cache()
+    phase_blocks_small(dev)
+    figures = {bt: phase_blocks_flagship(dev, card, kernels, bt)
+               for bt in NON_CAT}
+    log("blocks flagship summary: " + json.dumps(
+        {bt: {k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in f.items()} for bt, f in figures.items()}))
+    phase_blocks_cli(dev, card, kernels, img)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -3582,6 +3997,8 @@ def main():
                      dev, card, kernels),
                  "xlfmnet": lambda dev, kernels: phase_xlfmnet(dev, card,
                                                                2160),
+                 "blocks": lambda dev, kernels: phase_blocks(dev, card,
+                                                             kernels, 2160),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
@@ -3625,6 +4042,8 @@ def main():
     torch.cuda.empty_cache()
     phase_torch_ckpt(dev, card, kernels)
     phase_xlfmnet(dev, card, frames1.shape[-1])
+    torch.cuda.empty_cache()
+    phase_blocks(dev, card, kernels, frames1.shape[-1])
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -3648,7 +4067,7 @@ def main():
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
                 "serve_launches", "train_launches", "launches_by_instance",
                 "step_ms", "eval_launches", "ood_launches",
-                "ckpt_launches")}}
+                "ckpt_launches", "blocks_launches", "blocks_step0_ms")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ and writes the reference's ``model_step_<s>__ep_<e>`` files
 the Lion momenta each file carries, then prints each path.  Every pyramid
 step must have a checkpoint: a step exported from a random init would load
 into the reference without complaint and reconstruct garbage, so a missing
-step exits.
+step exits.  A configuration whose ``INN_block_type`` is not CAT raises
+ValueError before any weight is read or file written.
 
 Loading a checkpoint needs no card, so this one entry point of the port
 runs on the CPU.
@@ -26,6 +27,7 @@ import torch
 
 from cwfa_tpu_torch.engine import checkpoints
 from cwfa_tpu_torch.engine.optim import make_optimizers
+from cwfa_tpu_torch.engine.torch_convert import require_cat
 from cwfa_tpu_torch.engine.torch_export import export_torch_checkpoints
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 
@@ -75,6 +77,7 @@ def main(argv=None):
             f"no .msgpack step checkpoints under {args.pretrain_models_path}")
     # the architecture from the first checkpoint's payload, as JAX picks it
     _, cfg, _ = checkpoints.load_step_checkpoint(sorted(found.values())[0][1])
+    require_cat(cfg.INN_block_type, "export_torch")
     model = CWFAModel.build(cfg, torch.Generator().manual_seed(0))
     nf = model.n_flow_steps
     missing = [s for s in range(1, nf + 2) if s not in found]

@@ -6,7 +6,8 @@ same attribute names, so a pytree path maps to a state-dict key by joining
 its parts with '.' and renaming the leaf:
 
     params: w -> weight, b -> bias, alpha (PReLU) -> weight,
-            scale / bias (BatchNorm, LayerNorm) -> weight / bias
+            scale / bias (BatchNorm, LayerNorm) -> weight / bias;
+            AI1's global_scale / global_offset / w_perm keep their names
     state:  mean -> running_mean, var -> running_var,
             count -> num_batches_tracked
 
@@ -14,6 +15,13 @@ The UNet keeps an up block's BatchNorm state at ``up[i]`` in the JAX tree;
 its module is ``up[i].conv_block``.  Conv weights are OIHW (OIDHW, OIK) on
 both sides and a transposed conv's is (I, O, kH, kW) on both sides, so
 nothing is transposed.
+
+A module may list buffers that the JAX package keeps among its params
+(``JAX_PARAM_BUFFERS``: AI1's fixed permutation ``w_perm``, a persistent
+buffer of ``models/cwf.AllInOneParams``).  The bridge carries them both
+ways in the params tree; an optimizer state's tree (``param_tree``) has a
+leaf for each, which the port writes as zeros and drops on read
+(``param_values``), as no optimizer of the port moves them.
 
 ``export_jax_params`` is the reverse: the port's modules as JAX-keyed numpy
 trees, the form the JAX package's checkpoints carry (``engine/checkpoints``).
@@ -35,7 +43,9 @@ from cwfa_tpu_torch.models.unet import unet_site_conv
 from cwfa_tpu_torch.ops.qtower import pack_convs
 
 _PARAM_LEAF = {"w": "weight", "b": "bias", "alpha": "weight",
-               "scale": "weight", "bias": "bias"}
+               "scale": "weight", "bias": "bias",
+               "global_scale": "global_scale",
+               "global_offset": "global_offset", "w_perm": "w_perm"}
 _STATE_LEAF = {"mean": "running_mean", "var": "running_var",
                "count": "num_batches_tracked"}
 
@@ -97,7 +107,20 @@ def _param_leaf(module: nn.Module, name: str) -> str:
         return "alpha"
     if isinstance(module, _NORMS):
         return {"weight": "scale", "bias": "bias"}[name]
-    return {"weight": "w", "bias": "b"}[name]
+    return {"weight": "w", "bias": "b"}.get(name, name)
+
+
+def _jax_param_buffers(module: nn.Module):
+    """(name, buffer) of each of ``module``'s own buffers that JAX keeps
+    among its params."""
+    return [(name, getattr(module, name))
+            for name in getattr(module, "JAX_PARAM_BUFFERS", ())]
+
+
+def _jax_param_buffer_keys(model: nn.Module) -> set:
+    return {".".join(filter(None, (mname, name)))
+            for mname, m in model.named_modules()
+            for name, _ in _jax_param_buffers(m)}
 
 
 def _put(tree: dict, path, value):
@@ -108,20 +131,28 @@ def _put(tree: dict, path, value):
 
 def param_tree(module: nn.Module, value_of):
     """``value_of(p)`` for every parameter p of ``module``, as a JAX-keyed
-    tree (the layout of ``export_jax_params``'s params; lists as lists)."""
+    tree (the layout of ``export_jax_params``'s params; lists as lists),
+    and f32 zeros of its shape for every buffer that JAX keeps among its
+    params (JAX's optimizer state has a leaf there)."""
     tree = {}
     for name, sub in module.named_modules():
         path = tuple(name.split(".")) if name else ()
         for pname, p in sub.named_parameters(recurse=False):
             _put(tree, path + (_param_leaf(sub, pname),), value_of(p))
+        for bname, b in _jax_param_buffers(sub):
+            _put(tree, path + (bname,), np.zeros(tuple(b.shape), np.float32))
     return restore_lists(tree)
 
 
 def param_values(module: nn.Module, tree) -> dict:
     """The reverse of ``param_tree``: {parameter name: array} of ``tree``
-    for ``module``'s parameters.  Raises KeyError on a key left unused on
+    for ``module``'s parameters; the leaves of buffers that JAX keeps among
+    its params are dropped.  Raises KeyError on a key left unused on
     either side and ValueError on a shape mismatch."""
-    incoming = {_key(path, _PARAM_LEAF): arr for path, arr in _flatten(tree)}
+    fixed = _jax_param_buffer_keys(module)
+    incoming = {key: arr for key, arr in (
+        (_key(path, _PARAM_LEAF), arr) for path, arr in _flatten(tree))
+        if key not in fixed}
     params = dict(module.named_parameters())
     unused = sorted(set(incoming) - set(params))
     missing = sorted(set(params) - set(incoming))
@@ -137,7 +168,8 @@ def param_values(module: nn.Module, tree) -> dict:
 
 def export_jax_params(model: nn.Module):
     """The reverse of ``load_jax_params``: ``model``'s parameters and
-    persistent buffers as JAX ``(params, state)`` trees of numpy arrays,
+    persistent buffers (those JAX keeps among its params in ``params``) as
+    JAX ``(params, state)`` trees of numpy arrays,
     nested dicts and lists as ``CWFAModel.init`` builds them (the BatchNorm
     count as an int32 scalar, as JAX keeps it).  Arrays keep the module's
     dtype; a bfloat16 one stays a torch tensor (numpy has no bfloat16)."""
@@ -150,9 +182,12 @@ def export_jax_params(model: nn.Module):
         path = tuple(name.split(".")) if name else ()
         for pname, p in module.named_parameters(recurse=False):
             _put(params, path + (_param_leaf(module, pname),), host(p))
+        as_params = dict(_jax_param_buffers(module))
+        for bname, b in as_params.items():
+            _put(params, path + (bname,), host(b))
         skip = getattr(module, "_non_persistent_buffers_set", set())
         for bname, b in module.named_buffers(recurse=False):
-            if bname in skip:
+            if bname in skip or bname in as_params:
                 continue
             leaf = {v: k for k, v in _STATE_LEAF.items()}[bname]
             spath = path

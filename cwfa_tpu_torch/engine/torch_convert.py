@@ -37,6 +37,17 @@ import numpy as np
 import torch
 
 
+def require_cat(block_type: str, what: str):
+    """Raise ValueError unless ``block_type`` is CAT: the reference's torch
+    files are read and written for the CAT graph only (JAX's reader builds
+    CAT blocks whatever the configuration says, ROADMAP C; there is no
+    layout for the other types to follow)."""
+    if block_type != "CAT":
+        raise ValueError(f"{what}: INN_block_type {block_type!r} has no "
+                         "reference torch-file layout here; only CAT is "
+                         "read and written")
+
+
 def _t(sd, name):
     return np.asarray(sd[name], np.float32)
 

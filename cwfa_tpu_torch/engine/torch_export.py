@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from cwfa_tpu_torch.engine.jax_params import export_jax_params
+from cwfa_tpu_torch.engine.torch_convert import require_cat
 
 
 def _np(v):
@@ -261,9 +262,11 @@ def export_torch_checkpoints(out_dir: str, model, stats=None, epoch: int = 0,
     momenta gets an "optimizer_state_dict" in lion_pytorch's layout (the
     flow optimizer's for a flow step, the LRNN's for the last), the unused
     subnet halves' momenta as zeros; without, None, as the reference
-    writes.  Returns the files written."""
-    os.makedirs(out_dir, exist_ok=True)
+    writes.  Returns the files written.  Raises ValueError, before
+    anything is written, for a model whose ``INN_block_type`` is not CAT."""
     cfg = model.cfg
+    require_cat(cfg.INN_block_type, "export_torch_checkpoints")
+    os.makedirs(out_dir, exist_ok=True)
     params, state = export_jax_params(model)
     nf = model.n_flow_steps
     momenta = opt_momenta or {}

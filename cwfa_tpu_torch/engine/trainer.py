@@ -380,9 +380,10 @@ class CWFATrainer:
         from z = 0 and the stage input under the cond net's condition (in
         train mode: Dropout3d from ``generator``), ``recon_loss
         (loss_func_reg)`` against the GT level, and ``step_nll`` of the GT
-        level under the same conditions; the step's towers run once, for
-        both directions.  Returns (full loss, recon loss, NLL,
-        reconstruction f32)."""
+        level under the same conditions; a CAT step's towers run once, for
+        both directions (the other types' towers read x, so each direction
+        runs its own, as JAX's ``flow_step``).  Returns (full loss, recon
+        loss, NLL, reconstruction f32)."""
         cfg, dt = self.cfg, self.compute_dtype
         spec = self.model.step_specs[k]
         b = gt_k.shape[0]
@@ -397,11 +398,12 @@ class CWFATrainer:
                                              generator=generator)
         z = torch.zeros(shape, dtype=dt, device=gt_k.device)
         mean_c = mean_c_k.to(dt)
-        # the five towers read c_views alone: run once, read by both
-        # directions
-        towers = self.model.flow[k].towers(c_views)
-        recon, _ = self.model.flow[k].reverse(z, upsampled_in.to(dt),
-                                              c_views, mean_c, towers)
+        # a CAT step's five towers read c_views alone: run once, read by
+        # both directions
+        step = self.model.flow[k]
+        towers = step.towers(c_views) if step.is_cat else None
+        recon, _ = step.reverse(z, upsampled_in.to(dt), c_views, mean_c,
+                                towers)
         recon = recon.float()
         loss_c = L.recon_loss(cfg.loss_func_reg, gt_k, recon)
         nll, _ = self.model.step_nll(k, gt_k.to(dt), c_views, mean_c, towers)
@@ -546,7 +548,10 @@ class CWFATrainer:
         picking).  The statistics come from the first file that has them
         when the trainer has none.  The Lion states are not touched (the
         reference's files carry none it reads).  Returns the steps loaded.
-        The files are pickles: load them only from a source you trust."""
+        The files are pickles: load them only from a source you trust.
+        Raises ValueError, before any file is read, when the configuration's
+        ``INN_block_type`` is not CAT (the files hold the CAT graph)."""
+        tc.require_cat(self.cfg.INN_block_type, "load_torch_checkpoints")
         nf = self.model.n_flow_steps
         found = checkpoints.discover_checkpoints(
             path, checkpoints.TORCH_GLOB,

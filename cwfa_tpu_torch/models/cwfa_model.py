@@ -55,6 +55,27 @@ def sample_z_truncated(generator: torch.Generator, shape,
     return z.clamp(-temperature, temperature).float()
 
 
+def sample_z_rev_like(generator, x, temperature: float = 0.0,
+                      same_size: bool = False):
+    """Reverse-direction z sampling helper (``sample_z_rev_like``,
+    ``cwfa_model.py:41-54``; reference CWFA.py:66-82): zeros at temperature
+    0, else a std-1 normal scaled by the temperature, drawn from
+    ``generator`` on its device.  The shape is ``x`` itself when it is a
+    tuple or list, x's shape with ``same_size``, else the (B, 3*W, H, W)
+    layout variant.  f32."""
+    if isinstance(x, (tuple, list)):
+        shape = tuple(x)
+    elif same_size:
+        shape = tuple(x.shape)
+    else:
+        shape = (x.shape[0], 3 * x.shape[-1], x.shape[2], x.shape[3])
+    if temperature == 0:
+        device = generator.device if generator is not None else None
+        return torch.zeros(shape, device=device)
+    return torch.randn(shape, generator=generator,
+                       device=generator.device) * temperature
+
+
 def check_empty_depths(generator: torch.Generator, vol):
     """Add sigma = 1e-3 noise (drawn from ``generator`` on its device) to the
     all-constant depth slices of ``vol`` (B, D, H, W) and to no other
@@ -119,9 +140,13 @@ class CWFAModel(nn.Module):
 
     def param_counts(self) -> dict:
         """Parameters of the flow steps, the cond nets and the LRNN, printed
-        at start-up by the training CLI (``cwfa_model.py:377``)."""
+        at start-up by the training CLI (``cwfa_model.py:377``).  AI1's
+        fixed permutation matrices count, as in the reference (a parameter
+        there, without gradient) and in JAX (a params leaf)."""
         def cnt(m):
-            return sum(p.numel() for p in m.parameters())
+            fixed = sum(getattr(sub, name).numel() for sub in m.modules()
+                        for name in getattr(sub, "JAX_PARAM_BUFFERS", ()))
+            return sum(p.numel() for p in m.parameters()) + fixed
         return {"WF": cnt(self.flow), "Omega": cnt(self.cond),
                 "LRNN": cnt(self.lrnn)}
 
@@ -145,7 +170,7 @@ class CWFAModel(nn.Module):
         352-375``): this model's cond nets on at most ``max_calib_frames``
         frames of ``cond_input``, then ``quantize_cat_step`` on ``master``'s
         (default: this model's) f32 towers.  Returns a list indexed by step
-        (None where a step has fewer than two blocks)."""
+        (None where a step is not CAT or has fewer than two blocks)."""
         master = self if master is None else master
         if self.cfg.force_all_steps_NF:
             # the towers' condition is zero and the cond nets never run
@@ -153,7 +178,7 @@ class CWFAModel(nn.Module):
         c_views_all = cond_networks_batched(
             self.cond, cond_input[:max_calib_frames])
         return [quantize_cat_step(master.flow[k], c_views_all[k])
-                if spec.n_blocks >= 2 else None
+                if spec.block_type == "CAT" and spec.n_blocks >= 2 else None
                 for k, spec in enumerate(self.step_specs)]
 
     def _step_nll(self, k: int, v, c_mean=None):

@@ -73,6 +73,13 @@ def torch_default_conv_init_(conv, generator):
     _default_bias_(conv, generator)
 
 
+def subnet_init_(conv, generator):
+    """reference subnet_initialization: kaiming_uniform weights (a = 0),
+    bias*0.1."""
+    _kaiming_uniform_(conv.weight, generator)
+    _default_bias_(conv, generator, scale=0.1)
+
+
 def subnet_init_small_(conv, generator):
     """reference subnet_initialization_small: xavier(0.01) weights,
     bias*0.01."""
@@ -98,15 +105,17 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator):
     torch default drawn from ``generator``; BatchNorm, LayerNorm and PReLU
     with their fixed defaults (ones/zeros, fresh running stats, alpha 0.25).
     Then every module with an ``init_override_(generator)`` method re-draws
-    the convs it initializes otherwise.  Raises on a module type it does not
-    know, so no parameter keeps its construction-time value."""
+    the convs it initializes otherwise, or its own parameters.  Raises on a
+    module type it does not know, so no parameter keeps its
+    construction-time value."""
     mods = list(module.modules())
     for m in mods:
         if isinstance(m, _CONVS):
             torch_default_conv_init_(m, generator)
         elif isinstance(m, _DETERMINISTIC):
             m.reset_parameters()
-        elif any(True for _ in m.parameters(recurse=False)):
+        elif (any(True for _ in m.parameters(recurse=False))
+              and not hasattr(m, "init_override_")):
             raise TypeError(f"no initializer for {type(m).__name__}")
     for m in mods:
         if hasattr(m, "init_override_"):

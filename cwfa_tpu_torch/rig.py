@@ -24,21 +24,24 @@ def lenslet_coords(n_lenslets: int, side: int, img: int) -> np.ndarray:
     return np.array([(x, y) for x in xs for y in xs][:n_lenslets])
 
 
-def flagship(small: bool, device, generator: torch.Generator):
+def flagship(small: bool, device, generator: torch.Generator,
+             block_type: str = "CAT"):
     """Returns (cfg, model, stats, view_indices, img_side).
 
     small=False: ``CWFAConfig()`` — 512x512x96 volumes, 29 lenslet views of
     512^2 cut from 2160^2 frames, 4 CAT steps of 4 blocks with 64-wide
     towers.  small=True: 16 depths, 32^2, 4 lenslets, 2 steps of 2 blocks.
-    The model is initialized on the CPU from ``generator`` (a CPU generator)
-    and then moved to ``device``."""
+    block_type: the configuration's ``INN_block_type`` (CAT, RNVP, GLOW,
+    GIN, NICE or AI1).  The model is initialized on the CPU from
+    ``generator`` (a CPU generator) and then moved to ``device``."""
     if small:
         cfg = CWFAConfig(n_depths=16, volume_side_size=32, n_lenslets=4,
                          INN_max_down_steps=3, INN_n_blocks=2,
-                         INN_internal_chans=8, INN_cond_chans=4).decode_lrs()
+                         INN_internal_chans=8, INN_cond_chans=4,
+                         INN_block_type=block_type).decode_lrs()
         img = 128
     else:
-        cfg = CWFAConfig().decode_lrs()
+        cfg = CWFAConfig(INN_block_type=block_type).decode_lrs()
         img = 2160
     model = CWFAModel.build(cfg, generator).to(device)
     stats = DatasetStatistics(100.0, 50.0, 100.0, 50.0, 10.0, 5.0)
