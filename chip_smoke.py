@@ -5,7 +5,8 @@
                                                # tower, cond_pair, float_tower,
                                                # probes, serving, train,
                                                # train_cli, ood_cli, deconv,
-                                               # torch_ckpt, xlfmnet, blocks)
+                                               # torch_ckpt, xlfmnet, blocks,
+                                               # parallel)
                                                # while working on one: no
                                                # verdict
 
@@ -159,7 +160,7 @@ code != 0) on the first phase that does not hold:
     volume TIFFs finite, >= 0 and zero outside the ROI depths, the first
     equal to the bit to a direct call (else within 1e-6 of max), the
     re-projection residual after 50 iterations below that after 1,
-    ``--mesh_depth_axis 2`` exits; ms per RL iteration at
+    ``--mesh_depth_axis 2`` in one process exits; ms per RL iteration at
     ``--n_split_fourier`` 1 and 4, seconds per frame, peak memory and the
     OTF's build time;
 18. the reference's PyTorch checkpoints at the flagship width: the
@@ -196,7 +197,28 @@ code != 0) on the first phase that does not hold:
     kernel and K2 by instance, ms and peak); then ``cli.train.main
     --INN_block_type AI1`` at the flagship width on two fish of 2 random
     frames, 2 epochs, and its msgpack checkpoint reloaded into a fresh
-    trainer, whose reconstruction equals the run's own to the bit.
+    trainer, whose reconstruction equals the run's own to the bit;
+21. more than one device (``cwfa_tpu_torch/parallel``), on the one card:
+    two ranks of this script (``--parallel-rank``) share cuda:0 over gloo
+    against one process: (a) depth-sharded RL at the deconvolution CLI's
+    defaults on one frame (60 depths a rank, one spectrum all-reduce an
+    iteration) within 1e-4 of max of ``xlfm_deconvolve``, ms an iteration
+    and peak memory a rank, and ``cli.deconvolve --mesh_depth_axis 2``'s
+    volume equal to the bit to the direct sharded call's; (b) the flagship
+    bf16 deterministic at batch 8 on a 2-rank data mesh: each rank's 4
+    volumes equal to the bit to a one-process call at batch 4, the gathered
+    batch within 5e-2 of max of one at batch 8, rows 1, 2, 3, 5 launched
+    BF16_PER_CALL times a rank, and ``cli.serve --mesh_data_axis 2
+    --no_int8`` writing each rank's 4 volumes equal to the bit to direct
+    calls at batch 4; (c) an LRNN step and a step-0 flow step of the
+    flagship trainer in bf16, 2 ranks x 1 frame against 1 process x 2,
+    every draw on: losses within 1e-3 relative, parameters within 6 lr,
+    the two ranks equal to the bit, K1 / K2 / K3 launches a step, step ms
+    (cold and warm) and peaks; (d) NCCL at world size 1 through
+    ``initialize_from_env`` (``--nccl-rank``); (e) ``utils.profiling``:
+    ``trace`` around one flagship call names the four hand-written
+    kernels, ``FrameTimer`` within 5% of ``device_timer``, ``debug_nans``
+    raises on a NaN fed to ``cat_affine`` on the card.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -211,7 +233,8 @@ evaluation as ``eval_launches``, in the OOD CLI's run as
 ``ood_launches``, in the reconstruction from the reference's checkpoints
 as ``ckpt_launches``, per reconstruction of each non-CAT type as
 ``blocks_launches``, the tower's and K2's bf16 times at its shapes as
-``blocks_step0_ms``), then, as its
+``blocks_step0_ms``, each rank's launches in the parallel phase's mesh
+call and flow step as ``parallel_launches``), then, as its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -2090,7 +2113,7 @@ def phase_train_flagship(dev, card, kernels, img: int):
         tr.ensure_mean_caches(cat)
         for ix in range(TRAIN_FRAMES):
             tr._views_for(cat, "train", ix)
-            tr._gt_pyramid(cat, "train", ix)
+            tr._gt_pyramids(cat, "train", [ix])
         check_counts(NLL_PER_CALL, TRAIN_FRAMES + 1, "train caches", before)
         times = []
 
@@ -2728,9 +2751,9 @@ def phase_deconv(dev, card):
     the volume TIFFs' shape, finiteness, sign and ROI zeros, the first
     volume against a direct ``xlfm_deconvolve`` call on the same frame,
     the re-projection residual after 50 iterations below that after 1,
-    ``--mesh_depth_axis 2`` exits; then ms per RL iteration (CUDA events,
-    median of 7) at ``--n_split_fourier`` 1 and 4, peak device memory, the
-    OTF build, seconds per frame."""
+    ``--mesh_depth_axis 2`` in one process exits; then ms per RL iteration
+    (CUDA events, median of 7) at ``--n_split_fourier`` 1 and 4, peak device
+    memory, the OTF build, seconds per frame."""
     phase_deconv_small(dev)
     torch.cuda.empty_cache()
     img = 2160
@@ -2749,7 +2772,8 @@ def phase_deconv(dev, card):
             deconvolve.main(argv + ["--mesh_depth_axis", "2"])
             fail("deconv CLI --mesh_depth_axis 2 did not exit")
         except SystemExit as e:
-            if "A17" not in str(e):
+            # one process: the mesh of 2 has no processes to run on
+            if "world size of 1" not in str(e):
                 fail(f"deconv CLI --mesh_depth_axis 2: {e}")
         real = {n: getattr(deconvolve, n) for n in
                 ("xlfm_deconvolve", "load_psf_otf", "write_tiff_stack")}
@@ -2896,7 +2920,7 @@ def _check_deconv(dev, card, out_dir, psf_file, fish, img, seg, total, peak):
         f"after {RL_ITERS}; the RL loop under set_sync_debug_mode('error') "
         f"(enqueue {['%.3f' % t for t in seg['enqueue_s']]} s; allocator "
         f"in the CLI {seg['allocator']}); "
-        f"--mesh_depth_axis 2 exits; on {card}")
+        f"--mesh_depth_axis 2 in one process exits; on {card}")
     log(f"deconv times: RL per frame {['%.1f' % t for t in seg['rl_ms']]} ms "
         f"(CUDA events), TIFF write {['%.2f' % t for t in seg['write_s']]} s, "
         f"{['%.2f' % t for t in per_frame]} s a frame; OTF build (PSF TIFF "
@@ -3947,7 +3971,556 @@ def phase_blocks(dev, card, kernels, img: int):
     phase_blocks_cli(dev, card, kernels, img)
 
 
+# ---------------------------------------------------------------------------
+# More than one device: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2                      # ranks of the parallel phase, on cuda:0
+PAR_BATCH = 8                      # the flagship's batch across the ranks
+PAR_TIMEOUT = 600                  # seconds the ranks may take together
+PAR_TRAIN_BATCH = 2                # training: 2 ranks x 1 against 1 x 2
+
+
+def par_train_inputs(dev, cfg, b: int):
+    """Normalized views, GT levels 0..nf and mean caches of every step, (b,
+    ...) f32, drawn on the card from a seeded generator (every process
+    draws the same)."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    side, nd = cfg.volume_side_size, cfg.n_depths
+    nf = cfg.INN_max_down_steps - 1
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    views = rand(b, cfg.n_lenslets, side, side)
+    gt = [rand(b, nd // 2 ** k, side, side) for k in range(nf + 1)]
+    mcs = [rand(b, nd // 2 ** (k + 1), side, side) for k in range(nf + 1)]
+    return views, gt, mcs
+
+
+def par_two_steps(tr, views, gt, mcs):
+    """One LRNN step and one step-0 flow step (its stage input the GT's level
+    1) on this rank's rows of the batch (all of them without a mesh): the
+    losses, each step's ms (CUDA events) and the launches of each step."""
+    from cwfa_tpu_torch.parallel.mesh import batch_shard, data_shard
+    nf = tr.model.n_flow_steps
+    shard = batch_shard(tr.mesh, views.shape[0])
+    sl = slice(None) if shard is None else slice(shard.start, shard.stop)
+    out = {"ms": [], "launches": []}
+    with data_shard(shard):
+        for step in (lambda: tr._lrnn_step(views[sl], mcs[nf - 1][sl],
+                                           gt[nf][sl])[0],
+                     lambda: tr._flow_step(0, views[sl], mcs[0][sl],
+                                           gt[0][sl], gt[1][sl])[0]):
+            reset_counts()
+            ms = event_ms(lambda: out.setdefault("losses", []).append(
+                float(step())), n=1)
+            out["ms"] += ms
+            out["launches"].append(launch_counts())
+    return out
+
+
+def par_state(model) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def par_rank_rl(dev, rank, work: Path, a) -> dict:
+    """(a) on this rank: its depths' OTF, a warm call, the timed sharded RL
+    on frame 0, the gathered volume; then the CLI with --mesh_depth_axis."""
+    from cwfa_tpu_torch.ops.deconv import (gather_depths,
+                                           xlfm_deconvolve_sharded)
+    argv = a["rl_argv"]
+    args = deconvolve.build_parser().parse_args(argv)
+    d_local = RL_DEPTHS // PAR_RANKS
+    torch.cuda.reset_peak_memory_stats()
+    otf, _, hw = load_psf_otf(a["psf_file"], (RL_VOL, RL_VOL, RL_DEPTHS),
+                              device=dev, depths=slice(rank * d_local,
+                                                       (rank + 1) * d_local))
+    _, frame = next(deconvolve._frames(args, ""))
+    views = torch.from_numpy(np.asarray(frame[None, None], np.float32)).to(dev)
+    kw = dict(obj_hw=(RL_VOL, RL_VOL), roi_depths=RL_ROI, full_hw=hw)
+    xlfm_deconvolve_sharded(otf, views, n_iter=1, **kw)         # plans
+    torch.distributed.barrier()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    vol, _ = xlfm_deconvolve_sharded(otf, views, n_iter=RL_ITERS, **kw)
+    end.record()
+    end.synchronize()
+    out = {"ms_iter": start.elapsed_time(end) / RL_ITERS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    full = gather_depths(vol).cpu()
+    del otf, vol, views
+    torch.cuda.empty_cache()
+    out_dir = Path(deconvolve.main(argv + ["--mesh_depth_axis",
+                                           str(PAR_RANKS)], device=dev))
+    if rank == 0:
+        np.save(work / "rl_sharded.npy", full[0].numpy())
+        cli = torch.from_numpy(read_tiff_stack(
+            str(out_dir / "XLFM_stack_000.tif"), dtype=None))
+        out["cli_equal"] = bool(torch.equal(cli, full[0]))
+        out["cli_rel"] = float((cli - full[0]).abs().max()
+                               / full[0].abs().max())
+    return out
+
+
+def par_rank_recon(dev, rank, work: Path, a) -> dict:
+    """(b) on this rank: the flagship, bf16, deterministic, batch 8 on the
+    mesh (this rank's 4 frames, gathered); one-rank calls at batch 4 on the
+    same frames and (rank 0) at batch 8; then the serve CLI."""
+    from cwfa_tpu_torch.parallel import make_mesh
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    caches = a["caches"]
+    frames = torch.as_tensor(np.random.RandomState(21).rand(
+        PAR_BATCH, img, img).astype(np.float32) * 1000).to(dev)
+    kw = dict(device=dev, deterministic=True, compute_dtype=torch.bfloat16)
+    mesh = make_mesh(PAR_RANKS, 1)
+    recon = XLFMReconstructor(model, stats, vidx, caches, mesh=mesh, **kw)
+    recon(frames)                                               # warm-up
+    torch.distributed.barrier()
+    reset_counts()
+    ms = event_ms(lambda: recon(frames), n=1)
+    launches = launch_counts()
+    got = recon(frames)
+    one = XLFMReconstructor(model, stats, vidx, caches, **kw)
+    b = PAR_BATCH // PAR_RANKS
+    mine = one(frames[rank * b:(rank + 1) * b])
+    torch.distributed.barrier()
+    local_ms = event_ms(lambda: recon.reconstruct_local(
+        frames[rank * b:(rank + 1) * b]), n=1)
+    out = {"ms": ms[0], "local_ms": local_ms[0], "launches": launches,
+           "finite": bool(torch.isfinite(got).all()),
+           "shape": tuple(got.shape),
+           "equal_local": bool(torch.equal(got[rank * b:(rank + 1) * b],
+                                           mine))}
+    if rank == 0:
+        whole = one(frames)
+        out["rel8"] = float((got - whole).abs().max() / whole.abs().max())
+    del recon, one, got, mine, frames
+    torch.cuda.empty_cache()
+    serve.main(a["serve_argv"] + ["--mesh_data_axis", str(PAR_RANKS)],
+               device=dev)
+    return out
+
+
+def par_rank_train(dev, rank, work: Path, a) -> dict:
+    """(c) on this rank: the flagship trainer on the mesh, bf16, one LRNN
+    step and one step-0 flow step on its frame; rank 1's state to disk,
+    rank 0 holds both ranks and the one-rank run against each other."""
+    from cwfa_tpu_torch.parallel import make_mesh
+    cfg, model, stats, vidx, _ = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    tr = CWFATrainer(model, stats, vidx, device=dev,
+                     mesh=make_mesh(PAR_RANKS, 1))
+    views, gt, mcs = par_train_inputs(dev, cfg, PAR_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    out = par_two_steps(tr, views, gt, mcs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = par_state(tr.model)
+    out["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
+    if rank == 1:
+        torch.save(state, work / "train_rank1.pt")
+    torch.distributed.barrier()
+    if rank == 0:
+        other = torch.load(work / "train_rank1.pt")
+        ref = torch.load(work / "train_ref.pt")
+        out["ranks_equal"] = all(torch.equal(state[k], other[k])
+                                 for k in state)
+        params = dict(tr.model.named_parameters())
+        out["max_param_d"] = max(
+            float((state[k] - ref[k]).abs().max()) for k in params)
+    return out
+
+
+def parallel_rank(work: Path) -> int:
+    """A rank of the parallel phase (``chip_smoke.py --parallel-rank``):
+    joins the gloo group, runs (a)-(c) on cuda:0, pickles its results."""
+    import pickle
+    rank = int(os.environ["CWFA_PROCESS_ID"])
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['CWFA_COORDINATOR']}",
+        world_size=PAR_RANKS, rank=rank)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with open(work / "args.pkl", "rb") as f:
+        a = pickle.load(f)
+    res = {}
+    for name, fn in (("rl", par_rank_rl), ("recon", par_rank_recon),
+                     ("train", par_rank_train)):
+        t0 = time.perf_counter()
+        res[name] = fn(dev, rank, work, a)
+        res[name]["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with open(work / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_rank(work: Path) -> int:
+    """(d): ``initialize_from_env`` on NCCL at world size 1 (``chip_smoke.py
+    --nccl-rank``, CWFA_COORDINATOR / CWFA_NUM_PROCESSES=1 /
+    CWFA_PROCESS_ID=0): an all_reduce and a gather on the card."""
+    from cwfa_tpu_torch.parallel import (gather_rows, initialize_from_env,
+                                         is_primary, make_mesh)
+    out = {"init": initialize_from_env("cuda"),
+           "backend": torch.distributed.get_backend()}
+    t = torch.full((4,), 3.0, device="cuda")
+    torch.distributed.all_reduce(t)
+    mesh = make_mesh(1, 1)
+    out.update(all_reduce=t.tolist(), primary=is_primary(),
+               mesh=str(mesh.device_type),
+               gather=gather_rows(torch.arange(3.0, device="cuda")).tolist())
+    torch.distributed.destroy_process_group()
+    (work / "nccl.json").write_text(json.dumps(out))
+    return 0
+
+
+def start_ranks(flag: str, work: Path, n: int) -> list:
+    """n processes of this script with ``flag``, joined through
+    CWFA_COORDINATOR on a free local port; their output into work/."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(n):
+        env = {**os.environ, "CWFA_COORDINATOR": f"localhost:{port}",
+               "CWFA_NUM_PROCESSES": str(n), "CWFA_PROCESS_ID": str(r)}
+        log_f = open(work / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, str(work)],
+            env=env, stdout=log_f, stderr=subprocess.STDOUT), log_f))
+    return procs
+
+
+def wait_ranks(procs, work: Path, timeout: float, what: str):
+    """Wait for every rank; kill them all and fail on a timeout or a rank
+    that exits non-zero, with the ranks' output."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    for r, (p, _) in enumerate(procs):
+        tail = (work / f"rank{r}.log").read_text()[-6000:]
+        if p.returncode != 0:
+            fail(f"{what}: rank {r} exited {p.returncode}:\n{tail}")
+
+
+def phase_parallel(dev, card, kernels):
+    """More than one device, on the one card: (a) depth-sharded RL and the
+    deconvolution CLI with --mesh_depth_axis 2, (b) the flagship bf16 on a
+    2-rank data mesh and the serve CLI with --mesh_data_axis 2, (c) a
+    data-parallel LRNN and step-0 flow step, each on two ranks sharing
+    cuda:0 over gloo against one process; (d) NCCL at world size 1; (e)
+    utils/profiling."""
+    import pickle
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="cwfa_parallel_"))
+    try:
+        a = par_inputs(dev, root)
+        with open(root / "args.pkl", "wb") as f:
+            pickle.dump(a, f)
+        t0 = time.perf_counter()
+        procs = start_ranks("--parallel-rank", root, PAR_RANKS)
+        wait_ranks(procs, root, PAR_TIMEOUT, "parallel ranks")
+        t_ranks = time.perf_counter() - t0
+        ranks = []
+        for r in range(PAR_RANKS):
+            with open(root / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+        par_check_rl(root, a, ranks, card)
+        par_check_recon(dev, a, ranks, kernels, card)
+        par_check_train(a, ranks, kernels, card)
+        log(f"parallel: the two ranks took {t_ranks:.1f} s (start-up, "
+            f"model builds and (a)-(c) at "
+            f"{[round(r[k]['s'], 1) for r in ranks for k in ('rl', 'recon', 'train')]}"
+            f" s); on {card}")
+        procs = start_ranks("--nccl-rank", root, 1)
+        wait_ranks(procs, root, 120, "NCCL rank")
+        nccl = json.loads((root / "nccl.json").read_text())
+        if not (nccl["init"] and nccl["backend"] == "nccl"
+                and nccl["all_reduce"] == [3.0] * 4 and nccl["primary"]
+                and nccl["gather"] == [0.0, 1.0, 2.0]
+                and nccl["mesh"] == "cuda"):
+            fail(f"parallel (d) NCCL at world size 1: {nccl}")
+        log(f"parallel (d): initialize_from_env('cuda') through "
+            f"CWFA_COORDINATOR / CWFA_NUM_PROCESSES=1 made an NCCL group; "
+            f"all_reduce on the card, gather_rows, is_primary and a (1, 1) "
+            f"cuda mesh held: {nccl}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    par_profiling(dev, card)
+    log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def par_inputs(dev, root: Path) -> dict:
+    """The phase's inputs and the one-process references: the deconvolution
+    inputs and a direct one-process RL on frame 0; a checkpoint directory of
+    the flagship, a lenslet file and PAR_BATCH frames for the serve CLI;
+    the one-process training run's losses and state."""
+    t0 = time.perf_counter()
+    psf_file, fish, _ = write_deconv_inputs(root, dev, 2160)
+    rl_argv = ["--data_folder", str(fish), "--psf_file", str(psf_file),
+               "--images_to_use", "0", "--n_it", str(RL_ITERS),
+               "--posfix", "_parallel"]
+    args = deconvolve.build_parser().parse_args(rl_argv)
+    otf, _, hw = load_psf_otf(str(psf_file), (RL_VOL, RL_VOL, RL_DEPTHS),
+                              device=dev)
+    _, frame = next(deconvolve._frames(args, ""))
+    views = torch.from_numpy(np.asarray(frame[None, None], np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ref, _ = xlfm_deconvolve(otf, views, n_iter=RL_ITERS,
+                             obj_hw=(RL_VOL, RL_VOL), roi_depths=RL_ROI,
+                             full_hw=hw)
+    rl_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    np.save(root / "rl_ref.npy", ref[0].cpu().numpy())
+    del otf, views, ref
+    torch.cuda.empty_cache()
+
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    side = cfg.volume_side_size
+    caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(model.n_flow_steps + 1)]
+    ckpt, _ = write_checkpoint_dir(root, dev, model, stats)
+    coords = lenslet_coords(cfg.n_lenslets, side, img)
+    lenslets = root / "lenslets.txt"
+    lenslets.write_text("".join(f"{x - 50}\t{y - 50}\n" for x, y in coords))
+    frames_dir = root / "frames"
+    frames_dir.mkdir()
+    frng = np.random.RandomState(13)
+    for i in range(PAR_BATCH):
+        write_tiff_stack(str(frames_dir / f"cam_{i:02d}.tif"),
+                         frng.randint(0, 400, (img, img)).astype(np.uint16))
+    serve_argv = ["--pretrain_models_path", str(ckpt), "--lenslet_file",
+                  str(lenslets), "--in_dir", str(frames_dir), "--out_dir",
+                  str(root / "served"), "--batch", str(PAR_BATCH),
+                  "--no_int8"]
+
+    tr = CWFATrainer(model, stats, vidx, device=dev)
+    views, gt, mcs = par_train_inputs(dev, cfg, PAR_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    one = par_two_steps(tr, views, gt, mcs)
+    one["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(par_state(tr.model), root / "train_ref.pt")
+    one["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
+    lr = max(cfg.learning_rate, cfg.learning_rate_cond,
+             cfg.learning_rate_first_step)
+    del tr, model, views, gt, mcs
+    torch.cuda.empty_cache()
+    log(f"parallel inputs and one-process references in "
+        f"{time.perf_counter() - t0:.1f} s (RL peak {rl_peak:.2f} GiB)")
+    return {"psf_file": str(psf_file), "rl_argv": rl_argv, "caches": caches,
+            "serve_argv": serve_argv, "frames_dir": str(frames_dir),
+            "served": str(root / "served"), "train_one": one, "lr": lr,
+            "rl_peak": rl_peak}
+
+
+def par_check_rl(root: Path, a, ranks, card):
+    ref = np.load(root / "rl_ref.npy")
+    got = np.load(root / "rl_sharded.npy")
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    rl = [r["rl"] for r in ranks]
+    if not (np.isfinite(got).all() and rel <= 1e-4):
+        fail(f"parallel (a): sharded RL vs one process {rel:.3e} > 1e-4")
+    if not (rl[0]["cli_equal"] or rl[0]["cli_rel"] <= 1e-6):
+        fail(f"parallel (a): the CLI's volume differs from the direct "
+             f"sharded call by {rl[0]['cli_rel']:.3e} of max")
+    log(f"parallel (a) depth-sharded RL ({RL_DEPTHS} depths x {RL_VOL}^2, "
+        f"{RL_ITERS} iterations, one frame of 2160^2; {RL_DEPTHS // 2} "
+        f"depths a rank, one all-reduce of the (1, 1, F0, F1r) spectrum an "
+        f"iteration over gloo, both ranks on cuda:0): vs one process "
+        f"max|d|/max|ref| {rel:.3e} (bound 1e-4); ms an iteration by rank "
+        f"{[round(r['ms_iter'], 2) for r in rl]} (the ranks share one card "
+        f"and gloo stages the sum through the host: not a speed figure); "
+        f"peak by rank {[round(r['peak_gib'], 2) for r in rl]} GiB (one "
+        f"process {a['rl_peak']:.2f}); cli.deconvolve --mesh_depth_axis 2 "
+        f"wrote a volume {'equal to the bit' if rl[0]['cli_equal'] else 'within %.1e of max' % rl[0]['cli_rel']}"
+        f" to the direct sharded call's; on {card}")
+
+
+def par_check_recon(dev, a, ranks, kernels, card):
+    rc = [r["recon"] for r in ranks]
+    for r, x in enumerate(rc):
+        if x["shape"] != (PAR_BATCH, 96, 512, 512) or not x["finite"]:
+            fail(f"parallel (b) rank {r}: {x['shape']} finite {x['finite']}")
+        if not x["equal_local"]:
+            fail(f"parallel (b) rank {r}: its 4 volumes differ from a "
+                 "one-process call at batch 4")
+        for name in KERNELS:
+            if x["launches"][name] != BF16_PER_CALL.get(name, 0):
+                fail(f"parallel (b) rank {r}: {name} launched "
+                     f"{x['launches'][name]} times in the mesh call, "
+                     f"expected {BF16_PER_CALL.get(name, 0)}")
+    if not rc[0]["rel8"] <= 5e-2:
+        fail(f"parallel (b): gathered batch vs one process at batch 8 "
+             f"{rc[0]['rel8']:.3e} > 5e-2")
+    for name in BF16_PER_CALL:
+        kernels[name].setdefault("parallel_launches", {})["recon"] = [
+            x["launches"][name] for x in rc]
+    # the served volumes: each rank's 4 frames against a direct one-process
+    # call on them, built by the CLI's own steps
+    args = serve.build_parser().parse_args(a["serve_argv"])
+    recon, img_shape = serve.build_reconstructor(args, "cuda")
+    names = sorted(os.listdir(a["frames_dir"]))
+    served = sorted(os.listdir(a["served"]))
+    want = [f"XLFM_stack_{os.path.splitext(n)[0]}.tif" for n in names]
+    if served != sorted(want):
+        fail(f"parallel (b) serve: files {served} != {want}")
+    b = PAR_BATCH // PAR_RANKS
+    for r in range(PAR_RANKS):
+        group = names[r * b:(r + 1) * b]
+        frames = torch.stack([torch.from_numpy(read_tiff_stack(
+            os.path.join(a["frames_dir"], n))[0]) for n in group]).to(dev)
+        out = recon(frames).cpu()
+        for i, n in enumerate(group):
+            vol = torch.from_numpy(read_tiff_stack(
+                os.path.join(a["served"], want[r * b + i]), dtype=None))
+            if not torch.equal(vol, out[i]):
+                fail(f"parallel (b) serve: {n} differs from the direct "
+                     f"call by {(vol - out[i]).abs().max().item():.3e}")
+    del recon
+    log(f"parallel (b) flagship bf16 deterministic, batch {PAR_BATCH} on a "
+        f"2-rank data mesh: gathered {rc[0]['shape']} finite on both ranks; "
+        f"each rank's {b} volumes equal to the bit to a one-process call at "
+        f"batch {b}; the gathered batch vs one process at batch {PAR_BATCH} "
+        f"max|d|/max {rc[0]['rel8']:.3e} (bound 5e-2); launches a rank "
+        f"{[{k: x['launches'][k] for k in BF16_PER_CALL} for x in rc]}; ms of "
+        f"the mesh call by rank {[round(x['ms'], 1) for x in rc]}, of its "
+        f"local reconstruction alone {[round(x['local_ms'], 1) for x in rc]}"
+        f" (sharing one card; the rest is the gather through the host); "
+        f"cli.serve "
+        f"--mesh_data_axis 2 --no_int8 --batch {PAR_BATCH}: {len(served)} "
+        f"volumes, each rank its {b}, equal to the bit to direct calls at "
+        f"batch {b}; on {card}")
+
+
+def par_check_train(a, ranks, kernels, card):
+    tr = [r["train"] for r in ranks]
+    one = a["train_one"]
+    rel = [abs(x - y) / max(abs(y), 1e-12)
+           for x, y in zip(tr[0]["losses"], one["losses"])]
+    if not all(np.isfinite(tr[0]["losses"])) or max(rel) > 1e-3:
+        fail(f"parallel (c): losses {tr[0]['losses']} vs one process "
+             f"{one['losses']} (rel {rel})")
+    if tr[0]["losses"] != tr[1]["losses"] or not tr[0]["ranks_equal"]:
+        fail("parallel (c): the two ranks' losses or states differ")
+    if tr[0]["max_param_d"] > 6 * a["lr"]:
+        fail(f"parallel (c): a parameter moved {tr[0]['max_param_d']:.3e} "
+             f"from the one-process run's (bound 6 lr = {6 * a['lr']:.1e})")
+    for r, x in enumerate(tr):
+        for per, got in zip((LRNN_PER_STEP, FLOW_PER_STEP), x["launches"]):
+            for name in KERNELS:
+                if got[name] != per.get(name, 0):
+                    fail(f"parallel (c) rank {r}: {name} launched "
+                         f"{got[name]} times in a step, expected "
+                         f"{per.get(name, 0)}")
+    for name in FLOW_PER_STEP:
+        kernels[name].setdefault("parallel_launches", {})["train"] = [
+            x["launches"][1][name] for x in tr]
+    log(f"parallel (c) flagship training, bf16, an LRNN step and a step-0 "
+        f"flow step, 2 ranks x 1 frame vs 1 process x 2 (every draw on): "
+        f"losses {['%.6g' % v for v in tr[0]['losses']]} vs "
+        f"{['%.6g' % v for v in one['losses']]} (rel {['%.1e' % v for v in rel]},"
+        f" bound 1e-3); parameters within {tr[0]['max_param_d']:.2e} "
+        f"(bound 6 lr {6 * a['lr']:.1e}); the two ranks equal to the bit; "
+        f"step ms by rank, the first (cold) then a second (warm) "
+        f"{[[round(m, 1) for m in x['ms'] + x['warm_ms']] for x in tr]} "
+        f"(sharing one card: not a speed figure; one process at batch 2 "
+        f"{[round(m, 1) for m in one['ms'] + one['warm_ms']]}); K1/K2/K3 a "
+        f"flow step "
+        f"{[{k: x['launches'][1][k] for k in ('cat_affine_bwd', 'float_tower_bwd', 'cond_pair_bwd')} for x in tr]};"
+        f" peak by rank {[round(x['peak_gib'], 2) for x in tr]} GiB; on "
+        f"{card}")
+
+
+def par_profiling(dev, card):
+    """(e): ``utils.profiling`` on the card: ``trace`` around one flagship
+    call names the hand-written kernels; ``FrameTimer`` against
+    ``device_timer``; ``debug_nans`` on a NaN fed to ``cat_affine``."""
+    from cwfa_tpu_torch.engine.inference import device_timer
+    from cwfa_tpu_torch.utils.profiling import FrameTimer, debug_nans, trace
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    side = cfg.volume_side_size
+    caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(model.n_flow_steps + 1)]
+    recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=True,
+                              compute_dtype=torch.bfloat16)
+    frames = torch.as_tensor(rng.rand(1, img, img).astype(np.float32)
+                             * 1000).to(dev)
+    recon(frames)
+    torch.cuda.synchronize()
+    tdir = Path(tempfile.mkdtemp(prefix="cwfa_trace_"))
+    try:
+        with trace(str(tdir)):
+            recon(frames)
+            torch.cuda.synchronize()
+        path = tdir / f"trace_{os.getpid()}.json"
+        events = json.loads(path.read_text())["traceEvents"]
+        size = path.stat().st_size
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    want = ("cat_affine_kernel", "haar_merge_affine_kernel",
+            "tower_bf16_kernel", "cond_pair_tc_kernel")
+    found = {w: sum(w in n for n in names) for w in want}
+    if not all(found.values()):
+        fail(f"parallel (e): the trace's {len(names)} kernel events lack "
+             f"{[w for w, n in found.items() if not n]}")
+    ft, dt = FrameTimer(dev), []
+    for _ in range(5):
+        ft.start()
+        recon(frames)
+        ft.stop()
+        stop = device_timer(dev)
+        recon(frames)
+        dt.append(stop())
+    a, b = float(np.median(ft.times)), float(np.median(dt))
+    if abs(a - b) > 0.05 * b:
+        fail(f"parallel (e): FrameTimer {a * 1e3:.3f} ms vs device_timer "
+             f"{b * 1e3:.3f} ms, more than 5% apart")
+    x = torch.full((1, 48, 64, 64), float("nan"), device=dev,
+                   dtype=torch.bfloat16)
+    st = torch.randn((1, 96, 64, 64), device=dev, dtype=torch.bfloat16)
+    try:
+        with debug_nans():
+            fa.cat_affine(x, st, clamp=2.0, activation="ATAN", rev=True)
+        fail("parallel (e): debug_nans let cat_affine's NaN pass")
+    except FloatingPointError as e:
+        if "cat_affine" not in str(e):
+            fail(f"parallel (e): debug_nans raised for another op: {e}")
+        msg = str(e)
+    fa.cat_affine(x, st, clamp=2.0, activation="ATAN", rev=True)
+    log(f"parallel (e) utils.profiling: trace() around one flagship call "
+        f"wrote a Chrome trace of {size / 1e6:.1f} MB with {len(names)} "
+        f"kernel events, the hand-written ones among them {found}; "
+        f"FrameTimer {a * 1e3:.3f} ms vs device_timer {b * 1e3:.3f} ms "
+        f"(median of 5, within 5%); debug_nans: '{msg}', and no raise "
+        f"outside the scope; on {card}")
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] in ("--parallel-rank",
+                                               "--nccl-rank"):
+        # a process that the parallel phase starts
+        return (parallel_rank if sys.argv[1] == "--parallel-rank"
+                else nccl_rank)(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3999,7 +4572,9 @@ def main():
                                                                2160),
                  "blocks": lambda dev, kernels: phase_blocks(dev, card,
                                                              kernels, 2160),
-                 "probes": lambda dev, kernels: phase_probes(dev, card, kernels)}
+                 "probes": lambda dev, kernels: phase_probes(dev, card, kernels),
+                 "parallel": lambda dev, kernels: phase_parallel(dev, card,
+                                                                 kernels)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
         log(f"partial run ({', '.join(sys.argv[1:])}): no verdict")
@@ -4044,6 +4619,8 @@ def main():
     phase_xlfmnet(dev, card, frames1.shape[-1])
     torch.cuda.empty_cache()
     phase_blocks(dev, card, kernels, frames1.shape[-1])
+    torch.cuda.empty_cache()
+    phase_parallel(dev, card, kernels)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name]["source"],
@@ -4067,7 +4644,8 @@ def main():
                 "dp4a_ms", "cuda_cores_ms", "mma_sync_ms", "script_ms",
                 "serve_launches", "train_launches", "launches_by_instance",
                 "step_ms", "eval_launches", "ood_launches",
-                "ckpt_launches", "blocks_launches", "blocks_step0_ms")}}
+                "ckpt_launches", "blocks_launches", "blocks_step0_ms",
+                "parallel_launches")}}
         for name, k in kernels.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -20,6 +20,9 @@ ops       the CUDA kernels, their plain versions and the loader
 models    CWF step, condition nets, UNet, LRNN, the full CWFA model
 engine    the reconstructor, the likelihood scorer, the streaming service,
           the JAX package's checkpoints and the JAX weight bridge
+parallel  more than one device: one process per GPU on torch.distributed,
+          the data mesh axis, the batch shard of a data-parallel call
+utils     host helpers and ``profiling`` (trace, debug_nans, FrameTimer)
 """
 
 __version__ = "0.1.0"

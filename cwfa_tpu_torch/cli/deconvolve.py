@@ -17,15 +17,19 @@ where that stream cannot start, the frames are read through
 
 The flags are those of ``python -m cwfa_tpu.cli.deconvolve``.  The run is on
 the card and raises without one (``main``'s ``device`` keyword is for tests
-on the CPU).  Not ported: ``--mesh_depth_axis`` above 1, the depth-sharded
-run (ROADMAP A17).
+on the CPU).  ``--mesh_depth_axis N`` splits the depths over N processes,
+one per GPU (``torchrun --nproc_per_node N -m cwfa_tpu_torch.cli.deconvolve
+--mesh_depth_axis N ...``, or the ``CWFA_*`` variables;
+``parallel.distributed``): each builds the OTF of its n_depths / N depths,
+each iteration all-reduces the projection's spectrum
+(``ops.deconv.xlfm_deconvolve_sharded``), and rank 0 gathers each volume
+and writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 from datetime import datetime
 
 import numpy as np
@@ -35,7 +39,9 @@ from cwfa_tpu_torch.data.dataset import (XLFMDataset, _center_crop_img,
                                          _pad_to_square_img)
 from cwfa_tpu_torch.data.psf import load_psf_otf
 from cwfa_tpu_torch.data.tiff import read_tiff_stack, write_tiff_stack
-from cwfa_tpu_torch.ops.deconv import xlfm_deconvolve
+from cwfa_tpu_torch.ops.deconv import (gather_depths, xlfm_deconvolve,
+                                       xlfm_deconvolve_sharded)
+from cwfa_tpu_torch.parallel.distributed import cli_bootstrap, is_primary
 from cwfa_tpu_torch.utils.projections import volume_2_projections
 
 
@@ -62,7 +68,9 @@ def build_parser():
                         "is on the current CUDA device")
     p.add_argument("--img_size", type=int, default=2160)
     p.add_argument("--mesh_depth_axis", type=int, default=1,
-                   help="depth-sharding over N devices: not ported, only 1")
+                   help="split the RL depths over N processes, one per GPU "
+                        "(the depth sum is one all-reduce an iteration); "
+                        "N must divide --n_depths; 1 = one device")
     return p
 
 
@@ -101,24 +109,47 @@ def _frames(args, lenslet: str):
 def main(argv=None, device="cuda"):
     """Deconvolve the requested frames; returns the output directory."""
     args = build_parser().parse_args(argv)
-    if int(args.mesh_depth_axis) > 1:
-        sys.exit("--mesh_depth_axis above 1: depth-sharded deconvolution is "
-                 "not ported (ROADMAP A17)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: deconvolution runs on the card")
+    n_shards = int(args.mesh_depth_axis)
+    if args.n_depths % n_shards:
+        raise SystemExit(f"--mesh_depth_axis {n_shards} must divide "
+                         f"--n_depths {args.n_depths}")
+    device, mesh = cli_bootstrap(device, "deconvolve", n_data=n_shards,
+                                 flag="--mesh_depth_axis")
+    primary = is_primary()
 
     stack_path = os.path.join(
         args.data_folder,
         "XLFM_stack_" + datetime.now().strftime("%Y_%m_%d__%H_%M_%S")
         + args.posfix)
-    os.makedirs(stack_path, exist_ok=True)
+    if mesh is not None:
+        # rank 0's clock names the directory
+        box = [stack_path]
+        torch.distributed.broadcast_object_list(box, src=0)
+        stack_path = box[0]
+    if primary:
+        os.makedirs(stack_path, exist_ok=True)
 
     lenslet = args.lenslet_file or os.path.join(
         os.path.dirname(args.data_folder.rstrip("/")),
         "lenslet_centers_python.txt")
     vol_shape = (args.vol_xy_size, args.vol_xy_size, args.n_depths)
-    otf, _, full_hw = load_psf_otf(args.psf_file, vol_shape, device=device)
+    depths = None
+    if mesh is not None:
+        d_local = args.n_depths // n_shards
+        r = torch.distributed.get_rank()
+        depths = slice(r * d_local, (r + 1) * d_local)
+        print(f"deconvolving depth-sharded over {n_shards} processes",
+              flush=True)
+        if args.n_split_fourier != 1:
+            print("warning: --n_split_fourier is ignored on the sharded "
+                  "path (each shard FFTs its n_depths/N slice at once; "
+                  "the mesh factor itself divides the working set)",
+                  flush=True)
+    otf, _, full_hw = load_psf_otf(args.psf_file, vol_shape, device=device,
+                                   depths=depths)
 
     background = float(args.dark_current)
     if args.bkg_file:
@@ -126,8 +157,9 @@ def main(argv=None, device="cuda"):
         background = _center_crop_img(
             bkg, (args.img_size, args.img_size)) + args.dark_current
 
-    with open(os.path.join(stack_path, "arguments.txt"), "w") as f:
-        f.write(str(vars(args)))
+    if primary:
+        with open(os.path.join(stack_path, "arguments.txt"), "w") as f:
+            f.write(str(vars(args)))
 
     depth_chunk = (None if args.n_split_fourier == 1
                    else max(args.n_depths // args.n_split_fourier, 1))
@@ -135,18 +167,26 @@ def main(argv=None, device="cuda"):
     for img_ix, frame in _frames(args, lenslet):
         views = torch.from_numpy(
             np.asarray(frame[None, None] - background, np.float32)).to(device)
-        vol, _ = xlfm_deconvolve(
-            otf, views, n_iter=args.n_it,
-            obj_hw=(args.vol_xy_size, args.vol_xy_size),
-            roi_depths=min(90, args.n_depths), depth_chunk=depth_chunk,
-            full_hw=full_hw)
+        obj_hw = (args.vol_xy_size, args.vol_xy_size)
+        roi = min(90, args.n_depths)
+        if mesh is not None:
+            vol, _ = xlfm_deconvolve_sharded(otf, views, n_iter=args.n_it,
+                                             obj_hw=obj_hw, roi_depths=roi,
+                                             full_hw=full_hw)
+            vol = gather_depths(vol)
+        else:
+            vol, _ = xlfm_deconvolve(
+                otf, views, n_iter=args.n_it, obj_hw=obj_hw, roi_depths=roi,
+                depth_chunk=depth_chunk, full_hw=full_hw)
         last_vol = vol[0].cpu().numpy()
+        if not primary:
+            continue
         write_tiff_stack(
             os.path.join(stack_path, f"XLFM_stack_{img_ix:03d}.tif"), last_vol)
         print(f"deconvolved frame {img_ix} -> "
               f"{stack_path}/XLFM_stack_{img_ix:03d}.tif")
 
-    if last_vol is not None:
+    if last_vol is not None and primary:
         mip = volume_2_projections(last_vol[None])[0]
         write_tiff_stack(os.path.join(stack_path, "preview_MIP.tif"), mip)
     print(f"Output path: {stack_path}")

@@ -17,7 +17,10 @@ with ``--create_dist_plots`` a PNG of the score distribution beside it
 
 The flags are those of ``python -m cwfa_tpu.cli.ood``.  The run is on the
 card and raises without one (``main``'s ``device`` keyword is for tests on
-the CPU).  Not ported: ``CWFA_DISTRIBUTED`` (ROADMAP A17).
+the CPU).  Under a process group (torchrun, or ``CWFA_DISTRIBUTED`` and the
+``CWFA_*`` variables; ``parallel.distributed``) every rank scores all the
+frames, as the JAX CLI builds no mesh, and rank 0 writes the report and the
+PNG.
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import sys
 
 import torch
 
@@ -37,6 +39,7 @@ from cwfa_tpu_torch.data.views import make_view_indices
 from cwfa_tpu_torch.engine.ood import detect_ood, finetune_on_novel
 from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+from cwfa_tpu_torch.parallel.distributed import cli_bootstrap, is_primary
 from cwfa_tpu_torch.utils.plots import distributions_image
 from cwfa_tpu_torch.utils.png import write_png
 
@@ -52,12 +55,11 @@ def main(argv=None, device="cuda"):
     cfg = CWFAConfig(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(CWFAConfig)
                         if hasattr(args, f.name)}).decode_lrs()
-    if os.environ.get("CWFA_DISTRIBUTED"):
-        sys.exit("CWFA_DISTRIBUTED: scoring on more than one device is not "
-                 "ported (ROADMAP A17)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the OOD screen runs on the card")
+    device, _ = cli_bootstrap(device, "ood", replicated=True)
+    primary = is_primary()
 
     groups, paths = cross_validation_groups(cfg.main_data_path,
                                             bool(cfg.use_sparse_for_all))
@@ -102,7 +104,7 @@ def main(argv=None, device="cuda"):
         "is_ood": result.is_ood.astype(int).tolist(),
     }
 
-    if cfg.create_dist_plots:
+    if cfg.create_dist_plots and primary:
         in_dist = (result.scores[~result.is_ood]
                    if (~result.is_ood).any() else result.scores)
         out_png = os.path.splitext(args.report)[0] + "_dist.png"
@@ -119,9 +121,10 @@ def main(argv=None, device="cuda"):
         report["scores_after_finetune"] = post.scores.tolist()
         print(f"after finetune: {int(post.is_ood.sum())} frames still OOD")
 
-    with open(args.report, "w") as f:
-        json.dump(report, f, indent=2)
-    print(f"report: {args.report}")
+    if primary:
+        with open(args.report, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"report: {args.report}")
     return report
 
 

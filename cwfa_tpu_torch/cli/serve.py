@@ -20,8 +20,15 @@ calibrated on the first two frames of ``--in_dir``.  Volumes are written as
 ``XLFM_stack_<frame id>.tif``; a JSON summary is printed at the end.
 
 The service runs on the card and raises without one; there is no device
-flag (``main``'s ``device`` keyword is for tests on the CPU).  Meshes
-(``--mesh_data_axis`` / ``--mesh_space_axis`` above 1) are not ported.
+flag (``main``'s ``device`` keyword is for tests on the CPU).
+``--mesh_data_axis N`` serves with N processes, one per GPU (``torchrun
+--nproc_per_node N -m cwfa_tpu_torch.cli.serve --mesh_data_axis N ...``, or
+the ``CWFA_*`` variables; ``parallel.distributed``): rank 0 lists the
+directory and broadcasts the names, and each rank reads, reconstructs
+(``--batch`` / N frames a call) and writes its own share of each batch
+(``engine.serving.serve_directory(group=)``).  The int8 UNet is calibrated
+on every rank on the same two frames and checked equal.  Each rank prints
+its own summary.  ``--mesh_space_axis`` above 1 exits (ROADMAP A19).
 """
 
 from __future__ import annotations
@@ -61,8 +68,11 @@ def build_reconstructor(args, device="cuda"):
     ``build_parser``) on ``device``: the model from the checkpoint
     directory, its statistics and first mean-cache set, int8 UNet
     calibration unless ``--no_int8``.  Returns (reconstructor, frame
-    shape).  Exits with a message when the directory lacks statistics or
-    mean caches, or asks for a mesh."""
+    shape).  With a mesh the reconstructor is this rank's alone (each rank
+    serves its own frames) and its int8 packs are checked equal on every
+    rank.  Exits with a message when the directory
+    lacks statistics or mean caches, or when the mesh does not fit the
+    processes (``parallel.distributed.cli_bootstrap``)."""
     from cwfa_tpu_torch.data.dataset import read_lenslet_centers
     from cwfa_tpu_torch.data.tiff import read_tiff_stack
     from cwfa_tpu_torch.data.views import make_view_indices
@@ -70,18 +80,20 @@ def build_reconstructor(args, device="cuda"):
                                                    load_model_checkpoints)
     from cwfa_tpu_torch.engine.inference import XLFMReconstructor
     from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+    from cwfa_tpu_torch.parallel.distributed import (check_same_on_ranks,
+                                                     cli_bootstrap)
+    from cwfa_tpu_torch.parallel.mesh import data_group
 
     cfg = CWFAConfig(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(CWFAConfig)
                         if hasattr(args, f.name)}).decode_lrs()
     if not cfg.pretrain_models_path:
         sys.exit("--pretrain_models_path (checkpoint dir) is required")
-    if int(cfg.mesh_data_axis) * int(cfg.mesh_space_axis) > 1:
-        sys.exit("--mesh_data_axis / --mesh_space_axis above 1: serving on "
-                 "more than one device is not ported (ROADMAP A17)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the service runs on the card")
+    device, mesh = cli_bootstrap(device, "serve", int(cfg.mesh_data_axis),
+                                 int(cfg.mesh_space_axis))
 
     coords = read_lenslet_centers(cfg.lenslet_file) + 50
     cfg = dataclasses.replace(cfg, n_lenslets=len(coords))
@@ -105,6 +117,11 @@ def build_reconstructor(args, device="cuda"):
     if not args.no_int8:
         names = sorted(f for f in os.listdir(args.in_dir)
                        if f.endswith(".tif"))[:2]
+        if mesh is not None:
+            # every rank calibrates on rank 0's two frames
+            box = [names]
+            torch.distributed.broadcast_object_list(box, src=0)
+            names = box[0]
         if names:
             frames = [read_tiff_stack(os.path.join(args.in_dir, n))
                       for n in names]
@@ -120,6 +137,8 @@ def build_reconstructor(args, device="cuda"):
         compute_dtype=(torch.bfloat16 if cfg.use_half_precision
                        else torch.float32),
         use_int8=calib is not None, calib_frames=calib)
+    if mesh is not None:
+        check_same_on_ranks(recon.unet_q, data_group(mesh), "the int8 packs")
     return recon, img_shape
 
 
@@ -130,10 +149,14 @@ def main(argv=None, device="cuda"):
 
     args = build_parser().parse_args(argv)
     recon, img_shape = build_reconstructor(args, device)
-    recon.warmup(args.batch, img_shape)
+    # a data mesh (which build_reconstructor checked) spans every process
+    group, n = None, int(args.mesh_data_axis)
+    if n > 1:
+        group = torch.distributed.group.WORLD
+    recon.warmup(-(-args.batch // n), img_shape)   # serve_directory's calls
     out = serve_directory(recon, args.batch, img_shape, args.in_dir,
                           args.out_dir, poll_seconds=args.watch,
-                          limit=args.limit or None)
+                          limit=args.limit or None, group=group)
     print(json.dumps(out))
     return out
 

@@ -20,9 +20,16 @@ The flags are those of ``python -m cwfa_tpu.cli.train``: every
 ``--img_size`` and ``--max_samples``.  ``--INN_net_type 2`` trains,
 evaluates and saves the XLFMNet baseline instead
 (``engine/xlfmnet_train.run_xlfmnet``).  The run is on the card and raises
-without one (``main``'s ``device`` keyword is for tests on the CPU).  Not
-ported: meshes (``--mesh_data_axis`` / ``--mesh_space_axis`` above 1, or
-``CWFA_DISTRIBUTED`` set; ROADMAP A17).
+without one (``main``'s ``device`` keyword is for tests on the CPU).
+
+``--mesh_data_axis N`` trains data parallel on N processes, one per GPU:
+``torchrun --nproc_per_node N -m cwfa_tpu_torch.cli.train --mesh_data_axis
+N ...``, or ``CWFA_COORDINATOR`` / ``CWFA_NUM_PROCESSES`` /
+``CWFA_PROCESS_ID`` in each process (``parallel.distributed``; the trainer's
+``mesh=``).  Rank 0 writes the run directory; the others write nothing.
+XLFMNet builds no mesh (as JAX): under a process group every rank trains it
+whole and rank 0 writes.  ``--mesh_space_axis`` above 1 exits (ROADMAP
+A19).
 """
 
 from __future__ import annotations
@@ -31,7 +38,6 @@ import argparse
 import dataclasses
 import glob
 import os
-import sys
 from datetime import datetime
 
 import numpy as np
@@ -48,6 +54,7 @@ from cwfa_tpu_torch.engine.ood import detect_ood
 from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.engine.xlfmnet_train import run_xlfmnet
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+from cwfa_tpu_torch.parallel.distributed import cli_bootstrap, is_primary
 from cwfa_tpu_torch.utils.seeding import set_all_seeds
 
 
@@ -172,14 +179,12 @@ def main(argv=None, device="cuda"):
     cfg = CWFAConfig(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(CWFAConfig)
                         if hasattr(args, f.name)}).decode_lrs()
-    if (int(cfg.mesh_data_axis) * int(cfg.mesh_space_axis) > 1
-            or os.environ.get("CWFA_DISTRIBUTED")):
-        sys.exit("--mesh_data_axis / --mesh_space_axis above 1 or "
-                 "CWFA_DISTRIBUTED: training on more than one device is not "
-                 "ported (ROADMAP A17)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: training runs on the card")
+    device, mesh = cli_bootstrap(device, "train", int(cfg.mesh_data_axis),
+                                 int(cfg.mesh_space_axis),
+                                 replicated=cfg.INN_net_type == 2)
     if cfg.INN_net_type == 0:
         print("warning: INN_net_type=0 (plain INN) is vestigial — "
               "training the CWF (type 1) architecture", flush=True)
@@ -239,6 +244,10 @@ def main(argv=None, device="cuda"):
         cfg.output_testing_path,
         f"{datetime.now().strftime('%Y_%m_%d__%H_%M_%S')}_{marker}"
         f"{cfg.epochs}E_{prefix}_")
+    if not is_primary():
+        # host-side artifacts (checkpoints, TensorBoard, TIFF dumps) are
+        # rank 0's (cwfa_tpu/cli/train.py:213-216)
+        out = None
 
     if cfg.INN_net_type == 2:
         # the XLFMNet baseline (main.py:99; the reference's switch never
@@ -253,7 +262,8 @@ def main(argv=None, device="cuda"):
         return results
 
     model = CWFAModel.build(cfg, torch.Generator().manual_seed(cfg.seed))
-    trainer = CWFATrainer(model, stats, vidx, output_path=out, device=device)
+    trainer = CWFATrainer(model, stats, vidx, output_path=out, device=device,
+                          mesh=mesh)
     counts = model.param_counts()
     print(f"nParameters: WF: {counts['WF']}\tOmega: {counts['Omega']}\t"
           f"LRNN: {counts['LRNN']}\t\ttotal: {sum(counts.values())}")

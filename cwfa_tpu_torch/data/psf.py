@@ -88,12 +88,16 @@ def load_psf(source, depths_to_use=-1, interleaved: bool = True) -> np.ndarray:
     return (psf / sums).astype(np.float32)
 
 
-def load_psf_otf(source, vol_size, device="cuda"):
+def load_psf_otf(source, vol_size, device="cuda", depths: slice | None = None):
     """PSF -> OTF on ``device`` (reference load_PSF_OTF, utils.py:593-627).
 
     vol_size: (S, S, D) in the reference's (x, y, depths) order.
+    depths: only these of the D depths (a rank's share of depth-sharded
+    deconvolution); the PSF is cut on the host, before its upload.
     Returns (otf complex64 (1, D, F0, F1r), psf_hw, full_hw)."""
     psf = load_psf(source, vol_size[-1])
+    if depths is not None:
+        psf = np.ascontiguousarray(psf[:, depths])
     psf_hw = psf.shape[-2:]
     otf, full_hw = precompute_otf(torch.from_numpy(psf).to(device),
                                   tuple(vol_size[:2]))

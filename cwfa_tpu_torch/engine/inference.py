@@ -12,7 +12,17 @@ computed once, at construction.  Two int8 options, as in JAX: ``use_int8``
 (the LRNN UNet; deterministic only) and ``use_int8_towers`` (the coupling
 towers, through the CUDA int8 tower kernel), both calibrated on
 ``calib_frames``.  ``warmup``, ``throughput`` and ``latency_ms`` time the
-reconstructor on CUDA events.  ``use_int8_cond`` and meshes are not ported.
+reconstructor on CUDA events.
+
+With a ``mesh`` (``parallel.make_mesh``; one process per device) each rank
+reconstructs its rows of the batch and ``__call__`` returns the gathered
+batch on every rank (``sharded_reconstruct`` in JAX).  In the default mode
+every rank draws the whole batch's noise and masks from the shared seeded
+generator and keeps its rows, and the LRNN's train-mode BatchNorm takes the
+global batch's statistics, so N ranks compute what one does.  A batch that
+does not divide the ``data`` axis is computed whole on every rank.  The int8
+packs are calibrated on every rank on the same frames and checked equal.
+``use_int8_cond`` is not ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -27,6 +37,9 @@ from cwfa_tpu_torch.data.stats import DatasetStatistics
 from cwfa_tpu_torch.data.views import extract_views
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.models.lrnn import lrnn_mean_branch
+from cwfa_tpu_torch.parallel.distributed import check_same_on_ranks, \
+    gather_rows
+from cwfa_tpu_torch.parallel.mesh import batch_shard, data_group, data_shard
 
 
 def device_timer(device: torch.device):
@@ -63,7 +76,7 @@ class XLFMReconstructor:
                  deterministic: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
                  use_int8: bool = False, use_int8_towers: bool = False,
-                 calib_frames=None):
+                 calib_frames=None, mesh=None):
         if (use_int8 or use_int8_towers) and calib_frames is None:
             raise ValueError("int8 paths require calib_frames "
                              "(a batch of raw camera frames)")
@@ -71,6 +84,7 @@ class XLFMReconstructor:
             raise ValueError("use_int8 requires deterministic=True "
                              "(the int8 UNet folds eval-mode BN stats)")
         self.device = torch.device(device)
+        self.mesh = mesh
         self.deterministic = deterministic
         self.compute_dtype = compute_dtype
         self.stats = stats
@@ -102,6 +116,9 @@ class XLFMReconstructor:
                 if use_int8_towers:
                     self.qpacks = self.model.quantize_steps(
                         calib, master=master)
+                if mesh is not None:
+                    check_same_on_ranks((self.unet_q, self.qpacks),
+                                        data_group(mesh), "the int8 packs")
 
     def _normalized_views(self, raw_images):
         s = self.stats
@@ -111,6 +128,18 @@ class XLFMReconstructor:
 
     @torch.inference_mode()
     def __call__(self, raw_images) -> torch.Tensor:
+        shard = (None if self.mesh is None
+                 else batch_shard(self.mesh, len(raw_images)))
+        if shard is None:
+            return self.reconstruct_local(raw_images)
+        with data_shard(shard):
+            vol = self.reconstruct_local(raw_images[shard.start:shard.stop])
+        return gather_rows(vol, shard.group)
+
+    @torch.inference_mode()
+    def reconstruct_local(self, raw_images) -> torch.Tensor:
+        """The reconstruction of ``raw_images`` on this device alone (inside
+        ``parallel.mesh.data_shard``: this rank's rows of a global batch)."""
         s, cfg = self.stats, self.model.cfg
         vol = self.model.reconstruct(
             self._normalized_views(raw_images), self.mean_caches,
@@ -158,3 +187,4 @@ class XLFMReconstructor:
             self(frames)
             times.append(stop() * 1e3)
         return float(np.percentile(times, 50)), float(np.min(times))
+

@@ -25,6 +25,7 @@ import torch
 
 from cwfa_tpu_torch.data.stats import DatasetStatistics
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel, check_empty_depths
+from cwfa_tpu_torch.parallel.mesh import draw_rows
 
 NLL_SENTINEL = 1e15       # the reference's stand-in for a NaN / Inf step loss
 
@@ -78,8 +79,9 @@ class PyramidScorer:
         v = (v - s.mean_vols) / s.std_vols
         v = check_empty_depths(self.generator, v)
         if self.generator is not None:
-            noise = torch.randn(v.shape, generator=self.generator,
-                                dtype=v.dtype, device=self.generator.device)
+            g = self.generator
+            noise = draw_rows(lambda sh: torch.randn(
+                sh, generator=g, dtype=v.dtype, device=g.device), v.shape)
             v = v + self.noise_std * noise.to(v.device)
         nlls, cache, priors, ljs = self.model.forward_pyramid(
             v, per_sample=True)

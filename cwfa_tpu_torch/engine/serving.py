@@ -35,8 +35,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cwfa_tpu_torch.data import tiff as tiffio
+from cwfa_tpu_torch.parallel.distributed import host_local_indices
 
 WIRE_DTYPES = (np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.float32))
 
@@ -344,7 +346,7 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
                     pattern=".tif", poll_seconds: float = 0.0,
                     limit: int | None = None, verbose: bool = True,
                     out_dtype=np.float32, max_retries: int = 5,
-                    fetch: str = "full"):
+                    fetch: str = "full", group=None):
     """Reconstruct every TIFF frame of ``in_dir`` (and, with
     ``poll_seconds``, every one that appears later) into
     ``out_dir/XLFM_stack_<id>.tif``, the reference's per-frame dump loop
@@ -355,16 +357,29 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     after ``max_retries`` failures; a page of the wrong shape skips the
     rest of its file with a message.  Returns the stats summary dict, with
     one key more than the JAX package's: ``writer_tail_seconds``, the wait
-    for the writer's queue after the service drained."""
+    for the writer's queue after the service drained.
+
+    ``group``: a process group of N ranks (one per device) serving the
+    directory together.  Each pass rank 0 lists the new files and
+    broadcasts the names (the directory may change between two listings);
+    every rank takes its contiguous share of each run of ``batch_size``
+    names, reads those files, reconstructs them ``ceil(batch_size / N)``
+    frames a call on its own device and writes their volumes itself, so
+    the writes are not funnelled through one process.  The unreadable
+    files are gathered on rank 0, which counts the retries.  ``limit``
+    then counts files.  The summary is the rank's own, with its ``rank``."""
     os.makedirs(out_dir, exist_ok=True)
-    writer = tiffio.BackgroundTiffWriter(maxsize=2 * batch_size)
+    n_ranks = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
+    local_batch = -(-int(batch_size) // n_ranks)
+    writer = tiffio.BackgroundTiffWriter(maxsize=2 * local_batch)
 
     def enqueue(i, v):
         # the dtype conversion runs on the writer thread
         writer.put(os.path.join(out_dir, f"XLFM_stack_{i}.tif"),
                    v, dtype=out_dtype)
 
-    svc = ReconstructionService(reconstructor, batch_size, img_hw,
+    svc = ReconstructionService(reconstructor, local_batch, img_hw,
                                 on_volume=enqueue if fetch == "full"
                                 else None, fetch=fetch)
     seen = set()
@@ -373,20 +388,23 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     while True:
         names = sorted(f for f in os.listdir(in_dir)
                        if f.endswith(pattern) and f not in seen)
+        if group is not None:
+            if limit:
+                names = names[:max(limit - done, 0)]
+            box = [names]
+            dist.broadcast_object_list(box, src=0, group=group)
+            names = box[0]
+            mine = [names[i + j] for i in range(0, len(names), batch_size)
+                    for j in host_local_indices(
+                        min(batch_size, len(names) - i), rank, n_ranks)]
+        else:
+            mine = names
         progressed = False
-        for name, stack in _prefetch_reads(in_dir, names, svc.stats):
+        failed = []
+        for name, stack in _prefetch_reads(in_dir, mine, svc.stats):
             if isinstance(stack, Exception):
-                # a file still being written: leave it unseen and retry on
-                # the next poll; a corrupt one is quarantined after
-                # max_retries so that it is not parsed forever
-                fails[name] = fails.get(name, 0) + 1
-                if fails[name] >= max_retries:
-                    seen.add(name)
-                    print(f"serve: quarantined unreadable {name!r} after "
-                          f"{fails.pop(name)} attempts: {stack}", flush=True)
+                failed.append((name, str(stack)))
                 continue
-            fails.pop(name, None)
-            seen.add(name)
             progressed = True
             if stack.ndim == 2:
                 stack = stack[None]
@@ -401,11 +419,35 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
                     print(f"serve: skipped {name!r} page {page_ix}: {e}",
                           flush=True)
                     break
-                done += 1
-                if limit and done >= limit:
-                    break
-            if limit and done >= limit:
+                if group is None:
+                    done += 1
+                    if limit and done >= limit:
+                        break
+            if group is None and limit and done >= limit:
                 break
+        if group is not None:
+            every = [None] * n_ranks
+            dist.all_gather_object(every, (failed, progressed), group=group)
+            failed = [f for fs, _ in every for f in fs]
+            progressed = any(p for _, p in every)
+            done += len(names)
+        # a file still being written stays unseen and is retried on the next
+        # poll; a corrupt one is quarantined after max_retries so that it is
+        # not parsed forever
+        bad = {name for name, _ in failed}
+        for name, err in failed:
+            fails[name] = fails.get(name, 0) + 1
+            if fails[name] >= max_retries:
+                seen.add(name)
+                if rank == 0:
+                    print(f"serve: quarantined unreadable {name!r} after "
+                          f"{fails.pop(name)} attempts: {err}", flush=True)
+                else:
+                    fails.pop(name)
+        for name in names:
+            if name not in bad:
+                fails.pop(name, None)
+                seen.add(name)
         if (limit and done >= limit) or not poll_seconds:
             break
         # flush a partial batch on a fully idle poll, or when buffered
@@ -421,7 +463,10 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     # the writer's tail: how long the volumes still queued took to write
     # after the service had drained (throughput_fps stops at the drain)
     out["writer_tail_seconds"] = round(time.perf_counter() - t0, 3)
+    if group is not None:
+        out["rank"] = rank
     if verbose:
         print(f"served {out['frames']} frames: {out['throughput_fps']} fps, "
               f"p95 batch latency {out['batch_latency_p95_s']} s")
     return out
+

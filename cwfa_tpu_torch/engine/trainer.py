@@ -15,7 +15,7 @@ steps ``:115-347``, the caches, the NLL cache and the stage scheduler
   (``engine/optim``).  Each optimizer step changes only its stage's groups.
 - The last epoch of a stage keeps its outputs per frame for the next, finer
   stage (``_capture_upsampled``); a frame missing there is reconstructed
-  down to the level (``_stage_input``).
+  down to the level (``_stage_inputs``).
 - Per-frame caches on the device: normalized views, GT pyramids (built with
   the empty-depth guard and 1e-3 noise, ``engine/ood.PyramidScorer``) and
   per-fish mean-volume conditions.  The views and GT caches are keyed on the
@@ -49,6 +49,25 @@ explicitly.  The OOD finetune over these caches is
 ``engine/ood.finetune_on_novel``.  ``load_torch_checkpoints`` reads the
 reference's own PyTorch checkpoints (``engine/torch_convert``); the reverse
 is ``engine/torch_export``.
+
+Data parallel (``mesh=``, a ``parallel.make_mesh`` mesh; one process per
+device, JAX's ``trainer.py:117-128,371-381``): every rank holds the same
+weights (checked at construction and after a load) and takes its
+contiguous rows of each mini-batch.  The step runs inside
+``parallel.mesh.data_shard``: the loss is weighted by the rank's share of
+the batch, the train-mode BatchNorm statistics and the losses' min / max
+are those of the global batch, every draw over the batch is made for the
+global batch from ``self.generator`` (in step on every rank) and sliced,
+and one flat all-reduce sums the gradients of the stage's groups and the
+loss values, so Lion moves every replica alike, to the bit.  A mini-batch
+that does not divide the axis (a ragged last one) is computed whole on
+every rank, with no all-reduce.  Evaluation and the NLL refresh split the
+frames the same way and gather them on every rank.  The draws that depend
+on what one rank caches (the GT pyramids' guard and noise, a stage input
+reconstructed on a cache miss) come from ``self.local_generator``, the
+rank's own, for frames the rank owns, and from ``self.generator`` for the
+frames every rank computes, after the ranks agree which to redo; with no
+mesh the two generators are one.
 """
 
 from __future__ import annotations
@@ -78,6 +97,12 @@ from cwfa_tpu_torch.engine.ood import PyramidScorer, sentinel
 from cwfa_tpu_torch.engine.optim import make_optimizers
 from cwfa_tpu_torch.models.cond_net import cond_networks_batched
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+from cwfa_tpu_torch.parallel.distributed import (check_same_on_ranks,
+                                                 gather_rows,
+                                                 host_local_indices)
+from cwfa_tpu_torch.parallel.mesh import (batch_shard, current_shard,
+                                          data_group, data_rank, data_shard,
+                                          data_size, draw_rows)
 from cwfa_tpu_torch.utils.png import write_png
 from cwfa_tpu_torch.utils.projections import (create_image_pyramid,
                                               volume_2_projections)
@@ -148,7 +173,8 @@ def _detached(t):
 
 
 class CWFATrainer:
-    """Stage-scheduled trainer of a ``CWFAModel`` on one device.
+    """Stage-scheduled trainer of a ``CWFAModel`` on one device, or data
+    parallel over a ``mesh`` (one process per device; module docstring).
 
     The model is moved to ``device`` in f32 (its master weights) and kept in
     eval mode; an optimizer step puts its stage's modules into training mode
@@ -158,15 +184,25 @@ class CWFATrainer:
 
     def __init__(self, model: CWFAModel, stats: DatasetStatistics,
                  view_indices: dict, output_path: str | None = None,
-                 seed: int | None = None, device="cuda"):
+                 seed: int | None = None, device="cuda", mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
+        self._group = data_group(mesh)
+        self._n_data = data_size(mesh)
         self.model = model.to(device=self.device, dtype=torch.float32).eval()
         self.cfg = model.cfg
         self.stats = stats
         self.view_indices = view_indices
         self.output_path = output_path
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.cfg.seed if seed is None else seed)
+        seed = self.cfg.seed if seed is None else seed
+        self.generator.manual_seed(seed)
+        self.local_generator = self.generator
+        if self._n_data > 1:
+            self.local_generator = torch.Generator(device=self.device)
+            self.local_generator.manual_seed(
+                (seed + 1) * 1_000_003 + data_rank(mesh))
+            self.check_replicas()
         self.compute_dtype = (torch.bfloat16 if self.cfg.use_half_precision
                               else torch.float32)
         self.opt_flow, self.opt_cond, self.opt_lrnn = make_optimizers(
@@ -194,6 +230,21 @@ class CWFATrainer:
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.compute_dtype == torch.bfloat16)
+
+    def check_replicas(self):
+        """Raise unless every rank holds the same weights and BatchNorm
+        statistics (a checksum gathered over the ``data`` axis)."""
+        if self._n_data > 1:
+            check_same_on_ranks(self.model.state_dict(), self._group,
+                                "the model's weights")
+
+    def _any_rank(self, flags: list) -> list:
+        """Each flag OR-ed over the ranks (one small all-reduce)."""
+        if self._n_data == 1 or not flags:
+            return list(flags)
+        t = torch.tensor([float(f) for f in flags], device=self.device)
+        torch.distributed.all_reduce(t, group=self._group)
+        return [bool(v > 0) for v in t.tolist()]
 
     def ensure_mean_caches(self, dataset: ConcatXLFMDataset):
         """Per-fish mean-volume conditioning pyramids (CWFA.py:625-655)."""
@@ -230,27 +281,39 @@ class CWFATrainer:
         self.views_cache.put(key, views)
         return views
 
-    def _gt_pyramid(self, dataset: ConcatXLFMDataset, tag: str, ix: int):
-        """The frame's GT pyramid [(1, D/2^l, S, S) f32 for every level l],
-        built once: normalize, empty-depth guard, 1e-3 noise, the forward
-        pyramid (``pyramid_fn``, ``trainer.py:233-255``)."""
-        key = (tag, dataset.cache_tag, ix)
-        cached = self.gt_cache.get(key)
-        if cached is not None:
-            return cached
-        self._score_volumes(dataset, tag, [ix])
-        return self.gt_cache.get(key)
+    def _gt_pyramids(self, dataset: ConcatXLFMDataset, tag: str, ixs: list,
+                     replicated: bool = False):
+        """The frames' GT pyramids [(1, D/2^l, S, S) f32 for every level l],
+        each built once, frame by frame: normalize, empty-depth guard, 1e-3
+        noise, the forward pyramid (``pyramid_fn``, ``trainer.py:233-255``).
+        ``replicated``: every rank builds these frames (a ragged batch), so a
+        frame missing on any rank is built again on all, from the shared
+        generator; a rank's own frames draw from its own."""
+        keys = [(tag, dataset.cache_tag, ix) for ix in ixs]
+        missing = [self.gt_cache.get(k) is None for k in keys]
+        shared = replicated and self._n_data > 1
+        if shared:
+            missing = self._any_rank(missing)
+        g = self.generator if shared else self.local_generator
+        for ix, miss in zip(ixs, missing):
+            if miss:
+                self._score_volumes(dataset, tag, [ix], g)
+        return [self.gt_cache.get(k) for k in keys]
 
     def _score_volumes(self, dataset: ConcatXLFMDataset, tag: str,
-                       ixs: list):
+                       ixs: list, generator=None):
         """Upload the frames' volumes, run ``pyramid_fn`` on them as one
-        batch, and cache each frame's GT pyramid and its NLLs under the
-        current parameter version (``trainer.py:551-565,592-605``)."""
+        batch (its draws from ``generator``, by default the rank's own),
+        and cache each frame's GT pyramid and its NLLs under the current
+        parameter version (``trainer.py:551-565,592-605``).  Returns the
+        NLLs (n_flow_steps, len(ixs))."""
         vols = self._gather_vols(dataset, ixs)
         self.transfer_log["volume_uploads"] += len(ixs)
         self.transfer_log["h2d_bytes"] += vols.nbytes
-        scorer = PyramidScorer(self.model, self.stats, device=self.device,
-                               generator=self.generator)
+        scorer = PyramidScorer(
+            self.model, self.stats, device=self.device,
+            generator=self.local_generator if generator is None
+            else generator)
         nlls, pyramid, _, _ = scorer(torch.as_tensor(vols).to(self.device))
         nlls = nlls.cpu().numpy()
         for j, ix in enumerate(ixs):
@@ -258,6 +321,7 @@ class CWFATrainer:
             self.nll_cache[key] = (self._params_version, nlls[:, j])
             self.gt_cache.put(key, [_detached(lvl[j:j + 1])
                                     for lvl in pyramid])
+        return nlls
 
     @staticmethod
     def _gather_vols(dataset: ConcatXLFMDataset, ixs: list) -> np.ndarray:
@@ -276,25 +340,45 @@ class CWFATrainer:
         pyramid is on the device goes through ``nll_from_pyramid`` with
         no host transfer (the levels are parameter-independent Haar
         averages), the rest through ``pyramid_fn``, which primes their GT
-        pyramids too."""
-        stale = [ix for ix in ixs
-                 if self.nll_cache.get((tag, dataset.cache_tag, ix),
-                                       (None,))[0] != self._params_version]
-        cached = [ix for ix in stale
+        pyramids too.
+        With a mesh the ranks agree on the stale frames, each computes its
+        contiguous share of them, and the NLLs are gathered into every
+        rank's cache."""
+        stale = self._any_rank([
+            self.nll_cache.get((tag, dataset.cache_tag, ix), (None,))[0]
+            != self._params_version for ix in ixs])
+        stale = [ix for ix, st in zip(ixs, stale) if st]
+        if not stale:
+            return
+        mine = stale
+        if self._n_data > 1:
+            mine = [stale[i] for i in host_local_indices(
+                len(stale), data_rank(self.mesh), self._n_data)]
+        cached = [ix for ix in mine
                   if self.gt_cache.get((tag, dataset.cache_tag, ix))
                   is not None]
-        missing = [ix for ix in stale if ix not in cached]
+        missing = [ix for ix in mine if ix not in cached]
+        nf = self.model.n_flow_steps
+        got = {}
         if cached:
             pyrs = [self.gt_cache.get((tag, dataset.cache_tag, ix))
                     for ix in cached]
             batch = [torch.cat([p[lvl] for p in pyrs])
                      for lvl in range(len(pyrs[0]))]
             nlls = sentinel(self.model.nll_from_pyramid(batch)).cpu().numpy()
-            for j, ix in enumerate(cached):
-                self.nll_cache[(tag, dataset.cache_tag, ix)] = (
-                    self._params_version, nlls[:, j])
+            got.update({ix: nlls[:, j] for j, ix in enumerate(cached)})
         if missing:
-            self._score_volumes(dataset, tag, missing)
+            nlls = self._score_volumes(dataset, tag, missing)
+            got.update({ix: nlls[:, j] for j, ix in enumerate(missing)})
+        if self._n_data > 1:
+            local = torch.as_tensor(np.stack(
+                [got[ix] for ix in mine]) if mine
+                else np.zeros((0, nf), np.float32)).to(self.device)
+            every = gather_rows(local, self._group).cpu().numpy()
+            got = {ix: every[j] for j, ix in enumerate(stale)}
+        for ix, v in got.items():
+            self.nll_cache[(tag, dataset.cache_tag, ix)] = (
+                self._params_version, v)
 
     def _frame_nll(self, dataset: ConcatXLFMDataset, tag: str, ix: int):
         """The frame's NLLs (n_flow_steps,) under the current parameters,
@@ -322,11 +406,12 @@ class CWFATrainer:
                 for ixs in [by_ds[di]] for i in range(0, len(ixs), bs)]
 
     def _batch_inputs(self, dataset: ConcatXLFMDataset, di: int, ixs: list,
-                      tag: str):
+                      tag: str, replicated: bool = False):
         """(normalized views (B, n, S, S), GT pyramid levels, the fish's
-        mean caches broadcast to the batch)."""
+        mean caches broadcast to the batch); ``replicated`` as in
+        ``_gt_pyramids``."""
         views = torch.cat([self._views_for(dataset, tag, ix) for ix in ixs])
-        pyrs = [self._gt_pyramid(dataset, tag, ix) for ix in ixs]
+        pyrs = self._gt_pyramids(dataset, tag, ixs, replicated)
         gt = [torch.cat([p[lvl] for p in pyrs]) for lvl in range(len(pyrs[0]))]
         mcs = [c.expand((len(ixs),) + tuple(c.shape[1:]))
                for c in self.mean_caches[di]]
@@ -341,17 +426,30 @@ class CWFATrainer:
         step = int(cfg.INN_max_down_steps - epoch // eps) - 1
         return max(min(step, self.model.n_flow_steps), 0)
 
-    def _stage_input(self, dataset, ix, views_n, mean_caches, stage):
-        """The coarser stage's output for frame ix: the captured one, or the
-        chain reconstructed down to level stage + 1 (CWFA.py:848-851)."""
-        cached = self.upsampled_cache.get((dataset.cache_tag, ix))
+    def _stage_inputs(self, dataset, ixs, views_n, mean_caches, stage,
+                      replicated: bool = False):
+        """The coarser stage's output for each frame, (B, D_{stage+1}, S, S):
+        the captured one, or the chain reconstructed down to level stage + 1
+        frame by frame (CWFA.py:848-851; draws as ``_gt_pyramids``)."""
         want = self.cfg.n_depths // (2 ** (stage + 1))
-        if cached is not None and cached.shape[1] == want:
-            return cached
-        _, pyramid = self.model.reconstruct(
-            views_n, mean_caches, z_temperature=self.cfg.INN_z_temperature,
-            generator=self.generator, lrnn_train=True, return_pyramid=True)
-        return _detached(pyramid[stage + 1])
+        cached = [self.upsampled_cache.get((dataset.cache_tag, ix))
+                  for ix in ixs]
+        missing = [c is None or c.shape[1] != want for c in cached]
+        shared = replicated and self._n_data > 1
+        if shared:
+            missing = self._any_rank(missing)
+        g = self.generator if shared else self.local_generator
+        outs = []
+        for j, miss in enumerate(missing):
+            if not miss:
+                outs.append(cached[j])
+                continue
+            _, pyramid = self.model.reconstruct(
+                views_n[j:j + 1], mean_caches,
+                z_temperature=self.cfg.INN_z_temperature, generator=g,
+                lrnn_train=True, return_pyramid=True)
+            outs.append(_detached(pyramid[stage + 1]))
+        return torch.cat(outs)
 
     def _capture_upsampled(self, dataset, ix, out):
         self.upsampled_cache.put((dataset.cache_tag, ix), _detached(out))
@@ -365,9 +463,9 @@ class CWFATrainer:
         dt = self.compute_dtype
         vin = views_n
         if self.cfg.add_noise == 1 and generator is not None:
-            vin = vin + 0.5 * torch.randn(
-                vin.shape, generator=generator,
-                device=generator.device).to(vin.device)
+            vin = vin + 0.5 * draw_rows(lambda sh: torch.randn(
+                sh, generator=generator, device=generator.device),
+                vin.shape).to(vin.device)
         with self._autocast():
             out = self.model.lrnn(vin.to(dt), mean_vol=mean_c.to(dt),
                                   train=True, generator=generator)
@@ -412,16 +510,47 @@ class CWFATrainer:
         return full, loss_c, nll, recon
 
     # ------------------------------------------------------- optimizer steps
+    @staticmethod
+    def _shard_weight() -> float:
+        """This rank's share of the global batch (1 outside a shard)."""
+        sh = current_shard()
+        return 1.0 if sh is None else sh.size / sh.total
+
+    def _sum_over_ranks(self, modules, values: list) -> list:
+        """Under a batch shard: one flat all-reduce of the gradients of
+        every parameter of ``modules`` (a missing one as zeros, which Lion
+        takes it for) and of the weighted loss ``values``; each gradient
+        gets its sum back.  Returns the values summed (as they are outside
+        a shard)."""
+        sh = current_shard()
+        if sh is None:
+            return values
+        params = [p for m in modules for p in m.parameters()]
+        flat = torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p))
+             .reshape(-1).float() for p in params]
+            + [torch.stack([v.float() for v in values])])
+        torch.distributed.all_reduce(flat, group=sh.group)
+        off = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[off:off + n].view_as(p).to(p.dtype)
+            off += n
+        return list(flat[off:])
+
     def _lrnn_step(self, views_n, mean_c, gt_coarse):
         lrnn = self.model.lrnn
         self.opt_lrnn.zero_grad()
         lrnn.train()
+        w = self._shard_weight()
         try:
             loss, out = self.lrnn_loss(views_n, mean_c, gt_coarse,
                                        self.generator)
+            loss = loss * w
             loss.backward()
         finally:
             lrnn.eval()
+        loss, = self._sum_over_ranks([lrnn], [loss.detach()])
         self.opt_lrnn.step()
         self._params_version += 1
         return loss.detach(), out.detach()
@@ -431,12 +560,17 @@ class CWFATrainer:
         self.opt_flow[k].zero_grad()
         self.opt_cond[k].zero_grad()
         cond.train()
+        w = self._shard_weight()
         try:
             full, loss_c, nll, recon = self.flow_loss(
                 k, views_n, mean_c_k, gt_k, upsampled_in, self.generator)
+            full, loss_c, nll = full * w, loss_c * w, nll * w
             full.backward()
         finally:
             cond.eval()
+        full, loss_c, nll = self._sum_over_ranks(
+            [self.model.flow[k], cond],
+            [full.detach(), loss_c.detach(), nll.detach()])
         # as JAX, the cond group steps even under force_all_steps_NF, on
         # zero gradients (the parameters stay, the count moves)
         self.opt_flow[k].step()
@@ -455,11 +589,15 @@ class CWFATrainer:
         eps = max(cfg.epochs // cfg.INN_max_down_steps, 1)
         capture = (epoch + 1) % eps == 0 and stage > 0
         losses = []
-        for di, ixs in self._batches(dataset):
-            views_n, gt, mcs = self._batch_inputs(dataset, di, ixs, tag)
-            if stage == nf:
-                loss, out = self._lrnn_step(views_n, mcs[nf - 1], gt[nf])
-            else:
+        for di, all_ixs in self._batches(dataset):
+            # with a mesh: this rank's rows, or all of a ragged batch
+            shard = batch_shard(self.mesh, len(all_ixs))
+            ixs = (all_ixs if shard is None
+                   else all_ixs[shard.start:shard.stop])
+            replicated = shard is None
+            views_n, gt, mcs = self._batch_inputs(dataset, di, ixs, tag,
+                                                  replicated)
+            if stage != nf:
                 k = stage
                 # train_with_gt_low_res (CWFA.py:866-869): the GT level as
                 # the stage input, for every step (1) or only the
@@ -469,21 +607,26 @@ class CWFATrainer:
                         and k == cfg.INN_max_down_steps - 2):
                     upsampled = gt[k + 1]
                 else:
-                    upsampled = torch.cat([
-                        self._stage_input(dataset, ix, views_n[j:j + 1],
-                                          self.mean_caches[di], k)
-                        for j, ix in enumerate(ixs)])
-                loss, _, nll, out = self._flow_step(
-                    k, views_n, mcs[k], gt[k], upsampled)
-                self.log.add(f"loss_LL/step_{k}", nll, epoch)
+                    upsampled = self._stage_inputs(
+                        dataset, ixs, views_n, self.mean_caches[di], k,
+                        replicated)
+            with data_shard(shard):
+                if stage == nf:
+                    loss, out = self._lrnn_step(views_n, mcs[nf - 1],
+                                                gt[nf])
+                else:
+                    loss, _, nll, out = self._flow_step(
+                        k, views_n, mcs[k], gt[k], upsampled)
+                    self.log.add(f"loss_LL/step_{k}", nll, epoch)
             if capture:
                 for j, ix in enumerate(ixs):
                     self._capture_upsampled(dataset, ix, out[j:j + 1])
             value = float(loss)
-            losses.append((value, len(ixs)))
+            losses.append((value, len(all_ixs)))
             if not math.isfinite(value):
                 raise ValueError(f"Nan/Inf loss found in {tag} at epoch "
-                                 f"{epoch}, batch {ixs} (CWFA.py:989-994)")
+                                 f"{epoch}, batch {all_ixs} "
+                                 "(CWFA.py:989-994)")
         total = sum(n for _, n in losses)
         mean_loss = sum(v * n for v, n in losses) / max(total, 1)
         self.log.add(f"fine_tune/loss/{tag}", mean_loss, epoch)
@@ -532,6 +675,7 @@ class CWFATrainer:
                     self.opt_flow[step - 1].lr = \
                         cfg.decode_lrs().learning_rate
         self._params_version += 1
+        self.check_replicas()
         return loaded
 
     def load_torch_checkpoints(self, path: str, steps=None) -> list:
@@ -582,6 +726,7 @@ class CWFATrainer:
                                 tc.convert_cond_network(cond), {})
             loaded.append(step)
         self._params_version += 1
+        self.check_replicas()
         return loaded
 
     # ------------------------------------------------------------ evaluation
@@ -661,18 +806,26 @@ class CWFATrainer:
         frame_no = 0
         model = self._eval_model()
         try:
-            for di, ixs in self._batches(dataset):
-                views_n, gt, mean_caches = self._batch_inputs(dataset, di,
-                                                              ixs, tag)
-                self._refresh_nlls(dataset, tag, ixs)
+            for di, all_ixs in self._batches(dataset):
+                # with a mesh: this rank's rows, gathered after
+                shard = batch_shard(self.mesh, len(all_ixs))
+                ixs = (all_ixs if shard is None
+                       else all_ixs[shard.start:shard.stop])
+                views_n, gt, mean_caches = self._batch_inputs(
+                    dataset, di, ixs, tag, shard is None)
+                self._refresh_nlls(dataset, tag, all_ixs)
                 stop = device_timer(self.device)
-                pyramid = self._recon_eval(model, views_n, mean_caches)
+                with data_shard(shard):
+                    pyramid = self._recon_eval(model, views_n, mean_caches)
                 dt = stop() / len(ixs)
-                pyr_np = [pyramid[lvl].float().cpu().numpy()
-                          for lvl in range(nf + 1)]
-                gt_np = [g.cpu().numpy() for g in gt]
+
+                def host(t):
+                    t = t if shard is None else gather_rows(t, shard.group)
+                    return t.cpu().numpy()
+                pyr_np = [host(pyramid[lvl].float()) for lvl in range(nf + 1)]
+                gt_np = [host(g) for g in gt]
                 last_pyr_np, last_gt_np = pyr_np, gt_np
-                for j, ix in enumerate(ixs):
+                for j, ix in enumerate(all_ixs):
                     res["times"].append(dt)
                     gt_out, pred_out = self._frame_metrics(
                         res, gt_np, pyr_np, j, frame_no, keep_volumes,

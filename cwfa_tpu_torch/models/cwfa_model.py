@@ -39,6 +39,7 @@ from cwfa_tpu_torch.models.cwf import (CWFStep, build_step_specs,
 from cwfa_tpu_torch.models.lrnn import LRNN, LRNNSpec
 from cwfa_tpu_torch.models.unet import quantize_unet, unet_calibrate
 from cwfa_tpu_torch.nn import reset_parameters_
+from cwfa_tpu_torch.parallel.mesh import current_shard, draw_rows
 
 
 def sample_z_truncated(generator: torch.Generator, shape,
@@ -76,6 +77,19 @@ def sample_z_rev_like(generator, x, temperature: float = 0.0,
                        device=generator.device) * temperature
 
 
+def _sample_z(generator, zshape, n_samples: int, temperature: float):
+    """The z of a reverse step, (n_samples * b, ...), samples outermost.
+    Under a batch shard (``parallel.mesh``) z is drawn for the global batch
+    and this rank keeps its rows of every sample."""
+    sh = current_shard()
+    if sh is None:
+        return sample_z_truncated(generator, zshape, temperature)
+    z = sample_z_truncated(generator, (n_samples * sh.total,) + zshape[1:],
+                           temperature)
+    z = z.reshape((n_samples, sh.total) + tuple(zshape[1:]))
+    return z[:, sh.start:sh.stop].reshape(zshape)
+
+
 def check_empty_depths(generator: torch.Generator, vol):
     """Add sigma = 1e-3 noise (drawn from ``generator`` on its device) to the
     all-constant depth slices of ``vol`` (B, D, H, W) and to no other
@@ -84,8 +98,9 @@ def check_empty_depths(generator: torch.Generator, vol):
     if generator is None:
         return vol
     empty = vol.std(dim=(2, 3), keepdim=True, correction=0) == 0
-    noise = 0.001 * torch.randn(vol.shape, generator=generator,
-                                dtype=vol.dtype, device=generator.device)
+    noise = 0.001 * draw_rows(lambda s: torch.randn(
+        s, generator=generator, dtype=vol.dtype, device=generator.device),
+        vol.shape)
     return torch.where(empty, vol + noise.to(vol.device), vol)
 
 
@@ -331,8 +346,9 @@ class CWFAModel(nn.Module):
             if z_temperature == 0:
                 z = torch.zeros(zshape, dtype=up.dtype, device=up.device)
             else:
-                z = sample_z_truncated(generator, zshape, z_temperature).to(
-                    device=up.device, dtype=up.dtype)
+                z = _sample_z(generator, zshape, n_samples,
+                              z_temperature).to(device=up.device,
+                                                dtype=up.dtype)
             c_views = (torch.zeros((b,) + zshape[1:], dtype=cond_input.dtype,
                                    device=cond_input.device)
                        if c_views_all is None else c_views_all[k])

@@ -28,6 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cwfa_tpu_torch.parallel.mesh import all_reduce_sum, current_shard, \
+    draw_rows
+
 # ---------------------------------------------------------------------------
 # Initializers (torch-compatible distributions, explicit generator)
 # ---------------------------------------------------------------------------
@@ -154,13 +157,55 @@ def batch_norm_batch_stats(bn: nn.BatchNorm2d, x):
     dtype.  When ``bn`` is in training mode (``bn.train()``) its running
     statistics move as JAX's mstate does: momentum 0.1, the unbiased
     variance, the count up by one; otherwise they are neither read nor
-    updated."""
+    updated.  Under a data-parallel batch shard (``parallel.mesh``) the
+    statistics are those of the global batch (``_batch_norm_global``)."""
+    if current_shard() is not None:
+        return _batch_norm_global(bn, x)
     if bn.training:
         with torch.no_grad():
             bn.num_batches_tracked.add_(1)
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, True, 0.1, bn.eps)
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+
+
+def _batch_norm_global(bn: nn.BatchNorm2d, x):
+    """``batch_norm_batch_stats`` over the global batch of a shard: each
+    rank's f32 sums of x - K and (x - K)^2 and its count, summed over the
+    ranks by one all-reduce (differentiable: the backward sums its terms
+    over the ranks too); K is the running mean, the same on every rank,
+    which keeps the variance off the cancellation of raw sums.  The running
+    statistics move as on one device, identically on every rank."""
+    xf = x.float()
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    k = (torch.zeros(shape, device=x.device) if bn.running_mean is None
+         else bn.running_mean.detach().float().reshape(shape))
+    d = xf - k
+    count = xf.new_full((1,), float(xf.numel() // c))
+    sums = all_reduce_sum(torch.cat([d.sum(dims), (d * d).sum(dims), count]))
+    n = sums[2 * c]
+    dm = sums[:c] / n
+    var = (sums[c:2 * c] / n - dm * dm).clamp_min(0.0)
+    mean = k.reshape(c) + dm
+    y = (xf - mean.reshape(shape)) * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.weight is not None:
+        y = y * bn.weight.float().reshape(shape) + bn.bias.float().reshape(
+            shape)
+    if bn.training and bn.running_mean is not None:
+        with torch.no_grad():
+            bn.num_batches_tracked.add_(1)
+            bn.running_mean.mul_(0.9).add_(0.1 * mean.detach())
+            bn.running_var.mul_(0.9).add_(
+                0.1 * var.detach() * n.detach() / (n.detach() - 1.0))
+    return y.to(x.dtype)
+
+
+def _rand(generator):
+    """A uniform draw of a given shape from ``generator`` on its device."""
+    return lambda shape: torch.rand(shape, generator=generator,
+                                    device=generator.device)
 
 
 def dropout2d(x, rate: float, generator):
@@ -174,8 +219,7 @@ def dropout2d(x, rate: float, generator):
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape[:2], generator=generator,
-                      device=generator.device) < keep
+    mask = draw_rows(_rand(generator), x.shape[:2]) < keep
     mask = mask.to(x.device).reshape(x.shape[:2] + (1,) * (x.dim() - 2))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
@@ -193,8 +237,7 @@ def channel_dropout_scale(shape, rate: float, generator, device):
     if rate >= 1.0:
         return torch.zeros(shape, device=device)
     keep = 1.0 - rate
-    mask = torch.rand(shape, generator=generator,
-                      device=generator.device) < keep
+    mask = draw_rows(_rand(generator), shape) < keep
     return mask.to(device, torch.float32) / keep
 
 
@@ -208,8 +251,8 @@ def drop_path(x, rate: float, generator):
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                      generator=generator, device=generator.device) < keep
+    mask = draw_rows(_rand(generator),
+                     (x.shape[0],) + (1,) * (x.dim() - 1)) < keep
     return (x / keep * mask.to(x.device)).to(x.dtype)
 
 

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from cwfa_tpu_torch.ops import cuda_build
+from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 CONVS = ("b1", "b2a", "b2b", "b4a", "b4b", "b6a", "b6b", "b7")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -321,7 +322,8 @@ def fused_float_tower(x, tower):
     if x.device.type == "cpu":
         # NCHW as the kernel writes it (a conv of a 1-channel x may come out
         # channels-last)
-        return float_tower_reference(tower, x).to(x.dtype).contiguous()
+        return check_kernel_outputs("fused_float_tower", float_tower_reference(
+            tower, x).to(x.dtype).contiguous())
     b, cin, h, w = x.shape
     weights, biases = pack_float_tower(tower, x.dtype)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
@@ -341,7 +343,7 @@ def fused_float_tower(x, tower):
     cuda_build.check_launch(rc, f"fused_float_tower ({instance})")
     fused_float_tower.launches += 1
     fused_float_tower.by_instance[instance] += 1
-    return out
+    return check_kernel_outputs("fused_float_tower", out)
 
 
 fused_float_tower.launches = 0              # every launch of the kernel
@@ -564,7 +566,9 @@ def float_tower_backward(tower, x, dy, *, instance=None):
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
-        return float_tower_backward_reference(tower, x, dy)
+        return check_kernel_outputs("float_tower_backward",
+                                    float_tower_backward_reference(tower, x,
+                                                                   dy))
     instance = instance or bwd_instance(x.dtype, c, cin, nout)
     if instance == WGMMA_BF16:
         dx, dws, dbs = _backward_wgmma(tower, x, dy, nout)
@@ -572,8 +576,9 @@ def float_tower_backward(tower, x, dy, *, instance=None):
         dx, dws, dbs = _backward_cuda_cores(tower, x, dy, c, nout)
     float_tower_backward.launches += 1
     float_tower_backward.by_instance[instance] += 1
-    return (dx, dws, [None if conv.bias is None else db for conv, db in
-                      zip((getattr(tower, n) for n in CONVS), dbs)])
+    return check_kernel_outputs("float_tower_backward", (
+        dx, dws, [None if conv.bias is None else db for conv, db in
+                  zip((getattr(tower, n) for n in CONVS), dbs)]))
 
 
 float_tower_backward.launches = 0             # every launch of the kernel

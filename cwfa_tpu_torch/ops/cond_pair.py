@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops.btower import round_through
+from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
@@ -202,7 +203,8 @@ def cond_pair(x, c3a, c3b, prelu, *, scale=None, instance=None):
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
-        return cond_pair_reference(x, c3a, c3b, prelu, scale)
+        return check_kernel_outputs("cond_pair", cond_pair_reference(
+            x, c3a, c3b, prelu, scale))
     instance = instance or kernel_instance(x.dtype, k)
     b, d, h, w = x.shape
     z = torch.empty_like(x)
@@ -216,7 +218,7 @@ def cond_pair(x, c3a, c3b, prelu, *, scale=None, instance=None):
     cuda_build.check_launch(rc, f"cond_pair ({instance})")
     cond_pair.launches += 1
     cond_pair.by_instance[instance] += 1
-    return z
+    return check_kernel_outputs("cond_pair", z)
 
 
 cond_pair.launches = 0                      # every launch of the kernel
@@ -277,7 +279,9 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
-        return cond_pair_backward_reference(x, dz, c3a, c3b, prelu, scale)
+        return check_kernel_outputs("cond_pair_backward",
+                                    cond_pair_backward_reference(
+                                        x, dz, c3a, c3b, prelu, scale))
     instance = instance or bwd_instance(x.dtype, k)
     b, d, h, w = x.shape
     lib = _bwd_lib()
@@ -297,9 +301,10 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
     cond_pair_backward.launches += 1
     cond_pair_backward.by_instance[instance] += 1
     per = grads[:k * 56].view(k, 56)
-    return (dx, per[:, :27].reshape(k, 1, 3, 3, 3), per[:, 54].contiguous(),
-            per[:, 27:54].reshape(1, k, 3, 3, 3), grads[k * 56:],
-            per[:, 55].sum().reshape(1))
+    return check_kernel_outputs("cond_pair_backward", (
+        dx, per[:, :27].reshape(k, 1, 3, 3, 3), per[:, 54].contiguous(),
+        per[:, 27:54].reshape(1, k, 3, 3, 3), grads[k * 56:],
+        per[:, 55].sum().reshape(1)))
 
 
 cond_pair_backward.launches = 0             # every launch of the kernel

@@ -11,6 +11,7 @@ module opens its source's library with ``load(stem)`` and registers the
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -50,10 +51,18 @@ def library_paths() -> dict[str, Path]:
 def build_kernels() -> dict[str, Path]:
     """Compile every ``csrc/*.cu`` whose library is not built yet; returns
     {source stem: library path}.  Raises with nvcc's output if a build
-    fails."""
+    fails.  Processes that start together (the ranks of a run on several
+    devices) build one at a time, behind a file lock, so the first builds
+    and the others find its libraries."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_unlocked()
+
+
+def _build_unlocked() -> dict[str, Path]:
     libs = library_paths()
     sources = [CSRC / f"{stem}.cu" for stem in libs]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources:
         out = libs[src.stem]

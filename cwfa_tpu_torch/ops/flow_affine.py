@@ -35,6 +35,7 @@ import torch
 from cwfa_tpu_torch.flow.coupling import CLAMP_ACTIVATIONS, clamp_fn
 from cwfa_tpu_torch.flow.subnets import SQRT2_INV
 from cwfa_tpu_torch.ops import cuda_build
+from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -144,8 +145,8 @@ def cat_affine(x, st, *, clamp: float, activation: str, rev: bool):
         raise ValueError("cat_affine takes contiguous x and st")
     act = _activation_code(activation)
     if x.device.type == "cpu":
-        return cat_affine_reference(x, st, clamp=clamp, activation=activation,
-                                    rev=rev)
+        return check_kernel_outputs("cat_affine", cat_affine_reference(
+            x, st, clamp=clamp, activation=activation, rev=rev))
     y = torch.empty_like(x)
     rc = _lib().cwfa_cat_affine(
         x.data_ptr(), st.data_ptr(), y.data_ptr(), b, c, h * w, float(clamp),
@@ -153,7 +154,7 @@ def cat_affine(x, st, *, clamp: float, activation: str, rev: bool):
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(rc, "cat_affine")
     cat_affine.launches += 1
-    return y
+    return check_kernel_outputs("cat_affine", y)
 
 
 cat_affine.launches = 0
@@ -179,8 +180,9 @@ def cat_affine_backward(dy, x, st, *, clamp: float, activation: str,
         raise ValueError("cat_affine_backward takes contiguous dy, x and st")
     act = _activation_code(activation)
     if x.device.type == "cpu":
-        return cat_affine_backward_reference(dy, x, st, clamp=clamp,
-                                             activation=activation, rev=rev)
+        return check_kernel_outputs(
+            "cat_affine_backward", cat_affine_backward_reference(
+                dy, x, st, clamp=clamp, activation=activation, rev=rev))
     dx = torch.empty_like(x)
     dst = torch.empty_like(st)
     rc = _lib().cwfa_cat_affine_bwd(
@@ -190,7 +192,7 @@ def cat_affine_backward(dy, x, st, *, clamp: float, activation: str,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(rc, "cat_affine_backward")
     cat_affine_backward.launches += 1
-    return dx, dst
+    return check_kernel_outputs("cat_affine_backward", (dx, dst))
 
 
 cat_affine_backward.launches = 0
@@ -235,8 +237,9 @@ def haar_merge_affine(z, s_raw, t, avg, *, clamp: float, activation: str):
                          f"(strides {t.stride()})")
     act = _activation_code(activation)
     if z.device.type == "cpu":
-        return haar_merge_affine_reference(z, s_raw, t, avg, clamp=clamp,
-                                           activation=activation)
+        return check_kernel_outputs(
+            "haar_merge_affine", haar_merge_affine_reference(
+                z, s_raw, t, avg, clamp=clamp, activation=activation))
     out = torch.empty((b, 2 * c, h, w), dtype=avg.dtype, device=avg.device)
     rc = _lib().cwfa_haar_merge_affine(
         z.data_ptr(), s_raw.data_ptr(), t.data_ptr(), avg.data_ptr(),
@@ -245,7 +248,7 @@ def haar_merge_affine(z, s_raw, t, avg, *, clamp: float, activation: str):
         torch.cuda.current_stream(z.device).cuda_stream)
     cuda_build.check_launch(rc, "haar_merge_affine")
     haar_merge_affine.launches += 1
-    return out
+    return check_kernel_outputs("haar_merge_affine", out)
 
 
 haar_merge_affine.launches = 0

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from cwfa_tpu_torch.ops import cuda_build
 from cwfa_tpu_torch.ops.int8_conv import conv2d_int8, quantize_mul
 from cwfa_tpu_torch.ops.wgmma_layout import S8_SUM_ORDER
+from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 # conv-input sites in execution order: row index of the (8, C) scales
 SITES = ("x", "r1", "e2a", "e2", "e4a", "e4", "e6a", "e6")
@@ -366,7 +367,8 @@ def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16, instance=None):
     if instance not in (None, DP4A):
         raise ValueError(f"instance {instance!r}: None or {DP4A!r}")
     if xq.device.type == "cpu":
-        return quantized_tower_reference(qw, scales, xq).to(out_dtype)
+        return check_kernel_outputs("fused_tower", quantized_tower_reference(
+            qw, scales, xq).to(out_dtype))
     b, cin, h, w = xq.shape
     out = torch.empty((b, nout, h, w), dtype=out_dtype, device=xq.device)
     inv, sw, bias = 1.0 / scales, qw["sw"], qw["bias"]
@@ -396,7 +398,7 @@ def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16, instance=None):
     cuda_build.check_launch(rc, f"fused_tower ({instance})")
     fused_tower.launches += 1
     fused_tower.by_instance[instance] += 1
-    return out
+    return check_kernel_outputs("fused_tower", out)
 
 
 fused_tower.launches = 0                    # every launch of the kernel

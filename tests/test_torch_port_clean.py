@@ -64,6 +64,11 @@ def test_port_files_found():
             "cwfa_tpu_torch/engine/ood.py", "cwfa_tpu_torch/ops/fft_conv.py",
             "cwfa_tpu_torch/ops/deconv.py", "cwfa_tpu_torch/data/psf.py",
             "cwfa_tpu_torch/data/synthetic.py"} <= names
+    # and more than one device, and the profiling helpers
+    assert {"cwfa_tpu_torch/parallel/__init__.py",
+            "cwfa_tpu_torch/parallel/distributed.py",
+            "cwfa_tpu_torch/parallel/mesh.py",
+            "cwfa_tpu_torch/utils/profiling.py"} <= names
 
 
 def test_import_time_scan_sees_nested_imports(tmp_path):

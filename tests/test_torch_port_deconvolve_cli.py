@@ -14,8 +14,9 @@ negative frame and a negative clamp limit, where any two computations
 part.  Each run has its own ``--posfix``, as the directory name is stamped
 to the second.  The frames
 come through the dataset path where the stream cannot start, and a decode
-failure mid-stream propagates.  ``--mesh_depth_axis 2`` exits naming the
-ROADMAP item; without ``device="cpu"`` it raises here (no card)."""
+failure mid-stream propagates.  ``--mesh_depth_axis 2`` in one process
+exits naming the mesh's size and the world size; without ``device="cpu"``
+it raises here (no card)."""
 
 import ast
 import contextlib
@@ -165,7 +166,7 @@ def test_cli_mid_stream_failure_propagates(fish, monkeypatch):
 
 
 def test_cli_mesh_flag_exits_and_no_card_raises(fish):
-    with pytest.raises(SystemExit, match="A17"):
+    with pytest.raises(SystemExit, match="mesh of 2 devices.*world size of 1"):
         tcli.main(_argv(fish, "_mesh", "--mesh_depth_axis", "2"),
                   device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,0 +1,100 @@
+"""The port's process bootstrap and batch placement (``cwfa_tpu_torch.
+parallel``) on the CPU: ``initialize_from_env`` with no environment gives
+False; two real processes meet over gloo through ``CWFA_COORDINATOR``; rank
+0 is primary; ``host_local_indices`` equals JAX's split; ``assemble_global``
+/ ``global_batch_array`` / ``to_host`` hold a batch's rows where they belong
+(position-weighted checksums, as ``tests/_dist_worker.py`` uses); and the
+placement's per-leaf fallbacks of ``tests/test_sharding.py:126-147``: a
+batch that does not divide the ``data`` axis is replicated, a 0-d or
+non-array leaf passes through.  The two ranks run in
+``tests/_torch_port_dist_worker.py``, which imports no JAX."""
+
+import numpy as np
+import pytest
+import torch
+
+from cwfa_tpu.parallel.distributed import host_local_indices as jax_split
+
+from cwfa_tpu_torch.parallel import distributed as D
+from cwfa_tpu_torch.parallel import mesh as M
+
+from _torch_port_dist_worker import run_ranks
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    return run_ranks("distributed", n=2)
+
+
+def test_initialize_without_environment_is_a_no_op(monkeypatch):
+    for var in ("CWFA_DISTRIBUTED", "CWFA_COORDINATOR", *D.TORCHRUN_VARS):
+        monkeypatch.delenv(var, raising=False)
+    assert D.initialize_from_env("cpu") is False
+    assert D.initialize_from_env("cuda") is False
+    assert D.is_primary() and D.world_size() == 1
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_cli_bootstrap_in_one_process(monkeypatch, device):
+    """One process, no mesh: the device as asked (an index-less ``cuda``
+    stays so, the current card), no mesh, nothing touched; a mesh of 2
+    exits naming both sizes and the launch line."""
+    for var in ("CWFA_DISTRIBUTED", "CWFA_COORDINATOR", *D.TORCHRUN_VARS):
+        monkeypatch.delenv(var, raising=False)
+    assert D.cli_bootstrap(device, "serve") == (torch.device(device), None)
+    with pytest.raises(SystemExit, match="mesh of 2 devices.*world size of "
+                                         "1.*torchrun --nproc_per_node 2 -m "
+                                         "cwfa_tpu_torch.cli.serve"):
+        D.cli_bootstrap(device, "serve", n_data=2)
+
+
+def test_auto_without_torchrun_raises(monkeypatch):
+    monkeypatch.setenv("CWFA_DISTRIBUTED", "auto")
+    for var in ("CWFA_COORDINATOR", *D.TORCHRUN_VARS):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
+        D.initialize_from_env("cpu")
+
+
+@pytest.mark.parametrize("n, p", [(n, p) for n in (0, 1, 3, 4, 7, 8, 13)
+                                  for p in (1, 2, 3, 4)])
+def test_host_local_indices_equal_jax(n, p):
+    ours = [D.host_local_indices(n, i, p) for i in range(p)]
+    assert ours == [jax_split(n, i, p) for i in range(p)]
+    assert sum(ours, []) == list(range(n))
+
+
+def test_space_axis_names_the_next_slice():
+    with pytest.raises(ValueError, match="A19"):
+        M.make_mesh(1, 2)
+    with pytest.raises(ValueError, match="A19"):
+        M.batch_sharding(None, with_space=True)
+
+
+def test_two_process_rendezvous(ranks):
+    assert [r["world"] for r in ranks] == [2, 2]
+    assert [r["primary"] for r in ranks] == [True, False]
+    assert ranks[0]["mesh"] == (2, 1)
+
+
+def test_placement_and_gather_hold_the_rows(ranks):
+    rng = np.random.RandomState(7)
+    x = rng.randn(4, 3, 8, 8).astype(np.float32)
+    w = (np.arange(x.size, dtype=np.float64).reshape(x.shape) % 13
+         ).astype(np.float32)
+    want = [(x.astype(np.float64) ** 2).sum(),
+            (x.astype(np.float64) * w).sum()]
+    for r in ranks:
+        np.testing.assert_allclose(r["checksums"], want, rtol=1e-12)
+        np.testing.assert_array_equal(r["gathered"], x)
+        np.testing.assert_array_equal(r["gathered_local"], x)
+        np.testing.assert_array_equal(r["ragged"], [0.0, 0.0, 1.0])
+
+
+def test_placement_fallbacks(ranks):
+    for r in ranks:
+        assert r["places"] == {"(4, 3, 8, 8)": (2, 3, 8, 8),
+                               "(3, 3, 8, 8)": (3, 3, 8, 8),
+                               "(1, 3, 7, 8)": (1, 3, 7, 8)}
+        assert r["places_rep"] == (4, 3)
+        assert r["scalar"] == np.float32(2.0) and r["static"] == 5

@@ -17,7 +17,8 @@ against the JAX package's on the CPU.
   scores and flags, ``finetune_losses`` and ``scores_after_finetune``
   within the bounds above, and the PNG of the score distribution (the
   numpy drawing of ``utils/plots.distributions_image``).
-- ``CWFA_DISTRIBUTED`` exits naming the ROADMAP item; without
+- ``CWFA_DISTRIBUTED=auto`` without torchrun's variables exits naming them;
+  without
   ``device="cpu"`` it raises here (no card).
 
 One synthetic fish of 3 frames (JAX's ``make_synthetic_dataset``), 16
@@ -378,8 +379,10 @@ def test_cli_without_finetune_writes_scores_only(data, checkpoint, quiet,
 
 def test_cli_exits_and_raises(data, checkpoint, tmp_path, monkeypatch):
     argv = _cli_argv(data, checkpoint, tmp_path / "r.json")
-    monkeypatch.setenv("CWFA_DISTRIBUTED", "1")
-    with pytest.raises(SystemExit, match="A17"):
+    monkeypatch.setenv("CWFA_DISTRIBUTED", "auto")
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
         tcli.main(argv, device="cpu")
     monkeypatch.delenv("CWFA_DISTRIBUTED")
     with pytest.raises(RuntimeError, match="CUDA"):

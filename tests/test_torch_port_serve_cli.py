@@ -141,9 +141,13 @@ def test_wrong_shaped_frame_is_skipped(rig, capsys):
     assert "skipped 'thumb.tif'" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--mesh_data_axis", "--mesh_space_axis"])
-def test_mesh_flags_exit(rig, flag):
-    with pytest.raises(SystemExit, match="A17"):
+@pytest.mark.parametrize("flag, why", [
+    ("--mesh_data_axis", "mesh of 2 devices.*world size of 1"),
+    ("--mesh_space_axis", "A19")])
+def test_mesh_flags_exit(rig, flag, why):
+    """A data mesh without its processes exits naming both sizes; the space
+    axis exits naming the ROADMAP item of the next slice."""
+    with pytest.raises(SystemExit, match=why):
         serve.main(rig["base"] + ["--out_dir", str(rig["root"] / "m"),
                                   flag, "2"], device="cpu")
 

@@ -13,8 +13,9 @@ two flow steps of two 8-wide blocks, f32, ``--epochs 3 --eval_every 3
 - ``--pretrain_models_path`` to a directory written by the JAX trainer,
   with ``--fine_tune_load_checkpoints`` and ``--fine_tune_use_model_args``,
   loads the same parameters and learning rates.
-- Mesh flags and ``CWFA_DISTRIBUTED`` exit naming the ROADMAP item;
-  without ``device="cpu"`` it raises here (no card).  (``--INN_net_type 2``
+- A data mesh without its processes, the space axis and
+  ``CWFA_DISTRIBUTED=auto`` without torchrun's variables exit with a
+  message; without ``device="cpu"`` it raises here (no card).  (``--INN_net_type 2``
   is ``tests/test_torch_port_xlfmnet.py``.)
 """
 
@@ -209,12 +210,17 @@ def test_pretrained_jax_run_is_loaded(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh_data_axis", "2"], "A17"), (["--mesh_space_axis", "2"], "A17"),
-    ([], "A17")])
+    (["--mesh_data_axis", "2"], "mesh of 2 devices.*world size of 1"),
+    (["--mesh_space_axis", "2"], "A19"), ([], "torchrun")])
 def test_unported_paths_exit_naming_the_item(tree, tmp_path, monkeypatch,
                                              flags, item):
+    """A data mesh without its processes exits naming both sizes, the space
+    axis naming the ROADMAP item of the next slice, and
+    ``CWFA_DISTRIBUTED=auto`` without torchrun's variables naming them."""
     if not flags:
-        monkeypatch.setenv("CWFA_DISTRIBUTED", "1")
+        monkeypatch.setenv("CWFA_DISTRIBUTED", "auto")
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit, match=item):
         train.main(_argv(tree, tmp_path, *flags), device="cpu")
 
