@@ -212,9 +212,10 @@ code != 0) on the first phase that does not hold:
     --no_int8`` writing each rank's 4 volumes equal to the bit to direct
     calls at batch 4; (c) an LRNN step and a step-0 flow step of the
     flagship trainer in bf16, 2 ranks x 1 frame against 1 process x 2,
-    every draw on: losses within 1e-3 relative, parameters within 6 lr,
-    the two ranks equal to the bit, K1 / K2 / K3 launches a step, step ms
-    (cold and warm) and peaks; (d) NCCL at world size 1 through
+    every draw on: losses within 1e-3 relative, each optimizer's
+    all-reduced gradient within 5e-2 of max of one process's, parameters
+    within 6 lr, the two ranks equal to the bit, K1 / K2 / K3 launches a
+    step, step ms (cold and warm) and peaks; (d) NCCL at world size 1 through
     ``initialize_from_env`` (``--nccl-rank``); (e) ``utils.profiling``:
     ``trace`` around one flagship call names the four hand-written
     kernels, ``FrameTimer`` within 5% of ``device_timer``, ``debug_nans``
@@ -3979,6 +3980,8 @@ PAR_RANKS = 2                      # ranks of the parallel phase, on cuda:0
 PAR_BATCH = 8                      # the flagship's batch across the ranks
 PAR_TIMEOUT = 600                  # seconds the ranks may take together
 PAR_TRAIN_BATCH = 2                # training: 2 ranks x 1 against 1 x 2
+PAR_GRAD_BOUND = 5e-2              # all-reduced gradient vs one process's,
+                                   # of its max: the bf16 limit of (b)
 
 
 def par_train_inputs(dev, cfg, b: int):
@@ -3997,25 +4000,41 @@ def par_train_inputs(dev, cfg, b: int):
     return views, gt, mcs
 
 
-def par_two_steps(tr, views, gt, mcs):
+def par_two_steps(tr, views, gt, mcs, grads=None):
     """One LRNN step and one step-0 flow step (its stage input the GT's level
     1) on this rank's rows of the batch (all of them without a mesh): the
-    losses, each step's ms (CUDA events) and the launches of each step."""
+    losses, each step's ms (CUDA events) and the launches of each step.
+    With a ``grads`` dict, each optimizer's gradient as it steps (after the
+    all-reduce on a mesh) goes into it, flat f32 on the host (a copy inside
+    the step's ms)."""
     from cwfa_tpu_torch.parallel.mesh import batch_shard, data_shard
     nf = tr.model.n_flow_steps
     shard = batch_shard(tr.mesh, views.shape[0])
     sl = slice(None) if shard is None else slice(shard.start, shard.stop)
     out = {"ms": [], "launches": []}
-    with data_shard(shard):
-        for step in (lambda: tr._lrnn_step(views[sl], mcs[nf - 1][sl],
-                                           gt[nf][sl])[0],
-                     lambda: tr._flow_step(0, views[sl], mcs[0][sl],
-                                           gt[0][sl], gt[1][sl])[0]):
-            reset_counts()
-            ms = event_ms(lambda: out.setdefault("losses", []).append(
-                float(step())), n=1)
-            out["ms"] += ms
-            out["launches"].append(launch_counts())
+    opts = (("lrnn", tr.opt_lrnn), ("flow", tr.opt_flow[0]),
+            ("cond", tr.opt_cond[0])) if grads is not None else ()
+    for tag, opt in opts:
+        def recorded(tag=tag, opt=opt, step=opt.step):
+            grads[tag] = torch.cat([
+                (torch.zeros_like(p) if p.grad is None else p.grad)
+                .float().reshape(-1) for p in opt.params]).cpu()
+            step()
+        opt.step = recorded
+    try:
+        with data_shard(shard):
+            for step in (lambda: tr._lrnn_step(views[sl], mcs[nf - 1][sl],
+                                               gt[nf][sl])[0],
+                         lambda: tr._flow_step(0, views[sl], mcs[0][sl],
+                                               gt[0][sl], gt[1][sl])[0]):
+                reset_counts()
+                ms = event_ms(lambda: out.setdefault("losses", []).append(
+                    float(step())), n=1)
+                out["ms"] += ms
+                out["launches"].append(launch_counts())
+    finally:
+        for _, opt in opts:
+            del opt.step
     return out
 
 
@@ -4113,7 +4132,8 @@ def par_rank_train(dev, rank, work: Path, a) -> dict:
                      mesh=make_mesh(PAR_RANKS, 1))
     views, gt, mcs = par_train_inputs(dev, cfg, PAR_TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
-    out = par_two_steps(tr, views, gt, mcs)
+    grads = {}
+    out = par_two_steps(tr, views, gt, mcs, grads)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     state = par_state(tr.model)
     out["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
@@ -4123,11 +4143,15 @@ def par_rank_train(dev, rank, work: Path, a) -> dict:
     if rank == 0:
         other = torch.load(work / "train_rank1.pt")
         ref = torch.load(work / "train_ref.pt")
+        ref_grads = torch.load(work / "train_ref_grads.pt")
         out["ranks_equal"] = all(torch.equal(state[k], other[k])
                                  for k in state)
         params = dict(tr.model.named_parameters())
         out["max_param_d"] = max(
             float((state[k] - ref[k]).abs().max()) for k in params)
+        out["grad_rel"] = {
+            tag: float((grads[tag] - g).abs().max() / g.abs().max())
+            for tag, g in ref_grads.items()}
     return out
 
 
@@ -4313,9 +4337,11 @@ def par_inputs(dev, root: Path) -> dict:
     tr = CWFATrainer(model, stats, vidx, device=dev)
     views, gt, mcs = par_train_inputs(dev, cfg, PAR_TRAIN_BATCH)
     torch.cuda.reset_peak_memory_stats()
-    one = par_two_steps(tr, views, gt, mcs)
+    ref_grads = {}
+    one = par_two_steps(tr, views, gt, mcs, ref_grads)
     one["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.save(par_state(tr.model), root / "train_ref.pt")
+    torch.save(ref_grads, root / "train_ref_grads.pt")
     one["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
     lr = max(cfg.learning_rate, cfg.learning_rate_cond,
              cfg.learning_rate_first_step)
@@ -4421,6 +4447,11 @@ def par_check_train(a, ranks, kernels, card):
     if tr[0]["max_param_d"] > 6 * a["lr"]:
         fail(f"parallel (c): a parameter moved {tr[0]['max_param_d']:.3e} "
              f"from the one-process run's (bound 6 lr = {6 * a['lr']:.1e})")
+    grad_rel = tr[0]["grad_rel"]
+    if sorted(grad_rel) != ["cond", "flow", "lrnn"] or not all(
+            v <= PAR_GRAD_BOUND for v in grad_rel.values()):
+        fail(f"parallel (c): the all-reduced gradients vs one process's, "
+             f"max|d|/max {grad_rel} (bound {PAR_GRAD_BOUND})")
     for r, x in enumerate(tr):
         for per, got in zip((LRNN_PER_STEP, FLOW_PER_STEP), x["launches"]):
             for name in KERNELS:
@@ -4436,8 +4467,12 @@ def par_check_train(a, ranks, kernels, card):
         f"losses {['%.6g' % v for v in tr[0]['losses']]} vs "
         f"{['%.6g' % v for v in one['losses']]} (rel {['%.1e' % v for v in rel]},"
         f" bound 1e-3); parameters within {tr[0]['max_param_d']:.2e} "
-        f"(bound 6 lr {6 * a['lr']:.1e}); the two ranks equal to the bit; "
-        f"step ms by rank, the first (cold) then a second (warm) "
+        f"(bound 6 lr {6 * a['lr']:.1e}); each optimizer's all-reduced "
+        f"gradient vs one process's max|d|/max "
+        f"{ {k: '%.2e' % v for k, v in grad_rel.items()} } (bound "
+        f"{PAR_GRAD_BOUND}, bf16); the two ranks equal to the bit; "
+        f"step ms by rank, the first (cold, with the gradients' copy to the "
+        f"host) then a second (warm) "
         f"{[[round(m, 1) for m in x['ms'] + x['warm_ms']] for x in tr]} "
         f"(sharing one card: not a speed figure; one process at batch 2 "
         f"{[round(m, 1) for m in one['ms'] + one['warm_ms']]}); K1/K2/K3 a "

@@ -6,15 +6,18 @@ from __future__ import annotations
 
 import torch
 
+from cwfa_tpu_torch.parallel.mesh import global_max, global_min
+
 
 def weighted_mse_loss(output, target, ths_perc: float = 0.05):
     """MSE double-masked by the 5%-of-max support of BOTH prediction and GT
     (reference losses.py:477-500); divides by the full element count, as
-    the reference does."""
-    out_shift = output - output.min()
-    tgt_shift = target - target.min()
-    out_mask = (out_shift > out_shift.max() * ths_perc).to(output.dtype)
-    tgt_mask = (tgt_shift > tgt_shift.max() * ths_perc).to(output.dtype)
+    the reference does.  Under a batch shard the min and max are the global
+    batch's (``parallel.mesh.global_min``)."""
+    out_shift = output - global_min(output)
+    tgt_shift = target - global_min(target)
+    out_mask = (out_shift > global_max(out_shift) * ths_perc).to(output.dtype)
+    tgt_mask = (tgt_shift > global_max(tgt_shift) * ths_perc).to(output.dtype)
     return ((output - target) ** 2 * out_mask * tgt_mask).mean()
 
 
@@ -28,9 +31,10 @@ def l1_loss(output, target):
 
 def poisson_ll_loss(output, target, eps: float = 1e-8):
     """'LL' first-step loss (CWFA.py:944): mean(pred' - gt' * log(eps +
-    pred')) on min-shifted tensors."""
-    p = output - output.min()
-    g = target - target.min()
+    pred')) on min-shifted tensors (under a batch shard, shifted by the
+    global batch's min)."""
+    p = output - global_min(output)
+    g = target - global_min(target)
     return (p - g * torch.log(eps + p)).mean()
 
 

@@ -367,7 +367,10 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     frames a call on its own device and writes their volumes itself, so
     the writes are not funnelled through one process.  The unreadable
     files are gathered on rank 0, which counts the retries.  ``limit``
-    then counts files.  The summary is the rank's own, with its ``rank``."""
+    counts the frames served over the ranks, as it counts them in one
+    process, but a rank serves a multi-page file whole: the last files
+    handed out may take the count past it.  The summary is the rank's own,
+    with its ``rank``."""
     os.makedirs(out_dir, exist_ok=True)
     n_ranks = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
@@ -385,23 +388,13 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     seen = set()
     fails: dict = {}
     done = 0
-    while True:
-        names = sorted(f for f in os.listdir(in_dir)
-                       if f.endswith(pattern) and f not in seen)
-        if group is not None:
-            if limit:
-                names = names[:max(limit - done, 0)]
-            box = [names]
-            dist.broadcast_object_list(box, src=0, group=group)
-            names = box[0]
-            mine = [names[i + j] for i in range(0, len(names), batch_size)
-                    for j in host_local_indices(
-                        min(batch_size, len(names) - i), rank, n_ranks)]
-        else:
-            mine = names
-        progressed = False
-        failed = []
-        for name, stack in _prefetch_reads(in_dir, mine, svc.stats):
+
+    def serve_files(files):
+        """Read and submit ``files`` in order; returns (the unreadable
+        files with their errors, whether one was read, the pages
+        submitted).  In one process it stops at ``limit``."""
+        failed, progressed, pages = [], False, 0
+        for name, stack in _prefetch_reads(in_dir, files, svc.stats):
             if isinstance(stack, Exception):
                 failed.append((name, str(stack)))
                 continue
@@ -419,18 +412,36 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
                     print(f"serve: skipped {name!r} page {page_ix}: {e}",
                           flush=True)
                     break
-                if group is None:
-                    done += 1
-                    if limit and done >= limit:
-                        break
-            if group is None and limit and done >= limit:
-                break
-        if group is not None:
-            every = [None] * n_ranks
-            dist.all_gather_object(every, (failed, progressed), group=group)
-            failed = [f for fs, _ in every for f in fs]
-            progressed = any(p for _, p in every)
-            done += len(names)
+                pages += 1
+                if group is None and limit and done + pages >= limit:
+                    return failed, progressed, pages
+        return failed, progressed, pages
+
+    while True:
+        names = sorted(f for f in os.listdir(in_dir)
+                       if f.endswith(pattern) and f not in seen)
+        if group is None:
+            failed, progressed, pages = serve_files(names)
+            done += pages
+        else:
+            box = [names]
+            dist.broadcast_object_list(box, src=0, group=group)
+            names = box[0]
+            failed, progressed = [], False
+            todo = names
+            # with a limit, hand out only as many files as frames are still
+            # wanted, then more where some could not be read
+            while todo and not (limit and done >= limit):
+                part = todo[:limit - done] if limit else todo
+                todo = todo[len(part):]
+                mine = [part[i + j] for i in range(0, len(part), batch_size)
+                        for j in host_local_indices(
+                            min(batch_size, len(part) - i), rank, n_ranks)]
+                every = [None] * n_ranks
+                dist.all_gather_object(every, serve_files(mine), group=group)
+                failed += [f for fs, _, _ in every for f in fs]
+                progressed = progressed or any(p for _, p, _ in every)
+                done += sum(n for _, _, n in every)
         # a file still being written stays unseen and is retried on the next
         # poll; a corrupt one is quarantined after max_retries so that it is
         # not parsed forever

@@ -511,10 +511,14 @@ class CWFATrainer:
 
     # ------------------------------------------------------- optimizer steps
     @staticmethod
-    def _shard_weight() -> float:
-        """This rank's share of the global batch (1 outside a shard)."""
+    def _shard_weighted(*losses):
+        """Under a batch shard, each loss times this rank's share of the
+        global batch (their sum over the ranks is the global batch's
+        mean); outside one, the losses as they are."""
         sh = current_shard()
-        return 1.0 if sh is None else sh.size / sh.total
+        if sh is None:
+            return losses
+        return tuple(v * (sh.size / sh.total) for v in losses)
 
     def _sum_over_ranks(self, modules, values: list) -> list:
         """Under a batch shard: one flat all-reduce of the gradients of
@@ -542,11 +546,10 @@ class CWFATrainer:
         lrnn = self.model.lrnn
         self.opt_lrnn.zero_grad()
         lrnn.train()
-        w = self._shard_weight()
         try:
             loss, out = self.lrnn_loss(views_n, mean_c, gt_coarse,
                                        self.generator)
-            loss = loss * w
+            loss, = self._shard_weighted(loss)
             loss.backward()
         finally:
             lrnn.eval()
@@ -560,11 +563,10 @@ class CWFATrainer:
         self.opt_flow[k].zero_grad()
         self.opt_cond[k].zero_grad()
         cond.train()
-        w = self._shard_weight()
         try:
             full, loss_c, nll, recon = self.flow_loss(
                 k, views_n, mean_c_k, gt_k, upsampled_in, self.generator)
-            full, loss_c, nll = full * w, loss_c * w, nll * w
+            full, loss_c, nll = self._shard_weighted(full, loss_c, nll)
             full.backward()
         finally:
             cond.eval()

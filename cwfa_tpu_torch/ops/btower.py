@@ -322,8 +322,7 @@ def fused_float_tower(x, tower):
     if x.device.type == "cpu":
         # NCHW as the kernel writes it (a conv of a 1-channel x may come out
         # channels-last)
-        return check_kernel_outputs("fused_float_tower", float_tower_reference(
-            tower, x).to(x.dtype).contiguous())
+        return float_tower_reference(tower, x).to(x.dtype).contiguous()
     b, cin, h, w = x.shape
     weights, biases = pack_float_tower(tower, x.dtype)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
@@ -566,9 +565,7 @@ def float_tower_backward(tower, x, dy, *, instance=None):
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
-        return check_kernel_outputs("float_tower_backward",
-                                    float_tower_backward_reference(tower, x,
-                                                                   dy))
+        return float_tower_backward_reference(tower, x, dy)
     instance = instance or bwd_instance(x.dtype, c, cin, nout)
     if instance == WGMMA_BF16:
         dx, dws, dbs = _backward_wgmma(tower, x, dy, nout)

@@ -367,8 +367,7 @@ def fused_tower(xq, qw, scales, *, out_dtype=torch.bfloat16, instance=None):
     if instance not in (None, DP4A):
         raise ValueError(f"instance {instance!r}: None or {DP4A!r}")
     if xq.device.type == "cpu":
-        return check_kernel_outputs("fused_tower", quantized_tower_reference(
-            qw, scales, xq).to(out_dtype))
+        return quantized_tower_reference(qw, scales, xq).to(out_dtype)
     b, cin, h, w = xq.shape
     out = torch.empty((b, nout, h, w), dtype=out_dtype, device=xq.device)
     inv, sw, bias = 1.0 / scales, qw["sw"], qw["bias"]

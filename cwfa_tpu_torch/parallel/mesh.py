@@ -18,7 +18,7 @@ global batch:
   (``nn.batch_norm_batch_stats``) are summed over the ranks, differentiably
   (the backward sums its terms over the ranks too);
 - ``global_min`` / ``global_max``: the min-shift and support masks of the
-  ``LL`` and ``wL2`` losses.
+  ``LL`` and ``wL2`` losses (``engine/losses``).
 
 The ``space`` axis (image rows over devices, with a halo exchange before
 every spatially local module and row-global BatchNorm statistics and losses
@@ -80,59 +80,8 @@ def data_rank(mesh) -> int:
     return 0 if mesh is None else mesh.get_local_rank("data")
 
 
-def shard_rows(n: int, mesh) -> tuple[int, int] | None:
-    """(start, stop) of this rank's rows of an n-row batch on the ``data``
-    axis, or None when the batch is replicated: no mesh, one rank, or n
-    not a multiple of the axis (a ragged final batch: every rank computes
-    all of it, JAX's replication fallback)."""
-    k = data_size(mesh)
-    if k == 1 or n % k:
-        return None
-    r = data_rank(mesh)
-    return r * (n // k), (r + 1) * (n // k)
-
-
-@dataclass(frozen=True)
-class Placement:
-    """Where a leaf of a batch goes: ``shard`` keeps this rank's rows on the
-    ``data`` axis (``batch_sharding``), else every row (``replicate``), on
-    ``device``.  Per leaf, as JAX's ``sharded_train_step`` places them: a
-    non-array or 0-d leaf passes through untouched, and a batch whose size
-    does not divide the axis is replicated."""
-    mesh: object
-    shard: bool
-    device: torch.device
-
-    def place(self, x):
-        if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim == 0:
-            return x
-        t = torch.as_tensor(x)
-        rows = shard_rows(t.shape[0], self.mesh) if self.shard else None
-        if rows is not None:
-            t = t[rows[0]:rows[1]]
-        return t.to(self.device)
-
-
-def _mesh_device(mesh) -> torch.device:
-    if mesh is not None and mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
-def batch_sharding(mesh, with_space: bool = False) -> Placement:
-    """(B, ...) arrays: batch over ``data``.  ``with_space`` (rows over
-    ``space``) raises: ROADMAP A19."""
-    if with_space:
-        raise ValueError(SPACE_AXIS_ITEM)
-    return Placement(mesh, True, _mesh_device(mesh))
-
-
-def replicate(mesh) -> Placement:
-    return Placement(mesh, False, _mesh_device(mesh))
-
-
 # ---------------------------------------------------------------------------
-# The batch shard of a data-parallel call
+# The batch shard of a data-parallel call, and placement on it
 # ---------------------------------------------------------------------------
 
 
@@ -148,6 +97,19 @@ class BatchShard:
     @property
     def size(self) -> int:
         return self.stop - self.start
+
+
+def batch_shard(mesh, n: int) -> BatchShard | None:
+    """This rank's contiguous rows of an n-row batch on the mesh's ``data``
+    axis, or None when the batch is replicated: no mesh, one rank, or n not
+    a multiple of the axis (a ragged final batch: every rank computes all
+    of it, JAX's replication fallback).  The one rule of where rows go:
+    the trainer, the reconstructor and ``Placement`` all take it."""
+    k = data_size(mesh)
+    if k == 1 or n % k:
+        return None
+    r = data_rank(mesh)
+    return BatchShard(data_group(mesh), r * (n // k), (r + 1) * (n // k), n)
 
 
 _SHARDS: list = []
@@ -171,13 +133,44 @@ def current_shard() -> BatchShard | None:
     return _SHARDS[-1] if _SHARDS else None
 
 
-def batch_shard(mesh, n: int) -> BatchShard | None:
-    """The shard of an n-row batch on the mesh's ``data`` axis, or None when
-    the batch is replicated (``shard_rows``)."""
-    rows = shard_rows(n, mesh)
-    if rows is None:
-        return None
-    return BatchShard(data_group(mesh), rows[0], rows[1], n)
+@dataclass(frozen=True)
+class Placement:
+    """Where a leaf of a batch goes: ``shard`` keeps this rank's rows of the
+    ``data`` axis (``batch_sharding``: the rows of ``batch_shard``), else
+    every row (``replicate``), on ``device``.  Per leaf, as JAX's
+    ``sharded_train_step`` places them: a non-array or 0-d leaf passes
+    through untouched, and a batch whose size does not divide the axis is
+    replicated."""
+    mesh: object
+    shard: bool
+    device: torch.device
+
+    def place(self, x):
+        if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim == 0:
+            return x
+        t = torch.as_tensor(x)
+        sh = batch_shard(self.mesh, t.shape[0]) if self.shard else None
+        if sh is not None:
+            t = t[sh.start:sh.stop]
+        return t.to(self.device)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh is not None and mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def batch_sharding(mesh, with_space: bool = False) -> Placement:
+    """(B, ...) arrays: batch over ``data``.  ``with_space`` (rows over
+    ``space``) raises: ROADMAP A19."""
+    if with_space:
+        raise ValueError(SPACE_AXIS_ITEM)
+    return Placement(mesh, True, _mesh_device(mesh))
+
+
+def replicate(mesh) -> Placement:
+    return Placement(mesh, False, _mesh_device(mesh))
 
 
 def draw_rows(draw, shape, dim: int = 0):
@@ -230,25 +223,32 @@ class _AllReduceSum(torch.autograd.Function):
         return dx, None
 
 
-def _global_extreme(t: torch.Tensor, pick):
-    """min / max of ``t`` over the global batch, differentiable: each rank's
-    local extreme goes to its own slot of a zero vector, one summing
-    all-reduce gives every rank every slot, and the gradient flows back to
-    the rank that holds the extreme."""
-    local = pick(t)
+def _global_extreme(t: torch.Tensor, local, op) -> torch.Tensor:
+    """The extreme of ``t`` over the global batch, from this rank's
+    ``local`` one: a ``MIN`` / ``MAX`` all-reduce of the value, then one
+    differentiable all-reduce that hands the gradient to every element equal
+    to it on every rank, in equal parts, as ``torch.min`` shares it among
+    ties in one process."""
     sh = current_shard()
     if sh is None:
         return local
-    n = dist.get_world_size(sh.group)
-    slot = torch.nn.functional.one_hot(
-        torch.tensor(dist.get_rank(sh.group), device=t.device), n).to(
-            local.dtype)
-    return pick(all_reduce_sum(slot * local))
+    m = local.detach().clone()
+    dist.all_reduce(m, op=op, group=sh.group)
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return m
+    hit = t.detach() == m
+    # zero forward; its gradient is 1 at each hit
+    tie = torch.where(hit, t - t.detach(), torch.zeros_like(t)).sum()
+    acc = torch.promote_types(t.dtype, torch.float32)   # counts past 256
+    parts = all_reduce_sum(torch.stack([tie.to(acc), hit.sum().to(acc)]))
+    return m + (parts[0] / parts[1]).to(m.dtype)
 
 
 def global_min(t: torch.Tensor) -> torch.Tensor:
-    return _global_extreme(t, torch.min)
+    """``t.min()`` over the global batch under a shard (every rank of the
+    shard's group must call it), ``t.min()`` outside one."""
+    return _global_extreme(t, t.min(), dist.ReduceOp.MIN)
 
 
 def global_max(t: torch.Tensor) -> torch.Tensor:
-    return _global_extreme(t, torch.max)
+    return _global_extreme(t, t.max(), dist.ReduceOp.MAX)

@@ -8,8 +8,9 @@
   raises ``FloatingPointError``, as ``jax_debug_nans`` does.  A
   ``TorchDispatchMode`` sees every aten op; the hand-written kernels launch
   through ctypes, which it does not see, so each kernel wrapper hands its
-  outputs to ``check_kernel_outputs``, which looks at them only while the
-  scope is on.
+  kernel's outputs to ``check_kernel_outputs``, which looks at them only
+  while the scope is on (on the CPU a wrapper runs its plain version, whose
+  aten ops the mode sees).
 - ``FrameTimer``: per-frame times on CUDA events (the host clock on the
   CPU), with ``.mean`` and ``.min`` in seconds, as JAX's.
 """

@@ -11,7 +11,9 @@ within its timeout fails with every rank's output.
 """
 
 import os
+import hashlib
 import pickle
+import shutil
 import socket
 import subprocess
 import sys
@@ -39,7 +41,8 @@ def run_ranks(case: str, n: int = 2, timeout: float = 120.0, **kwargs):
 
 def start_ranks(case: str, n: int = 2, **kwargs):
     """Start ``case`` in n processes and return ``wait(timeout=120)``,
-    which gives ``run_ranks``' results (the caller works meanwhile)."""
+    which gives ``run_ranks``' results (the caller works meanwhile) and
+    removes the ranks' work directory."""
     work = tempfile.mkdtemp(prefix=f"port_dist_{case}_")
     with open(os.path.join(work, "args.pkl"), "wb") as f:
         pickle.dump(kwargs, f)
@@ -77,17 +80,21 @@ def _wait(case, work, procs, deadline, timeout):
             p.kill()
             p.wait()
         log.close()
-    outs = [open(os.path.join(work, f"rank{r}.log")).read()
-            for r in range(n)]
-    report = "\n".join(f"--- rank {r} (exit {p.returncode}) ---\n{o[-4000:]}"
-                       for r, ((p, _), o) in enumerate(zip(procs, outs)))
-    assert not timed_out, f"{case}: timed out after {timeout} s\n{report}"
-    assert all(p.returncode == 0 for p, _ in procs), f"{case}\n{report}"
-    results = []
-    for r in range(n):
-        with open(os.path.join(work, f"result{r}.pkl"), "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    try:
+        outs = [open(os.path.join(work, f"rank{r}.log")).read()
+                for r in range(n)]
+        report = "\n".join(
+            f"--- rank {r} (exit {p.returncode}) ---\n{o[-4000:]}"
+            for r, ((p, _), o) in enumerate(zip(procs, outs)))
+        assert not timed_out, f"{case}: timed out after {timeout} s\n{report}"
+        assert all(p.returncode == 0 for p, _ in procs), f"{case}\n{report}"
+        results = []
+        for r in range(n):
+            with open(os.path.join(work, f"result{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- the cases
@@ -209,6 +216,35 @@ def case_bn(rank, world, x, weight, bias, running):
             "rm": bn.running_mean.numpy(), "rv": bn.running_var.numpy()}
 
 
+def extremes_inputs():
+    """f64 (4, 30) predictions with ties at the min (a ReLU's zeros, on
+    both ranks' rows) and targets."""
+    rng = np.random.RandomState(9)
+    return np.maximum(rng.randn(4, 30), 0.0), rng.randn(4, 30)
+
+
+def case_extremes(rank, world):
+    """The LL and wL2 losses of this rank's rows under a batch shard,
+    weighted by its share, and their gradient at the predictions."""
+    import torch
+
+    from cwfa_tpu_torch.engine import losses as L
+    from cwfa_tpu_torch.parallel.mesh import BatchShard, data_shard
+
+    pred, gt = extremes_inputs()
+    b = pred.shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    out = {}
+    for kind in ("LL", "wL2"):
+        p = torch.from_numpy(pred[rows]).requires_grad_(True)
+        with data_shard(BatchShard(None, rows.start, rows.stop,
+                                   pred.shape[0])):
+            loss = L.recon_loss(kind, torch.from_numpy(gt[rows]), p) / world
+            loss.backward()
+        out[kind] = (float(loss), p.grad.numpy())
+    return out
+
+
 def _zero_drop_model(cfg, seed):
     import dataclasses
 
@@ -300,24 +336,51 @@ def case_recon(rank, world, cfg_kw, seed, params, mstate, caches, frames,
 def two_steps(tr, views, gt, mcs):
     """One LRNN step and one step-0 flow step (its stage input the GT's
     level 1) of ``tr`` on this rank's rows of the batch, drawing from the
-    trainer's generator: (the losses [lrnn, flow, flow NLL], the state)."""
+    trainer's generator: (the losses [lrnn, flow, flow NLL], the state,
+    each optimizer's gradient as it steps: after the all-reduce on a mesh,
+    flat f32, and the two steps' outputs)."""
     from cwfa_tpu_torch.parallel.mesh import batch_shard, data_shard
 
+    grads = {}
+
+    def record(opt, tag):
+        step = opt.step
+
+        def recorded():
+            grads[tag] = np.concatenate([
+                (np.zeros(p.shape, np.float32) if p.grad is None
+                 else p.grad.detach().float().numpy()).ravel()
+                for p in opt.params])
+            step()
+        opt.step = recorded
+
+    record(tr.opt_lrnn, "lrnn")
+    record(tr.opt_flow[0], "flow")
+    record(tr.opt_cond[0], "cond")
     nf = tr.model.n_flow_steps
     shard = batch_shard(tr.mesh, views.shape[0])
     sl = slice(None) if shard is None else slice(shard.start, shard.stop)
     with data_shard(shard):
-        l0, _ = tr._lrnn_step(views[sl], mcs[nf - 1][sl], gt[nf][sl])
-        l1, _, nll, _ = tr._flow_step(0, views[sl], mcs[0][sl], gt[0][sl],
-                                      gt[1][sl])
-    return {"losses": [float(l0), float(l1), float(nll)],
+        l0, out = tr._lrnn_step(views[sl], mcs[nf - 1][sl], gt[nf][sl])
+        l1, _, nll, recon = tr._flow_step(0, views[sl], mcs[0][sl],
+                                          gt[0][sl], gt[1][sl])
+    return {"losses": [float(l0), float(l1), float(nll)], "grads": grads,
+            "outs": {"lrnn": out.numpy(), "flow": recon.numpy()},
             "state": {k: v.detach().numpy().copy()
                       for k, v in tr.model.state_dict().items()}}
 
 
-def case_steps(rank, world, cfg, seed, views, gt, mcs, bn):
-    """``two_steps`` of a trainer on a ``data`` mesh over the group, then
-    ``case_bn`` on ``bn``'s arguments."""
+def state_digest(state: dict) -> dict:
+    """A SHA-1 of each array's bytes, by name."""
+    return {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def case_steps(rank, world, cfgs, seed, views, gt, mcs, bn):
+    """``two_steps`` of a trainer on a ``data`` mesh over the group, for
+    each of ``cfgs`` (a name: config keywords; rank 0 returns it whole,
+    the others their losses and state digest), then ``case_bn`` on
+    ``bn``'s arguments and ``case_extremes``."""
     import torch
 
     from cwfa_tpu_torch.config import CWFAConfig
@@ -326,12 +389,22 @@ def case_steps(rank, world, cfg, seed, views, gt, mcs, bn):
     from cwfa_tpu_torch.parallel import initialize_from_env, make_mesh
 
     assert initialize_from_env("cpu")
-    model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
-                            torch.Generator().manual_seed(seed))
-    tr = CWFATrainer(model, None, {}, device="cpu", mesh=make_mesh(world, 1))
+    mesh = make_mesh(world, 1)
     t = torch.from_numpy
-    out = two_steps(tr, t(views), [t(g) for g in gt], [t(m) for m in mcs])
+    out = {}
+    for name, cfg in cfgs.items():
+        model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
+                                torch.Generator().manual_seed(seed))
+        tr = CWFATrainer(model, None, {}, device="cpu", mesh=mesh)
+        out[name] = two_steps(tr, t(views), [t(g) for g in gt],
+                              [t(m) for m in mcs])
+        if rank:
+            # the other ranks' states are held to rank 0's by their digests
+            # (the LRNN alone is 27 M parameters)
+            out[name] = {"losses": out[name]["losses"],
+                         "state_digest": state_digest(out[name]["state"])}
     out["bn"] = case_bn(rank, world, **bn)
+    out["extremes"] = case_extremes(rank, world)
     return out
 
 

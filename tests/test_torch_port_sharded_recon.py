@@ -172,3 +172,32 @@ def test_space_axis_exits_naming_the_next_slice(serve_rig):
     with pytest.raises(SystemExit, match="A19"):
         serve.main(base + ["--out_dir", str(root / "m"), "--mesh_space_axis",
                            "2"], device="cpu")
+
+
+def test_serve_limit_counts_served_frames_on_two_ranks(serve_rig):
+    """``--limit 3`` over a directory with an unreadable file among the
+    first three: one process and two ranks both serve the first three
+    readable frames (the ranks are handed more files where one failed)."""
+    root, base = serve_rig
+    in_dir = root / "frames_with_bad"
+    in_dir.mkdir()
+    for i in range(5):
+        (in_dir / f"cam_{i}.tif").write_bytes(
+            (root / "frames" / f"cam_{i}.tif").read_bytes())
+    (in_dir / "cam_1x.tif").write_bytes(b"not a tiff")
+    flags = ["--no_int8", "--limit", "3", "--in_dir", str(in_dir)]
+    two, one = root / "two_limit", root / "one_limit"
+    wait = start_ranks("cli", n=2, module="cwfa_tpu_torch.cli.serve",
+                       argv=base + flags + ["--batch", "4", "--out_dir",
+                                            str(two), "--mesh_data_axis",
+                                            "2"])
+    out = serve.main(base + flags + ["--batch", "2", "--out_dir", str(one)],
+                     device="cpu")
+    ranks = wait(120)
+    assert out["frames"] == sum(r["frames"] for r in ranks) == 3
+    names = sorted(os.listdir(one))
+    assert names == sorted(os.listdir(two)) == [
+        f"XLFM_stack_cam_{i}.tif" for i in range(3)]
+    for n in names:
+        want = read_tiff_stack(str(one / n), dtype=None)
+        _close(read_tiff_stack(str(two / n), dtype=None), want, 1e-5)

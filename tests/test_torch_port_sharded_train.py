@@ -15,11 +15,17 @@ on two gloo ranks (``tests/_torch_port_dist_worker.py``):
   ``tests/test_torch_port_ood_cli.py``).
 - With every draw on (input noise, dropout, ``drop_path``, Dropout3d), one
   LRNN step and one flow step on two ranks x 2 frames against one process
-  x 4 frames: the losses within 1e-5 relative, every parameter within 6 lr,
+  x 4 frames, with the L2 losses and with LL and wL2 (which read the global
+  batch's min and max): the losses within 1e-5 relative, each optimizer's
+  all-reduced gradient within 1e-5 of its largest (or twice its loss's own
+  f32 roundoff, where that is coarser: LL), every parameter within 6 lr,
   the two ranks equal to the bit.
 - Train-mode BatchNorm on two ranks x 1 frame against one process x 2
   frames, the global batch's statistics: output, input gradient, parameter
   gradients and running statistics within 1e-5.
+- The LL and wL2 losses alone, f64, with ties at the min on both ranks:
+  two ranks against one process within 1e-12 relative, loss and
+  gradient.
 """
 
 import numpy as np
@@ -33,12 +39,14 @@ from cwfa_tpu.data.stats import DatasetStatistics as JStats
 from cwfa_tpu.parallel import make_mesh
 
 from cwfa_tpu_torch.config import CWFAConfig
+from cwfa_tpu_torch.engine import losses as L
 from cwfa_tpu_torch.engine.jax_params import load_jax_params
 from cwfa_tpu_torch.engine.trainer import CWFATrainer
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.nn import batch_norm_batch_stats
 
-from _torch_port_dist_worker import start_ranks, two_steps
+from _torch_port_dist_worker import (extremes_inputs, start_ranks,
+                                     state_digest, two_steps)
 from test_torch_port_ood_cli import QuietJTrainer, _quiet, _ZeroDropJModel
 
 ND, SIDE, IMG, NL, VIEW = 8, 16, 64, 4, 16
@@ -63,6 +71,13 @@ def _state_dict_equal(a, b):
 
 
 STEP_CFG = dict(CFG, add_noise=1)
+# the losses that read the batch's min and max: under a shard, the global
+# batch's (LL in the LRNN step and wL2 in the flow step, then the other way)
+STEP_CFGS = {"L2": STEP_CFG,
+             "LL-wL2": dict(STEP_CFG, loss_func_first_step="LL",
+                            loss_func_reg="wL2"),
+             "wL2-LL": dict(STEP_CFG, loss_func_first_step="wL2",
+                            loss_func_reg="LL")}
 
 
 def _step_inputs():
@@ -91,7 +106,7 @@ def steps_ranks():
     """The two ranks of the step and BatchNorm cases, started first so that
     they run beside the JAX trainer."""
     views, gt, mcs = _step_inputs()
-    return start_ranks("steps", n=2, cfg=STEP_CFG, seed=4, views=views,
+    return start_ranks("steps", n=2, cfgs=STEP_CFGS, seed=4, views=views,
                        gt=gt, mcs=mcs, bn=_bn_inputs())
 
 
@@ -175,24 +190,73 @@ def test_evaluate_on_two_ranks_matches_one_process(trained):
 @pytest.fixture(scope="module")
 def steps(steps_ranks):
     views, gt, mcs = _step_inputs()
-    model = CWFAModel.build(CWFAConfig(**STEP_CFG).decode_lrs(),
-                            torch.Generator().manual_seed(4))
-    tr = CWFATrainer(model, None, {}, device="cpu")
     t = torch.from_numpy
-    one = two_steps(tr, t(views), [t(g) for g in gt], [t(m) for m in mcs])
+    one = {}
+    for name, cfg in STEP_CFGS.items():
+        model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
+                                torch.Generator().manual_seed(4))
+        tr = CWFATrainer(model, None, {}, device="cpu")
+        one[name] = two_steps(tr, t(views), [t(g) for g in gt],
+                              [t(m) for m in mcs])
     return steps_ranks(120), one, tr.cfg
 
 
-def test_steps_with_draws_match_one_process(steps):
-    ranks, one, cfg = steps
+def _loss_grad_roundoff(kind, gt, out):
+    """The f32 roundoff of ``recon_loss(kind)``'s gradient at (gt, out),
+    relative to its largest: the f32 gradient against the f64 one."""
+    grads = []
+    for dt in (torch.float32, torch.float64):
+        o = torch.from_numpy(out).to(dt).requires_grad_(True)
+        L.recon_loss(kind, torch.from_numpy(gt).to(dt), o).backward()
+        grads.append(o.grad.double())
+    return float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+
+
+def _check_steps(steps, name):
+    """Two ranks x 2 frames against one process x 4 frames: the losses
+    within 1e-5 relative; each optimizer's all-reduced gradient within 1e-5
+    of its largest (only the order of the sums differs), or within twice
+    the f32 roundoff of its loss's own gradient where that is coarser (LL's
+    min-shift cancels terms of size gt / 1e-8 at the min, so its f32
+    gradient is itself that far from the exact one, on one process too);
+    every parameter within 6 lr (JAX's bound); the two ranks equal to the
+    bit."""
+    ranks, ones, cfg = steps
+    one = ones[name]
     lr = max(cfg.learning_rate, cfg.learning_rate_cond,
              cfg.learning_rate_first_step)
-    for r in ranks:
-        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
-        for name, w in one["state"].items():
-            np.testing.assert_allclose(r["state"][name], w, atol=6 * lr,
-                                       rtol=1e-5, err_msg=name)
-    _state_dict_equal(ranks[0]["state"], ranks[1]["state"])
+    _, gt, _ = _step_inputs()
+    nf = len(gt) - 1
+    first = _loss_grad_roundoff(STEP_CFGS[name].get(
+        "loss_func_first_step", "L2"), gt[nf], one["outs"]["lrnn"])
+    reg = _loss_grad_roundoff(STEP_CFGS[name].get("loss_func_reg", "L2"),
+                              gt[0], one["outs"]["flow"])
+    bound = {"lrnn": max(1e-5, 2 * first), "flow": max(1e-5, 2 * reg),
+             "cond": max(1e-5, 2 * reg)}
+    r = ranks[0][name]
+    for rk in ranks:
+        np.testing.assert_allclose(rk[name]["losses"], one["losses"],
+                                   rtol=1e-5)
+    assert r["grads"].keys() == one["grads"].keys()
+    for tag, g in one["grads"].items():
+        err = float(np.abs(r["grads"][tag] - g).max())
+        assert err <= bound[tag] * float(np.abs(g).max()), (tag, err)
+    for pname, w in one["state"].items():
+        np.testing.assert_allclose(r["state"][pname], w, atol=6 * lr,
+                                   rtol=1e-5, err_msg=pname)
+    assert state_digest(r["state"]) == ranks[1][name]["state_digest"]
+
+
+def test_steps_with_draws_match_one_process(steps):
+    _check_steps(steps, "L2")
+
+
+@pytest.mark.parametrize("name", ["LL-wL2", "wL2-LL"])
+def test_steps_with_global_extreme_losses_match_one_process(steps, name):
+    """The LL and wL2 losses shift and mask by the global batch's min and
+    max under a shard, and hand the min's gradient to the rank that holds
+    it."""
+    _check_steps(steps, name)
 
 
 def test_batch_norm_takes_the_global_statistics(steps):
@@ -222,3 +286,23 @@ def test_batch_norm_takes_the_global_statistics(steps):
                                    atol=1e-5)
         np.testing.assert_allclose(rk["rv"], bn.running_var.numpy(),
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["LL", "wL2"])
+def test_losses_take_the_global_batch_extremes(steps, kind):
+    """LL and wL2 on two ranks x 2 rows against one process x 4 rows, in
+    f64, with ties at the min spread over both ranks: the summed loss and
+    each row's gradient within 1e-12 of the largest (the min's gradient
+    shared among its ties over the ranks as ``torch.min`` shares it in one
+    process)."""
+    pred, gt = extremes_inputs()
+    p = torch.from_numpy(pred).requires_grad_(True)
+    want = L.recon_loss(kind, torch.from_numpy(gt), p)
+    want.backward()
+    ranks = [r["extremes"][kind] for r in steps[0]]
+    assert sum(loss for loss, _ in ranks) == pytest.approx(want.item(),
+                                                           rel=1e-12)
+    got = np.concatenate([g for _, g in ranks])
+    want_grad = p.grad.numpy()
+    np.testing.assert_allclose(got, want_grad, rtol=0,
+                               atol=1e-12 * np.abs(want_grad).max())
