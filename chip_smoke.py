@@ -6,7 +6,7 @@
                                                # probes, serving, train,
                                                # train_cli, ood_cli, deconv,
                                                # torch_ckpt, xlfmnet, blocks,
-                                               # parallel)
+                                               # parallel, int8_cond)
                                                # while working on one: no
                                                # verdict
 
@@ -61,7 +61,12 @@ code != 0) on the first phase that does not hold:
    instance), ms per frame,
    peak memory, and the int8 UNet and the 16 int8 towers timed against
    their bf16 counterparts;
-10. compares the flagship int8 output with the f32 output at batch 1;
+10. compares the flagship int8 output with the f32 output at batch 1; then
+    ``use_int8_cond`` (the cond nets' 3-D pairs with an int8 intermediate on
+    cuBLAS): the small rig card vs CPU in f32 (the CPU's packs carried
+    across: 1e-3 of max|ref|; the card's own: 5e-3), the flagship in bf16 at
+    batch 1 (launches with no ``cond_pair``, ms/frame, norm ratio to f32 <
+    0.05) and the int8 pair timed against ``cond_pair`` at step 0;
 11. holds the four ceiling probes (``ops/probes``: ``tiled_gemm``, its
     ``out8`` epilogue, ``chained_gemm``, ``fma_probe``) against their plain
     versions on the card at every size the probe scripts run (the GEMM at M
@@ -219,7 +224,15 @@ code != 0) on the first phase that does not hold:
     ``initialize_from_env`` (``--nccl-rank``); (e) ``utils.profiling``:
     ``trace`` around one flagship call names the four hand-written
     kernels, ``FrameTimer`` within 5% of ``device_timer``, ``debug_nans``
-    raises on a NaN fed to ``cat_affine`` on the card.
+    raises on a NaN fed to ``cat_affine`` on the card; (f) the ``space``
+    axis: the flagship deterministic at batch 1 on a (1, 2) mesh, 256 image
+    rows a rank (halo exchanges in the UNet, the axis-2 permutations of
+    steps 0 and 2 across the ranks, windows for the cond nets and towers),
+    in bf16 and f32 against one process (2e-2 / 1e-4 of max), rows 1, 2, 3,
+    5 launched BF16_PER_CALL times a call on each rank, the ms of a call and
+    of its halo, permutation and gather traffic, and ``cli.serve
+    --mesh_space_axis 2`` with the int8 UNet on 2 frames against direct
+    one-process calls (2e-2 of max).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -235,7 +248,8 @@ evaluation as ``eval_launches``, in the OOD CLI's run as
 as ``ckpt_launches``, per reconstruction of each non-CAT type as
 ``blocks_launches``, the tower's and K2's bf16 times at its shapes as
 ``blocks_step0_ms``, each rank's launches in the parallel phase's mesh
-call and flow step as ``parallel_launches``), then, as its
+calls (data and space) and flow step as ``parallel_launches``), then, as
+its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
 """
@@ -349,6 +363,9 @@ BF16_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "cond_pair": 4,
 INT8_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4, "fused_tower": 16,
                  "cond_pair": 4, "fused_float_tower": 4}
 NLL_PER_CALL = {"cat_affine": 16, "fused_float_tower": 20}
+# use_int8_cond: the 3-D pairs run on cuBLAS int8, not cond_pair
+INT8_COND_PER_CALL = {"cat_affine": 16, "haar_merge_affine": 4,
+                      "fused_float_tower": 20}
 # the serving CLI: the int8 UNet (no custom kernel) or bf16, bf16 towers
 SERVE_PER_CALL = BF16_PER_CALL
 # launches per optimizer step of training: a flow step runs its five towers
@@ -1457,6 +1474,100 @@ def phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,
             f"{ub:.3f} ms; 16 coupling towers int8 (fused_tower) {tq:.3f} ms "
             f"vs bf16 (fused_float_tower) {tb:.3f} ms; on {card}")
     return out1
+
+def phase_int8_cond(dev, card, model, stats, vidx, caches, frames1, out32):
+    """``use_int8_cond`` (the cond nets' 3-D pairs with an int8 y, on
+    cuBLAS): the small rig card vs CPU in f32 (the CPU's packs carried to
+    the card: 1e-3 of max|ref|; the card's own: 5e-3); the flagship in bf16
+    at batch 1: launches (no ``cond_pair``), ms/frame, the norm ratio to the
+    f32 output; and at step 0 the int8 pair against ``cond_pair`` on the
+    same (1, 48, 512, 512) bf16 input."""
+    cfg_s, model_s, stats_s, vidx_s, img_s = flagship(
+        True, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    caches_s = [rng.randn(1, cfg_s.n_depths // 2 ** (k + 1),
+                          cfg_s.volume_side_size, cfg_s.volume_side_size)
+                .astype(np.float32) for k in range(model_s.n_flow_steps + 1)]
+    frames_s = rng.rand(2, img_s, img_s).astype(np.float32) * 1000
+    kw = dict(deterministic=True, use_int8_cond=True, calib_frames=frames_s)
+    cpu = XLFMReconstructor(model_s, stats_s, vidx_s, caches_s, device="cpu",
+                            **kw)
+    ref = cpu(frames_s)
+    card_r = XLFMReconstructor(model_s, stats_s, vidx_s, caches_s,
+                               device=dev, **kw)
+    own = card_r(frames_s).cpu()
+    card_r.cond_q = to_device(cpu.cond_q, dev)
+    got = card_r(frames_s).cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    rel_own = ((own - ref).abs().max() / ref.abs().max()).item()
+    if not (rel <= 1e-3 and rel_own <= 5e-3):
+        fail(f"small rig use_int8_cond card vs CPU {rel:.3e} (bound 1e-3), "
+             f"own calibration {rel_own:.3e} (bound 5e-3)")
+
+    t0 = time.perf_counter()
+    recon = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=True, compute_dtype=torch.bfloat16,
+                              use_int8_cond=True, calib_frames=frames1)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    out = recon(frames1)
+    before = launch_counts()
+    ms = event_ms(lambda: recon(frames1))
+    delta = check_counts(INT8_COND_PER_CALL, 3, "flagship use_int8_cond",
+                         before)
+    ratio = rel_norm(out, out32)
+    if not (bool(torch.isfinite(out).all()) and ratio < 5e-2):
+        fail(f"flagship use_int8_cond vs f32: norm ratio {ratio:.3e} "
+             f"(bound 5e-2), finite {bool(torch.isfinite(out).all())}")
+    from cwfa_tpu_torch.models import cond_net
+    from cwfa_tpu_torch.ops.int8_conv import conv2d_int8, quantize_mul
+    with torch.inference_mode():
+        net = recon.model.cond[0]
+        x = net.stack2d(recon._normalized_views(frames1)).contiguous()
+        q = recon.cond_q[0]
+        ms_q = cuda_ms(lambda: cond_net.conv3d_pair_int8(net, x, q))
+        ms_k = cuda_ms(lambda: cpair.cond_pair(x, net.c3a, net.c3b,
+                                               net.prelu))
+        # the int8 pair's parts, each alone on its own inputs
+        y = cond_net.conv_a_depthbatch(net, x)
+        yq = quantize_mul(y, q["inv_s"])
+        acc = conv2d_int8(yq, q["wbq"], 1)
+        parts = {
+            "conv_a": cuda_ms(lambda: cond_net.conv_a_depthbatch(net, x)),
+            "quantize": cuda_ms(lambda: quantize_mul(y, q["inv_s"])),
+            "conv_b int8": cuda_ms(lambda: conv2d_int8(yq, q["wbq"], 1)),
+            "dequantize + band-add": cuda_ms(lambda: cond_net.band_add(
+                (acc.float() * q["sb"][None, :, None, None]).to(x.dtype)
+                .reshape(x.shape[:2] + (3,) + x.shape[2:]), net.c3b.bias))}
+        del y, yq, acc
+    log(f"use_int8_cond: small rig f32 card vs CPU, CPU packs max|d|/max|ref| "
+        f"{rel:.3e} (bound 1e-3), card's own calibration {rel_own:.3e} "
+        f"(bound 5e-3); flagship bf16 batch 1: calibration + build "
+        f"{calib_s:.2f} s, {np.median(ms):.2f} ms/frame (median of {ms}), "
+        f"launches {delta} in 3 calls, norm ratio to f32 {ratio:.3e} (bound "
+        f"5e-2); step 0 {tuple(x.shape)} bf16: the int8 pair (conv_a, "
+        f"quantize, int8 conv_b on cuBLAS, band-add) {ms_q:.3f} ms (parts "
+        f"alone: { {k: round(v, 3) for k, v in parts.items()} }) vs "
+        f"cond_pair {ms_k:.3f} ms; on {card}")
+    return {"ms_frame": float(np.median(ms)), "pair_ms": ms_q,
+            "cond_pair_ms": ms_k}
+
+
+def int8_cond_alone(dev, card):
+    """``phase_int8_cond`` on the flagship's batch-1 frame of
+    ``phase_flagship``, with its f32 output."""
+    cfg, model, stats, vidx, img = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    side = cfg.volume_side_size
+    caches = [rng.randn(1, cfg.n_depths // 2 ** (k + 1), side, side)
+              .astype(np.float32) for k in range(model.n_flow_steps + 1)]
+    frames1 = torch.as_tensor(rng.rand(1, img, img).astype(np.float32)
+                              * 1000).to(dev)
+    out32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                              deterministic=True)(frames1)
+    phase_int8_cond(dev, card, model, stats, vidx, caches, frames1, out32)
+
 
 def one_launch_of(wrapper, instance: str, fn, what: str):
     """fn()'s result, failing unless fn() made exactly one launch of
@@ -4121,6 +4232,87 @@ def par_rank_recon(dev, rank, work: Path, a) -> dict:
     return out
 
 
+def par_timed_exchanges():
+    """Wrap the space axis's exchanges where the model calls them (the
+    UNet's halos, the flow steps' row permutations, the reconstructor's
+    gather of rows) to time each on the host, the card synchronized on
+    both sides.  Returns (times {name: [ms]}, undo)."""
+    from cwfa_tpu_torch.engine import inference
+    from cwfa_tpu_torch.models import cwf, unet
+    times = {"halo": [], "permute": [], "gather": []}
+    saved = [(unet, "halo_rows"), (cwf, "permute_rows"),
+             (inference, "gather_image_rows")]
+    originals = [getattr(m, n) for m, n in saved]
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for (m, n), fn, name in zip(saved, originals, times):
+        setattr(m, n, timed(name, fn))
+
+    def undo():
+        for (m, n), fn in zip(saved, originals):
+            setattr(m, n, fn)
+    return times, undo
+
+
+def par_rank_space(dev, rank, work: Path, a) -> dict:
+    """(f) on this rank: the flagship at batch 1 on a (1, 2) mesh, image
+    rows over ``space`` (256 a rank), deterministic, in bf16 and f32: the
+    gathered volume against one process's, the launches and ms of a call
+    (CUDA events), then one call with its exchanges timed; then ``cli.serve
+    --mesh_space_axis 2`` with the int8 UNet on 2 frames."""
+    from cwfa_tpu_torch.parallel import make_mesh
+    _, model, stats, vidx, _ = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    frame = torch.as_tensor(a["space_frame"]).to(dev)
+    mesh = make_mesh(1, PAR_RANKS)
+    out = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        recon = XLFMReconstructor(model, stats, vidx, a["caches"], device=dev,
+                                  deterministic=True, compute_dtype=dtype,
+                                  mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        recon(frame)                                            # warm-up
+        torch.distributed.barrier()
+        ms = event_ms(lambda: recon(frame), n=3)
+        reset_counts()
+        got = recon(frame)[0].cpu()
+        launches = launch_counts()
+        ref = torch.from_numpy(np.load(work / f"space_ref_{tag}.npy"))
+        res = {"ms": ms, "launches": launches,
+               "rows": recon.shards(1)[1].bounds(rank),
+               "finite": bool(torch.isfinite(got).all()),
+               "shape": tuple(got.shape),
+               "rel": float((got - ref).abs().max() / ref.abs().max()),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if tag == "bf16":
+            torch.distributed.barrier()
+            times, undo = par_timed_exchanges()
+            try:
+                res["timed_ms"] = event_ms(lambda: recon(frame), n=1)[0]
+            finally:
+                undo()
+            res["exchanges"] = {k: (len(v), sum(v)) for k, v in times.items()}
+        out[tag] = res
+        del recon, got
+        torch.cuda.empty_cache()
+    del model
+    reset_counts()
+    served = serve.main(a["space_serve_argv"] + ["--mesh_space_axis",
+                                                 str(PAR_RANKS)], device=dev)
+    out["serve"] = {"frames": served["frames"], "batches": served["batches"],
+                    "launches": launch_counts()}
+    return out
+
+
 def par_rank_train(dev, rank, work: Path, a) -> dict:
     """(c) on this rank: the flagship trainer on the mesh, bf16, one LRNN
     step and one step-0 flow step on its frame; rank 1's state to disk,
@@ -4171,7 +4363,7 @@ def parallel_rank(work: Path) -> int:
         a = pickle.load(f)
     res = {}
     for name, fn in (("rl", par_rank_rl), ("recon", par_rank_recon),
-                     ("train", par_rank_train)):
+                     ("space", par_rank_space), ("train", par_rank_train)):
         t0 = time.perf_counter()
         res[name] = fn(dev, rank, work, a)
         res[name]["s"] = time.perf_counter() - t0
@@ -4265,10 +4457,11 @@ def phase_parallel(dev, card, kernels):
                 ranks.append(pickle.load(f))
         par_check_rl(root, a, ranks, card)
         par_check_recon(dev, a, ranks, kernels, card)
+        par_check_space(dev, a, ranks, kernels, card)
         par_check_train(a, ranks, kernels, card)
         log(f"parallel: the two ranks took {t_ranks:.1f} s (start-up, "
-            f"model builds and (a)-(c) at "
-            f"{[round(r[k]['s'], 1) for r in ranks for k in ('rl', 'recon', 'train')]}"
+            f"model builds and (a)-(c), (f) at "
+            f"{[round(r[k]['s'], 1) for r in ranks for k in ('rl', 'recon', 'train', 'space')]}"
             f" s); on {card}")
         procs = start_ranks("--nccl-rank", root, 1)
         wait_ranks(procs, root, 120, "NCCL rank")
@@ -4333,6 +4526,24 @@ def par_inputs(dev, root: Path) -> dict:
                   str(lenslets), "--in_dir", str(frames_dir), "--out_dir",
                   str(root / "served"), "--batch", str(PAR_BATCH),
                   "--no_int8"]
+    # (f): the int8 UNet (the CLI's default) on the first 2 frames
+    space_serve_argv = ["--pretrain_models_path", str(ckpt),
+                        "--lenslet_file", str(lenslets), "--in_dir",
+                        str(frames_dir), "--out_dir",
+                        str(root / "served_space"), "--batch", "2",
+                        "--limit", "2"]
+    space_frame = (np.random.RandomState(22).rand(1, img, img)
+                   .astype(np.float32) * 1000)
+    space_one_ms = {}
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        one = XLFMReconstructor(model, stats, vidx, caches, device=dev,
+                                deterministic=True, compute_dtype=dtype)
+        frame = torch.as_tensor(space_frame).to(dev)
+        one(frame)
+        space_one_ms[tag] = event_ms(lambda: one(frame), n=3)
+        np.save(root / f"space_ref_{tag}.npy", one(frame)[0].cpu().numpy())
+        del one, frame
+        torch.cuda.empty_cache()
 
     tr = CWFATrainer(model, stats, vidx, device=dev)
     views, gt, mcs = par_train_inputs(dev, cfg, PAR_TRAIN_BATCH)
@@ -4352,7 +4563,8 @@ def par_inputs(dev, root: Path) -> dict:
     return {"psf_file": str(psf_file), "rl_argv": rl_argv, "caches": caches,
             "serve_argv": serve_argv, "frames_dir": str(frames_dir),
             "served": str(root / "served"), "train_one": one, "lr": lr,
-            "rl_peak": rl_peak}
+            "rl_peak": rl_peak, "space_serve_argv": space_serve_argv,
+            "space_frame": space_frame, "space_one_ms": space_one_ms}
 
 
 def par_check_rl(root: Path, a, ranks, card):
@@ -4432,6 +4644,93 @@ def par_check_recon(dev, a, ranks, kernels, card):
         f"--mesh_data_axis 2 --no_int8 --batch {PAR_BATCH}: {len(served)} "
         f"volumes, each rank its {b}, equal to the bit to direct calls at "
         f"batch {b}; on {card}")
+
+
+PAR_SPACE_BOUND = {"f32": 1e-4, "bf16": 2e-2}   # of max|one process|
+# the space serve runs the same int8 code on the same packs as one process
+PAR_SERVE_BOUND = 1e-5
+SPACE_ROWS = ("cat_affine", "haar_merge_affine", "fused_float_tower",
+              "fused_tower", "cond_pair")        # PERF.md rows 1-5
+
+
+def par_check_space(dev, a, ranks, kernels, card):
+    """(f): each rank's gathered volume against one process's, its launches
+    (every rank runs every kernel on its rows: BF16_PER_CALL a call, the
+    f32 call too), and the served int8 volumes against direct one-process
+    calls built by the CLI's own steps, each rank's serve launches
+    SERVE_PER_CALL a call (the warm-up and each batch)."""
+    sp = [r["space"] for r in ranks]
+    for r, x in enumerate(sp):
+        if x["bf16"]["rows"] != (256 * r, 256 * (r + 1)):
+            fail(f"parallel (f) rank {r}: rows {x['bf16']['rows']}, not a "
+                 f"split of 512")
+        for tag, bound in PAR_SPACE_BOUND.items():
+            y = x[tag]
+            if y["shape"] != (96, 512, 512) or not y["finite"] \
+                    or not y["rel"] <= bound:
+                fail(f"parallel (f) rank {r} {tag}: {y['shape']} finite "
+                     f"{y['finite']}, vs one process {y['rel']:.3e} (bound "
+                     f"{bound})")
+            for name in KERNELS:
+                if y["launches"][name] != BF16_PER_CALL.get(name, 0):
+                    fail(f"parallel (f) rank {r} {tag}: {name} launched "
+                         f"{y['launches'][name]} times a call, expected "
+                         f"{BF16_PER_CALL.get(name, 0)}")
+        if x["serve"]["frames"] != 2:
+            fail(f"parallel (f) rank {r}: served {x['serve']['frames']} "
+                 "frames, not 2")
+        calls = 1 + x["serve"]["batches"]                # warm-up + batches
+        for name in KERNELS:
+            want = SERVE_PER_CALL.get(name, 0) * calls
+            if x["serve"]["launches"][name] != want:
+                fail(f"parallel (f) rank {r} serve: {name} launched "
+                     f"{x['serve']['launches'][name]} times in {calls} "
+                     f"calls, expected {want}")
+    for name in SPACE_ROWS:
+        kernels[name].setdefault("parallel_launches", {})["space"] = [
+            x["bf16"]["launches"][name] for x in sp]
+    args = serve.build_parser().parse_args(a["space_serve_argv"])
+    recon, _ = serve.build_reconstructor(args, "cuda")
+    names = sorted(os.listdir(a["frames_dir"]))[:2]
+    out_dir = Path(a["space_serve_argv"][
+        a["space_serve_argv"].index("--out_dir") + 1])
+    served = sorted(os.listdir(out_dir))
+    want = [f"XLFM_stack_{os.path.splitext(n)[0]}.tif" for n in names]
+    if served != want:
+        fail(f"parallel (f) serve: files {served} != {want}")
+    frames = torch.stack([torch.from_numpy(read_tiff_stack(
+        os.path.join(a["frames_dir"], n))[0]) for n in names]).to(dev)
+    direct = recon(frames).cpu()
+    serve_rel = max(float((torch.from_numpy(read_tiff_stack(
+        str(out_dir / w), dtype=None)) - direct[i]).abs().max()
+        / direct[i].abs().max()) for i, w in enumerate(want))
+    if not serve_rel <= PAR_SERVE_BOUND:
+        fail(f"parallel (f) serve int8: the served volumes vs direct "
+             f"one-process calls {serve_rel:.3e} > {PAR_SERVE_BOUND}")
+    del recon
+    b16 = [x["bf16"] for x in sp]
+    log(f"parallel (f) flagship deterministic, batch 1, on a (1, 2) mesh "
+        f"(rows 0-255 / 256-511 a rank, both ranks on cuda:0 over gloo): the "
+        f"gathered volume vs one process max|d|/max bf16 "
+        f"{[round(x['bf16']['rel'], 6) for x in sp]} (bound 2e-2), f32 "
+        f"{[x['f32']['rel'] for x in sp]} (bound 1e-4); launches a call a "
+        f"rank (rows 1-5) {[{k: y['launches'][k] for k in SPACE_ROWS} for y in b16]};"
+        f" ms a call by rank bf16 {[[round(m, 2) for m in y['ms']] for y in b16]}"
+        f", f32 {[[round(m, 2) for m in x['f32']['ms']] for x in sp]} (one "
+        f"process at batch 1: bf16 "
+        f"{[round(m, 2) for m in a['space_one_ms']['bf16']]}, f32 "
+        f"{[round(m, 2) for m in a['space_one_ms']['f32']]}); a bf16 call "
+        f"with its exchanges timed (host clock, the card synchronized around "
+        f"each): {[round(y['timed_ms'], 2) for y in b16]} ms, of it "
+        f"(count, ms) {[y['exchanges'] for y in b16]}; peak "
+        f"{[round(y['peak_gib'], 2) for y in b16]} GiB; cli.serve "
+        f"--mesh_space_axis 2 (int8 UNet, 2 frames): each rank reconstructed "
+        f"both in {[1 + x['serve']['batches'] for x in sp]} calls with the "
+        f"warm-up (launches by rank: "
+        f"{[{k: v for k, v in x['serve']['launches'].items() if v} for x in sp]}"
+        f", SERVE_PER_CALL a call), rank 0 read and wrote them, within "
+        f"{serve_rel:.3e} of max of direct one-process calls (bound "
+        f"{PAR_SERVE_BOUND}); on {card}")
 
 
 def par_check_train(a, ranks, kernels, card):
@@ -4609,7 +4908,8 @@ def main():
                                                              kernels, 2160),
                  "probes": lambda dev, kernels: phase_probes(dev, card, kernels),
                  "parallel": lambda dev, kernels: phase_parallel(dev, card,
-                                                                 kernels)}
+                                                                 kernels),
+                 "int8_cond": lambda dev, kernels: int8_cond_alone(dev, card)}
         for name in sys.argv[1:]:
             alone[name](dev, kernels)
         log(f"partial run ({', '.join(sys.argv[1:])}): no verdict")
@@ -4631,8 +4931,11 @@ def main():
         f"{rel:.3e} (bound 5e-2)")
     if not rel < 5e-2:
         fail(f"flagship int8 vs f32 {rel:.3e} >= 5e-2")
+    del out8
+    torch.cuda.empty_cache()
+    phase_int8_cond(dev, card, model, stats, vidx, caches, frames1, out32)
 
-    del out8, out32
+    del out32
     torch.cuda.empty_cache()
     phase_probes(dev, card, kernels)
     torch.cuda.empty_cache()

@@ -27,8 +27,13 @@ the ``CWFA_*`` variables; ``parallel.distributed``): rank 0 lists the
 directory and broadcasts the names, and each rank reads, reconstructs
 (``--batch`` / N frames a call) and writes its own share of each batch
 (``engine.serving.serve_directory(group=)``).  The int8 UNet is calibrated
-on every rank on the same two frames and checked equal.  Each rank prints
-its own summary.  ``--mesh_space_axis`` above 1 exits (ROADMAP A19).
+on every rank on the two frames rank 0 read, and checked equal.  Each rank
+prints its own summary.  ``--mesh_space_axis S`` splits each frame's image rows
+over S ranks (``torchrun --nproc_per_node D*S -m cwfa_tpu_torch.cli.serve
+--mesh_data_axis D --mesh_space_axis S ...``): the S ranks of a space group
+reconstruct the same frames together (``XLFMReconstructor(mesh=,
+split_batch=False)``, halo exchanges between them); the first of them reads
+each file, hands its pages to the others and writes the volumes.
 """
 
 from __future__ import annotations
@@ -68,9 +73,10 @@ def build_reconstructor(args, device="cuda"):
     ``build_parser``) on ``device``: the model from the checkpoint
     directory, its statistics and first mean-cache set, int8 UNet
     calibration unless ``--no_int8``.  Returns (reconstructor, frame
-    shape).  With a mesh the reconstructor is this rank's alone (each rank
-    serves its own frames) and its int8 packs are checked equal on every
-    rank.  Exits with a message when the directory
+    shape).  With a mesh the reconstructor serves this rank's data index's
+    own frames (``split_batch=False``), its image rows split over the space
+    group, and its int8 packs are checked equal on every rank.  Exits with
+    a message when the directory
     lacks statistics or mean caches, or when the mesh does not fit the
     processes (``parallel.distributed.cli_bootstrap``)."""
     from cwfa_tpu_torch.data.dataset import read_lenslet_centers
@@ -80,9 +86,7 @@ def build_reconstructor(args, device="cuda"):
                                                    load_model_checkpoints)
     from cwfa_tpu_torch.engine.inference import XLFMReconstructor
     from cwfa_tpu_torch.models.cwfa_model import CWFAModel
-    from cwfa_tpu_torch.parallel.distributed import (check_same_on_ranks,
-                                                     cli_bootstrap)
-    from cwfa_tpu_torch.parallel.mesh import data_group
+    from cwfa_tpu_torch.parallel.distributed import cli_bootstrap
 
     cfg = CWFAConfig(**{f.name: getattr(args, f.name)
                         for f in dataclasses.fields(CWFAConfig)
@@ -115,19 +119,19 @@ def build_reconstructor(args, device="cuda"):
 
     calib = None
     if not args.no_int8:
-        names = sorted(f for f in os.listdir(args.in_dir)
-                       if f.endswith(".tif"))[:2]
-        if mesh is not None:
-            # every rank calibrates on rank 0's two frames
-            box = [names]
-            torch.distributed.broadcast_object_list(box, src=0)
-            names = box[0]
-        if names:
+        if mesh is None or torch.distributed.get_rank() == 0:
+            names = sorted(f for f in os.listdir(args.in_dir)
+                           if f.endswith(".tif"))[:2]
             frames = [read_tiff_stack(os.path.join(args.in_dir, n))
                       for n in names]
-            calib = np.stack([f[0] if f.ndim == 3 else f
-                              for f in frames]).astype(np.float32)
-        else:
+            calib = np.stack([f[0] if f.ndim == 3 else f for f in frames]
+                             ).astype(np.float32) if frames else None
+        if mesh is not None:
+            # every rank calibrates on the two frames rank 0 read
+            box = [calib]
+            torch.distributed.broadcast_object_list(box, src=0)
+            calib = box[0]
+        if calib is None:
             print("warning: no frames in --in_dir to calibrate int8 on; "
                   "serving with the UNet in the compute dtype. Pre-place a "
                   "couple of frames or pass --no_int8 to silence this.",
@@ -136,9 +140,8 @@ def build_reconstructor(args, device="cuda"):
         model, stats, vidx, mean_caches, device=device, deterministic=True,
         compute_dtype=(torch.bfloat16 if cfg.use_half_precision
                        else torch.float32),
-        use_int8=calib is not None, calib_frames=calib)
-    if mesh is not None:
-        check_same_on_ranks(recon.unet_q, data_group(mesh), "the int8 packs")
+        use_int8=calib is not None, calib_frames=calib, mesh=mesh,
+        split_batch=False)
     return recon, img_shape
 
 
@@ -146,17 +149,19 @@ def main(argv=None, device="cuda"):
     """Serve ``--in_dir`` into ``--out_dir``; prints and returns the
     service's summary dict."""
     from cwfa_tpu_torch.engine.serving import serve_directory
+    from cwfa_tpu_torch.parallel.mesh import space_group
 
     args = build_parser().parse_args(argv)
     recon, img_shape = build_reconstructor(args, device)
-    # a data mesh (which build_reconstructor checked) spans every process
-    group, n = None, int(args.mesh_data_axis)
-    if n > 1:
-        group = torch.distributed.group.WORLD
+    # the mesh (which build_reconstructor checked) spans every process
+    n, space = int(args.mesh_data_axis), int(args.mesh_space_axis)
+    group = torch.distributed.group.WORLD if n * space > 1 else None
     recon.warmup(-(-args.batch // n), img_shape)   # serve_directory's calls
     out = serve_directory(recon, args.batch, img_shape, args.in_dir,
                           args.out_dir, poll_seconds=args.watch,
-                          limit=args.limit or None, group=group)
+                          limit=args.limit or None, group=group,
+                          space_group=(space_group(recon.mesh) if space > 1
+                                       else None))
     print(json.dumps(out))
     return out
 

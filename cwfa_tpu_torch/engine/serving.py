@@ -346,7 +346,7 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
                     pattern=".tif", poll_seconds: float = 0.0,
                     limit: int | None = None, verbose: bool = True,
                     out_dtype=np.float32, max_retries: int = 5,
-                    fetch: str = "full", group=None):
+                    fetch: str = "full", group=None, space_group=None):
     """Reconstruct every TIFF frame of ``in_dir`` (and, with
     ``poll_seconds``, every one that appears later) into
     ``out_dir/XLFM_stack_<id>.tif``, the reference's per-frame dump loop
@@ -370,11 +370,26 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
     counts the frames served over the ranks, as it counts them in one
     process, but a rank serves a multi-page file whole: the last files
     handed out may take the count past it.  The summary is the rank's own,
-    with its ``rank``."""
+    with its ``rank``.
+
+    ``space_group``: this rank's space group of a ``(data, space)`` mesh
+    (``parallel.mesh.space_group``), whose ranks are consecutive ranks of
+    ``group``: they serve as one, reconstructing the same frames together
+    (the reconstructor splits each frame's rows over them).  Its first rank
+    reads each file and broadcasts the pages, or the read's failure, to the
+    others, so every rank of the group submits exactly the same pages, and
+    it decides when to flush a partial batch, writes the volumes and counts
+    the frames."""
     os.makedirs(out_dir, exist_ok=True)
     n_ranks = 1 if group is None else dist.get_world_size(group)
     rank = 0 if group is None else dist.get_rank(group)
-    local_batch = -(-int(batch_size) // n_ranks)
+    # servers: the space groups, runs of `space` ranks led by their first
+    space = 1 if space_group is None else dist.get_world_size(space_group)
+    n_servers, server = n_ranks // space, rank // space
+    lead = rank % space == 0
+    src = None if space_group is None else dist.get_global_rank(space_group,
+                                                                 0)
+    local_batch = -(-int(batch_size) // n_servers)
     writer = tiffio.BackgroundTiffWriter(maxsize=2 * local_batch)
 
     def enqueue(i, v):
@@ -384,17 +399,37 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
 
     svc = ReconstructionService(reconstructor, local_batch, img_hw,
                                 on_volume=enqueue if fetch == "full"
-                                else None, fetch=fetch)
+                                and lead else None, fetch=fetch)
     seen = set()
     fails: dict = {}
     done = 0
+
+    def read_files(files):
+        """(name, stack | Exception) for each of ``files`` in order: read
+        here, or on the space group's first rank, which broadcasts each
+        result to the group."""
+        if space == 1:
+            yield from _prefetch_reads(in_dir, files, svc.stats)
+            return
+        reads = _prefetch_reads(in_dir, files, svc.stats) if lead else None
+        try:
+            for _ in files:
+                box = [next(reads) if lead else None]
+                if lead and isinstance(box[0][1], Exception):
+                    # the message is what is kept; it pickles as any type
+                    box = [(box[0][0], OSError(str(box[0][1])))]
+                dist.broadcast_object_list(box, src=src, group=space_group)
+                yield box[0]
+        finally:
+            if reads is not None:
+                reads.close()
 
     def serve_files(files):
         """Read and submit ``files`` in order; returns (the unreadable
         files with their errors, whether one was read, the pages
         submitted).  In one process it stops at ``limit``."""
         failed, progressed, pages = [], False, 0
-        for name, stack in _prefetch_reads(in_dir, files, svc.stats):
+        for name, stack in read_files(files):
             if isinstance(stack, Exception):
                 failed.append((name, str(stack)))
                 continue
@@ -436,9 +471,14 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
                 todo = todo[len(part):]
                 mine = [part[i + j] for i in range(0, len(part), batch_size)
                         for j in host_local_indices(
-                            min(batch_size, len(part) - i), rank, n_ranks)]
+                            min(batch_size, len(part) - i), server,
+                            n_servers)]
+                served = serve_files(mine)
                 every = [None] * n_ranks
-                dist.all_gather_object(every, serve_files(mine), group=group)
+                # a space group's ranks served the same pages: its first
+                # rank counts them
+                dist.all_gather_object(every, served if lead
+                                       else ([], False, 0), group=group)
                 failed += [f for fs, _, _ in every for f in fs]
                 progressed = progressed or any(p for _, p, _ in every)
                 done += sum(n for _, _, n in every)
@@ -464,8 +504,15 @@ def serve_directory(reconstructor, batch_size, img_hw, in_dir, out_dir,
         # flush a partial batch on a fully idle poll, or when buffered
         # frames have waited longer than one poll interval (a trickle slower
         # than the batch would otherwise hold them for batch_size polls)
-        if not progressed or (svc.pending and
-                              svc.pending_age() > poll_seconds):
+        flush = not progressed or (svc.pending and
+                                   svc.pending_age() > poll_seconds)
+        if space > 1:
+            # a space group's ranks call the reconstructor together, when
+            # its first rank says
+            box = [bool(flush)]
+            dist.broadcast_object_list(box, src=src, group=space_group)
+            flush = box[0]
+        if flush:
             svc.flush_partial()
         time.sleep(poll_seconds)
     out = svc.drain()

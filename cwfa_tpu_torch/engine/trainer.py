@@ -100,9 +100,10 @@ from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.parallel.distributed import (check_same_on_ranks,
                                                  gather_rows,
                                                  host_local_indices)
-from cwfa_tpu_torch.parallel.mesh import (batch_shard, current_shard,
-                                          data_group, data_rank, data_shard,
-                                          data_size, draw_rows)
+from cwfa_tpu_torch.parallel.mesh import (SPACE_TRAINING_ITEM, batch_shard,
+                                          current_shard, data_group,
+                                          data_rank, data_shard, data_size,
+                                          draw_rows, space_size)
 from cwfa_tpu_torch.utils.png import write_png
 from cwfa_tpu_torch.utils.projections import (create_image_pyramid,
                                               volume_2_projections)
@@ -185,6 +186,9 @@ class CWFATrainer:
     def __init__(self, model: CWFAModel, stats: DatasetStatistics,
                  view_indices: dict, output_path: str | None = None,
                  seed: int | None = None, device="cuda", mesh=None):
+        if space_size(mesh) > 1:
+            raise ValueError(f"a mesh with {space_size(mesh)} ranks on "
+                             "'space': " + SPACE_TRAINING_ITEM)
         self.device = torch.device(device)
         self.mesh = mesh
         self._group = data_group(mesh)

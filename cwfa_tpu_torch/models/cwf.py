@@ -30,6 +30,16 @@ its backward); with a ``qpack`` (``quantize_cat_step``) ``reverse_fast`` and
 (``ops/qtower.fused_tower``).  The other types' towers read x, so they run
 inside the chain, in the float tower kernel, and their affines are plain
 torch; they have no int8 path (JAX quantizes CAT steps only).
+
+Under a row shard (``parallel.mesh.row_shard``, the ``space`` axis)
+``reverse_fast`` of a CAT step takes x, z, avg and c_mean on this rank's
+rows and c_views on a window of ``c_reach`` more rows on each side (at
+least ``tower_reach``): each tower runs on the window and is cropped to the
+rank's rows, the affines are elementwise, channel and axis-3 permutations
+are local, and an axis-2 ``PermuteDim`` fetches rows from their owners
+(``parallel.halo.permute_rows``).  A non-CAT step's towers read x, so they
+would need an exchange before each tower: under a row shard it raises
+(ROADMAP A20), as do ``forward`` and ``reverse``.
 """
 
 from __future__ import annotations
@@ -53,6 +63,8 @@ from cwfa_tpu_torch.flow.subnets import (
 from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.ops.flow_affine import (CatAffineFn, cat_affine,
                                             haar_merge_affine)
+from cwfa_tpu_torch.parallel.halo import permute_rows
+from cwfa_tpu_torch.parallel.mesh import SPACE_TRAINING_ITEM, current_rows
 
 
 @dataclass(frozen=True)
@@ -193,6 +205,19 @@ def _coupling_block(spec: CWFStepSpec) -> nn.ModuleDict:
     raise ValueError(f"unknown block type {bt!r}; one of {BLOCK_TYPES}")
 
 
+def tower_reach(tower: WaveletFlowSubnet2d) -> int:
+    """Rows of input beyond a row range that the tower's output on it needs:
+    its convs lie on one path (the residuals add nothing wider), so the
+    sum of their half-widths."""
+    return sum(m.kernel_size[0] // 2 for m in tower.modules()
+               if isinstance(m, nn.Conv2d))
+
+
+def _no_rows(what: str):
+    if current_rows() is not None:
+        raise ValueError(f"{what} under a row shard: " + SPACE_TRAINING_ITEM)
+
+
 def _quantized_condition(c_views, qpack):
     """``c_views`` quantized for the int8 towers of ``qpack``, or None when
     no tower of the step is int8.  Every tower's input scale row is the
@@ -251,7 +276,17 @@ class CWFStep(nn.Module):
         axis = self._perm_axes[i]
         if axis == 1:
             return apply_channel_perm(x, idx)
+        rows = current_rows() if axis == 2 else None
+        if rows is not None:
+            return permute_rows(x, self.spec.perms[i][-1 if inverse else -2],
+                                rows)
         return apply_spatial_perm(x, axis, idx)
+
+    @property
+    def tower_reach(self) -> int:
+        """The widest reach of the step's towers (``tower_reach``)."""
+        return max(tower_reach(m) for m in self.modules()
+                   if isinstance(m, WaveletFlowSubnet2d))
 
     def towers(self, c_views, qpack=None):
         """Every tower's output on the views condition: the input block's
@@ -381,6 +416,7 @@ class CWFStep(nn.Module):
         v: (B, D, H, W); c_views: (B, D/2, H, W); c_mean: (1 or B, D/2, H, W);
         towers: None (each tower runs where its block needs it) or
         ``self.towers(c_views)`` (CAT steps).  logdet: (B,) f32."""
+        _no_rows("CWFStep.forward")
         avg, diff, logdet = haar1d_split(v)
         x, j = self._input_block(diff, c_views, c_mean, rev=False,
                                  st=None if towers is None else towers[0])
@@ -393,6 +429,7 @@ class CWFStep(nn.Module):
         log-det (the non-fast ``cwf_step_reverse``, ``cwf.py:510-538``):
         (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32).  towers:
         as in ``forward``."""
+        _no_rows("CWFStep.reverse")
         x, logdet = self._chain(z, c_views, rev=True, towers=towers)
         x, j = self._input_block(x, c_views, c_mean, rev=True,
                                  st=None if towers is None else towers[0])
@@ -400,7 +437,8 @@ class CWFStep(nn.Module):
         return v, logdet + j + ld
 
     @torch.inference_mode()
-    def reverse_fast(self, z, avg, c_views, c_mean, qpack=None):
+    def reverse_fast(self, z, avg, c_views, c_mean, qpack=None,
+                     c_reach: int = 0):
         """Generative direction through the CUDA flow-affine kernels
         (counterpart of ``_cat_reverse_fast``, ``cwf.py:346-383``): no logdet,
         no grads.
@@ -413,9 +451,24 @@ class CWFStep(nn.Module):
         z, avg, c_views: (B, C, H, W); c_mean: (1 or B, C, H, W).
         qpack: optional ``quantize_cat_step`` output (CAT steps); block i's
         tower runs in int8 where ``qpack[i]`` is not None.
+        c_reach: under a row shard, the rows of c_views beyond this rank's
+        on each side (module docstring).
         Returns the volume (B, 2C, H, W)."""
         spec = self.spec
         kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
+        rows = current_rows()
+        if rows is None:
+            crop = lambda t: t
+        else:
+            if not self.is_cat:
+                raise ValueError(f"a {spec.block_type} step under a row "
+                                 "shard (its towers read x): "
+                                 + SPACE_TRAINING_ITEM)
+            if c_reach < self.tower_reach:
+                raise ValueError(f"c_views with {c_reach} rows of reach; "
+                                 f"the towers need {self.tower_reach}")
+            crop = lambda t: rows.crop(t, c_reach)
+            z, avg = z.contiguous(), avg.contiguous()
         if not self.is_cat:
             if qpack is not None:
                 raise ValueError(f"an int8 pack for a {spec.block_type} "
@@ -427,19 +480,20 @@ class CWFStep(nn.Module):
             if spec.use_final_perm:
                 x = self._perm(spec.n_blocks, x, inverse=True)
             for nn_ in range(spec.n_blocks, 0, -1):
-                st = self._coupling_tower(nn_ - 1, c_views, xq, qpack)
-                x = cat_affine(x, st, rev=True, **kw)
+                st = crop(self._coupling_tower(nn_ - 1, c_views, xq, qpack))
+                x = cat_affine(x, st.contiguous(), rev=True, **kw)
                 x = self._perm(nn_ - 1, x, inverse=True)
         if spec.disable_low_res_input:
             # an ordinary CAT: (s_raw | t) both from the tower
-            st = self.input_block["subnet"](c_views)
+            st = crop(self.input_block["subnet"](c_views))
             n = spec.c_flow
             s_raw, t = st[:, :n].contiguous(), st[:, n:].contiguous()
         else:
             # s_raw from the tower on the views condition; t is the low-res
             # prior -c_mean/sqrt(2) (flow/subnets.py), computed on the
             # batch-1 cache and broadcast with a stride-0 expand
-            s_raw = self.input_block["subnet"].tower(c_views)
+            s_raw = crop(self.input_block["subnet"].tower(c_views))
+            s_raw = s_raw.contiguous()
             t = (c_mean * -SQRT2_INV).expand(x.shape)
         return haar_merge_affine(x, s_raw, t, avg, **kw)
 

@@ -23,6 +23,14 @@ gradients: ``forward_pyramid`` / ``nll_from_pyramid`` (every flow step in
 the normalizing direction, per-frame NLLs) and ``make_mean_caches``.
 Training (``engine/trainer.py``), with gradients: ``step_nll`` and the
 modules themselves (``CWFStep.reverse``, ``CondNetwork``, ``LRNN``).
+
+``reconstruct`` under a row shard (``parallel.mesh.row_shard``, the
+``space`` axis; ``parallel/halo.py`` has the design) takes the whole views
+and mean caches and returns this rank's rows: the LRNN on the rank's rows
+(its UNet exchanging halos), the cond nets on a window of ``cond_reach`` +
+``tower_reach`` rows on each side, cropped to ``tower_reach`` for the
+steps' towers, z drawn for the whole batch and image and cut to the rank's
+rows, so the generators stay in step on every rank.
 """
 
 from __future__ import annotations
@@ -33,13 +41,15 @@ import torch
 from torch import nn
 
 from cwfa_tpu_torch.config import CWFAConfig
-from cwfa_tpu_torch.models.cond_net import CondNetwork, cond_networks_batched
+from cwfa_tpu_torch.models.cond_net import (CondNetwork, cond_networks_batched,
+                                           cond_reach)
 from cwfa_tpu_torch.models.cwf import (CWFStep, build_step_specs,
                                       quantize_cat_step)
 from cwfa_tpu_torch.models.lrnn import LRNN, LRNNSpec
 from cwfa_tpu_torch.models.unet import quantize_unet, unet_calibrate
 from cwfa_tpu_torch.nn import reset_parameters_
-from cwfa_tpu_torch.parallel.mesh import current_shard, draw_rows
+from cwfa_tpu_torch.parallel.mesh import (current_rows, current_shard,
+                                          draw_rows)
 
 
 def sample_z_truncated(generator: torch.Generator, shape,
@@ -78,16 +88,25 @@ def sample_z_rev_like(generator, x, temperature: float = 0.0,
 
 
 def _sample_z(generator, zshape, n_samples: int, temperature: float):
-    """The z of a reverse step, (n_samples * b, ...), samples outermost.
-    Under a batch shard (``parallel.mesh``) z is drawn for the global batch
-    and this rank keeps its rows of every sample."""
-    sh = current_shard()
-    if sh is None:
+    """The z of a reverse step, (n_samples * b, C, H, W), samples outermost.
+    Under a batch shard and / or a row shard (``parallel.mesh``) z is drawn
+    for the global batch and the whole image, and this rank keeps its rows
+    of every sample and its image rows."""
+    sh, rows = current_shard(), current_rows()
+    if sh is None and rows is None:
         return sample_z_truncated(generator, zshape, temperature)
-    z = sample_z_truncated(generator, (n_samples * sh.total,) + zshape[1:],
+    b = zshape[0] // n_samples
+    bt = b if sh is None else sh.total
+    c, h, w = zshape[1:]
+    ht = h if rows is None else rows.total
+    z = sample_z_truncated(generator, (n_samples * bt, c, ht, w),
                            temperature)
-    z = z.reshape((n_samples, sh.total) + tuple(zshape[1:]))
-    return z[:, sh.start:sh.stop].reshape(zshape)
+    z = z.reshape((n_samples, bt, c, ht, w))
+    if sh is not None:
+        z = z[:, sh.start:sh.stop]
+    if rows is not None:
+        z = z[:, :, :, rows.start:rows.stop]
+    return z.reshape(zshape)
 
 
 def check_empty_depths(generator: torch.Generator, vol):
@@ -285,7 +304,7 @@ class CWFAModel(nn.Module):
                     z_temperature: float = 0.0, generator=None,
                     lrnn_train: bool | None = None, n_samples: int = 1,
                     fast: bool = True, lrnn_mean_branch=None, unet_q=None,
-                    qpacks=None, return_pyramid: bool = False):
+                    qpacks=None, cond_q=None, return_pyramid: bool = False):
         """Full generative chain (CWFA.py:865-927): LRNN at the coarsest
         level, then invert flow steps k = n-1..0, doubling depth each time.
 
@@ -312,8 +331,12 @@ class CWFAModel(nn.Module):
           ``CWFStep.reverse`` (``cwf_step_reverse(fast=False)``), the
           log-det dropped.  The two differ only in the step call.
         qpacks: optional per-step int8 tower packs (``quantize_steps``).
+        cond_q: optional per-net int8 packs of the cond nets' 3-D pairs
+          (``cond_net.quantize_cond_networks``).
         return_pyramid: also return {level: volume} of every level the chain
           passes (n_flow_steps: the coarsest, 0: the result), as JAX's.
+        Under a row shard (module docstring) every result holds this
+        rank's rows; ``fast`` must be True.
         """
         if z_temperature != 0 and generator is None:
             raise ValueError("z_temperature > 0 needs a generator")
@@ -321,10 +344,20 @@ class CWFAModel(nn.Module):
             lrnn_train = generator is not None
         nf = self.n_flow_steps
         b = cond_input.shape[0]
+        rows = current_rows()
+        c_reach = 0
+        own = cond_input
+        if rows is not None:
+            if not fast:
+                raise ValueError("reconstruct(fast=False) under a row shard:"
+                                 " ROADMAP A20")
+            c_reach = max(step.tower_reach for step in self.flow)
+            own = rows.own(cond_input)
+        h = own.shape[2]
         if self.cfg.force_last_step_NF:
             # the chain starts from zeros at the coarsest level: no LRNN
             last = self.step_specs[nf - 1]
-            up = torch.zeros((b, last.c_flow, last.spatial, last.spatial),
+            up = torch.zeros((b, last.c_flow, h, last.spatial),
                              dtype=cond_input.dtype, device=cond_input.device)
         else:
             mean_vol = mean_caches[nf - 1]
@@ -332,27 +365,41 @@ class CWFAModel(nn.Module):
                 # as JAX broadcasts the caches at entry: drop_path draws per
                 # frame
                 mean_vol = mean_vol.expand((b,) + tuple(mean_vol.shape[1:]))
-            up = self.lrnn(cond_input, mean_vol=mean_vol,
+            up = self.lrnn(own, mean_vol=mean_vol,
                            mean_branch=lrnn_mean_branch, unet_q=unet_q,
                            train=lrnn_train, generator=generator)
         pyramid = {nf: up}
         # force_all_steps_NF (CWFA.py:892-894): a zero views condition, and
         # the cond nets do not run
-        c_views_all = (None if self.cfg.force_all_steps_NF
-                       else cond_networks_batched(self.cond, cond_input))
+        c_views_all = None
+        if not self.cfg.force_all_steps_NF:
+            views, r = cond_input, 0
+            if rows is not None:
+                # the cond nets' window, cropped to the towers'
+                r = max(cond_reach(net) for net in self.cond) + c_reach
+                views = rows.take_window(cond_input, r)
+            c_views_all = [c if rows is None else rows.crop(c, r, c_reach)
+                           for c in cond_networks_batched(self.cond, views,
+                                                          cond_q)]
+        hc = h                  # rows of the views condition of a step
+        if rows is not None:
+            lo, hi = rows.window(c_reach)
+            hc = hi - lo
         for k in range(nf - 1, -1, -1):
             spec = self.step_specs[k]
-            zshape = (b * n_samples, spec.c_flow, spec.spatial, spec.spatial)
+            zshape = (b * n_samples, spec.c_flow, h, spec.spatial)
             if z_temperature == 0:
                 z = torch.zeros(zshape, dtype=up.dtype, device=up.device)
             else:
                 z = _sample_z(generator, zshape, n_samples,
                               z_temperature).to(device=up.device,
                                                 dtype=up.dtype)
-            c_views = (torch.zeros((b,) + zshape[1:], dtype=cond_input.dtype,
+            c_views = (torch.zeros((b, spec.c_flow, hc, spec.spatial),
+                                   dtype=cond_input.dtype,
                                    device=cond_input.device)
                        if c_views_all is None else c_views_all[k])
-            c_mean = mean_caches[k]
+            c_mean = mean_caches[k] if rows is None else rows.own(
+                mean_caches[k])
             if n_samples > 1:
                 tile = (n_samples, 1, 1, 1)
                 up, c_views = up.repeat(tile), c_views.repeat(tile)
@@ -361,7 +408,7 @@ class CWFAModel(nn.Module):
             qpack = None if qpacks is None else qpacks[k]
             if fast:
                 v = self.flow[k].reverse_fast(z, up, c_views, c_mean,
-                                              qpack=qpack)
+                                              qpack=qpack, c_reach=c_reach)
             else:
                 towers = (None if qpack is None
                           else self.flow[k].towers(c_views, qpack))

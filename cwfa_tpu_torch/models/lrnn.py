@@ -14,6 +14,12 @@ ConvNeXt block (networks.py:468-503): 1x1 in-proj, then
 [7x7 conv -> LayerNorm([C,S,S]) -> 1x1 conv -> exact GELU] plus the residual
 from the in-projection, through ``drop_path`` in train mode.  The LayerNorm carries a full (C, S, S) elementwise
 affine, eps 1e-5, computed in f32.
+
+Under a row shard (``parallel.mesh.row_shard``) x holds this rank's rows
+and the UNet exchanges its halos; the mean branch reads the whole mean
+cache (its LayerNorm spans (C, H, W) and its gate's Conv1d the flattened
+H*W), so every rank computes it whole, with the same ``drop_path`` draws,
+and adds its own rows.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from cwfa_tpu_torch.models.cond_net import GlobalAttention
 from cwfa_tpu_torch.models.unet import UNet, UNetSpec, unet_quantized
 from cwfa_tpu_torch.nn import (LayerNormF32, drop_path, same_conv2d,
                                subnet_init_positive_)
+from cwfa_tpu_torch.parallel.mesh import current_rows
 
 
 @dataclass(frozen=True)
@@ -79,6 +86,8 @@ class LRNN(nn.Module):
     def forward(self, x, mean_vol=None, mean_branch=None, unet_q=None,
                 train=False, generator=None):
         """x: (B, ch_in, H, W); mean_vol: (1 or B, n_depths, H, W) or None.
+        Under a row shard x holds this rank's rows, and mean_vol and
+        mean_branch are whole.
 
         mean_branch: a precomputed ``lrnn_mean_branch`` output (broadcast
         over the batch); when given, mean_vol is ignored.
@@ -97,7 +106,8 @@ class LRNN(nn.Module):
             mean_branch = lrnn_mean_branch(self, mean_vol, train=train,
                                            generator=generator)
         if mean_branch is not None:
-            y = y + mean_branch
+            rows = current_rows()
+            y = y + (mean_branch if rows is None else rows.own(mean_branch))
         return y
 
 

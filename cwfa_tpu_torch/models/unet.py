@@ -26,6 +26,14 @@ forward, folded into per-output-channel int8 weights; int32 products
 dtype, PReLU and BatchNorm (``_conv_block``, ``unet.py:71-83``).  Sites are
 keyed as JAX keys them: ``("down", i, "conv1")``, ``("up", i, "upconv")``,
 ``("up", i, "conv2")``, ``("last",)``.
+
+Under a row shard (``parallel.mesh.row_shard``: this rank's image rows of
+the ``space`` axis) every level holds the rank's rows: before each
+``ConvBlock`` ``parallel.halo.halo_rows`` fetches ``ConvBlock.reach`` rows
+(2) from each side, the block runs on that window (its train-mode BatchNorm
+statistics on the rank's own rows, summed over the ranks) and is cropped;
+the pools, transposed convs and 1x1 convs are local.  The int8 path runs
+the same exchanges (its quantization is per channel).
 """
 
 from __future__ import annotations
@@ -39,6 +47,8 @@ from cwfa_tpu_torch.nn import (adaptive_max_pool2d_half,
                                batch_norm_batch_stats, dropout2d, same_conv2d)
 from cwfa_tpu_torch.ops.int8_conv import (
     conv2d_int8, conv_transpose2x2_int8, quantize_div)
+from cwfa_tpu_torch.parallel.halo import halo_rows
+from cwfa_tpu_torch.parallel.mesh import current_rows
 
 
 @dataclass(frozen=True)
@@ -82,10 +92,19 @@ class ConvBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
         self.bn2 = nn.BatchNorm2d(c_out) if batch_norm else nn.Identity()
 
-    def forward(self, x, conv_fn=_plain_conv, site=(), train=False):
+    @property
+    def reach(self) -> int:
+        """Rows of input beyond a row range that its output needs: the two
+        convs' half-widths."""
+        return sum(c.kernel_size[0] // 2 for c in (self.conv1, self.conv2))
+
+    def forward(self, x, conv_fn=_plain_conv, site=(), train=False,
+                own=None):
+        """own: the slice of x's rows that train-mode BatchNorm statistics
+        read, where x is a window of halo rows around them."""
         def norm(bn, v):
             if train and isinstance(bn, nn.BatchNorm2d):
-                return batch_norm_batch_stats(bn, v)
+                return batch_norm_batch_stats(bn, v, own)
             return bn(v)
 
         y = norm(self.bn1, self.act1(conv_fn(site + ("conv1",), self.conv1, x)))
@@ -131,9 +150,21 @@ class UNet(nn.Module):
         train: BatchNorm on the batch's statistics, and Dropout2d drawing
         from ``generator`` (none without one), ``unet.py:134-155``."""
         drop = self.spec.drop_out if train else 0.0
+        rows = current_rows()
+
+        def run(block, v, site, level):
+            if rows is None:
+                return block(v, conv_fn, site, train)
+            rl = rows.scaled(2 ** level)
+            r = block.reach
+            lo, _ = rl.window(r)
+            own = slice(rl.start - lo, rl.stop - lo)
+            return rl.crop(block(halo_rows(v, r, rl), conv_fn, site, train,
+                                 own), r)
+
         blocks = []
         for i, block in enumerate(self.down):
-            x = block(x, conv_fn, ("down", i), train)
+            x = run(block, x, ("down", i), i)
             if i != len(self.down) - 1:
                 blocks.append(x)
                 x = adaptive_max_pool2d_half(x)
@@ -144,7 +175,8 @@ class UNet(nn.Module):
                 # H, W divisible by 2^(depth-1): the reference's center
                 # crop of the bridge is the identity
                 up = up + blocks[-i - 1]
-            x = up_block.conv_block(up, conv_fn, ("up", i), train)
+            x = run(up_block.conv_block, up, ("up", i),
+                    len(self.down) - 2 - i)
             x = dropout2d(x, drop, generator)
         return self.last["act"](conv_fn(("last",), self.last["conv"], x))
 

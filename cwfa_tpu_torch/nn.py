@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cwfa_tpu_torch.parallel.mesh import all_reduce_sum, current_shard, \
-    draw_rows
+from cwfa_tpu_torch.parallel.mesh import (all_reduce_sum, current_rows,
+                                          current_shard, draw_rows)
 
 # ---------------------------------------------------------------------------
 # Initializers (torch-compatible distributions, explicit generator)
@@ -151,16 +151,19 @@ class LayerNormF32(nn.LayerNorm):
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
-def batch_norm_batch_stats(bn: nn.BatchNorm2d, x):
+def batch_norm_batch_stats(bn: nn.BatchNorm2d, x, own=None):
     """``bn`` on the statistics of the batch ``x`` itself (f32 sums, the
     biased variance: the train branch of ``cwfa_tpu/nn.py:302-325``), in x's
     dtype.  When ``bn`` is in training mode (``bn.train()``) its running
     statistics move as JAX's mstate does: momentum 0.1, the unbiased
     variance, the count up by one; otherwise they are neither read nor
-    updated.  Under a data-parallel batch shard (``parallel.mesh``) the
-    statistics are those of the global batch (``_batch_norm_global``)."""
-    if current_shard() is not None:
-        return _batch_norm_global(bn, x)
+    updated.  Under a data-parallel batch shard or a row shard
+    (``parallel.mesh``) the statistics are those of the global batch and
+    the whole image (``_batch_norm_global``).  own: the slice of x's rows
+    (dim 2) that the statistics read, where x is a window of halo rows
+    around them (``models/unet``)."""
+    if current_shard() is not None or current_rows() is not None:
+        return _batch_norm_global(bn, x, own)
     if bn.training:
         with torch.no_grad():
             bn.num_batches_tracked.add_(1)
@@ -169,22 +172,26 @@ def batch_norm_batch_stats(bn: nn.BatchNorm2d, x):
     return F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
 
 
-def _batch_norm_global(bn: nn.BatchNorm2d, x):
+def _batch_norm_global(bn: nn.BatchNorm2d, x, own=None):
     """``batch_norm_batch_stats`` over the global batch of a shard: each
-    rank's f32 sums of x - K and (x - K)^2 and its count, summed over the
-    ranks by one all-reduce (differentiable: the backward sums its terms
-    over the ranks too); K is the running mean, the same on every rank,
-    which keeps the variance off the cancellation of raw sums.  The running
-    statistics move as on one device, identically on every rank."""
+    rank's f32 sums of x - K and (x - K)^2 and its count (over the rows
+    ``own`` of x, where given), summed over the ranks by one all-reduce
+    (over the row shard's ``stats_group`` under a row shard; differentiable
+    under a batch shard: the backward sums its terms over the ranks too); K
+    is the running mean, the same on every rank, which keeps the variance
+    off the cancellation of raw sums.  The running statistics move as on
+    one device, identically on every rank."""
     xf = x.float()
     c = x.shape[1]
     dims = [0] + list(range(2, x.dim()))
     shape = (1, c) + (1,) * (x.dim() - 2)
     k = (torch.zeros(shape, device=x.device) if bn.running_mean is None
          else bn.running_mean.detach().float().reshape(shape))
-    d = xf - k
-    count = xf.new_full((1,), float(xf.numel() // c))
-    sums = all_reduce_sum(torch.cat([d.sum(dims), (d * d).sum(dims), count]))
+    d = (xf if own is None else xf[:, :, own]) - k
+    count = xf.new_full((1,), float(d.numel() // c))
+    part = torch.cat([d.sum(dims), (d * d).sum(dims), count])
+    rows = current_rows()
+    sums = all_reduce_sum(part, None if rows is None else rows.sum_group)
     n = sums[2 * c]
     dm = sums[:c] / n
     var = (sums[c:2 * c] / n - dm * dm).clamp_min(0.0)

@@ -62,12 +62,19 @@ def int_mm(a, b):
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
+# bytes of one im2col buffer of ``conv2d_int8``
+IM2COL_BYTES = 1 << 30
+
+
 def conv2d_int8(q, wq, padding: int):
     """Stride-1 conv of int8 q (B, I, H, W) with int8 OIHW wq (k x k),
     zero padding ``padding`` on each side -> int32 (B, O, H', W').
 
-    im2col per frame (the 3x3 im2col of a 256-channel 512^2 map is 0.6 GB),
-    K ordered (dy, dx, i) and zero-padded to a multiple of 8."""
+    im2col over as many frames at once as fit in ``IM2COL_BYTES``, at least
+    one (the 3x3 im2col of a 256-channel 512^2 map is 0.6 GB; the cond
+    nets' int8 pair has 32 channels and B x depth frames), K ordered (dy,
+    dx, i) and zero-padded to a multiple of 8.  The sums are exact, so the
+    grouping does not change the result."""
     b, i, h, w = q.shape
     o, _, k, _ = wq.shape
     kk = k * k * i
@@ -77,16 +84,22 @@ def conv2d_int8(q, wq, padding: int):
     if padding:
         x = F.pad(x, (0, 0, padding, padding, padding, padding))
     ho, wo = x.shape[1] - k + 1, x.shape[2] - k + 1
+    hw = ho * wo
+    nb = max(1, min(b, IM2COL_BYTES // (hw * _pad8(kk))))
     out = torch.empty((b, o, ho, wo), dtype=torch.int32, device=q.device)
-    cols = torch.zeros((_rows(ho * wo), _pad8(kk)), dtype=torch.int8,
+    cols = torch.zeros((_rows(nb * hw), _pad8(kk)), dtype=torch.int8,
                        device=q.device)
-    for n in range(b):
+    for n0 in range(0, b, nb):
+        m = min(nb, b - n0)
         for dy in range(k):
             for dx in range(k):
                 t = (dy * k + dx) * i
-                cols[:ho * wo, t:t + i] = x[n, dy:dy + ho,
-                                            dx:dx + wo].reshape(ho * wo, i)
-        out[n] = int_mm(cols, wmat)[:ho * wo].t().reshape(o, ho, wo)
+                cols[:m * hw, t:t + i] = x[n0:n0 + m, dy:dy + ho,
+                                           dx:dx + wo].reshape(m * hw, i)
+        # rows past m * hw hold zeros or an earlier group's columns: their
+        # sums are dropped
+        acc = int_mm(cols[:_rows(m * hw)], wmat)[:m * hw]
+        out[n0:n0 + m] = acc.reshape(m, ho, wo, o).permute(0, 3, 1, 2)
     return out
 
 

@@ -20,23 +20,32 @@ global batch:
 - ``global_min`` / ``global_max``: the min-shift and support masks of the
   ``LL`` and ``wL2`` losses (``engine/losses``).
 
-The ``space`` axis (image rows over devices, with a halo exchange before
-every spatially local module and row-global BatchNorm statistics and losses
-in training) is not ported: ``make_mesh`` raises for ``n_space > 1``.
+The ``space`` axis spreads the image rows of a call over the ranks of a
+``space`` group (``RowShard``): each rank holds ``H / n_space`` contiguous
+rows, and inside ``row_shard(rows)`` the model computes on them
+(``parallel/halo.py`` exchanges the rows that a spatially local module needs
+from the neighbours).  Where ``H`` does not split into ``n_space`` equal
+shards whose rows divide by the UNet's 2^(depth - 1), every rank of the
+space group computes all rows (JAX's fallback), and ``space_rows`` says so
+once.  Reconstruction and serving run on it; training under ``space``
+raises (``SPACE_TRAINING_ITEM``: ROADMAP A20).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-SPACE_AXIS_ITEM = ("the 'space' mesh axis (image rows sharded over devices, "
-                   "with halo exchanges and row-global BatchNorm statistics "
-                   "and losses) is not ported yet: ROADMAP A19")
+SPACE_TRAINING_ITEM = ("training on the 'space' mesh axis (image rows over "
+                       "devices, with differentiable halo exchanges and "
+                       "row-global BatchNorm statistics, losses and NLL "
+                       "sums) is not ported yet: ROADMAP A20; the space axis "
+                       "serves (cli.serve, XLFMReconstructor)")
 
 
 def make_mesh(n_data: int | None = None, n_space: int = 1,
@@ -48,12 +57,11 @@ def make_mesh(n_data: int | None = None, n_space: int = 1,
     a ``cpu`` one whatever the caller's devices (ranks sharing a card, the
     tests): its ``all_reduce`` and ``broadcast`` take CUDA tensors, and
     ``distributed.gather_rows`` stages its gathers through the host.
-    Raises ValueError for ``n_space > 1`` (ROADMAP A19) or a mesh that does
-    not match the world size."""
+    Ranks lie row-major: rank ``d * n_space + s`` is place ``s`` of data
+    index ``d``, so a space group is ``n_space`` consecutive ranks.  Raises
+    ValueError for a mesh that does not match the world size."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if n_space > 1:
-        raise ValueError(f"n_space={n_space}: " + SPACE_AXIS_ITEM)
     world = dist.get_world_size() if dist.is_initialized() else 1
     n_data = world // n_space if n_data is None else n_data
     if n_data * n_space != world:
@@ -78,6 +86,19 @@ def data_size(mesh) -> int:
 
 def data_rank(mesh) -> int:
     return 0 if mesh is None else mesh.get_local_rank("data")
+
+
+def space_group(mesh):
+    """The process group of the mesh's ``space`` axis (None for no mesh)."""
+    return None if mesh is None else mesh.get_group("space")
+
+
+def space_size(mesh) -> int:
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("space"))
+
+
+def space_rank(mesh) -> int:
+    return 0 if mesh is None else mesh.get_local_rank("space")
 
 
 # ---------------------------------------------------------------------------
@@ -133,17 +154,142 @@ def current_shard() -> BatchShard | None:
     return _SHARDS[-1] if _SHARDS else None
 
 
+# ---------------------------------------------------------------------------
+# The row shard of a space-parallel call
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class RowShard:
+    """This rank's image rows of a call: ``size`` ranks of ``group`` hold
+    ``total`` rows in equal contiguous shards, this one place ``index``
+    (rows [start, stop)).  ``stats_group``: where a row-global sum goes (the
+    train-mode BatchNorm statistics): the whole mesh when the batch is
+    split over ``data`` too, else ``group`` (None: ``group``)."""
+    group: object
+    index: int
+    size: int
+    total: int
+    stats_group: object = None
+
+    @property
+    def rows(self) -> int:
+        return self.total // self.size
+
+    @property
+    def sum_group(self):
+        return self.group if self.stats_group is None else self.stats_group
+
+    @property
+    def start(self) -> int:
+        return self.index * self.rows
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.rows
+
+    def bounds(self, i: int) -> tuple[int, int]:
+        """Rows [start, stop) of place ``i``."""
+        return i * self.rows, (i + 1) * self.rows
+
+    def window(self, reach: int, i: int | None = None) -> tuple[int, int]:
+        """Rows [lo, hi) of place ``i``'s (default this rank's) shard with
+        ``reach`` rows on each side, clipped to the image: at its true top
+        and bottom no row is added, so a layer's own SAME padding still
+        zeroes outside the image."""
+        lo, hi = self.bounds(self.index if i is None else i)
+        return max(lo - reach, 0), min(hi + reach, self.total)
+
+    def scaled(self, f: int) -> "RowShard":
+        """The same shard at 1/f of the rows (a UNet level)."""
+        if self.rows % f:
+            raise ValueError(f"{self.rows} rows a rank do not divide by {f}")
+        return RowShard(self.group, self.index, self.size, self.total // f,
+                        self.stats_group)
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole (B, C, H, W) tensor (a batch-1 one
+        too)."""
+        return t.narrow(2, self.start, self.rows)
+
+    def take_window(self, t: torch.Tensor, reach: int) -> torch.Tensor:
+        """The rows of ``window(reach)`` of a whole tensor."""
+        lo, hi = self.window(reach)
+        return t.narrow(2, lo, hi - lo)
+
+    def crop(self, t: torch.Tensor, reach: int, to: int = 0) -> torch.Tensor:
+        """A tensor on ``window(reach)`` cut to ``window(to)``."""
+        lo, _ = self.window(reach)
+        a, b = self.window(to)
+        return t.narrow(2, a - lo, b - a)
+
+
+# per thread, so that the places of an in-process stand-in group can run
+# side by side in threads
+_ROWS = threading.local()
+_FALLBACK_SAID: set = set()
+
+
+@contextlib.contextmanager
+def row_shard(rows: RowShard | None):
+    """Run the enclosed model code (in this thread) on this rank's image
+    rows (None: no shard, a no-op)."""
+    if rows is None:
+        yield
+        return
+    stack = _ROWS.__dict__.setdefault("stack", [])
+    stack.append(rows)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def current_rows() -> RowShard | None:
+    stack = getattr(_ROWS, "stack", None)
+    return stack[-1] if stack else None
+
+
+def space_rows(mesh, total: int, multiple: int = 1,
+               batch_split: bool = False) -> RowShard | None:
+    """This rank's rows of a ``total``-row image on the mesh's ``space``
+    axis, or None when every rank computes all rows: no mesh, one space
+    rank, or ``total`` not splitting into ``n_space`` shards whose rows
+    divide by ``multiple`` (JAX's fallback; said once per case, never
+    silently).  ``batch_split``: the batch is split over ``data`` too, so
+    row-global sums go over the whole mesh."""
+    n = space_size(mesh)
+    if n == 1:
+        return None
+    if total % n or (total // n) % multiple:
+        key = (total, n, multiple)
+        if key not in _FALLBACK_SAID:
+            _FALLBACK_SAID.add(key)
+            print(f"space axis: {total} rows do not split into {n} shards "
+                  f"of a multiple of {multiple} rows; every rank of the "
+                  f"space group computes all rows", flush=True)
+        return None
+    group = space_group(mesh)
+    return RowShard(group, space_rank(mesh), n, total,
+                    dist.group.WORLD if batch_split else group)
+
+
 @dataclass(frozen=True)
 class Placement:
     """Where a leaf of a batch goes: ``shard`` keeps this rank's rows of the
     ``data`` axis (``batch_sharding``: the rows of ``batch_shard``), else
-    every row (``replicate``), on ``device``.  Per leaf, as JAX's
+    every row (``replicate``), on ``device``; ``rows`` also keeps this
+    rank's image rows (dim 2) of a (B, C, H, W) leaf on the ``space`` axis
+    (the rows of ``space_rows`` at ``row_multiple``).  Per leaf, as JAX's
     ``sharded_train_step`` places them: a non-array or 0-d leaf passes
-    through untouched, and a batch whose size does not divide the axis is
-    replicated."""
+    through untouched, a batch whose size does not divide the ``data`` axis
+    is replicated, and a leaf whose H ``space_rows`` does not split keeps
+    all its rows."""
     mesh: object
     shard: bool
     device: torch.device
+    rows: bool = False
+    row_multiple: int = 1
 
     def place(self, x):
         if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim == 0:
@@ -152,6 +298,10 @@ class Placement:
         sh = batch_shard(self.mesh, t.shape[0]) if self.shard else None
         if sh is not None:
             t = t[sh.start:sh.stop]
+        rs = (space_rows(self.mesh, t.shape[2], self.row_multiple)
+              if self.rows and t.ndim >= 4 else None)
+        if rs is not None:
+            t = rs.own(t)
         return t.to(self.device)
 
 
@@ -161,12 +311,14 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device("cpu")
 
 
-def batch_sharding(mesh, with_space: bool = False) -> Placement:
-    """(B, ...) arrays: batch over ``data``.  ``with_space`` (rows over
-    ``space``) raises: ROADMAP A19."""
-    if with_space:
-        raise ValueError(SPACE_AXIS_ITEM)
-    return Placement(mesh, True, _mesh_device(mesh))
+def batch_sharding(mesh, with_space: bool = False,
+                   row_multiple: int = 1) -> Placement:
+    """(B, C, H, W) arrays: batch over ``data``, and with ``with_space``
+    rows over ``space`` (JAX's ``P("data", None, "space", None)``), each
+    rank's rows a multiple of ``row_multiple`` (the UNet's 2^(depth - 1)
+    for a model input) or all of them."""
+    return Placement(mesh, True, _mesh_device(mesh), with_space,
+                     row_multiple)
 
 
 def replicate(mesh) -> Placement:

@@ -185,6 +185,18 @@ def case_cli(rank, world, module, argv):
     return out if isinstance(out, (str, dict)) else None
 
 
+def case_clis(rank, world, module, argvs):
+    """A CLI's ``main(argv, device="cpu")`` for each of ``argvs`` in turn,
+    under the group."""
+    import importlib
+
+    from cwfa_tpu_torch.parallel import initialize_from_env
+
+    assert initialize_from_env("cpu")
+    main = importlib.import_module(module).main
+    return [main(argv, device="cpu") for argv in argvs]
+
+
 def case_bn(rank, world, x, weight, bias, running):
     """Train-mode BatchNorm on this rank's rows under a batch shard: the
     output, the input's gradient, the parameters' gradients summed over the
@@ -331,6 +343,109 @@ def case_recon(rank, world, cfg_kw, seed, params, mstate, caches, frames,
     return {"vol": recon(frames).numpy()}
 
 
+
+
+def case_space_recon(rank, world, params, mstate, caches, frames, stoch_kw,
+                     caches36, serve_dir):
+    """``XLFMReconstructor(mesh=make_mesh(1, world))`` on the small rig, the
+    image rows over ``space``: deterministic with JAX's weights (then
+    ``serve_reads_failing_once`` with it), the default stochastic mode from
+    seed 3 with ``stoch_kw``, and a 36-row rig whose 18 rows a rank do not
+    divide by the UNet's 4 (the fallback: all rows on every rank, said
+    once).  The gathered volumes on this rank."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from cwfa_tpu_torch.engine.inference import XLFMReconstructor
+    from cwfa_tpu_torch.engine.jax_params import load_jax_params
+    from cwfa_tpu_torch.parallel import initialize_from_env, make_mesh
+    from cwfa_tpu_torch.rig import flagship
+
+    assert initialize_from_env("cpu")
+    mesh = make_mesh(1, world)
+    out = {}
+    cfg, model, stats, vidx, _ = flagship(
+        True, "cpu", torch.Generator().manual_seed(0))
+    load_jax_params(model, params, mstate)
+    recon = XLFMReconstructor(model, stats, vidx, caches, device="cpu",
+                              deterministic=True, mesh=mesh)
+    out["rows"] = recon.shards(len(frames))[1].bounds(rank)
+    out["det"] = recon(frames).numpy()
+    out["serve"] = serve_reads_failing_once(rank, recon, mesh, serve_dir,
+                                            frames.shape[1:])
+    cfg, model, stats, vidx, _ = flagship(
+        True, "cpu", torch.Generator().manual_seed(3))
+    model.cfg = dataclasses.replace(cfg, **stoch_kw)
+    out["stoch"] = XLFMReconstructor(model, stats, vidx, caches,
+                                     device="cpu", mesh=mesh)(frames).numpy()
+    model, stats, vidx = side36_rig()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        recon = XLFMReconstructor(model, stats, vidx, caches36, device="cpu",
+                                  deterministic=True, mesh=mesh)
+        out["fallback"] = [recon(frames).numpy() for _ in range(2)]
+    out["fallback_said"] = said.getvalue()
+    return out
+
+
+def serve_reads_failing_once(rank, recon, mesh, root, img_hw):
+    """``serve_directory`` on the space group of ``mesh``, 2 frames a call,
+    from ``root/frames`` into ``root/served`` (``--limit 3``, polling),
+    where a TIFF read fails the first time as a file still being written
+    would: rank 1's first read of every file and rank 0's of
+    ``cam_1.tif``.  Returns the summary, the names this rank read, and the
+    direct call on the frames in name order."""
+    import torch
+
+    from cwfa_tpu_torch.engine import serving
+    from cwfa_tpu_torch.parallel.mesh import space_group
+
+    in_dir = os.path.join(root, "frames")
+    real = serving.tiffio.read_tiff_stack
+    reads = []
+
+    def read(path, **kw):
+        name = os.path.basename(path)
+        reads.append(name)
+        if reads.count(name) == 1 and (rank == 1 or name == "cam_1.tif"):
+            raise OSError(f"{name}: cut short")
+        return real(path, **kw)
+
+    serving.tiffio.read_tiff_stack = read
+    try:
+        summary = serving.serve_directory(
+            recon, 2, tuple(img_hw), in_dir, os.path.join(root, "served"),
+            poll_seconds=0.05, limit=3, verbose=False,
+            group=torch.distributed.group.WORLD,
+            space_group=space_group(mesh))
+    finally:
+        serving.tiffio.read_tiff_stack = real
+    frames = np.stack([real(os.path.join(in_dir, n))
+                       for n in sorted(os.listdir(in_dir))])
+    return {"summary": summary, "reads": reads,
+            "direct": recon(frames.astype(np.float32)).numpy()}
+
+
+def side36_rig():
+    """The small rig at 36 rows and columns, from seed 4: (model, stats,
+    view indices) for 128-row frames."""
+    import dataclasses
+
+    import torch
+
+    from cwfa_tpu_torch.data.views import make_view_indices
+    from cwfa_tpu_torch.models.cwfa_model import CWFAModel
+    from cwfa_tpu_torch.rig import flagship, lenslet_coords
+
+    cfg, _, stats, _, img = flagship(True, "cpu", torch.Generator())
+    cfg = dataclasses.replace(cfg, volume_side_size=36)
+    model = CWFAModel.build(cfg, torch.Generator().manual_seed(4))
+    vidx = make_view_indices(lenslet_coords(cfg.n_lenslets, 36, img),
+                             (img, img), (36, 36))
+    return model, stats, vidx
 
 
 def two_steps(tr, views, gt, mcs):

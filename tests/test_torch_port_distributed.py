@@ -64,11 +64,42 @@ def test_host_local_indices_equal_jax(n, p):
     assert sum(ours, []) == list(range(n))
 
 
+class _SpaceMesh:
+    """Place 1 of a (1, 2) mesh, without the two processes it needs."""
+    mesh_dim_names = ("data", "space")
+    device_type = "cpu"
+
+    def size(self, i):
+        return (1, 2)[i]
+
+    def get_local_rank(self, name):
+        return {"data": 0, "space": 1}[name]
+
+    def get_group(self, name):
+        return None
+
+
 def test_space_axis_names_the_next_slice():
-    with pytest.raises(ValueError, match="A19"):
+    """The space axis serves: a (1, 2) mesh asks for its two processes and
+    ``batch_sharding(with_space=True)`` places a leaf's second half of rows
+    on place 1 (all of them where ``space_rows`` does not split H: H odd,
+    or a rank's rows not a multiple of ``row_multiple``); training on it
+    names the next slice's ROADMAP item."""
+    from cwfa_tpu_torch.engine.trainer import CWFATrainer
+
+    with pytest.raises(ValueError, match="needs 2 processes"):
         M.make_mesh(1, 2)
-    with pytest.raises(ValueError, match="A19"):
-        M.batch_sharding(None, with_space=True)
+    place = M.batch_sharding(_SpaceMesh(), with_space=True).place
+    x = np.arange(2 * 3 * 8 * 5, dtype=np.float32).reshape(2, 3, 8, 5)
+    np.testing.assert_array_equal(place(x).numpy(), x[:, :, 4:])
+    assert tuple(place(x[:, :, :7]).shape) == (2, 3, 7, 5)
+    by4 = M.batch_sharding(_SpaceMesh(), with_space=True, row_multiple=4)
+    np.testing.assert_array_equal(by4.place(x).numpy(), x[:, :, 4:])
+    by8 = M.batch_sharding(_SpaceMesh(), with_space=True, row_multiple=8)
+    assert tuple(by8.place(x).shape) == x.shape
+    assert tuple(M.batch_sharding(_SpaceMesh()).place(x).shape) == x.shape
+    with pytest.raises(ValueError, match="A20"):
+        CWFATrainer(None, None, {}, device="cpu", mesh=_SpaceMesh())
 
 
 def test_two_process_rendezvous(ranks):

@@ -143,10 +143,11 @@ def test_wrong_shaped_frame_is_skipped(rig, capsys):
 
 @pytest.mark.parametrize("flag, why", [
     ("--mesh_data_axis", "mesh of 2 devices.*world size of 1"),
-    ("--mesh_space_axis", "A19")])
+    ("--mesh_space_axis", "--mesh_space_axis 2 asks for a mesh of 2 devices"
+                          ".*world size of 1")])
 def test_mesh_flags_exit(rig, flag, why):
-    """A data mesh without its processes exits naming both sizes; the space
-    axis exits naming the ROADMAP item of the next slice."""
+    """A data or space mesh without its processes exits naming both
+    sizes."""
     with pytest.raises(SystemExit, match=why):
         serve.main(rig["base"] + ["--out_dir", str(rig["root"] / "m"),
                                   flag, "2"], device="cpu")

@@ -14,7 +14,9 @@
   that one process at ``--batch 2`` writes (each rank calls the model on 2
   frames), equal to the bit, with and without the int8 UNet (calibrated on
   each rank on the same frames and checked equal);
-- ``--mesh_space_axis 2`` exits naming the ROADMAP item of the next slice.
+- ``cli.train --mesh_space_axis 2`` exits naming the ROADMAP item of the
+  next slice (training on the space axis; the serve CLI takes the axis,
+  ``tests/test_torch_port_space_recon.py``).
 """
 
 import os
@@ -168,10 +170,12 @@ def test_serve_cli_on_two_ranks_writes_what_one_writes(serve_rig, int8):
 
 
 def test_space_axis_exits_naming_the_next_slice(serve_rig):
-    root, base = serve_rig
-    with pytest.raises(SystemExit, match="A19"):
-        serve.main(base + ["--out_dir", str(root / "m"), "--mesh_space_axis",
-                           "2"], device="cpu")
+    from cwfa_tpu_torch.cli import train
+    root, _ = serve_rig
+    with pytest.raises(SystemExit, match="A20"):
+        train.main(["--main_data_path", str(root), "--output_testing_path",
+                    str(root / "t"), "--mesh_space_axis", "2"], device="cpu")
+    assert not os.path.exists(root / "t")
 
 
 def test_serve_limit_counts_served_frames_on_two_ranks(serve_rig):

@@ -211,11 +211,11 @@ def test_pretrained_jax_run_is_loaded(tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags, item", [
     (["--mesh_data_axis", "2"], "mesh of 2 devices.*world size of 1"),
-    (["--mesh_space_axis", "2"], "A19"), ([], "torchrun")])
+    (["--mesh_space_axis", "2"], "A20"), ([], "torchrun")])
 def test_unported_paths_exit_naming_the_item(tree, tmp_path, monkeypatch,
                                              flags, item):
     """A data mesh without its processes exits naming both sizes, the space
-    axis naming the ROADMAP item of the next slice, and
+    axis naming the ROADMAP item of training on it, and
     ``CWFA_DISTRIBUTED=auto`` without torchrun's variables naming them."""
     if not flags:
         monkeypatch.setenv("CWFA_DISTRIBUTED", "auto")
