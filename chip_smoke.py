@@ -232,7 +232,18 @@ code != 0) on the first phase that does not hold:
     5 launched BF16_PER_CALL times a call on each rank, the ms of a call and
     of its halo, permutation and gather traffic, and ``cli.serve
     --mesh_space_axis 2`` with the int8 UNet on 2 frames against direct
-    one-process calls (2e-2 of max).
+    one-process calls (2e-2 of max); (g) training on the ``space`` axis:
+    an LRNN step and a step-0 flow step of the flagship trainer on a
+    (1, 2) mesh in bf16, 1 frame, every draw on, against one process
+    (losses 1e-3 relative, each optimizer's all-reduced gradient 5e-2 of
+    max, parameters 6 lr, the ranks equal to the bit), rows 1 / 3 / 5 /
+    10 / 11 / 12 launched 8 / 5 / 1 / 8 / 5 / 1 times a flow step on each
+    rank, step ms cold and warm, the ms of the exchanges, row-global sums
+    and gradient all-reduce, peaks; ``cli.train --mesh_space_axis 2`` at
+    the flagship width (2 epochs, evaluation, OOD screen), rank 0 writing
+    and its checkpoint reloaded equal on both ranks; and, in the main
+    process, K2 and K3 at the window shapes (256 + 4 and 256 + 8 rows)
+    against their plain versions (2^-5).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Prints a ``{"kernels": [...]}`` JSON line (twelve kernels,
@@ -248,7 +259,8 @@ evaluation as ``eval_launches``, in the OOD CLI's run as
 as ``ckpt_launches``, per reconstruction of each non-CAT type as
 ``blocks_launches``, the tower's and K2's bf16 times at its shapes as
 ``blocks_step0_ms``, each rank's launches in the parallel phase's mesh
-calls (data and space) and flow step as ``parallel_launches``), then, as
+calls (data and space) and flow steps (data and space: ``train``,
+``space_train``) as ``parallel_launches``), then, as
 its
 last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without that
 line when no CUDA device is present.
@@ -4093,6 +4105,7 @@ PAR_TIMEOUT = 600                  # seconds the ranks may take together
 PAR_TRAIN_BATCH = 2                # training: 2 ranks x 1 against 1 x 2
 PAR_GRAD_BOUND = 5e-2              # all-reduced gradient vs one process's,
                                    # of its max: the bf16 limit of (b)
+PAR_CLI_FRAMES = 2                 # (g): cli.train on 2 frames of one fish
 
 
 def par_train_inputs(dev, cfg, b: int):
@@ -4113,15 +4126,16 @@ def par_train_inputs(dev, cfg, b: int):
 
 def par_two_steps(tr, views, gt, mcs, grads=None):
     """One LRNN step and one step-0 flow step (its stage input the GT's level
-    1) on this rank's rows of the batch (all of them without a mesh): the
-    losses, each step's ms (CUDA events) and the launches of each step.
-    With a ``grads`` dict, each optimizer's gradient as it steps (after the
-    all-reduce on a mesh) goes into it, flat f32 on the host (a copy inside
-    the step's ms)."""
-    from cwfa_tpu_torch.parallel.mesh import batch_shard, data_shard
+    1) on this rank's rows of the batch and of the image (the trainer's
+    ``step_shards``; all of them without a mesh): the losses, each step's
+    ms (CUDA events) and the launches of each step.  With a ``grads`` dict,
+    each optimizer's gradient as it steps (after the all-reduce on a mesh)
+    goes into it, flat f32 on the host (a copy inside the step's ms)."""
+    from cwfa_tpu_torch.parallel.mesh import data_shard, row_shard
     nf = tr.model.n_flow_steps
-    shard = batch_shard(tr.mesh, views.shape[0])
+    shard, rows = tr.step_shards(views.shape[0])
     sl = slice(None) if shard is None else slice(shard.start, shard.stop)
+    own = (lambda t: t[sl]) if rows is None else (lambda t: rows.own(t[sl]))
     out = {"ms": [], "launches": []}
     opts = (("lrnn", tr.opt_lrnn), ("flow", tr.opt_flow[0]),
             ("cond", tr.opt_cond[0])) if grads is not None else ()
@@ -4133,11 +4147,11 @@ def par_two_steps(tr, views, gt, mcs, grads=None):
             step()
         opt.step = recorded
     try:
-        with data_shard(shard):
+        with data_shard(shard), row_shard(rows):
             for step in (lambda: tr._lrnn_step(views[sl], mcs[nf - 1][sl],
-                                               gt[nf][sl])[0],
+                                               own(gt[nf]))[0],
                          lambda: tr._flow_step(0, views[sl], mcs[0][sl],
-                                               gt[0][sl], gt[1][sl])[0]):
+                                               own(gt[0]), own(gt[1]))[0]):
                 reset_counts()
                 ms = event_ms(lambda: out.setdefault("losses", []).append(
                     float(step())), n=1)
@@ -4347,6 +4361,111 @@ def par_rank_train(dev, rank, work: Path, a) -> dict:
     return out
 
 
+def par_timed_train_traffic():
+    """Time (host clock, the card synchronized on both sides) every
+    point-to-point exchange of the space axis (``halo._p2p``: the UNet's
+    halos, the flow's row permutations and the non-CAT towers' halos, in
+    the forward and, sending each row's gradient back, in the backward),
+    the forward calls of ``halo_rows`` and ``permute_rows`` among them, the
+    model's row-global sums (``mesh._all_reduce``: BatchNorm statistics,
+    the losses' extremes) and the trainer's one gradient all-reduce a step
+    (``_sum_over_ranks``).  Returns (times {name: [ms]}, undo)."""
+    from cwfa_tpu_torch.models import cwf, unet
+    from cwfa_tpu_torch.parallel import halo, mesh
+    times = {"p2p": [], "halo_fwd": [], "permute_fwd": [], "sums": [],
+             "grad_all_reduce": []}
+    saved = [(halo, "_p2p", "p2p"), (unet, "halo_rows", "halo_fwd"),
+             (cwf, "permute_rows", "permute_fwd"),
+             (mesh, "_all_reduce", "sums"),
+             (CWFATrainer, "_sum_over_ranks", "grad_all_reduce")]
+    originals = [getattr(m, n) for m, n, _ in saved]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    for (m, n, name), fn in zip(saved, originals):
+        setattr(m, n, timed(name, fn))
+
+    def undo():
+        for (m, n, _), fn in zip(saved, originals):
+            setattr(m, n, fn)
+    return times, undo
+
+
+def par_rank_space_train(dev, rank, work: Path, a) -> dict:
+    """(g) on this rank: the flagship trainer on a (1, 2) space mesh, bf16,
+    one LRNN step and one step-0 flow step on 1 frame, this rank's 256
+    image rows (cold, warm, then once with its traffic timed); rank 1's
+    state to disk, rank 0 holds both ranks and the one-process run against
+    each other; then ``cli.train --mesh_space_axis 2`` at the flagship
+    width and its checkpoint reloaded on both ranks."""
+    from cwfa_tpu_torch.cli import train as train_cli
+    from cwfa_tpu_torch.parallel import make_mesh
+    cfg, model, stats, vidx, _ = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    mesh = make_mesh(1, PAR_RANKS)
+    tr = CWFATrainer(model, stats, vidx, device=dev, mesh=mesh)
+    views, gt, mcs = par_train_inputs(dev, cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    grads = {}
+    out = par_two_steps(tr, views, gt, mcs, grads)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["rows"] = tr.step_shards(1)[1].bounds(rank)
+    state = par_state(tr.model)
+    out["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
+    torch.distributed.barrier()
+    times, undo = par_timed_train_traffic()
+    try:
+        out["timed_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
+    finally:
+        undo()
+    out["traffic"] = {k: (len(v), sum(v)) for k, v in times.items()}
+    if rank == 1:
+        torch.save(state, work / "space_train_rank1.pt")
+    torch.distributed.barrier()
+    if rank == 0:
+        other = torch.load(work / "space_train_rank1.pt")
+        ref = torch.load(work / "space_train_ref.pt")
+        ref_grads = torch.load(work / "space_train_ref_grads.pt")
+        out["ranks_equal"] = all(torch.equal(state[k], other[k])
+                                 for k in state)
+        params = dict(tr.model.named_parameters())
+        out["max_param_d"] = max(
+            float((state[k] - ref[k]).abs().max()) for k in params)
+        out["grad_rel"] = {
+            tag: float((grads[tag] - g).abs().max() / g.abs().max())
+            for tag, g in ref_grads.items()}
+    del tr, model, views, gt, mcs, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = train_cli.main(a["space_cli_argv"] + ["--mesh_space_axis",
+                                                    str(PAR_RANKS)],
+                             device=dev)
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli_eval"] = {tag: (len(r["psnr"]), bool(np.isfinite(
+        np.asarray(r["psnr"])).all()), bool(np.isfinite(
+            np.asarray(r["nll"])).all())) for tag, r in results.items()}
+    torch.distributed.barrier()
+    runs = Path(a["space_cli_out"])
+    out["cli_dirs"] = sorted(p.name for p in runs.iterdir())
+    (run_dir,) = [p for p in runs.iterdir() if p.is_dir()]
+    _, model, stats, vidx, _ = flagship(
+        False, "cpu", torch.Generator().manual_seed(1))
+    tr = CWFATrainer(model, stats, vidx, device=dev, mesh=mesh)
+    out["cli_loaded"] = tr.load_checkpoints(str(run_dir))
+    out["cli_reload_digest"] = {
+        k: float(v.double().sum()) for k, v in tr.model.state_dict().items()}
+    del tr, model
+    return out
+
+
 def parallel_rank(work: Path) -> int:
     """A rank of the parallel phase (``chip_smoke.py --parallel-rank``):
     joins the gloo group, runs (a)-(c) on cuda:0, pickles its results."""
@@ -4363,7 +4482,8 @@ def parallel_rank(work: Path) -> int:
         a = pickle.load(f)
     res = {}
     for name, fn in (("rl", par_rank_rl), ("recon", par_rank_recon),
-                     ("space", par_rank_space), ("train", par_rank_train)):
+                     ("space", par_rank_space), ("train", par_rank_train),
+                     ("space_train", par_rank_space_train)):
         t0 = time.perf_counter()
         res[name] = fn(dev, rank, work, a)
         res[name]["s"] = time.perf_counter() - t0
@@ -4459,10 +4579,12 @@ def phase_parallel(dev, card, kernels):
         par_check_recon(dev, a, ranks, kernels, card)
         par_check_space(dev, a, ranks, kernels, card)
         par_check_train(a, ranks, kernels, card)
+        par_check_space_train(a, ranks, kernels, card)
         log(f"parallel: the two ranks took {t_ranks:.1f} s (start-up, "
-            f"model builds and (a)-(c), (f) at "
-            f"{[round(r[k]['s'], 1) for r in ranks for k in ('rl', 'recon', 'train', 'space')]}"
+            f"model builds and (a)-(c), (f), (g) at "
+            f"{[round(r[k]['s'], 1) for r in ranks for k in ('rl', 'recon', 'train', 'space', 'space_train')]}"
             f" s); on {card}")
+        check_window_backward(dev, kernels, card)
         procs = start_ranks("--nccl-rank", root, 1)
         wait_ranks(procs, root, 120, "NCCL rank")
         nccl = json.loads((root / "nccl.json").read_text())
@@ -4558,13 +4680,40 @@ def par_inputs(dev, root: Path) -> dict:
              cfg.learning_rate_first_step)
     del tr, model, views, gt, mcs
     torch.cuda.empty_cache()
+
+    # (g): one process on the frame the space ranks split by rows, a fresh
+    # flagship from the same seed
+    _, model, stats, vidx, _ = flagship(
+        False, "cpu", torch.Generator().manual_seed(0))
+    tr = CWFATrainer(model, stats, vidx, device=dev)
+    views, gt, mcs = par_train_inputs(dev, cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    space_ref_grads = {}
+    space_one = par_two_steps(tr, views, gt, mcs, space_ref_grads)
+    space_one["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(par_state(tr.model), root / "space_train_ref.pt")
+    torch.save(space_ref_grads, root / "space_train_ref_grads.pt")
+    space_one["warm_ms"] = par_two_steps(tr, views, gt, mcs)["ms"]
+    del tr, model, views, gt, mcs
+    torch.cuda.empty_cache()
+    lenslets_cli = write_cli_tree(root / "space_cli_data", cfg, img,
+                                  frames=PAR_CLI_FRAMES)
+    space_cli_out = root / "space_cli_runs"
+    space_cli_argv = [
+        "--main_data_path", str(root / "space_cli_data"), "--lenslet_file",
+        str(lenslets_cli), "--output_testing_path", str(space_cli_out) + "/",
+        "--cross_validation_nFold", "0", "--max_samples",
+        str(PAR_CLI_FRAMES), "--epochs", "2", "--eval_every", "2",
+        "--save_tiff_volumes", "0", "--img_size", str(img)]
     log(f"parallel inputs and one-process references in "
         f"{time.perf_counter() - t0:.1f} s (RL peak {rl_peak:.2f} GiB)")
     return {"psf_file": str(psf_file), "rl_argv": rl_argv, "caches": caches,
             "serve_argv": serve_argv, "frames_dir": str(frames_dir),
             "served": str(root / "served"), "train_one": one, "lr": lr,
             "rl_peak": rl_peak, "space_serve_argv": space_serve_argv,
-            "space_frame": space_frame, "space_one_ms": space_one_ms}
+            "space_frame": space_frame, "space_one_ms": space_one_ms,
+            "space_train_one": space_one, "space_cli_argv": space_cli_argv,
+            "space_cli_out": str(space_cli_out)}
 
 
 def par_check_rl(root: Path, a, ranks, card):
@@ -4779,6 +4928,165 @@ def par_check_train(a, ranks, kernels, card):
         f"{[{k: x['launches'][1][k] for k in ('cat_affine_bwd', 'float_tower_bwd', 'cond_pair_bwd')} for x in tr]};"
         f" peak by rank {[round(x['peak_gib'], 2) for x in tr]} GiB; on "
         f"{card}")
+
+
+SPACE_TRAIN_ROWS = {"cat_affine": 1, "fused_float_tower": 3, "cond_pair": 5,
+                    "cat_affine_bwd": 10, "float_tower_bwd": 11,
+                    "cond_pair_bwd": 12}     # PERF.md rows of a flow step
+
+
+def par_check_space_train(a, ranks, kernels, card):
+    """(g): the (1, 2) space mesh's steps against one process (losses 1e-3
+    relative, each optimizer's all-reduced gradient within 5e-2 of max,
+    parameters within 6 lr, the ranks equal to the bit), each rank's
+    launches a step (FLOW_PER_STEP in the flow step, none in the LRNN
+    step), and the training CLI's run: both ranks evaluated every tag,
+    rank 0 wrote one run directory, and its checkpoints reload the same on
+    both ranks."""
+    sp = [r["space_train"] for r in ranks]
+    one = a["space_train_one"]
+    for r, x in enumerate(sp):
+        if x["rows"] != (256 * r, 256 * (r + 1)):
+            fail(f"parallel (g) rank {r}: rows {x['rows']}, not a split of "
+                 "512")
+        for per, got in zip((LRNN_PER_STEP, FLOW_PER_STEP), x["launches"]):
+            for name in KERNELS:
+                if got[name] != per.get(name, 0):
+                    fail(f"parallel (g) rank {r}: {name} launched "
+                         f"{got[name]} times in a step, expected "
+                         f"{per.get(name, 0)}")
+    rel = [abs(x - y) / max(abs(y), 1e-12)
+           for x, y in zip(sp[0]["losses"], one["losses"])]
+    if not all(np.isfinite(sp[0]["losses"])) or max(rel) > 1e-3:
+        fail(f"parallel (g): losses {sp[0]['losses']} vs one process "
+             f"{one['losses']} (rel {rel})")
+    if sp[0]["losses"] != sp[1]["losses"] or not sp[0]["ranks_equal"]:
+        fail("parallel (g): the two ranks' losses or states differ")
+    if sp[0]["max_param_d"] > 6 * a["lr"]:
+        fail(f"parallel (g): a parameter moved {sp[0]['max_param_d']:.3e} "
+             f"from the one-process run's (bound 6 lr = {6 * a['lr']:.1e})")
+    grad_rel = sp[0]["grad_rel"]
+    if sorted(grad_rel) != ["cond", "flow", "lrnn"] or not all(
+            v <= PAR_GRAD_BOUND for v in grad_rel.values()):
+        fail(f"parallel (g): the all-reduced gradients vs one process's, "
+             f"max|d|/max {grad_rel} (bound {PAR_GRAD_BOUND})")
+    for name in FLOW_PER_STEP:
+        kernels[name].setdefault("parallel_launches", {})["space_train"] = [
+            x["launches"][1][name] for x in sp]
+    want_eval = {"train": PAR_CLI_FRAMES, "val": PAR_CLI_FRAMES // 2,
+                 "test": PAR_CLI_FRAMES}
+    for r, x in enumerate(sp):
+        if {t: v[0] for t, v in x["cli_eval"].items()} != want_eval or not \
+                all(v[1] and v[2] for v in x["cli_eval"].values()):
+            fail(f"parallel (g) rank {r}: cli.train's evaluation "
+                 f"{x['cli_eval']}, expected finite PSNRs and NLLs of "
+                 f"{want_eval} frames")
+        if len(x["cli_dirs"]) != 1:
+            fail(f"parallel (g) rank {r}: cli.train wrote {x['cli_dirs']}, "
+                 "not one run directory")
+        if sorted(x["cli_loaded"]) != [1, 2, 3, 4, 5]:
+            fail(f"parallel (g) rank {r}: the checkpoint reloaded steps "
+                 f"{x['cli_loaded']}")
+    if sp[0]["cli_reload_digest"] != sp[1]["cli_reload_digest"]:
+        fail("parallel (g): the CLI's checkpoint reloads differently on the "
+             "two ranks")
+    tr = [x["traffic"] for x in sp]
+    log(f"parallel (g) flagship training on a (1, 2) space mesh, bf16, an "
+        f"LRNN step and a step-0 flow step on 1 frame, rows 0-255 / 256-511 "
+        f"a rank, both ranks on cuda:0 over gloo, vs one process (every "
+        f"draw on): losses {['%.6g' % v for v in sp[0]['losses']]} vs "
+        f"{['%.6g' % v for v in one['losses']]} (rel "
+        f"{['%.1e' % v for v in rel]}, bound 1e-3); parameters within "
+        f"{sp[0]['max_param_d']:.2e} (bound 6 lr {6 * a['lr']:.1e}); each "
+        f"optimizer's all-reduced gradient vs one process's max|d|/max "
+        f"{ {k: '%.2e' % v for k, v in grad_rel.items()} } (bound "
+        f"{PAR_GRAD_BOUND}); the two ranks equal to the bit; launches a "
+        f"flow step by rank (rows 1/3/5/10/11/12) "
+        f"{[{k: x['launches'][1][k] for k in SPACE_TRAIN_ROWS} for x in sp]};"
+        f" step ms by rank, cold then warm "
+        f"{[[round(m, 1) for m in x['ms'] + x['warm_ms']] for x in sp]} "
+        f"(one process {[round(m, 1) for m in one['ms'] + one['warm_ms']]}); "
+        f"a pair of steps with its traffic timed (host clock, the card "
+        f"synchronized around each) {[[round(m, 1) for m in x['timed_ms']] for x in sp]}"
+        f" ms, of it (count, ms): "
+        f"{[{k: (n, round(t, 1)) for k, (n, t) in x.items()} for x in tr]} "
+        f"(p2p: every halo / row-permutation exchange, forward and "
+        f"backward; sums: BatchNorm statistics and loss extremes); peak by "
+        f"rank {[round(x['peak_gib'], 2) for x in sp]} GiB (one process "
+        f"{one['peak_gib']:.2f}); cli.train --mesh_space_axis 2 (1 fish x "
+        f"{PAR_CLI_FRAMES} frames, 2 epochs: the LRNN stage and flow step "
+        f"3, then evaluation {want_eval} and the OOD screen) "
+        f"{[round(x['cli_s'], 1) for x in sp]} s by rank, rank 0 wrote "
+        f"{sp[0]['cli_dirs']}, its checkpoint (steps "
+        f"{sp[0]['cli_loaded']}) reloads equal on both ranks; on {card}")
+
+
+def check_window_backward(dev, kernels, card):
+    """K2 and K3 at the shapes (g) gives them on each rank of a (1, 2) mesh
+    at flagship step 0 (256 rows a rank): the towers on the views
+    condition's window of 256 + 4 rows (Cin 48 -> 96 and -> 48), their dy
+    zero outside the rank's rows; the cond net's 3-D pair on the window of
+    256 + 8, its dz zero outside the towers' window, with a Dropout3d scale;
+    in bf16 against the plain backward, at its bound (2^-5)."""
+    from cwfa_tpu_torch.parallel.mesh import RowShard
+    gen = torch.Generator().manual_seed(23)
+    out = []
+    for index in range(PAR_RANKS):
+        rs = RowShard(None, index, PAR_RANKS, SLICE_HW)
+        lo, hi = rs.window(4)
+        clo, chi = rs.window(8)
+        for cin, nout in ((SLICE_C, 2 * SLICE_C), (SLICE_C, SLICE_C)):
+            tower = WaveletFlowSubnet2d(cin, nout, 64)
+            reset_parameters_(tower, gen)
+            tower = tower.to(dev)
+            x = torch.randn((1, cin, hi - lo, SLICE_HW), generator=gen).to(
+                dev, torch.bfloat16)
+            dy = torch.zeros((1, nout, hi - lo, SLICE_HW), device=dev,
+                             dtype=torch.bfloat16)
+            dy[:, :, rs.start - lo:rs.stop - lo] = torch.randn(
+                (1, nout, rs.rows, SLICE_HW), generator=gen).to(
+                    dev, torch.bfloat16)
+            ref = btower.float_tower_backward_reference(tower, x, dy)
+            got = one_launch_of(
+                btower.float_tower_backward, btower.WGMMA_BF16,
+                lambda: btower.float_tower_backward(tower, x, dy),
+                f"float_tower_backward window {tuple(x.shape)}")
+            flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2])
+                                       for t in pair]
+            e = grads_err(flat(got), flat(ref), torch.bfloat16,
+                          f"float_tower_backward window {tuple(x.shape)} "
+                          f"-> {nout} (rank {index})")
+            out.append((f"K2 {tuple(x.shape)}->{nout}", e))
+        net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                                   "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                                   "prelu": torch.nn.PReLU(1)})
+        reset_parameters_(net, gen)
+        with torch.no_grad():
+            net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        net = net.to(dev)
+        mods = (net["c3a"], net["c3b"], net["prelu"])
+        x = torch.randn((1, SLICE_C, chi - clo, SLICE_HW), generator=gen).to(
+            dev, torch.bfloat16)
+        dz = torch.zeros_like(x)
+        dz[:, :, lo - clo:hi - clo] = torch.randn(
+            (1, SLICE_C, hi - lo, SLICE_HW), generator=gen).to(
+                dev, torch.bfloat16)
+        scale = ((torch.rand((1, 32), generator=gen) < 0.5).float()
+                 * 2.0).to(dev)
+        ref = cpair.cond_pair_backward_reference(x, dz, *mods, scale)
+        got = one_launch_of(
+            cpair.cond_pair_backward, cpair.TENSOR_CORES,
+            lambda: cpair.cond_pair_backward(x, dz, *mods, scale),
+            f"cond_pair_backward window {tuple(x.shape)}")
+        e = grads_err(got, ref, torch.bfloat16,
+                      f"cond_pair_backward window {tuple(x.shape)} (rank "
+                      f"{index})")
+        out.append((f"K3 {tuple(x.shape)}", e))
+        del ref, got
+    log(f"parallel (g) K2 and K3 at the space mesh's window shapes (flagship "
+        f"step 0, 256 rows a rank; dy / dz zero outside the rows a rank's "
+        f"loss reads), bf16, max|d|/max|ref| against the plain backward "
+        f"(bound 2^-5): {[(w, '%.3e' % e) for w, e in out]}; on {card}")
 
 
 def par_profiling(dev, card):

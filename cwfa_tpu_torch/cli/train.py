@@ -22,14 +22,15 @@ evaluates and saves the XLFMNet baseline instead
 (``engine/xlfmnet_train.run_xlfmnet``).  The run is on the card and raises
 without one (``main``'s ``device`` keyword is for tests on the CPU).
 
-``--mesh_data_axis N`` trains data parallel on N processes, one per GPU:
-``torchrun --nproc_per_node N -m cwfa_tpu_torch.cli.train --mesh_data_axis
-N ...``, or ``CWFA_COORDINATOR`` / ``CWFA_NUM_PROCESSES`` /
-``CWFA_PROCESS_ID`` in each process (``parallel.distributed``; the trainer's
-``mesh=``).  Rank 0 writes the run directory; the others write nothing.
-XLFMNet builds no mesh (as JAX): under a process group every rank trains it
-whole and rank 0 writes.  ``--mesh_space_axis`` above 1 exits (ROADMAP
-A19).
+``--mesh_data_axis D --mesh_space_axis S`` trains on a ``(data, space)``
+mesh of D x S processes, one per GPU: each mini-batch's frames over
+``data``, each frame's image rows over ``space`` (``torchrun
+--nproc_per_node D*S -m cwfa_tpu_torch.cli.train --mesh_data_axis D
+--mesh_space_axis S ...``, or ``CWFA_COORDINATOR`` / ``CWFA_NUM_PROCESSES``
+/ ``CWFA_PROCESS_ID`` in each process: ``parallel.distributed``; the
+trainer's ``mesh=``).  Rank 0 writes the run directory; the others write
+nothing.  XLFMNet builds no mesh (as JAX): under a process group every rank
+trains it whole and rank 0 writes.
 """
 
 from __future__ import annotations

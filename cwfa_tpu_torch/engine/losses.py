@@ -1,41 +1,55 @@
 """Loss and metric functions of training (counterpart of
 ``cwfa_tpu/engine/losses.py``; reference losses.py:477-500, utils.py:380-394,
-CWFA.py:935-946), in PyTorch, differentiable where they are losses."""
+CWFA.py:935-946), in PyTorch, differentiable where they are losses.
+
+Under a batch shard and / or a row shard (``parallel.mesh``: the ``data``
+and ``space`` axes) each training loss is this rank's part of the
+one-process loss: its extremes (``LL``'s min-shift, ``wL2``'s support
+masks) are those of the global batch and the whole image
+(``global_min`` / ``global_max``), and its mean is the rank's sum over the
+global element count (its own mean times ``loss_share``), so the ranks'
+values add up to the one-process value.  Outside a shard they are the
+plain losses."""
 
 from __future__ import annotations
 
 import torch
 
-from cwfa_tpu_torch.parallel.mesh import global_max, global_min
+from cwfa_tpu_torch.parallel.mesh import global_max, global_min, loss_share
 
 
 def weighted_mse_loss(output, target, ths_perc: float = 0.05):
     """MSE double-masked by the 5%-of-max support of BOTH prediction and GT
     (reference losses.py:477-500); divides by the full element count, as
-    the reference does.  Under a batch shard the min and max are the global
-    batch's (``parallel.mesh.global_min``)."""
+    the reference does (under a shard, this rank's part: module
+    docstring)."""
     out_shift = output - global_min(output)
     tgt_shift = target - global_min(target)
     out_mask = (out_shift > global_max(out_shift) * ths_perc).to(output.dtype)
     tgt_mask = (tgt_shift > global_max(tgt_shift) * ths_perc).to(output.dtype)
-    return ((output - target) ** 2 * out_mask * tgt_mask).mean()
+    return _mean((output - target) ** 2 * out_mask * tgt_mask)
+
+
+def _mean(t):
+    """t's mean, or under a shard this rank's part of the call's mean."""
+    return t.mean() * loss_share()
 
 
 def mse_loss(output, target):
-    return ((output - target) ** 2).mean()
+    return _mean((output - target) ** 2)
 
 
 def l1_loss(output, target):
-    return (output - target).abs().mean()
+    return _mean((output - target).abs())
 
 
 def poisson_ll_loss(output, target, eps: float = 1e-8):
     """'LL' first-step loss (CWFA.py:944): mean(pred' - gt' * log(eps +
-    pred')) on min-shifted tensors (under a batch shard, shifted by the
-    global batch's min)."""
+    pred')) on min-shifted tensors (under a shard, this rank's part:
+    module docstring)."""
     p = output - global_min(output)
     g = target - global_min(target)
-    return (p - g * torch.log(eps + p)).mean()
+    return _mean(p - g * torch.log(eps + p))
 
 
 def recon_loss(kind: str, gt, pred):

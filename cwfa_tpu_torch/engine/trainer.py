@@ -50,19 +50,30 @@ explicitly.  The OOD finetune over these caches is
 reference's own PyTorch checkpoints (``engine/torch_convert``); the reverse
 is ``engine/torch_export``.
 
-Data parallel (``mesh=``, a ``parallel.make_mesh`` mesh; one process per
-device, JAX's ``trainer.py:117-128,371-381``): every rank holds the same
-weights (checked at construction and after a load) and takes its
-contiguous rows of each mini-batch.  The step runs inside
-``parallel.mesh.data_shard``: the loss is weighted by the rank's share of
-the batch, the train-mode BatchNorm statistics and the losses' min / max
-are those of the global batch, every draw over the batch is made for the
-global batch from ``self.generator`` (in step on every rank) and sliced,
-and one flat all-reduce sums the gradients of the stage's groups and the
-loss values, so Lion moves every replica alike, to the bit.  A mini-batch
-that does not divide the axis (a ragged last one) is computed whole on
-every rank, with no all-reduce.  Evaluation and the NLL refresh split the
-frames the same way and gather them on every rank.  The draws that depend
+More than one device (``mesh=``, a ``parallel.make_mesh`` ``(data,
+space)`` mesh; one process per device, JAX's ``trainer.py:117-128,
+371-381``): every rank holds the same weights (checked over the whole mesh
+at construction and after a load).  ``step_shards`` takes the one decision
+of a call: the rank's contiguous rows of the mini-batch on ``data``
+(``data_shard``) and its image rows on ``space`` (``row_shard``,
+``parallel/halo.py``).  The step runs inside both: the views and mean
+caches stay whole (the windows of the cond nets and towers, the input
+noise, the LRNN's mean branch read them), the GT levels, the stage inputs
+and the captured stage outputs are the rank's rows; each loss is the
+rank's part of the one-process loss (``engine/losses``, ``step_nll``: its
+own mean times its batch x row share, with the call's extremes), the
+train-mode BatchNorm statistics are the call's, every draw over the batch
+is made for the global batch from ``self.generator`` (in step on every
+rank) and sliced, the exchanges send their gradients back to the rows'
+owners, and one flat all-reduce over ``sum_group()`` sums the gradients of
+the stage's groups and the loss values, so Lion moves every rank alike, to
+the bit.  A mini-batch that does not divide the ``data`` axis (a ragged
+last one) is computed whole on every data rank (its sums over the space
+group alone); rows that do not split (``space_rows``' fallback, said once)
+are computed whole on every space rank (sums over the ``data`` group
+alone); with neither split, no all-reduce.  Evaluation splits the frames
+and rows the same way and gathers them on every rank; the NLL refresh and
+the GT pyramids run whole on every rank of a space group.  The draws that depend
 on what one rank caches (the GT pyramids' guard and noise, a stage input
 reconstructed on a cache miss) come from ``self.local_generator``, the
 rank's own, for frames the rank owns, and from ``self.generator`` for the
@@ -95,15 +106,16 @@ from cwfa_tpu_torch.engine.metrics import (RoiTraceAccumulator,
                                            compute_step_performance)
 from cwfa_tpu_torch.engine.ood import PyramidScorer, sentinel
 from cwfa_tpu_torch.engine.optim import make_optimizers
-from cwfa_tpu_torch.models.cond_net import cond_networks_batched
+from cwfa_tpu_torch.models.cond_net import cond_networks_batched, cond_reach
 from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.parallel.distributed import (check_same_on_ranks,
                                                  gather_rows,
                                                  host_local_indices)
-from cwfa_tpu_torch.parallel.mesh import (SPACE_TRAINING_ITEM, batch_shard,
-                                          current_shard, data_group,
-                                          data_rank, data_shard, data_size,
-                                          draw_rows, space_size)
+from cwfa_tpu_torch.parallel.halo import gather_image_rows
+from cwfa_tpu_torch.parallel.mesh import (batch_shard, current_rows,
+                                          data_group, data_rank, data_shard,
+                                          data_size, draw_rows, row_shard,
+                                          space_rows, space_size, sum_group)
 from cwfa_tpu_torch.utils.png import write_png
 from cwfa_tpu_torch.utils.projections import (create_image_pyramid,
                                               volume_2_projections)
@@ -174,8 +186,8 @@ def _detached(t):
 
 
 class CWFATrainer:
-    """Stage-scheduled trainer of a ``CWFAModel`` on one device, or data
-    parallel over a ``mesh`` (one process per device; module docstring).
+    """Stage-scheduled trainer of a ``CWFAModel`` on one device, or over a
+    ``(data, space)`` ``mesh`` (one process per device; module docstring).
 
     The model is moved to ``device`` in f32 (its master weights) and kept in
     eval mode; an optimizer step puts its stage's modules into training mode
@@ -186,13 +198,11 @@ class CWFATrainer:
     def __init__(self, model: CWFAModel, stats: DatasetStatistics,
                  view_indices: dict, output_path: str | None = None,
                  seed: int | None = None, device="cuda", mesh=None):
-        if space_size(mesh) > 1:
-            raise ValueError(f"a mesh with {space_size(mesh)} ranks on "
-                             "'space': " + SPACE_TRAINING_ITEM)
         self.device = torch.device(device)
         self.mesh = mesh
         self._group = data_group(mesh)
         self._n_data = data_size(mesh)
+        self._n_ranks = data_size(mesh) * space_size(mesh)
         self.model = model.to(device=self.device, dtype=torch.float32).eval()
         self.cfg = model.cfg
         self.stats = stats
@@ -203,10 +213,11 @@ class CWFATrainer:
         self.generator.manual_seed(seed)
         self.local_generator = self.generator
         if self._n_data > 1:
+            # keyed on the data rank: the ranks of a space group draw alike
             self.local_generator = torch.Generator(device=self.device)
             self.local_generator.manual_seed(
                 (seed + 1) * 1_000_003 + data_rank(mesh))
-            self.check_replicas()
+        self.check_replicas()
         self.compute_dtype = (torch.bfloat16 if self.cfg.use_half_precision
                               else torch.float32)
         self.opt_flow, self.opt_cond, self.opt_lrnn = make_optimizers(
@@ -237,18 +248,36 @@ class CWFATrainer:
 
     def check_replicas(self):
         """Raise unless every rank holds the same weights and BatchNorm
-        statistics (a checksum gathered over the ``data`` axis)."""
-        if self._n_data > 1:
-            check_same_on_ranks(self.model.state_dict(), self._group,
+        statistics (a checksum gathered over the whole mesh, which
+        ``make_mesh`` makes the world)."""
+        if self._n_ranks > 1:
+            check_same_on_ranks(self.model.state_dict(),
+                                torch.distributed.group.WORLD,
                                 "the model's weights")
 
     def _any_rank(self, flags: list) -> list:
-        """Each flag OR-ed over the ranks (one small all-reduce)."""
-        if self._n_data == 1 or not flags:
+        """Each flag OR-ed over the whole mesh (one small all-reduce)."""
+        if self._n_ranks == 1 or not flags:
             return list(flags)
         t = torch.tensor([float(f) for f in flags], device=self.device)
-        torch.distributed.all_reduce(t, group=self._group)
+        torch.distributed.all_reduce(t, group=torch.distributed.group.WORLD)
         return [bool(v > 0) for v in t.tolist()]
+
+    def step_shards(self, n: int):
+        """(batch shard, row shard) of a step or an evaluation call on an
+        n-frame mini-batch: the one decision per call, the same on every
+        rank (``batch_shard``; ``space_rows`` over the volume's rows at the
+        UNet's 2^(depth - 1), its sums over the whole mesh when the batch is
+        split too).  Either may be None: a ragged batch computed whole on
+        every data rank, rows that fall back to all of them."""
+        shard = batch_shard(self.mesh, n)
+        return shard, self._rows(shard is not None)
+
+    def _rows(self, batch_split: bool = False):
+        """This rank's row shard (``space_rows``), or None."""
+        depth = self.model.lrnn_spec.unet.depth
+        return space_rows(self.mesh, self.cfg.volume_side_size,
+                          2 ** (depth - 1), batch_split)
 
     def ensure_mean_caches(self, dataset: ConcatXLFMDataset):
         """Per-fish mean-volume conditioning pyramids (CWFA.py:625-655)."""
@@ -434,7 +463,9 @@ class CWFATrainer:
                       replicated: bool = False):
         """The coarser stage's output for each frame, (B, D_{stage+1}, S, S):
         the captured one, or the chain reconstructed down to level stage + 1
-        frame by frame (CWFA.py:848-851; draws as ``_gt_pyramids``)."""
+        frame by frame (CWFA.py:848-851; draws as ``_gt_pyramids``).  On a
+        space mesh both are this rank's rows: a reconstruction runs on the
+        space group's row shard."""
         want = self.cfg.n_depths // (2 ** (stage + 1))
         cached = [self.upsampled_cache.get((dataset.cache_tag, ix))
                   for ix in ixs]
@@ -448,10 +479,11 @@ class CWFATrainer:
             if not miss:
                 outs.append(cached[j])
                 continue
-            _, pyramid = self.model.reconstruct(
-                views_n[j:j + 1], mean_caches,
-                z_temperature=self.cfg.INN_z_temperature, generator=g,
-                lrnn_train=True, return_pyramid=True)
+            with row_shard(self._rows()):
+                _, pyramid = self.model.reconstruct(
+                    views_n[j:j + 1], mean_caches,
+                    z_temperature=self.cfg.INN_z_temperature, generator=g,
+                    lrnn_train=True, return_pyramid=True)
             outs.append(_detached(pyramid[stage + 1]))
         return torch.cat(outs)
 
@@ -463,13 +495,19 @@ class CWFATrainer:
         """The LRNN stage's loss (``trainer.py:268-282``): the views with
         N(0, 0.5^2) noise where ``add_noise`` (and a generator), the LRNN in
         train mode, ``recon_loss(loss_func_first_step)`` against the
-        coarsest GT level in f32.  Returns (loss, the LRNN's output f32)."""
+        coarsest GT level in f32.  Under a row shard the views are whole
+        (the noise is drawn over them) and the LRNN runs on the rank's rows
+        of them; gt_coarse and the output are the rank's rows.  Returns
+        (loss, the LRNN's output f32)."""
         dt = self.compute_dtype
         vin = views_n
         if self.cfg.add_noise == 1 and generator is not None:
             vin = vin + 0.5 * draw_rows(lambda sh: torch.randn(
                 sh, generator=generator, device=generator.device),
                 vin.shape).to(vin.device)
+        rows = current_rows()
+        if rows is not None:
+            vin = rows.own(vin)
         with self._autocast():
             out = self.model.lrnn(vin.to(dt), mean_vol=mean_c.to(dt),
                                   train=True, generator=generator)
@@ -484,61 +522,64 @@ class CWFATrainer:
         (loss_func_reg)`` against the GT level, and ``step_nll`` of the GT
         level under the same conditions; a CAT step's towers run once, for
         both directions (the other types' towers read x, so each direction
-        runs its own, as JAX's ``flow_step``).  Returns (full loss, recon
-        loss, NLL, reconstruction f32)."""
+        runs its own, as JAX's ``flow_step``).  Under a row shard the views
+        and mean_c_k are whole, gt_k and upsampled_in the rank's rows: the
+        cond net runs on the views' window of ``cond_reach`` + the towers'
+        reach, cropped to the towers' window, and the losses are the rank's
+        parts.  Returns (full loss, recon loss, NLL, reconstruction f32)."""
         cfg, dt = self.cfg, self.compute_dtype
         spec = self.model.step_specs[k]
-        b = gt_k.shape[0]
-        shape = (b, spec.c_flow, spec.spatial, spec.spatial)
+        step = self.model.flow[k]
+        rows = current_rows()
+        tr = 0 if rows is None else step.tower_reach
+        b, h = gt_k.shape[0], gt_k.shape[2]
+        lo, hi = (0, h) if rows is None else rows.window(tr)
         if cfg.force_all_steps_NF:
             # a zero views condition (CWFA.py:892-894); the cond net is
             # unused and receives no update
-            c_views = torch.zeros(shape, dtype=dt, device=gt_k.device)
+            c_views = torch.zeros((b, spec.c_flow, hi - lo, spec.spatial),
+                                  dtype=dt, device=gt_k.device)
         else:
+            cond = self.model.cond[k]
+            r = 0 if rows is None else cond_reach(cond) + tr
+            views = views_n if rows is None else rows.take_window(views_n, r)
             with self._autocast():
-                c_views = self.model.cond[k](views_n.to(dt),
-                                             generator=generator)
-        z = torch.zeros(shape, dtype=dt, device=gt_k.device)
-        mean_c = mean_c_k.to(dt)
+                c_views = cond(views.to(dt), generator=generator)
+            if rows is not None:
+                c_views = rows.crop(c_views, r, tr)
+        z = torch.zeros((b, spec.c_flow, h, spec.spatial), dtype=dt,
+                        device=gt_k.device)
+        mean_c = (mean_c_k if rows is None else rows.own(mean_c_k)).to(dt)
         # a CAT step's five towers read c_views alone: run once, read by
         # both directions
-        step = self.model.flow[k]
-        towers = step.towers(c_views) if step.is_cat else None
+        towers = step.towers(c_views, c_reach=tr) if step.is_cat else None
         recon, _ = step.reverse(z, upsampled_in.to(dt), c_views, mean_c,
-                                towers)
+                                towers, tr)
         recon = recon.float()
         loss_c = L.recon_loss(cfg.loss_func_reg, gt_k, recon)
-        nll, _ = self.model.step_nll(k, gt_k.to(dt), c_views, mean_c, towers)
+        nll, _ = self.model.step_nll(k, gt_k.to(dt), c_views, mean_c, towers,
+                                     tr)
         full = (loss_c * cfg.INN_cond_weight
                 + nll * (1.0 - cfg.INN_cond_weight))
         return full, loss_c, nll, recon
 
     # ------------------------------------------------------- optimizer steps
-    @staticmethod
-    def _shard_weighted(*losses):
-        """Under a batch shard, each loss times this rank's share of the
-        global batch (their sum over the ranks is the global batch's
-        mean); outside one, the losses as they are."""
-        sh = current_shard()
-        if sh is None:
-            return losses
-        return tuple(v * (sh.size / sh.total) for v in losses)
-
     def _sum_over_ranks(self, modules, values: list) -> list:
-        """Under a batch shard: one flat all-reduce of the gradients of
+        """Under a shard: one flat all-reduce over ``sum_group()`` (the
+        ranks that computed distinct parts of the step) of the gradients of
         every parameter of ``modules`` (a missing one as zeros, which Lion
-        takes it for) and of the weighted loss ``values``; each gradient
-        gets its sum back.  Returns the values summed (as they are outside
-        a shard)."""
-        sh = current_shard()
-        if sh is None:
+        takes it for) and of the loss ``values`` (each rank's part); each
+        gradient gets its sum back.  Returns the values summed (as they are
+        outside a shard)."""
+        group = sum_group()
+        if group is None:
             return values
         params = [p for m in modules for p in m.parameters()]
         flat = torch.cat(
             [(p.grad if p.grad is not None else torch.zeros_like(p))
              .reshape(-1).float() for p in params]
             + [torch.stack([v.float() for v in values])])
-        torch.distributed.all_reduce(flat, group=sh.group)
+        torch.distributed.all_reduce(flat, group=group)
         off = 0
         for p in params:
             n = p.numel()
@@ -553,7 +594,6 @@ class CWFATrainer:
         try:
             loss, out = self.lrnn_loss(views_n, mean_c, gt_coarse,
                                        self.generator)
-            loss, = self._shard_weighted(loss)
             loss.backward()
         finally:
             lrnn.eval()
@@ -570,7 +610,6 @@ class CWFATrainer:
         try:
             full, loss_c, nll, recon = self.flow_loss(
                 k, views_n, mean_c_k, gt_k, upsampled_in, self.generator)
-            full, loss_c, nll = self._shard_weighted(full, loss_c, nll)
             full.backward()
         finally:
             cond.eval()
@@ -596,13 +635,16 @@ class CWFATrainer:
         capture = (epoch + 1) % eps == 0 and stage > 0
         losses = []
         for di, all_ixs in self._batches(dataset):
-            # with a mesh: this rank's rows, or all of a ragged batch
-            shard = batch_shard(self.mesh, len(all_ixs))
+            # with a mesh: this rank's rows, or all of a ragged batch; on a
+            # space mesh the rank's image rows of the GT and stage inputs
+            shard, rows = self.step_shards(len(all_ixs))
             ixs = (all_ixs if shard is None
                    else all_ixs[shard.start:shard.stop])
             replicated = shard is None
             views_n, gt, mcs = self._batch_inputs(dataset, di, ixs, tag,
                                                   replicated)
+            if rows is not None:
+                gt = [rows.own(g) for g in gt]
             if stage != nf:
                 k = stage
                 # train_with_gt_low_res (CWFA.py:866-869): the GT level as
@@ -616,7 +658,7 @@ class CWFATrainer:
                     upsampled = self._stage_inputs(
                         dataset, ixs, views_n, self.mean_caches[di], k,
                         replicated)
-            with data_shard(shard):
+            with data_shard(shard), row_shard(rows):
                 if stage == nf:
                     loss, out = self._lrnn_step(views_n, mcs[nf - 1],
                                                 gt[nf])
@@ -813,22 +855,26 @@ class CWFATrainer:
         model = self._eval_model()
         try:
             for di, all_ixs in self._batches(dataset):
-                # with a mesh: this rank's rows, gathered after
-                shard = batch_shard(self.mesh, len(all_ixs))
+                # with a mesh: this rank's rows (batch and image), gathered
+                # after
+                shard, rows = self.step_shards(len(all_ixs))
                 ixs = (all_ixs if shard is None
                        else all_ixs[shard.start:shard.stop])
                 views_n, gt, mean_caches = self._batch_inputs(
                     dataset, di, ixs, tag, shard is None)
                 self._refresh_nlls(dataset, tag, all_ixs)
                 stop = device_timer(self.device)
-                with data_shard(shard):
+                with data_shard(shard), row_shard(rows):
                     pyramid = self._recon_eval(model, views_n, mean_caches)
                 dt = stop() / len(ixs)
 
-                def host(t):
+                def host(t, own_rows=False):
+                    if own_rows and rows is not None:
+                        t = gather_image_rows(t, rows)
                     t = t if shard is None else gather_rows(t, shard.group)
                     return t.cpu().numpy()
-                pyr_np = [host(pyramid[lvl].float()) for lvl in range(nf + 1)]
+                pyr_np = [host(pyramid[lvl].float(), True)
+                          for lvl in range(nf + 1)]
                 gt_np = [host(g) for g in gt]
                 last_pyr_np, last_gt_np = pyr_np, gt_np
                 for j, ix in enumerate(all_ixs):

@@ -31,15 +31,20 @@ its backward); with a ``qpack`` (``quantize_cat_step``) ``reverse_fast`` and
 inside the chain, in the float tower kernel, and their affines are plain
 torch; they have no int8 path (JAX quantizes CAT steps only).
 
-Under a row shard (``parallel.mesh.row_shard``, the ``space`` axis)
-``reverse_fast`` of a CAT step takes x, z, avg and c_mean on this rank's
-rows and c_views on a window of ``c_reach`` more rows on each side (at
-least ``tower_reach``): each tower runs on the window and is cropped to the
-rank's rows, the affines are elementwise, channel and axis-3 permutations
-are local, and an axis-2 ``PermuteDim`` fetches rows from their owners
-(``parallel.halo.permute_rows``).  A non-CAT step's towers read x, so they
-would need an exchange before each tower: under a row shard it raises
-(ROADMAP A20), as do ``forward`` and ``reverse``.
+Under a row shard (``parallel.mesh.row_shard``, the ``space`` axis) every
+direction takes x, z, v, avg and c_mean on this rank's rows and c_views on
+a window of ``c_reach`` more rows on each side (at least ``tower_reach``):
+the Haar split and merge are over depth channels and the affines
+elementwise, so they stay local, as do channel and axis-3 permutations; an
+axis-2 ``PermuteDim`` fetches rows from their owners
+(``parallel.halo.permute_rows``, differentiable); each log-det is the
+rank's part, a sum over its rows.  A CAT step's towers run on the c_views
+window and are cropped to the rank's rows (``towers``).  A non-CAT step's
+towers read [x half | c_views]: before each tower x's half gets
+``tower_reach`` rows from each neighbour (``parallel.halo.halo_rows``,
+differentiable), c_views is cut to the same window, and the tower's output
+is cropped.  ``forward`` and ``reverse`` carry gradients through all of it
+(training on ``space``); ``reverse_fast`` runs the same without them.
 """
 
 from __future__ import annotations
@@ -63,8 +68,8 @@ from cwfa_tpu_torch.flow.subnets import (
 from cwfa_tpu_torch.ops import qtower
 from cwfa_tpu_torch.ops.flow_affine import (CatAffineFn, cat_affine,
                                             haar_merge_affine)
-from cwfa_tpu_torch.parallel.halo import permute_rows
-from cwfa_tpu_torch.parallel.mesh import SPACE_TRAINING_ITEM, current_rows
+from cwfa_tpu_torch.parallel.halo import halo_rows, permute_rows
+from cwfa_tpu_torch.parallel.mesh import current_rows
 
 
 @dataclass(frozen=True)
@@ -213,11 +218,6 @@ def tower_reach(tower: WaveletFlowSubnet2d) -> int:
                if isinstance(m, nn.Conv2d))
 
 
-def _no_rows(what: str):
-    if current_rows() is not None:
-        raise ValueError(f"{what} under a row shard: " + SPACE_TRAINING_ITEM)
-
-
 def _quantized_condition(c_views, qpack):
     """``c_views`` quantized for the int8 towers of ``qpack``, or None when
     no tower of the step is int8.  Every tower's input scale row is the
@@ -288,7 +288,19 @@ class CWFStep(nn.Module):
         return max(tower_reach(m) for m in self.modules()
                    if isinstance(m, WaveletFlowSubnet2d))
 
-    def towers(self, c_views, qpack=None):
+    def _crop(self, c_reach: int):
+        """What cuts a tower's output on the c_views window to this rank's
+        rows, contiguous, under a row shard (raises where ``c_reach`` is
+        short of the towers' reach); the identity outside one."""
+        rows = current_rows()
+        if rows is None:
+            return lambda t: t
+        if c_reach < self.tower_reach:
+            raise ValueError(f"c_views with {c_reach} rows of reach; the "
+                             f"towers need {self.tower_reach}")
+        return lambda t: rows.crop(t, c_reach).contiguous()
+
+    def towers(self, c_views, qpack=None, c_reach: int = 0):
         """Every tower's output on the views condition: the input block's
         (its s_raw, or its (s_raw | t) without the low-res input), then
         the coupling blocks' (s_raw | t) in order.  All five read only
@@ -296,14 +308,17 @@ class CWFStep(nn.Module):
         to both directions (``towers=``); autograd then sums the two
         directions' gradients into one backward per tower.  qpack: as in
         ``reverse_fast``, coupling block i's tower in int8 where
-        ``qpack[i]`` is not None (inference only).  CAT steps only: the
-        other types' towers read x.  Raises ValueError otherwise."""
+        ``qpack[i]`` is not None (inference only).  c_reach: under a row
+        shard, c_views' rows beyond this rank's on each side; the outputs
+        are cropped to the rank's rows.  CAT steps only: the other types'
+        towers read x.  Raises ValueError otherwise."""
         if not self.is_cat:
             raise ValueError(f"towers() of a {self.spec.block_type} step: "
                              "only CAT towers read the condition alone")
+        crop = self._crop(c_reach)
         xq = _quantized_condition(c_views, qpack)
-        return [self.input_block["subnet"].tower(c_views)] + [
-            self._coupling_tower(i, c_views, xq, qpack)
+        return [crop(self.input_block["subnet"].tower(c_views))] + [
+            crop(self._coupling_tower(i, c_views, xq, qpack))
             for i in range(self.spec.n_blocks)]
 
     def _coupling_tower(self, i: int, c_views, xq, qpack):
@@ -316,7 +331,8 @@ class CWFStep(nn.Module):
                                       out_dtype=c_views.dtype)
         return self.blocks[i]["subnet"].tower(c_views)
 
-    def _input_block(self, x, c_views, c_mean, rev: bool, st=None):
+    def _input_block(self, x, c_views, c_mean, rev: bool, st=None,
+                     c_reach: int = 0):
         """The input ConditionalAffineTransform, conditions concatenated as
         [mean cache | views] (``_input_block``, ``cwf.py:414-425``): s_raw
         from the tower on the views (``st``, where given), t the low-res
@@ -324,14 +340,14 @@ class CWFStep(nn.Module):
         ``c_mean`` is expanded over the batch."""
         spec = self.spec
         if st is None:
-            st = self.input_block["subnet"].tower(c_views)
+            st = self._crop(c_reach)(self.input_block["subnet"].tower(c_views))
         if not spec.disable_low_res_input:
-            st = torch.cat([st, c_mean.expand(c_views.shape) * -SQRT2_INV],
-                           dim=1)
+            st = torch.cat([st, c_mean.expand(x.shape) * -SQRT2_INV], dim=1)
         return cat_apply(st, x, rev=rev, clamp=spec.clamp,
                          clamp_activation=spec.clamp_activation)
 
-    def _cat_chain(self, x, c_views, rev: bool, towers=None):
+    def _cat_chain(self, x, c_views, rev: bool, towers=None,
+                   c_reach: int = 0):
         """The permute / CAT block chain (``_cat_chain``, ``cwf.py:386-411``):
         each block's (s_raw | t) from its tower (``towers[nn]``, where
         given), the affine through ``CatAffineFn`` (which clamps s itself),
@@ -341,9 +357,10 @@ class CWFStep(nn.Module):
         fcl = clamp_fn(spec.clamp_activation)
         logdet = torch.zeros((x.shape[0],), dtype=torch.float32,
                              device=x.device)
+        crop = self._crop(c_reach) if towers is None else None
 
         def block(nn_, x):
-            st = (self.blocks[nn_ - 1]["subnet"].tower(c_views)
+            st = (crop(self.blocks[nn_ - 1]["subnet"].tower(c_views))
                   if towers is None else towers[nn_])
             s = (spec.clamp * fcl(st[:, :n].float())).to(st.dtype)
             j = s.float().sum(dim=(1, 2, 3))
@@ -366,21 +383,36 @@ class CWFStep(nn.Module):
                 x = self._perm(nn_ - 1, x, inverse=True)
         return x, logdet
 
-    def _coupling(self, i: int, x, c_views, rev: bool):
+    def _subnet(self, tower: WaveletFlowSubnet2d, c_views, c_reach: int):
+        """A non-CAT tower as the couplings call it on u, the x half: on
+        [u | c_views] outside a row shard; under one on u with
+        ``tower_reach`` rows of each neighbour (a differentiable halo) next
+        to c_views' window of the same reach, cropped to the rank's rows."""
+        rows = current_rows()
+        if rows is None:
+            return lambda u: tower.tower(torch.cat([u, c_views], dim=1))
+        self._crop(c_reach)             # raises where the reach is short
+        r = tower_reach(tower)
+        cw = rows.crop(c_views, c_reach, r)
+        return lambda u: rows.crop(tower.tower(torch.cat(
+            [halo_rows(u, r, rows), cw], dim=1)), r)
+
+    def _coupling(self, i: int, x, c_views, rev: bool, c_reach: int = 0):
         """Coupling block i of a non-CAT step on x (``_coupling``,
         ``cwf.py:428-444``), its towers on [x half | c_views] through the
-        float tower kernel.  Returns (y, logdet (B,) f32)."""
+        float tower kernel (``_subnet``).  Returns (y, logdet (B,) f32)."""
         spec = self.spec
         bp = self.blocks[i]
-        conds = (c_views,)
         if spec.block_type == "AI1":
-            return all_in_one_block(bp["aio"], bp["subnet"].tower, x, conds,
-                                    rev=rev, clamp=spec.clamp)
+            return all_in_one_block(
+                bp["aio"], self._subnet(bp["subnet"], c_views, c_reach), x,
+                rev=rev, clamp=spec.clamp)
         return two_sided_coupling(
-            spec.block_type, {k: v.tower for k, v in bp.items()}, x, conds,
+            spec.block_type, {k: self._subnet(v, c_views, c_reach)
+                              for k, v in bp.items()}, x,
             rev=rev, clamp=spec.clamp, clamp_activation=spec.clamp_activation)
 
-    def _block_chain(self, x, c_views, rev: bool):
+    def _block_chain(self, x, c_views, rev: bool, c_reach: int = 0):
         """The permute / coupling chain of a non-CAT step
         (``cwf.py:487-494,516-523``).  Returns (x, logdet (B,) f32)."""
         spec = self.spec
@@ -389,7 +421,7 @@ class CWFStep(nn.Module):
         if not rev:
             for nn_ in range(1, spec.n_blocks + 1):
                 x = self._perm(nn_ - 1, x, inverse=False)
-                x, j = self._coupling(nn_ - 1, x, c_views, rev=False)
+                x, j = self._coupling(nn_ - 1, x, c_views, False, c_reach)
                 logdet = logdet + j
             if spec.use_final_perm:
                 x = self._perm(spec.n_blocks, x, inverse=False)
@@ -397,42 +429,46 @@ class CWFStep(nn.Module):
             if spec.use_final_perm:
                 x = self._perm(spec.n_blocks, x, inverse=True)
             for nn_ in range(spec.n_blocks, 0, -1):
-                x, j = self._coupling(nn_ - 1, x, c_views, rev=True)
+                x, j = self._coupling(nn_ - 1, x, c_views, True, c_reach)
                 logdet = logdet + j
                 x = self._perm(nn_ - 1, x, inverse=True)
         return x, logdet
 
-    def _chain(self, x, c_views, rev: bool, towers=None):
+    def _chain(self, x, c_views, rev: bool, towers=None, c_reach: int = 0):
         if self.is_cat:
-            return self._cat_chain(x, c_views, rev, towers)
+            return self._cat_chain(x, c_views, rev, towers, c_reach)
         if towers is not None:
             raise ValueError(f"towers= for a {self.spec.block_type} step")
-        return self._block_chain(x, c_views, rev)
+        return self._block_chain(x, c_views, rev, c_reach)
 
-    def forward(self, v, c_views, c_mean, towers=None):
+    def forward(self, v, c_views, c_mean, towers=None, c_reach: int = 0):
         """Normalizing direction (``cwf_step_forward``, ``cwf.py:476-494``):
         volume -> (z, averages, logdet).
 
         v: (B, D, H, W); c_views: (B, D/2, H, W); c_mean: (1 or B, D/2, H, W);
         towers: None (each tower runs where its block needs it) or
-        ``self.towers(c_views)`` (CAT steps).  logdet: (B,) f32."""
-        _no_rows("CWFStep.forward")
+        ``self.towers(c_views)`` (CAT steps).  c_reach: under a row shard,
+        c_views' rows beyond this rank's on each side (module docstring).
+        logdet: (B,) f32."""
         avg, diff, logdet = haar1d_split(v)
         x, j = self._input_block(diff, c_views, c_mean, rev=False,
-                                 st=None if towers is None else towers[0])
+                                 st=None if towers is None else towers[0],
+                                 c_reach=c_reach)
         logdet = logdet + j
-        x, j = self._chain(x, c_views, rev=False, towers=towers)
+        x, j = self._chain(x, c_views, rev=False, towers=towers,
+                           c_reach=c_reach)
         return x, avg, logdet + j
 
-    def reverse(self, z, avg, c_views, c_mean, towers=None):
+    def reverse(self, z, avg, c_views, c_mean, towers=None, c_reach: int = 0):
         """Generative direction, the exact inverse of ``forward`` with its
         log-det (the non-fast ``cwf_step_reverse``, ``cwf.py:510-538``):
-        (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32).  towers:
-        as in ``forward``."""
-        _no_rows("CWFStep.reverse")
-        x, logdet = self._chain(z, c_views, rev=True, towers=towers)
+        (z, averages) -> (volume (B, 2C, H, W), logdet (B,) f32).  towers,
+        c_reach: as in ``forward``."""
+        x, logdet = self._chain(z, c_views, rev=True, towers=towers,
+                                c_reach=c_reach)
         x, j = self._input_block(x, c_views, c_mean, rev=True,
-                                 st=None if towers is None else towers[0])
+                                 st=None if towers is None else towers[0],
+                                 c_reach=c_reach)
         v, ld = haar1d_merge(avg, x)
         return v, logdet + j + ld
 
@@ -456,24 +492,14 @@ class CWFStep(nn.Module):
         Returns the volume (B, 2C, H, W)."""
         spec = self.spec
         kw = {"clamp": spec.clamp, "activation": spec.clamp_activation}
-        rows = current_rows()
-        if rows is None:
-            crop = lambda t: t
-        else:
-            if not self.is_cat:
-                raise ValueError(f"a {spec.block_type} step under a row "
-                                 "shard (its towers read x): "
-                                 + SPACE_TRAINING_ITEM)
-            if c_reach < self.tower_reach:
-                raise ValueError(f"c_views with {c_reach} rows of reach; "
-                                 f"the towers need {self.tower_reach}")
-            crop = lambda t: rows.crop(t, c_reach)
+        crop = self._crop(c_reach)
+        if current_rows() is not None:
             z, avg = z.contiguous(), avg.contiguous()
         if not self.is_cat:
             if qpack is not None:
                 raise ValueError(f"an int8 pack for a {spec.block_type} "
                                  "step: only CAT towers are quantized")
-            x, _ = self._block_chain(z, c_views, rev=True)
+            x, _ = self._block_chain(z, c_views, rev=True, c_reach=c_reach)
         else:
             xq = _quantized_condition(c_views, qpack)
             x = z

@@ -26,11 +26,18 @@ modules themselves (``CWFStep.reverse``, ``CondNetwork``, ``LRNN``).
 
 ``reconstruct`` under a row shard (``parallel.mesh.row_shard``, the
 ``space`` axis; ``parallel/halo.py`` has the design) takes the whole views
-and mean caches and returns this rank's rows: the LRNN on the rank's rows
-(its UNet exchanging halos), the cond nets on a window of ``cond_reach`` +
-``tower_reach`` rows on each side, cropped to ``tower_reach`` for the
-steps' towers, z drawn for the whole batch and image and cut to the rank's
-rows, so the generators stay in step on every rank.
+and mean caches and returns this rank's rows, through either step call
+(``fast``): the LRNN on the rank's rows (its UNet exchanging halos), the
+cond nets on a window of ``cond_reach`` + ``tower_reach`` rows on each
+side, cropped to ``tower_reach`` for the steps' towers, z drawn for the
+whole batch and image and cut to the rank's rows, so the generators stay in
+step on every rank.  Training on rows (``engine/trainer``) runs
+``step_nll`` there: its prior and log-dets are the rank's parts, over the
+global element count.  The exact-likelihood pyramid (``forward_pyramid``,
+``nll_from_pyramid``, ``make_mean_caches``) is never row-sharded: the
+trainer and the scorer run it whole on every rank of a space group, whose
+GT volumes are whole there (the per-depth std of the empty-depth guard
+reads the whole image).
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from cwfa_tpu_torch.models.lrnn import LRNN, LRNNSpec
 from cwfa_tpu_torch.models.unet import quantize_unet, unet_calibrate
 from cwfa_tpu_torch.nn import reset_parameters_
 from cwfa_tpu_torch.parallel.mesh import (current_rows, current_shard,
-                                          draw_rows)
+                                          draw_rows, loss_share)
 
 
 def sample_z_truncated(generator: torch.Generator, shape,
@@ -227,16 +234,22 @@ class CWFAModel(nn.Module):
         prior_b = 0.5 * (z.float() ** 2).sum(dim=(1, 2, 3))
         return avg, prior_b, logdet, float(avg.numel())
 
-    def step_nll(self, k: int, gt_level, c_views, c_mean, towers=None):
+    def step_nll(self, k: int, gt_level, c_views, c_mean, towers=None,
+                 c_reach: int = 0):
         """Conditioned NLL of flow step k for training (``step_nll``,
         ``cwfa_model.py:189-202``): the GT level encoded with the real
         conditions, (0.5 ||z||^2 - sum of the per-sample log-dets) / numel of
         the level, f32; the log-dets are summed over the batch like the
         prior.  towers: None or the step's ``CWFStep.towers(c_views)``.
-        Returns (nll, (z, avg))."""
-        z, avg, logdet = self.flow[k](gt_level, c_views, c_mean, towers)
+        Under a batch and / or row shard the prior and the log-dets are this
+        rank's parts and the numel the call's (``loss_share``), so the
+        ranks' values add up to the one-process NLL; c_reach as in
+        ``CWFStep.forward``.  Returns (nll, (z, avg))."""
+        z, avg, logdet = self.flow[k](gt_level, c_views, c_mean, towers,
+                                      c_reach)
         prior = 0.5 * (z.float() ** 2).sum()
-        return (prior - logdet.sum()) / float(gt_level.numel()), (z, avg)
+        numel = float(gt_level.numel()) / loss_share()
+        return (prior - logdet.sum()) / numel, (z, avg)
 
     @torch.inference_mode()
     def forward_pyramid(self, gt_volume, mean_caches=None,
@@ -336,7 +349,7 @@ class CWFAModel(nn.Module):
         return_pyramid: also return {level: volume} of every level the chain
           passes (n_flow_steps: the coarsest, 0: the result), as JAX's.
         Under a row shard (module docstring) every result holds this
-        rank's rows; ``fast`` must be True.
+        rank's rows.
         """
         if z_temperature != 0 and generator is None:
             raise ValueError("z_temperature > 0 needs a generator")
@@ -348,9 +361,6 @@ class CWFAModel(nn.Module):
         c_reach = 0
         own = cond_input
         if rows is not None:
-            if not fast:
-                raise ValueError("reconstruct(fast=False) under a row shard:"
-                                 " ROADMAP A20")
             c_reach = max(step.tower_reach for step in self.flow)
             own = rows.own(cond_input)
         h = own.shape[2]
@@ -411,8 +421,9 @@ class CWFAModel(nn.Module):
                                               qpack=qpack, c_reach=c_reach)
             else:
                 towers = (None if qpack is None
-                          else self.flow[k].towers(c_views, qpack))
-                v, _ = self.flow[k].reverse(z, up, c_views, c_mean, towers)
+                          else self.flow[k].towers(c_views, qpack, c_reach))
+                v, _ = self.flow[k].reverse(z, up, c_views, c_mean, towers,
+                                            c_reach)
             if n_samples > 1:
                 v = v.reshape((n_samples, b) + tuple(v.shape[1:])).mean(0)
             up = pyramid[k] = v

@@ -19,7 +19,9 @@ Under a row shard (``parallel.mesh.row_shard``) x holds this rank's rows
 and the UNet exchanges its halos; the mean branch reads the whole mean
 cache (its LayerNorm spans (C, H, W) and its gate's Conv1d the flattened
 H*W), so every rank computes it whole, with the same ``drop_path`` draws,
-and adds its own rows.
+and adds its own rows.  In training each rank's loss then reaches the
+branch's parameters through its own rows only, and the step's gradient
+all-reduce adds the ranks' parts, with no exchange.
 """
 
 from __future__ import annotations

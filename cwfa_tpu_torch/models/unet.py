@@ -32,8 +32,9 @@ the ``space`` axis) every level holds the rank's rows: before each
 ``ConvBlock`` ``parallel.halo.halo_rows`` fetches ``ConvBlock.reach`` rows
 (2) from each side, the block runs on that window (its train-mode BatchNorm
 statistics on the rank's own rows, summed over the ranks) and is cropped;
-the pools, transposed convs and 1x1 convs are local.  The int8 path runs
-the same exchanges (its quantization is per channel).
+the pools, transposed convs and 1x1 convs are local.  In training the
+halo's backward sends each fetched row's gradient back to its owner.  The
+int8 path runs the same exchanges (its quantization is per channel).
 """
 
 from __future__ import annotations

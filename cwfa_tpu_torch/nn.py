@@ -176,8 +176,8 @@ def _batch_norm_global(bn: nn.BatchNorm2d, x, own=None):
     """``batch_norm_batch_stats`` over the global batch of a shard: each
     rank's f32 sums of x - K and (x - K)^2 and its count (over the rows
     ``own`` of x, where given), summed over the ranks by one all-reduce
-    (over the row shard's ``stats_group`` under a row shard; differentiable
-    under a batch shard: the backward sums its terms over the ranks too); K
+    (over ``parallel.mesh.sum_group``; differentiable: the backward sums
+    its terms over the same ranks); K
     is the running mean, the same on every rank, which keeps the variance
     off the cancellation of raw sums.  The running statistics move as on
     one device, identically on every rank."""
@@ -190,8 +190,7 @@ def _batch_norm_global(bn: nn.BatchNorm2d, x, own=None):
     d = (xf if own is None else xf[:, :, own]) - k
     count = xf.new_full((1,), float(d.numel() // c))
     part = torch.cat([d.sum(dims), (d * d).sum(dims), count])
-    rows = current_rows()
-    sums = all_reduce_sum(part, None if rows is None else rows.sum_group)
+    sums = all_reduce_sum(part)
     n = sums[2 * c]
     dm = sums[:c] / n
     var = (sums[c:2 * c] / n - dm * dm).clamp_min(0.0)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from cwfa_tpu_torch.parallel.mesh import SPACE_TRAINING_ITEM, make_mesh
+from cwfa_tpu_torch.parallel.mesh import make_mesh
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 LAUNCH_HINT = ("launch one process per GPU: torchrun --nproc_per_node {n} "
@@ -220,13 +220,10 @@ def cli_bootstrap(device, cli: str, n_data: int = 1, n_space: int = 1,
     flags ask for against it, and pick this rank's device (``cuda`` with no
     index becomes ``cuda:LOCAL_RANK`` under a group; an explicit device is
     kept, as two ranks sharing one card need).  Returns (device, mesh or
-    None).  Exits with a message for ``n_space > 1`` outside ``serve``
-    (training on the space axis: ROADMAP A20), a bad environment, or a mesh
-    whose size is not the world size (with ``replicated``, a run without a
-    mesh may have any world size: every rank computes all of it)."""
+    None).  Exits with a message for a bad environment, or a mesh whose
+    size is not the world size (with ``replicated``, a run without a mesh
+    may have any world size: every rank computes all of it)."""
     device = torch.device(device)
-    if n_space > 1 and cli != "serve":
-        sys.exit(f"--mesh_space_axis {n_space}: " + SPACE_TRAINING_ITEM)
     try:
         grouped = initialize_from_env(device.type)
     except RuntimeError as e:

@@ -24,11 +24,20 @@ The ``space`` axis spreads the image rows of a call over the ranks of a
 ``space`` group (``RowShard``): each rank holds ``H / n_space`` contiguous
 rows, and inside ``row_shard(rows)`` the model computes on them
 (``parallel/halo.py`` exchanges the rows that a spatially local module needs
-from the neighbours).  Where ``H`` does not split into ``n_space`` equal
-shards whose rows divide by the UNet's 2^(depth - 1), every rank of the
-space group computes all rows (JAX's fallback), and ``space_rows`` says so
-once.  Reconstruction and serving run on it; training under ``space``
-raises (``SPACE_TRAINING_ITEM``: ROADMAP A20).
+from the neighbours, differentiably).  Where ``H`` does not split into
+``n_space`` equal shards whose rows divide by the UNet's 2^(depth - 1),
+every rank of the space group computes all rows (JAX's fallback), and
+``space_rows`` says so once.  Reconstruction, serving and training run on
+it.
+
+One rule decides where a batch-global or row-global sum goes: ``sum_group``,
+the ranks that computed distinct parts of the call (the whole mesh when the
+batch and the rows are both split, the ``space`` group for a batch that is
+ragged on ``data``, the ``data`` group where the rows fall back).  The
+BatchNorm statistics, the losses' extremes and a training step's gradient
+all-reduce go there, and ``loss_share`` is this rank's part of a mean over
+the call (its batch share times its row share), so that the ranks' parts
+add up to the one-process value.
 """
 
 from __future__ import annotations
@@ -40,13 +49,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.distributed as dist
-
-SPACE_TRAINING_ITEM = ("training on the 'space' mesh axis (image rows over "
-                       "devices, with differentiable halo exchanges and "
-                       "row-global BatchNorm statistics, losses and NLL "
-                       "sums) is not ported yet: ROADMAP A20; the space axis "
-                       "serves (cli.serve, XLFMReconstructor)")
-
 
 def make_mesh(n_data: int | None = None, n_space: int = 1,
               device_type: str | None = None):
@@ -163,9 +165,10 @@ def current_shard() -> BatchShard | None:
 class RowShard:
     """This rank's image rows of a call: ``size`` ranks of ``group`` hold
     ``total`` rows in equal contiguous shards, this one place ``index``
-    (rows [start, stop)).  ``stats_group``: where a row-global sum goes (the
-    train-mode BatchNorm statistics): the whole mesh when the batch is
-    split over ``data`` too, else ``group`` (None: ``group``)."""
+    (rows [start, stop)).  ``stats_group``: where a row-global sum goes
+    (``sum_group``: the train-mode BatchNorm statistics, the losses'
+    extremes, a training step's gradients): the whole mesh when the batch
+    is split over ``data`` too, else ``group`` (None: ``group``)."""
     group: object
     index: int
     size: int
@@ -341,19 +344,54 @@ def draw_rows(draw, shape, dim: int = 0):
     return draw(full).narrow(dim, sh.start, sh.size)
 
 
+def sum_group():
+    """The group over which this rank's part of a call-global sum adds up:
+    the row shard's ``sum_group`` (the whole mesh when the batch is split
+    too, else the space group), else the batch shard's group (the rows fell
+    back to all of them on every rank, so only the ``data`` ranks computed
+    distinct parts), else None (this rank computed all of it).  A shard
+    whose group is None means the default group."""
+    rows, sh = current_rows(), current_shard()
+    group = (rows.sum_group if rows is not None
+             else None if sh is None else sh.group)
+    if group is None and (rows is not None or sh is not None):
+        return dist.group.WORLD
+    return group
+
+
+def loss_share() -> float:
+    """This rank's share of a mean over the call: its batch share times its
+    row share (1 outside every shard).  A mean's part on this rank is its
+    own mean times the share, and the parts add up over ``sum_group`` to
+    the one-process mean."""
+    share = 1.0
+    sh, rows = current_shard(), current_rows()
+    if sh is not None:
+        share *= sh.size / sh.total
+    if rows is not None:
+        share *= rows.rows / rows.total
+    return share
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    """In place: ``t`` reduced by ``op`` over ``group``.  Every collective
+    sum and extreme of the model goes through this one call."""
+    dist.all_reduce(t, op=op, group=group)
+
+
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of ``t`` over the ranks of the shard's group (or ``group``):
-    differentiable under grad mode (its backward sums the gradient over the
-    ranks), a plain in-place all-reduce on a copy otherwise."""
+    """The sum of ``t`` over ``group`` (default ``sum_group()``; the
+    identity where that is None): differentiable under grad mode (its
+    backward sums the gradient over the ranks), a plain all-reduce on a copy
+    otherwise."""
     if group is None:
-        sh = current_shard()
-        if sh is None:
+        group = sum_group()
+        if group is None:
             return t
-        group = sh.group
     if torch.is_grad_enabled() and t.requires_grad:
         return _AllReduceSum.apply(t, group)
     out = t.detach().clone()
-    dist.all_reduce(out, group=group)
+    _all_reduce(out, group)
     return out
 
 
@@ -365,40 +403,41 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.detach().clone()
-        dist.all_reduce(out, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, dy):
         dx = dy.detach().clone()
-        dist.all_reduce(dx, group=ctx.group)
+        _all_reduce(dx, ctx.group)
         return dx, None
 
 
 def _global_extreme(t: torch.Tensor, local, op) -> torch.Tensor:
-    """The extreme of ``t`` over the global batch, from this rank's
-    ``local`` one: a ``MIN`` / ``MAX`` all-reduce of the value, then one
-    differentiable all-reduce that hands the gradient to every element equal
-    to it on every rank, in equal parts, as ``torch.min`` shares it among
-    ties in one process."""
-    sh = current_shard()
-    if sh is None:
+    """The extreme of ``t`` over the call (the global batch and the whole
+    image), from this rank's ``local`` one: a ``MIN`` / ``MAX`` all-reduce
+    of the value over ``sum_group()``, then one differentiable all-reduce
+    that hands the gradient to every element equal to it on every rank, in
+    equal parts, as ``torch.min`` shares it among ties in one process."""
+    group = sum_group()
+    if group is None:
         return local
     m = local.detach().clone()
-    dist.all_reduce(m, op=op, group=sh.group)
+    _all_reduce(m, group, op)
     if not (torch.is_grad_enabled() and t.requires_grad):
         return m
     hit = t.detach() == m
     # zero forward; its gradient is 1 at each hit
     tie = torch.where(hit, t - t.detach(), torch.zeros_like(t)).sum()
     acc = torch.promote_types(t.dtype, torch.float32)   # counts past 256
-    parts = all_reduce_sum(torch.stack([tie.to(acc), hit.sum().to(acc)]))
+    parts = all_reduce_sum(torch.stack([tie.to(acc), hit.sum().to(acc)]),
+                           group)
     return m + (parts[0] / parts[1]).to(m.dtype)
 
 
 def global_min(t: torch.Tensor) -> torch.Tensor:
-    """``t.min()`` over the global batch under a shard (every rank of the
-    shard's group must call it), ``t.min()`` outside one."""
+    """``t.min()`` over the call under a shard (every rank of
+    ``sum_group()`` must call it), ``t.min()`` outside one."""
     return _global_extreme(t, t.min(), dist.ReduceOp.MIN)
 
 

@@ -10,6 +10,7 @@ which ``run_ranks`` hands back, one per rank.  A run that does not end
 within its timeout fails with every rank's output.
 """
 
+import contextlib
 import os
 import hashlib
 import pickle
@@ -187,14 +188,15 @@ def case_cli(rank, world, module, argv):
 
 def case_clis(rank, world, module, argvs):
     """A CLI's ``main(argv, device="cpu")`` for each of ``argvs`` in turn,
-    under the group."""
+    under the group; an entry (module, argv) runs that module's."""
     import importlib
 
     from cwfa_tpu_torch.parallel import initialize_from_env
 
     assert initialize_from_env("cpu")
-    main = importlib.import_module(module).main
-    return [main(argv, device="cpu") for argv in argvs]
+    runs = [a if isinstance(a, tuple) else (module, a) for a in argvs]
+    return [importlib.import_module(m).main(argv, device="cpu")
+            for m, argv in runs]
 
 
 def case_bn(rank, world, x, weight, bias, running):
@@ -236,8 +238,9 @@ def extremes_inputs():
 
 
 def case_extremes(rank, world):
-    """The LL and wL2 losses of this rank's rows under a batch shard,
-    weighted by its share, and their gradient at the predictions."""
+    """The LL and wL2 losses of this rank's rows under a batch shard (its
+    part of the global batch's loss: its mean times its share), and their
+    gradient at the predictions."""
     import torch
 
     from cwfa_tpu_torch.engine import losses as L
@@ -251,7 +254,7 @@ def case_extremes(rank, world):
         p = torch.from_numpy(pred[rows]).requires_grad_(True)
         with data_shard(BatchShard(None, rows.start, rows.stop,
                                    pred.shape[0])):
-            loss = L.recon_loss(kind, torch.from_numpy(gt[rows]), p) / world
+            loss = L.recon_loss(kind, torch.from_numpy(gt[rows]), p)
             loss.backward()
         out[kind] = (float(loss), p.grad.numpy())
     return out
@@ -274,12 +277,14 @@ def _zero_drop_model(cfg, seed):
     return model
 
 
-def case_train(rank, world, root, cfg, params, mstate, mean_caches, epochs):
-    """The port's trainer on a ``data`` mesh over the group (no mesh in one
-    process): JAX's weights and mean caches, nothing drawn (the LRNN's drop
-    rates 0, the cond nets' Dropout3d off, the GT pyramids without noise),
-    the epochs' losses, every parameter and BatchNorm statistic, then
-    ``evaluate``'s PSNRs, NLLs and volumes."""
+def case_train(rank, world, root, cfg, params, mstate, mean_caches, epochs,
+               mesh_shape=None):
+    """The port's trainer on a ``(data, space)`` mesh over the group
+    (``mesh_shape``; by default (world, 1); no mesh in one process): JAX's
+    weights and mean caches, nothing drawn (the LRNN's drop rates 0, the
+    cond nets' Dropout3d off, the GT pyramids without noise), the epochs'
+    losses, every parameter and BatchNorm statistic, then ``evaluate``'s
+    PSNRs, NLLs and volumes, and the image rows of this rank's steps."""
     import torch
 
     from cwfa_tpu_torch.config import CWFAConfig
@@ -305,9 +310,11 @@ def case_train(rank, world, root, cfg, params, mstate, mean_caches, epochs):
     vidx = make_view_indices(ds.lenslet_coords, root["img"], root["view"])
     model = _zero_drop_model(CWFAConfig(**cfg).decode_lrs(), 0)
     load_jax_params(model, params, mstate)
+    shape = mesh_shape or (world, 1)
     tr = ttrainer.CWFATrainer(model, cat.get_statistics(), vidx,
                               device="cpu",
-                              mesh=make_mesh(world, 1) if world > 1 else None)
+                              mesh=make_mesh(*shape) if world > 1 else None)
+    rows = tr.step_shards(cfg["batch_size"])[1]
     tr.mean_caches = {0: [torch.from_numpy(c) for c in mean_caches]}
     losses = [tr.train_epoch(cat, epoch) for epoch in range(epochs)]
     state = {k: v.detach().numpy().copy()
@@ -315,7 +322,8 @@ def case_train(rank, world, root, cfg, params, mstate, mean_caches, epochs):
     res = tr.evaluate(cat, "train", save_volumes=False)
     return {"losses": losses, "state": state,
             "psnr": np.asarray(res["psnr"]), "nll": np.asarray(res["nll"]),
-            "volumes": np.asarray(res["volumes_pred"])}
+            "volumes": np.asarray(res["volumes_pred"]),
+            "rows": None if rows is None else (rows.start, rows.stop)}
 
 
 def case_recon(rank, world, cfg_kw, seed, params, mstate, caches, frames,
@@ -450,11 +458,12 @@ def side36_rig():
 
 def two_steps(tr, views, gt, mcs):
     """One LRNN step and one step-0 flow step (its stage input the GT's
-    level 1) of ``tr`` on this rank's rows of the batch, drawing from the
-    trainer's generator: (the losses [lrnn, flow, flow NLL], the state,
-    each optimizer's gradient as it steps: after the all-reduce on a mesh,
-    flat f32, and the two steps' outputs)."""
-    from cwfa_tpu_torch.parallel.mesh import batch_shard, data_shard
+    level 1) of ``tr`` on this rank's rows of the batch and of the image
+    (the trainer's ``step_shards``), drawing from the trainer's generator:
+    (the losses [lrnn, flow, flow NLL], the state, each optimizer's
+    gradient as it steps: after the all-reduce on a mesh, flat f32, and the
+    two steps' outputs: this rank's rows)."""
+    from cwfa_tpu_torch.parallel.mesh import data_shard, row_shard
 
     grads = {}
 
@@ -473,12 +482,13 @@ def two_steps(tr, views, gt, mcs):
     record(tr.opt_flow[0], "flow")
     record(tr.opt_cond[0], "cond")
     nf = tr.model.n_flow_steps
-    shard = batch_shard(tr.mesh, views.shape[0])
+    shard, rows = tr.step_shards(views.shape[0])
     sl = slice(None) if shard is None else slice(shard.start, shard.stop)
-    with data_shard(shard):
-        l0, out = tr._lrnn_step(views[sl], mcs[nf - 1][sl], gt[nf][sl])
+    own = (lambda t: t[sl]) if rows is None else (lambda t: rows.own(t[sl]))
+    with data_shard(shard), row_shard(rows):
+        l0, out = tr._lrnn_step(views[sl], mcs[nf - 1][sl], own(gt[nf]))
         l1, _, nll, recon = tr._flow_step(0, views[sl], mcs[0][sl],
-                                          gt[0][sl], gt[1][sl])
+                                          own(gt[0]), own(gt[1]))
     return {"losses": [float(l0), float(l1), float(nll)], "grads": grads,
             "outs": {"lrnn": out.numpy(), "flow": recon.numpy()},
             "state": {k: v.detach().numpy().copy()
@@ -491,11 +501,65 @@ def state_digest(state: dict) -> dict:
             for k, v in state.items()}
 
 
+def step_case_inputs(views, gt, mcs, frames, side):
+    """The first ``frames`` frames of the step inputs, cut to ``side`` rows
+    and columns, as tensors."""
+    import torch
+
+    def cut(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a[:frames, :, :side, :side]))
+    return cut(views), [cut(g) for g in gt], [cut(m) for m in mcs]
+
+
+@contextlib.contextmanager
+def pool_choices(record=None, replay=None):
+    """The UNet's 2x2 max-pools (``models.unet.adaptive_max_pool2d_half``)
+    with their choices kept: each call's argmax indices (over the whole
+    image) appended to ``record``; or, with ``replay``, each call takes the
+    element that the recorded one chose, on this rank's rows.  A window
+    whose two largest values are within roundoff of each other picks either
+    one, and the rows of a space mesh are summed in another order than one
+    process sums them (the BatchNorm statistics): replaying one process's
+    choices keeps such a tie from routing a gradient elsewhere, so the
+    comparison sees the exchanges and sums alone."""
+    import torch.nn.functional as F
+
+    from cwfa_tpu_torch.models import unet
+    from cwfa_tpu_torch.parallel.mesh import current_rows
+
+    calls = iter(replay or ())
+
+    def pool(x):
+        if record is not None:
+            y, idx = F.max_pool2d(x, 2, 2, return_indices=True)
+            record.append(idx)
+            return y
+        idx = next(calls)
+        rows = current_rows()
+        h2 = x.shape[2] // 2
+        if rows is not None:
+            # this rank's output rows; its input rows start at index * H
+            idx = (idx[:, :, rows.index * h2:(rows.index + 1) * h2]
+                   - rows.index * x.shape[2] * x.shape[3])
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    saved = unet.adaptive_max_pool2d_half
+    unet.adaptive_max_pool2d_half = pool
+    try:
+        yield
+    finally:
+        unet.adaptive_max_pool2d_half = saved
+
+
 def case_steps(rank, world, cfgs, seed, views, gt, mcs, bn):
-    """``two_steps`` of a trainer on a ``data`` mesh over the group, for
-    each of ``cfgs`` (a name: config keywords; rank 0 returns it whole,
-    the others their losses and state digest), then ``case_bn`` on
-    ``bn``'s arguments and ``case_extremes``."""
+    """``two_steps`` of a trainer on a mesh over the group, for each of
+    ``cfgs`` (a name: (config keywords, the (data, space) mesh, the frames
+    and the side of the inputs it takes); rank 0 returns it whole, the
+    others their losses and state digest; where the rows split over
+    ``space``, rank 0 also returns the one-process run under ``"one"``, its
+    max-pool choices replayed by the mesh run: ``pool_choices``), then
+    ``case_bn`` on ``bn``'s arguments and ``case_extremes``."""
     import torch
 
     from cwfa_tpu_torch.config import CWFAConfig
@@ -504,15 +568,30 @@ def case_steps(rank, world, cfgs, seed, views, gt, mcs, bn):
     from cwfa_tpu_torch.parallel import initialize_from_env, make_mesh
 
     assert initialize_from_env("cpu")
-    mesh = make_mesh(world, 1)
-    t = torch.from_numpy
+    meshes = {}
     out = {}
-    for name, cfg in cfgs.items():
-        model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
-                                torch.Generator().manual_seed(seed))
-        tr = CWFATrainer(model, None, {}, device="cpu", mesh=mesh)
-        out[name] = two_steps(tr, t(views), [t(g) for g in gt],
-                              [t(m) for m in mcs])
+    for name, (cfg, shape, frames, side) in cfgs.items():
+        if shape not in meshes:
+            meshes[shape] = make_mesh(*shape)
+        inputs = step_case_inputs(views, gt, mcs, frames, side)
+
+        def trainer(mesh):
+            model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
+                                    torch.Generator().manual_seed(seed))
+            return CWFATrainer(model, None, {}, device="cpu", mesh=mesh)
+        tr = trainer(meshes[shape])
+        if tr.step_shards(frames)[1] is None:
+            out[name] = two_steps(tr, *inputs)
+        else:
+            # rows over space: the one-process run here first, its
+            # max-pool choices kept, then the mesh run on them
+            pools = []
+            with pool_choices(record=pools):
+                one = two_steps(trainer(None), *inputs)
+            with pool_choices(replay=pools):
+                out[name] = two_steps(tr, *inputs)
+            if not rank:
+                out[name]["one"] = one
         if rank:
             # the other ranks' states are held to rank 0's by their digests
             # (the LRNN alone is 27 M parameters)

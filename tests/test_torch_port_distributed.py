@@ -6,7 +6,8 @@ False; two real processes meet over gloo through ``CWFA_COORDINATOR``; rank
 (position-weighted checksums, as ``tests/_dist_worker.py`` uses); and the
 placement's per-leaf fallbacks of ``tests/test_sharding.py:126-147``: a
 batch that does not divide the ``data`` axis is replicated, a 0-d or
-non-array leaf passes through.  The two ranks run in
+non-array leaf passes through; a trainer on a ``space`` mesh takes its
+rank's rows.  The two ranks run in
 ``tests/_torch_port_dist_worker.py``, which imports no JAX."""
 
 import numpy as np
@@ -79,13 +80,16 @@ class _SpaceMesh:
         return None
 
 
-def test_space_axis_names_the_next_slice():
-    """The space axis serves: a (1, 2) mesh asks for its two processes and
-    ``batch_sharding(with_space=True)`` places a leaf's second half of rows
-    on place 1 (all of them where ``space_rows`` does not split H: H odd,
-    or a rank's rows not a multiple of ``row_multiple``); training on it
-    names the next slice's ROADMAP item."""
+def test_space_axis_names_the_next_slice(monkeypatch):
+    """The space axis serves and trains: a (1, 2) mesh asks for its two
+    processes and ``batch_sharding(with_space=True)`` places a leaf's second
+    half of rows on place 1 (all of them where ``space_rows`` does not split
+    H: H odd, or a rank's rows not a multiple of ``row_multiple``); a
+    trainer on it takes place 1's rows of each step, at the UNet's multiple
+    (its replica check, which needs the two processes, aside)."""
+    from cwfa_tpu_torch.config import CWFAConfig
     from cwfa_tpu_torch.engine.trainer import CWFATrainer
+    from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 
     with pytest.raises(ValueError, match="needs 2 processes"):
         M.make_mesh(1, 2)
@@ -98,8 +102,16 @@ def test_space_axis_names_the_next_slice():
     by8 = M.batch_sharding(_SpaceMesh(), with_space=True, row_multiple=8)
     assert tuple(by8.place(x).shape) == x.shape
     assert tuple(M.batch_sharding(_SpaceMesh()).place(x).shape) == x.shape
-    with pytest.raises(ValueError, match="A20"):
-        CWFATrainer(None, None, {}, device="cpu", mesh=_SpaceMesh())
+    monkeypatch.setattr(CWFATrainer, "check_replicas", lambda self: None)
+    cfg = CWFAConfig(n_depths=8, volume_side_size=16, n_lenslets=4,
+                     INN_max_down_steps=3, INN_n_blocks=2,
+                     INN_internal_chans=8, INN_cond_chans=4)
+    tr = CWFATrainer(CWFAModel.build(cfg, torch.Generator().manual_seed(0)),
+                     None, {}, device="cpu", mesh=_SpaceMesh())
+    shard, rows = tr.step_shards(2)
+    assert shard is None
+    assert (rows.index, rows.size, rows.start, rows.stop) == (1, 2, 8, 16)
+    assert tr.model.lrnn_spec.unet.depth == 3 and rows.rows % 4 == 0
 
 
 def test_two_process_rendezvous(ranks):

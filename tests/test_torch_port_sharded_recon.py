@@ -14,8 +14,8 @@
   that one process at ``--batch 2`` writes (each rank calls the model on 2
   frames), equal to the bit, with and without the int8 UNet (calibrated on
   each rank on the same frames and checked equal);
-- ``cli.train --mesh_space_axis 2`` exits naming the ROADMAP item of the
-  next slice (training on the space axis; the serve CLI takes the axis,
+- ``cli.train --mesh_space_axis 2`` in one process exits naming the mesh
+  it asks for and the world size (it trains on two ranks in
   ``tests/test_torch_port_space_recon.py``).
 """
 
@@ -172,7 +172,9 @@ def test_serve_cli_on_two_ranks_writes_what_one_writes(serve_rig, int8):
 def test_space_axis_exits_naming_the_next_slice(serve_rig):
     from cwfa_tpu_torch.cli import train
     root, _ = serve_rig
-    with pytest.raises(SystemExit, match="A20"):
+    with pytest.raises(SystemExit, match="--mesh_data_axis 1 "
+                       "--mesh_space_axis 2 asks for a mesh of 2 devices.*"
+                       "world size of 1"):
         train.main(["--main_data_path", str(root), "--output_testing_path",
                     str(root / "t"), "--mesh_space_axis", "2"], device="cpu")
     assert not os.path.exists(root / "t")

@@ -13,13 +13,25 @@ on two gloo ranks (``tests/_torch_port_dist_worker.py``):
   volumes within 1e-3 of max, PSNRs within 0.01 dB, NLLs within 1e-3
   relative.  Both packages draw nothing (the patches of
   ``tests/test_torch_port_ood_cli.py``).
+- The same on a (2, 2) mesh of four ranks (16 rows: 8 a rank, a multiple
+  of the UNet's 4, so the rows split; the ragged last batch computed whole
+  on both data ranks, its rows split): JAX's (2, 2) trainer holds its
+  (2, 2) mesh to one device, and the port's four ranks are held to JAX's
+  trainer on the same weights (epoch losses within rtol 2e-3, parameters
+  within 6 lr), the four ranks equal to the bit, and ``evaluate`` to the
+  port in one process as above.
 - With every draw on (input noise, dropout, ``drop_path``, Dropout3d), one
   LRNN step and one flow step on two ranks x 2 frames against one process
   x 4 frames, with the L2 losses and with LL and wL2 (which read the global
   batch's min and max): the losses within 1e-5 relative, each optimizer's
   all-reduced gradient within 1e-5 of its largest (or twice its loss's own
   f32 roundoff, where that is coarser: LL), every parameter within 6 lr,
-  the two ranks equal to the bit.
+  the two ranks equal to the bit.  The same on a (1, 2) ``space`` mesh,
+  two ranks x 2 frames (8 rows each) against one process x 2 frames, with
+  L2, LL / wL2 and wL2 / LL (the extremes and means of the whole image);
+  and on a 12-row rig whose 6 rows a rank do not divide by the UNet's 4
+  (every rank computes all rows): equal to one process, its gradient not
+  doubled.
 - Train-mode BatchNorm on two ranks x 1 frame against one process x 2
   frames, the global batch's statistics: output, input gradient, parameter
   gradients and running statistics within 1e-5.
@@ -46,7 +58,8 @@ from cwfa_tpu_torch.models.cwfa_model import CWFAModel
 from cwfa_tpu_torch.nn import batch_norm_batch_stats
 
 from _torch_port_dist_worker import (extremes_inputs, start_ranks,
-                                     state_digest, two_steps)
+                                     state_digest, step_case_inputs,
+                                     two_steps)
 from test_torch_port_ood_cli import QuietJTrainer, _quiet, _ZeroDropJModel
 
 ND, SIDE, IMG, NL, VIEW = 8, 16, 64, 4, 16
@@ -73,11 +86,17 @@ def _state_dict_equal(a, b):
 STEP_CFG = dict(CFG, add_noise=1)
 # the losses that read the batch's min and max: under a shard, the global
 # batch's (LL in the LRNN step and wL2 in the flow step, then the other way)
-STEP_CFGS = {"L2": STEP_CFG,
-             "LL-wL2": dict(STEP_CFG, loss_func_first_step="LL",
-                            loss_func_reg="wL2"),
-             "wL2-LL": dict(STEP_CFG, loss_func_first_step="wL2",
-                            loss_func_reg="LL")}
+LOSSES = {"L2": STEP_CFG,
+          "LL-wL2": dict(STEP_CFG, loss_func_first_step="LL",
+                         loss_func_reg="wL2"),
+          "wL2-LL": dict(STEP_CFG, loss_func_first_step="wL2",
+                         loss_func_reg="LL")}
+# name: (config, (data, space) mesh, frames, side of the inputs)
+STEP_CFGS = {**{name: (cfg, (2, 1), 4, VIEW) for name, cfg in LOSSES.items()},
+             **{f"space-{name}": (cfg, (1, 2), 2, VIEW)
+                for name, cfg in LOSSES.items()},
+             "space-fallback": (dict(STEP_CFG, volume_side_size=12), (1, 2),
+                                2, 12)}
 
 
 def _step_inputs():
@@ -141,17 +160,19 @@ def trained(tmp_path_factory, steps_ranks):
                           "kw": kw, "img": (IMG, IMG), "view": (VIEW, VIEW)})
         wait = start_ranks("train", n=2, **args)
         wait_one = start_ranks("train", n=1, **args)
+        wait_four = start_ranks("train", n=4, mesh_shape=(2, 2), **args)
         jlosses = [float(jt.train_epoch(cat, ep)) for ep in range(3)]
         ranks = wait(120)
         one, = wait_one(120)
+        four = wait_four(180)
         final = jax.tree_util.tree_map(np.asarray, (jt.params, jt.mstate))
     finally:
         mp.undo()
-    return ranks, jlosses, final, jcfg, one
+    return ranks, jlosses, final, jcfg, one, four
 
 
-def test_two_ranks_match_jax_mesh_trainer(trained):
-    ranks, jlosses, (params, mstate), jcfg, _ = trained
+def _check_against_jax(ranks, trained):
+    _, jlosses, (params, mstate), jcfg, *_ = trained
     for r in ranks:
         np.testing.assert_allclose(r["losses"], jlosses, rtol=2e-3)
     model = CWFAModel.build(CWFAConfig(**CFG).decode_lrs(),
@@ -165,6 +186,29 @@ def test_two_ranks_match_jax_mesh_trainer(trained):
                                    rtol=0, err_msg=name)
 
 
+def test_two_ranks_match_jax_mesh_trainer(trained):
+    _check_against_jax(trained[0], trained)
+
+
+def test_four_ranks_on_a_data_space_mesh_match_jax_trainer(trained):
+    """A (2, 2) mesh: each step's rows split (8 of 16 a rank), the full
+    batch over ``data`` and the ragged one whole on both data ranks; the
+    four ranks against JAX's trainer, equal to the bit to each other, and
+    their ``evaluate`` (batch and rows gathered) against one process."""
+    four, one = trained[5], trained[4]
+    assert [r["rows"] for r in four] == [(0, 8), (8, 16)] * 2
+    _check_against_jax(four, trained)
+    for r in four[1:]:
+        _state_dict_equal(four[0]["state"], r["state"])
+        assert r["losses"] == four[0]["losses"]
+    for r in four:
+        np.testing.assert_allclose(r["volumes"], one["volumes"], rtol=0,
+                                   atol=1e-3 * np.abs(one["volumes"]).max())
+        np.testing.assert_allclose(r["psnr"], one["psnr"], atol=1e-2)
+        np.testing.assert_allclose(r["nll"], one["nll"], rtol=1e-3,
+                                   atol=1e-4)
+
+
 def test_two_ranks_stay_equal_to_the_bit(trained):
     ranks = trained[0]
     _state_dict_equal(ranks[0]["state"], ranks[1]["state"])
@@ -174,7 +218,7 @@ def test_two_ranks_stay_equal_to_the_bit(trained):
 def test_evaluate_on_two_ranks_matches_one_process(trained):
     """``evaluate`` splits each mini-batch over the ranks and gathers the
     volumes and NLLs on both; the one-process port run is the reference."""
-    ranks, *_, one = trained
+    ranks, *_, one, _ = trained
     np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=1e-4)
     for r in ranks:
         assert r["volumes"].shape == one["volumes"].shape == (3, ND, VIEW,
@@ -190,15 +234,19 @@ def test_evaluate_on_two_ranks_matches_one_process(trained):
 @pytest.fixture(scope="module")
 def steps(steps_ranks):
     views, gt, mcs = _step_inputs()
-    t = torch.from_numpy
     one = {}
-    for name, cfg in STEP_CFGS.items():
+    for name, (cfg, _, frames, side) in STEP_CFGS.items():
+        if name.startswith("space-") and name != "space-fallback":
+            continue        # the ranks run their one-process reference
         model = CWFAModel.build(CWFAConfig(**cfg).decode_lrs(),
                                 torch.Generator().manual_seed(4))
         tr = CWFATrainer(model, None, {}, device="cpu")
-        one[name] = two_steps(tr, t(views), [t(g) for g in gt],
-                              [t(m) for m in mcs])
-    return steps_ranks(120), one, tr.cfg
+        one[name] = two_steps(tr, *step_case_inputs(views, gt, mcs, frames,
+                                                    side))
+    ranks = steps_ranks(180)
+    for name in STEP_CFGS:
+        one.setdefault(name, ranks[0][name].get("one"))
+    return ranks, one, tr.cfg
 
 
 def _loss_grad_roundoff(kind, gt, out):
@@ -225,11 +273,13 @@ def _check_steps(steps, name):
     one = ones[name]
     lr = max(cfg.learning_rate, cfg.learning_rate_cond,
              cfg.learning_rate_first_step)
-    _, gt, _ = _step_inputs()
+    cfg_kw, _, frames, side = STEP_CFGS[name]
+    _, gt, _ = step_case_inputs(*_step_inputs(), frames, side)
+    gt = [g.numpy() for g in gt]
     nf = len(gt) - 1
-    first = _loss_grad_roundoff(STEP_CFGS[name].get(
+    first = _loss_grad_roundoff(cfg_kw.get(
         "loss_func_first_step", "L2"), gt[nf], one["outs"]["lrnn"])
-    reg = _loss_grad_roundoff(STEP_CFGS[name].get("loss_func_reg", "L2"),
+    reg = _loss_grad_roundoff(cfg_kw.get("loss_func_reg", "L2"),
                               gt[0], one["outs"]["flow"])
     bound = {"lrnn": max(1e-5, 2 * first), "flow": max(1e-5, 2 * reg),
              "cond": max(1e-5, 2 * reg)}
@@ -249,6 +299,25 @@ def _check_steps(steps, name):
 
 def test_steps_with_draws_match_one_process(steps):
     _check_steps(steps, "L2")
+
+
+@pytest.mark.parametrize("name", ["L2", "LL-wL2", "wL2-LL"])
+def test_space_mesh_steps_match_one_process(steps, name):
+    """A (1, 2) space mesh: each rank computes 8 of the 16 rows of both
+    frames (halos, row permutations and windows on the way; the losses'
+    extremes and means over the whole image); its all-reduced gradients,
+    losses and parameters against one process on the same 2 frames, which
+    the ranks run first and whose max-pool choices they replay
+    (``pool_choices``: a near-tie that roundoff tips the other way would
+    route a gradient elsewhere)."""
+    _check_steps(steps, f"space-{name}")
+
+
+def test_space_fallback_rows_match_one_process(steps):
+    """12 rows on a (1, 2) mesh: 6 a rank do not divide by the UNet's 4, so
+    every rank computes all rows and no gradient is summed over the space
+    group (a sum would double it): equal to one process."""
+    _check_steps(steps, "space-fallback")
 
 
 @pytest.mark.parametrize("name", ["LL-wL2", "wL2-LL"])

@@ -20,7 +20,14 @@
      the next poll, and the volumes equal direct calls within 1e-5 of max.
 2. ``clis``: ``cli.serve --mesh_space_axis 2`` with ``--no_int8`` and with
    the int8 UNet (calibrated on each rank and checked equal) against one
-   process within 1e-5 of max; one rank of the space group writes.
+   process within 1e-5 of max; one rank of the space group writes.  Then
+   ``cli.train --mesh_space_axis 2`` (fold 0 of two fish: 2 frames of one
+   to train on, the other's to test; 16 depths at 32^2, 3 epochs: the LRNN
+   and both flow stages, one optimizer step each; 16 rows a rank) exits 0
+   on both ranks, rank 0 writes the run directory, its epoch losses and
+   every Lion momentum equal one process's within 1e-5, and every
+   parameter within 6 lr (Lion steps by a sign, which roundoff may flip
+   near 0: JAX's bound), the evaluation as far as those flips carry.
 
 Single-process: ``space_rows``' fallback rule.
 """
@@ -212,18 +219,51 @@ def serve_rig(tmp_path_factory):
     return root, base
 
 
-def test_serve_on_a_space_mesh_writes_what_one_writes(serve_rig):
+SERVE_RUNS = {"f32": ["--no_int8"], "int8": []}
+TRAIN_SMALL = ["--n_depths", str(ND), "--volume_side_size", str(VIEW),
+               "--INN_max_down_steps", "3", "--INN_n_blocks", "2",
+               "--INN_internal_chans", "8", "--INN_cond_chans", "4",
+               "--use_half_precision", "0", "--img_size", "96",
+               "--epochs", "3", "--eval_every", "3", "--max_samples", "2",
+               "--batch_size", "2",
+               "--cross_validation_nFold", "0", "--save_tiff_volumes", "0"]
+
+
+@pytest.fixture(scope="module")
+def clis(serve_rig):
+    """The ``clis`` spawn: the two serve runs, then the training CLI on a
+    one-fish tree, each on two ranks with ``--mesh_space_axis 2``; the
+    one-process runs meanwhile."""
+    from cwfa_tpu import data as jdata
+    from cwfa_tpu_torch.cli import train
     root, base = serve_rig
-    runs = {"f32": ["--no_int8"], "int8": []}
+    info = jdata.make_synthetic_dataset(str(root / "train_data"), n_fish=2,
+                                        n_frames=2, n_depths=ND, vol_side=VIEW,
+                                        img_size=96, n_lenslets=NL,
+                                        view_size=VIEW)
+    targv = ["--main_data_path", str(root / "train_data"), "--lenslet_file",
+             info["lenslet_file"], *TRAIN_SMALL]
     wait = start_ranks("clis", n=2, module="cwfa_tpu_torch.cli.serve",
                        argvs=[base + flags + ["--out_dir", str(root / tag),
                                               "--mesh_space_axis", "2"]
-                              for tag, flags in runs.items()])
+                              for tag, flags in SERVE_RUNS.items()]
+                       + [("cwfa_tpu_torch.cli.train", targv + [
+                           "--output_testing_path", str(root / "train_two")
+                           + "/", "--mesh_space_axis", "2"])])
     ones = {tag: serve.main(base + flags + ["--out_dir",
                                             str(root / f"one_{tag}")],
                             device="cpu")
-            for tag, flags in runs.items()}
-    ranks = wait(240)
+            for tag, flags in SERVE_RUNS.items()}
+    ones["train"] = train.main(targv + ["--output_testing_path",
+                                        str(root / "train_one") + "/"],
+                               device="cpu")
+    return wait(300), ones
+
+
+def test_serve_on_a_space_mesh_writes_what_one_writes(serve_rig, clis):
+    root, _ = serve_rig
+    runs = SERVE_RUNS
+    ranks, ones = clis
     for i, tag in enumerate(runs):
         assert ones[tag]["frames"] == 3
         assert [r[i]["frames"] for r in ranks] == [3, 3]
@@ -235,3 +275,65 @@ def test_serve_on_a_space_mesh_writes_what_one_writes(serve_rig):
             want = read_tiff_stack(str(root / f"one_{tag}" / n), dtype=None)
             _close(read_tiff_stack(str(root / tag / n), dtype=None), want,
                    1e-5)
+
+
+def test_train_cli_on_a_space_mesh_trains_what_one_trains(serve_rig, clis):
+    """``cli.train --mesh_space_axis 2`` on two ranks: both exit 0, rank 0
+    alone writes, its epoch losses (the event file) and every Lion momentum
+    in its checkpoints equal the one-process run's within 1e-5 (of each
+    array's largest), every parameter and BatchNorm statistic within 6 lr,
+    and both ranks hold the evaluation of one process (the gathered
+    volumes and NLLs), as far as a flipped Lion sign carries: within 1e-3
+    of max."""
+    from cwfa_tpu_torch.config import CWFAConfig
+    from cwfa_tpu.utils.tb_writer import read_event_file
+    from cwfa_tpu_torch.engine.checkpoints import load_step_checkpoint
+    root, _ = serve_rig
+    ranks, ones = clis
+    one = ones["train"]
+    for r in ranks:
+        res = r[2]
+        assert sorted(res) == sorted(one) == ["test", "train", "val"]
+        for tag in one:
+            _close(np.asarray(res[tag]["volumes_pred"]),
+                   np.asarray(one[tag]["volumes_pred"]), 1e-3)
+            np.testing.assert_allclose(res[tag]["nll"], one[tag]["nll"],
+                                       rtol=1e-3)
+    (two_dir,) = list((root / "train_two").iterdir())
+    (one_dir,) = list((root / "train_one").iterdir())
+
+    def losses(run_dir):
+        (events,) = run_dir.glob("events.out.tfevents.*")
+        return [e["value"] for e in read_event_file(str(events))
+                if e["tag"] == "fine_tune/loss/train"]
+    assert len(losses(one_dir)) == 3
+    np.testing.assert_allclose(losses(two_dir), losses(one_dir), rtol=1e-5)
+    names = sorted(n for n in os.listdir(one_dir) if n.endswith(".msgpack"))
+    assert names == sorted(n for n in os.listdir(two_dir)
+                           if n.endswith(".msgpack"))
+    assert {f"model_step_{s}__ep_2.msgpack" for s in (1, 2, 3)} <= set(names)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree, key=str):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{prefix}/{i}")
+        elif isinstance(tree, (np.ndarray, torch.Tensor)):
+            yield prefix, np.asarray(torch.as_tensor(tree).float())
+    cfg = CWFAConfig().decode_lrs()
+    lr = max(cfg.learning_rate, cfg.learning_rate_cond,
+             cfg.learning_rate_first_step)
+    for n in names:
+        if n.startswith("mean_vols"):
+            continue
+        a = dict(leaves(load_step_checkpoint(str(one_dir / n))[0]))
+        b = dict(leaves(load_step_checkpoint(str(two_dir / n))[0]))
+        assert a.keys() == b.keys() and a, n
+        for k in a:
+            atol = 1e-5 * float(np.abs(a[k]).max())
+            if not k.startswith("/optimizer_state_dict/"):
+                atol = max(atol, 6 * lr)
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=atol,
+                                       err_msg=f"{n}{k}")

@@ -13,7 +13,7 @@ two flow steps of two 8-wide blocks, f32, ``--epochs 3 --eval_every 3
 - ``--pretrain_models_path`` to a directory written by the JAX trainer,
   with ``--fine_tune_load_checkpoints`` and ``--fine_tune_use_model_args``,
   loads the same parameters and learning rates.
-- A data mesh without its processes, the space axis and
+- A data or space mesh without its processes and
   ``CWFA_DISTRIBUTED=auto`` without torchrun's variables exit with a
   message; without ``device="cpu"`` it raises here (no card).  (``--INN_net_type 2``
   is ``tests/test_torch_port_xlfmnet.py``.)
@@ -211,12 +211,14 @@ def test_pretrained_jax_run_is_loaded(tree, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags, item", [
     (["--mesh_data_axis", "2"], "mesh of 2 devices.*world size of 1"),
-    (["--mesh_space_axis", "2"], "A20"), ([], "torchrun")])
+    (["--mesh_space_axis", "2"], "--mesh_space_axis 2 asks for a mesh of 2 "
+                                 "devices.*world size of 1"),
+    ([], "torchrun")])
 def test_unported_paths_exit_naming_the_item(tree, tmp_path, monkeypatch,
                                              flags, item):
-    """A data mesh without its processes exits naming both sizes, the space
-    axis naming the ROADMAP item of training on it, and
-    ``CWFA_DISTRIBUTED=auto`` without torchrun's variables naming them."""
+    """A data or space mesh without its processes exits naming both sizes,
+    and ``CWFA_DISTRIBUTED=auto`` without torchrun's variables naming
+    them."""
     if not flags:
         monkeypatch.setenv("CWFA_DISTRIBUTED", "auto")
         for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
