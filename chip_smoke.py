@@ -34,12 +34,14 @@ code != 0) on the first phase that does not hold:
 5. holds the float tower kernel (``fused_float_tower``) against its plain
    version at every flagship tower shape (coupling Cin -> 2*Cin and input
    Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8, at two odd
-   shapes (64 and 8 wide) and at tower widths 20, 72 and 128, in f32 and
-   bf16, logging the instance that ran (wgmma bf16, wgmma 3xTF32 for f32,
-   CUDA cores for every other width; each must have run), and times both
-   wgmma instances at every batch-1 shape, with the plain versions, the
-   cuDNN module chain the bf16 one replaces and the f32 instance's two
-   bounds (f32 FMAs, 3 x TF32) at step 0;
+   shapes (64 and 8 wide), at tower widths 20, 72 and 128 and at Cin 65,
+   72 and 128 (64 wide; 512^2 and odd sizes), in f32 and bf16, logging the
+   instance that ran (wgmma bf16, wgmma 3xTF32 for f32, CUDA cores for
+   every other width; each must have run), and times both wgmma instances
+   at every batch-1 shape, with the plain versions, the cuDNN module chain
+   the bf16 one replaces and the f32 instance's two bounds (f32 FMAs, 3 x
+   TF32) at step 0, and at Cin above 64 in turns with the CUDA-core
+   instance;
 6. runs the small rig through ``XLFMReconstructor`` on the card (kernels)
    and on the CPU (plain versions), in f32, deterministic and in the
    default mode (``deterministic=False``; drop rates 0, so that nothing is
@@ -108,7 +110,9 @@ code != 0) on the first phase that does not hold:
     through their plain versions at every flagship step shape and at odd
     ones, in f32 and bf16 (the pair with and without its Dropout3d scale;
     K2 and K3 through their tensor-core instances in bf16 at the flagship
-    shapes, their CUDA-core ones in f32, and both at the odd shapes), each
+    shapes, their CUDA-core ones in f32, and both at the odd shapes; K2 also
+    at Cin 65, 72 and 128 at odd sizes and, bf16, at 512^2, Cin 65 and 128
+    at 512^2 timed in turns with the CUDA-core instance), each
     timed at step 0 beside its plain backward, its bound and the cuDNN
     autograd chain for the same gradient (K2 and K3 in turns with their
     CUDA-core instances, K2 also at every step's shape); the small rig's
@@ -189,9 +193,10 @@ code != 0) on the first phase that does not hold:
     model's;
 20. every other coupling type (``INN_block_type`` RNVP, GLOW, GIN, NICE,
     AI1): the float tower and K2 at the coupling-tower shapes they add (Cin
-    72 -> 24 / 48 at step 0, on the CUDA cores, and 36 / 18 / 9 on
-    ``wgmma``), f32 and bf16, each launch against its plain version with
-    its instance, timed in bf16; the small rig of each type card vs CPU in
+    72 -> 24 / 48 at step 0 and 36 / 18 / 9, all on ``wgmma``), f32 and
+    bf16, each launch against its plain version with its instance, timed in
+    bf16, at Cin 72 in turns with the CUDA-core instances beside the bound
+    and the cuDNN chain; the small rig of each type card vs CPU in
     f32 (``reconstruct`` fast and not, the NLLs; bound 1e-4) and every
     step's forward then reverse; the flagship of each type (its blocks
     replaced, random weights from seed 0): bf16 deterministic
@@ -199,7 +204,9 @@ code != 0) on the first phase that does not hold:
     and by tower instance, bf16 vs f32 within 5e-2), ``PyramidScorer`` at
     batch 1, one flow optimizer step at step 0 in bf16 (finite loss, every
     parameter tensor of the step moved, AI1's ``w_perm`` not, launches by
-    kernel and K2 by instance, ms and peak); then ``cli.train.main
+    kernel and K2 by instance, ms and peak), no tower or K2 launch of the
+    bf16 and f32 calls, the scorer or the step on the CUDA cores; then
+    ``cli.train.main
     --INN_block_type AI1`` at the flagship width on two fish of 2 random
     frames, 2 epochs, and its msgpack checkpoint reloaded into a fresh
     trainer, whose reconstruction equals the run's own to the bit;
@@ -707,10 +714,12 @@ def phase_float_tower(dev, kernels):
     tower shape (coupling Cin -> 2*Cin and input Cin -> Cin, 64 wide), step 0
     at batch 8, the two odd shapes of phase_tower and its three other tower
     widths (20, 72, 128: the CUDA cores, padded channels and smaller tiles),
-    f32 and bf16, with the
+    and 64-wide towers of Cin 65, 72 and 128 (wgmma, b1's K in chunks of
+    64) at 512^2 and at odd sizes, f32 and bf16, with the
     instance of the kernel that ran each; times both instances at every
     batch-1 shape, and their plain versions and the cuDNN module chain at
-    step 0's coupling tower."""
+    step 0's coupling tower; at Cin above 64, each wgmma instance in turns
+    with the CUDA-core one beside its bound."""
     gen = torch.Generator().manual_seed(3)
     shapes = [(1, cin, SLICE_HW, SLICE_HW, 64, nout)
               for cin in TOWER_CIN for nout in (2 * cin, cin)]
@@ -718,6 +727,9 @@ def phase_float_tower(dev, kernels):
                (2, 12, 37, 53, 64, 24), (2, 4, 19, 35, 8, 8),
                (2, 5, 19, 35, 20, 10), (1, 12, 37, 53, 72, 24),
                (1, 12, 37, 53, 128, 24)]
+    shapes += [(1, 65, SLICE_HW, SLICE_HW, 64, 48),
+               (1, 128, SLICE_HW, SLICE_HW, 64, 24), (2, 65, 37, 53, 64, 24),
+               (1, 72, 37, 53, 64, 48), (1, 128, 37, 53, 64, 96)]
     k = kernels["fused_float_tower"]
     ran = dict.fromkeys(btower.fused_float_tower.by_instance, 0)
     for b, cin, h, w, width, nout in shapes:
@@ -749,6 +761,10 @@ def phase_float_tower(dev, kernels):
                     f"{share:.2e} of the elements differ")
                 if b != 1 or h != SLICE_HW:
                     continue
+                if cin > btower.WGMMA_WIDTH:
+                    wide_tower_in_turns(tower, x, instance, flop,
+                                        f"(1, {cin}, {h}, {w}) -> {nout}")
+                    continue
                 ms = time_ms(lambda: btower.fused_float_tower(x, tower), 20)
                 line = (f"time fused_float_tower (1, {cin}, {h}, {w}) -> "
                         f"{nout} {name} ({instance}): kernel {ms:.4f} ms "
@@ -757,9 +773,7 @@ def phase_float_tower(dev, kernels):
                     plain_ms = time_ms(
                         lambda: btower.float_tower_reference(tower, x), 5)
                     line += f"  plain {plain_ms:.4f} ms"
-                    wbytes = sum(t.numel() * t.element_size()
-                                 for t in btower.pack_float_tower(tower))
-                    nbytes = b * h * w * (cin + nout) * x.element_size() + wbytes
+                    nbytes = tower_bytes(tower, x)
                     if dtype == torch.bfloat16:
                         cudnn_ms = time_ms(lambda: cudnn_tower(tower, x), 5)
                         line += f"  cuDNN module chain (bf16) {cudnn_ms:.4f} ms"
@@ -784,6 +798,43 @@ def phase_float_tower(dev, kernels):
     log(f"fused_float_tower instances checked: {ran}")
     if not all(ran.values()):
         fail(f"an instance of fused_float_tower was not checked: {ran}")
+
+
+def tower_bytes(tower, x) -> int:
+    """The bytes a tower launch must move: x read, the output written, the
+    kernel's weight pack read."""
+    b, cin, h, w = x.shape
+    return (b * h * w * (cin + tower.b7.out_channels) * x.element_size()
+            + sum(t.numel() * t.element_size()
+                  for t in btower.pack_float_tower(tower, x.dtype)))
+
+
+def wide_tower_in_turns(tower, x, instance: str, flop: float, what: str,
+                        cudnn: bool = False) -> float:
+    """A tower of Cin above 64: its wgmma instance and the CUDA-core one
+    timed in turns (new/old/new/old/new) beside the bound (bf16 on the
+    tensor cores; f32 as 3 x TF32) and, with ``cudnn``, the cuDNN module
+    chain.  Returns the median of the wgmma readings."""
+    side = instances_side_by_side(
+        lambda inst: btower.fused_float_tower(
+            x, tower, instance=None if inst == instance else inst),
+        instance, btower.CUDA_CORES, 5)
+    ms = statistics.median(side[instance])
+    bf16 = x.dtype == torch.bfloat16
+    bound = bound_ms(tower_bytes(tower, x), flop if bf16 else 3 * flop,
+                     "bf16" if bf16 else "tf32")
+    line = (f"time fused_float_tower {what} {str(x.dtype)[6:]} in turns "
+            f"new/old/new/old/new: {instance} "
+            f"{['%.4f' % t for t in side[instance]]}, CUDA cores "
+            f"{['%.4f' % t for t in side[btower.CUDA_CORES]]} ms; median "
+            f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s) against CUDA cores "
+            f"{statistics.median(side[btower.CUDA_CORES]):.4f}; bound "
+            f"{bound[0]:.4f} ms ({bound[1]}{'' if bf16 else ', 3 x TF32'})")
+    if cudnn:
+        line += (f"  [cuDNN module chain: "
+                 f"{time_ms(lambda: cudnn_tower(tower, x), 5):.4f} ms]")
+    log(line)
+    return ms
 
 
 # bounds of the backward kernels against their plain backward (autograd
@@ -962,10 +1013,12 @@ def check_cat_affine_backward(dev, kernels):
 def check_float_tower_backward(dev, kernels):
     """K2 at every flagship tower shape (the wgmma bf16 instance in bf16, the
     CUDA-core one in f32), at two odd shapes (64 wide through both
-    instances in bf16) and at width 20 (CUDA cores), each launch repeated
-    and held equal to the bit; then, at step 0 in
-    bf16, the two instances timed in turns beside the plain backward and the
-    cuDNN autograd chain, and the wgmma instance at every step's shape."""
+    instances in bf16), at width 20 (CUDA cores) and at Cin 65, 72 and 128
+    (wgmma in bf16: b1 with K up to 128, dx in launches of 64) at odd sizes
+    and, bf16, at 512^2, each launch repeated and held equal to the bit; then, at
+    step 0 in bf16, the two instances timed in turns beside the plain
+    backward and the cuDNN autograd chain, and the wgmma instance at every
+    step's shape; at Cin 65 and 128 the two in turns beside the bound."""
     gen = torch.Generator().manual_seed(6)
     k = kernels["float_tower_bwd"]
     by_instance = btower.float_tower_backward.by_instance
@@ -974,6 +1027,9 @@ def check_float_tower_backward(dev, kernels):
               for cin in TOWER_CIN for nout in (2 * cin, cin)]
     shapes += [(2, 12, 37, 53, 64, 24), (1, 64, 40, 24, 64, 80),
                (2, 5, 19, 35, 20, 10)]
+    shapes += [(1, 65, SLICE_HW, SLICE_HW, 64, 48),
+               (1, 128, SLICE_HW, SLICE_HW, 64, 24), (2, 65, 37, 53, 64, 24),
+               (1, 72, 37, 53, 64, 48), (1, 128, 37, 53, 64, 96)]
     flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2]) for t in pair]
     step_ms = {}
     for b, cin, h, w, width, nout in shapes:
@@ -982,8 +1038,12 @@ def check_float_tower_backward(dev, kernels):
         tower = tower.to(dev)                   # f32 master weights
         x0 = torch.randn((b, cin, h, w), generator=gen)
         dy0 = torch.randn((b, nout, h, w), generator=gen)
-        flagship_shape = b == 1 and h == SLICE_HW
-        for dtype in (torch.float32, torch.bfloat16):
+        wide = b == 1 and h == SLICE_HW and cin not in TOWER_CIN
+        flagship_shape = b == 1 and h == SLICE_HW and not wide
+        # Cin above 64 at 512^2: the wgmma instance, bf16 (f32 runs the
+        # CUDA-core instance, checked at the odd shapes)
+        for dtype in ((torch.bfloat16,) if wide
+                      else (torch.float32, torch.bfloat16)):
             x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
             own = btower.bwd_instance(dtype, width, cin, nout)
             ref = btower.float_tower_backward_reference(tower, x, dy)
@@ -1015,6 +1075,9 @@ def check_float_tower_backward(dev, kernels):
                     f"max|d|/max|ref| {e:.3e}")
                 del got
             del ref
+            if wide and dtype == torch.bfloat16:
+                wide_k2_in_turns(tower, x, dy, f"(1, {cin}, {h}, {w}) -> "
+                                 f"{nout}")
             if not flagship_shape:
                 continue
             if dtype == torch.bfloat16:
@@ -1067,6 +1130,37 @@ def check_float_tower_backward(dev, kernels):
     log(f"float_tower_backward instances checked: {ran}")
     if not all(ran.values()):
         fail(f"an instance of float_tower_backward was not checked: {ran}")
+
+
+def wide_k2_in_turns(tower, x, dy, what: str, cudnn: bool = False) -> float:
+    """K2 in bf16 at Cin above 64: the wgmma instance and the CUDA-core one
+    timed in turns (new/old/new/old/new) beside the bound (the dgrads and
+    wgrads on the bf16 tensor cores) and, with ``cudnn``, the cuDNN autograd
+    chain.  Returns the median of the wgmma readings."""
+    b, cin, h, w = x.shape
+    nout = dy.shape[1]
+    flop = 2 * b * h * w * (cin * 64 + 3 * 10 * 64 * 64 + 9 * 64 * nout)
+    side = instances_side_by_side(
+        lambda inst: btower.float_tower_backward(
+            tower, x, dy, instance=None if inst == btower.WGMMA_BF16 else inst),
+        btower.WGMMA_BF16, btower.CUDA_CORES, 2)
+    ms = statistics.median(side[btower.WGMMA_BF16])
+    wbytes = 4 * sum(p.numel() for p in tower.parameters())
+    bound = bound_ms(b * h * w * (2 * cin + nout) * 2 + wbytes, 2 * flop,
+                     "bf16")
+    line = (f"time float_tower_backward {what} bf16 in turns "
+            f"new/old/new/old/new: wgmma bf16 "
+            f"{['%.4f' % t for t in side[btower.WGMMA_BF16]]}, CUDA cores "
+            f"{['%.4f' % t for t in side[btower.CUDA_CORES]]} ms; median "
+            f"{ms:.4f} ms ({2 * flop / ms / 1e9:.1f} TFLOP/s) against CUDA "
+            f"cores {statistics.median(side[btower.CUDA_CORES]):.4f}; bound "
+            f"{bound[0]:.4f} ms ({bound[1]})")
+    if cudnn:
+        t16 = copy.deepcopy(tower).to(torch.bfloat16)
+        line += (f"  [cuDNN autograd chain, bf16: "
+                 f"{time_ms(lambda: cudnn_tower_grad(t16, x, dy), 3):.4f} ms]")
+    log(line)
+    return ms
 
 
 def check_cond_pair_backward(dev, kernels):
@@ -3729,6 +3823,14 @@ def tower_instances(towers, dtype, backward: bool = False) -> dict:
     return out
 
 
+def no_cuda_cores(wrapper, what: str):
+    """Fails if ``wrapper`` ran its CUDA-core instance since
+    reset_counts()."""
+    n = wrapper.by_instance[btower.CUDA_CORES]
+    if n:
+        fail(f"{what}: {n} launches on the CUDA cores, expected none")
+
+
 def check_by_instance(wrapper, want: dict, calls: int, what: str):
     """Fails unless ``wrapper``'s launches by instance since reset_counts()
     are ``want`` times ``calls``."""
@@ -3757,8 +3859,10 @@ def check_block_towers(dev, kernels) -> dict:
     """The float tower (forward) and K2 (backward) at every coupling-tower
     shape of the non-CAT types (Cin 72 / 36 / 18 / 9 at 512^2, 64 wide),
     each launch against its plain version, f32 and bf16, logging the
-    instance that ran; times the bf16 forward and K2 at each shape.
-    Returns {(cin, nout): (forward ms, K2 ms)} in bf16."""
+    instance that ran (wgmma at every shape, Cin 72 too); times the bf16
+    forward and K2 at each shape; at Cin 72 each wgmma instance in turns
+    with the CUDA-core one (the f32 forward too), beside the bound and the
+    cuDNN chain.  Returns {(cin, nout): (forward ms, K2 ms)} in bf16."""
     gen = torch.Generator().manual_seed(14)
     flat = lambda g: [g[0]] + [t for pair in zip(g[1], g[2]) for t in pair]
     fwd, bwd = kernels["fused_float_tower"], kernels["float_tower_bwd"]
@@ -3773,6 +3877,8 @@ def check_block_towers(dev, kernels) -> dict:
             x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
             t = copy.deepcopy(tower).to(dtype).eval()
             inst = btower.kernel_instance(dtype, 64, cin, nout)
+            if inst == btower.CUDA_CORES:
+                fail(f"blocks tower {cin}->{nout} {dtype}: not on wgmma")
             with torch.inference_mode():
                 got = one_launch_of(
                     btower.fused_float_tower, inst,
@@ -3799,14 +3905,27 @@ def check_block_towers(dev, kernels) -> dict:
                     f"{str(dtype)[6:]}: forward ({inst}) max|d| {e:.3e}, "
                     f"{share:.2e} of the elements differ; K2 ({binst}) "
                     f"max|d|/max|ref| {eb:.3e}")
-            if dtype == torch.bfloat16:
+            log(line)
+            flop = 2 * SLICE_HW * SLICE_HW * (cin * 64 + 3 * 10 * 64 * 64
+                                              + 9 * 64 * nout)
+            if cin > btower.WGMMA_WIDTH:
+                with torch.inference_mode():
+                    f_ms = wide_tower_in_turns(
+                        t, x, inst, flop, f"(1, {cin}, 512, 512) -> {nout} "
+                        f"(blocks)", cudnn=dtype == torch.bfloat16)
+                if dtype == torch.bfloat16:
+                    b_ms = wide_k2_in_turns(
+                        tower, x, dy, f"(1, {cin}, 512, 512) -> {nout} "
+                        f"(blocks)", cudnn=True)
+                    times[(cin, nout)] = (f_ms, b_ms)
+            elif dtype == torch.bfloat16:
                 with torch.inference_mode():
                     f_ms = time_ms(lambda: btower.fused_float_tower(x, t), 5)
                 b_ms = time_ms(lambda: btower.float_tower_backward(
                     tower, x, dy), 3, warmup=1)
                 times[(cin, nout)] = (f_ms, b_ms)
-                line += f"; time forward {f_ms:.4f} ms, K2 {b_ms:.4f} ms"
-            log(line)
+                log(f"time blocks tower (1, {cin}, 512, 512) -> {nout} bf16: "
+                    f"forward {f_ms:.4f} ms, K2 {b_ms:.4f} ms")
     return times
 
 
@@ -3895,6 +4014,7 @@ def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
     check_by_instance(btower.fused_float_tower,
                       tower_instances(towers, torch.bfloat16), 4,
                       f"blocks {bt} flagship bf16 towers")
+    no_cuda_cores(btower.fused_float_tower, f"blocks {bt} flagship bf16 towers")
     check_instance("cond_pair", cpair.TENSOR_CORES,
                    f"blocks {bt} flagship bf16")
     for name, n in delta.items():
@@ -3906,7 +4026,12 @@ def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
     recon32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
                                 deterministic=True,
                                 compute_dtype=torch.float32)
+    reset_counts()
     out32 = recon32(frames1)
+    check_by_instance(btower.fused_float_tower,
+                      tower_instances(towers, torch.float32), 1,
+                      f"blocks {bt} flagship f32 towers")
+    no_cuda_cores(btower.fused_float_tower, f"blocks {bt} flagship f32 towers")
     rel = ((out16 - out32).abs().max() / out32.abs().max()).item()
     out["bf16_vs_f32"] = rel
     del recon32, out16, out32
@@ -3938,6 +4063,7 @@ def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
     check_by_instance(btower.fused_float_tower,
                       tower_instances(towers, torch.float32), 4,
                       f"blocks {bt} flagship NLL towers")
+    no_cuda_cores(btower.fused_float_tower, f"blocks {bt} flagship NLL towers")
     out.update(nll_ms=float(np.median(nll_ms)), nll_peak=nll_peak / 2 ** 30)
     log(f"blocks {bt} flagship NLL f32 batch 1: "
         f"{[round(v, 4) for v in nlls[:, 0].tolist()]}; {out['nll_ms']:.2f} "
@@ -3977,6 +4103,8 @@ def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
                       tower_instances(step_towers, torch.bfloat16,
                                       backward=True), 2,
                       f"blocks {bt} flow step 0 K2")
+    no_cuda_cores(btower.float_tower_backward, f"blocks {bt} flow step 0 K2")
+    no_cuda_cores(btower.fused_float_tower, f"blocks {bt} flow step 0 towers")
     moved = sum(not torch.equal(p0, p) for p0, p in
                 zip(params0, model.flow[0].parameters()))
     if moved != len(params0):

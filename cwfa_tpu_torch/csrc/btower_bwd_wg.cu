@@ -48,6 +48,10 @@
 //     gradient; the gradient is stored twice, f32 for the residual chain and
 //     bf16 as the operand of the next products.  Only the operand is
 //     rounded.  What the epilogue does is a template flag set (MODE).
+//     Cin up to 128 (the [x half | c_views] towers of the other coupling
+//     types): the recomputed b1 reads K = Cin from a window of that many
+//     channels; the dgrad into dx runs in launches of at most 64 of its
+//     channels, the four M tiles' sums of 128 not fitting a thread.
 //   - wgrad_kernel, three warpgroups a block, one block a streaming
 //     multiprocessor, persistent over the same tiles: dW[co][ci, tap] =
 //     sum_p g[co](p) in[ci](p + tap) with K = the 16 positions of a tile row,
@@ -56,7 +60,8 @@
 //     A 3x3's 9 taps are split over the three warpgroups (3 x 64 x N f32
 //     sums in registers each); a 1x1's rows are.  The bias sums ride along
 //     on the CUDA cores.  Above 64 outputs (b7's Nout 80, 96) the outputs
-//     go in two launches of at most 48.  Each block writes its partial
+//     go in two launches of at most 48; b1's wgrad (a 1x1, one tap a
+//     thread's sums) takes N = Cin up to 128 in one.  Each block writes its partial
 //     sums, and a second pass sums the partials in a fixed order: no
 //     atomics, the same result from run to run.
 //
@@ -162,8 +167,8 @@ struct ConvP {
   const void* dcan;         // bf16 canvas (N): times ELU'(from it)
   uint32_t* out_b;          // bf16 canvas (N)
   float2* out_f;            // f32 canvas (N)
-  uint16_t* out_nchw;       // bf16 NCHW (nvalid channels)
-  int kch, nvalid;
+  uint16_t* out_nchw;       // bf16 NCHW (nvalid channels), from channel n_off
+  int kch, nvalid, n_off;
   Tiles T;
 };
 
@@ -302,7 +307,7 @@ __global__ void __launch_bounds__(256, 1) conv_kernel(const ConvP p) {
           if (MODE & kOutB) p.out_b[4 * u + q] = pack_bf16(v0, v1);
           if (MODE & kOutF) p.out_f[4 * u + q] = make_float2(v0, v1);
           if (MODE & kNchw) {
-            const int n = 8 * j + 2 * q;
+            const int n = p.n_off + 8 * j + 2 * q;
             const int64_t o2 = (((int64_t)b * p.nvalid + n) * T.H + y) * T.W + x;
             const uint32_t v = pack_bf16(v0, v1);
             if (n < p.nvalid) p.out_nchw[o2] = (uint16_t)(v & 0xffffu);
@@ -488,7 +493,7 @@ struct Ctx {
 template <int KS, int N, int MODE>
 int conv(const Ctx& c, const void* in, int kch, const char* wt, const float* bias,
          const void* res, const void* res_f, void* out_b, void* out_f, void* out_nchw = nullptr,
-         int nvalid = 0) {
+         int nvalid = 0, int n_off = 0) {
   constexpr int PW = kT + 2 * (KS / 2);
   constexpr int EPI = (MODE & (kResB | kDcan)) ? (N / 8) * kT * kT * 16 : 0;
   ConvP p;
@@ -503,6 +508,7 @@ int conv(const Ctx& c, const void* in, int kch, const char* wt, const float* bia
   p.out_nchw = static_cast<uint16_t*>(out_nchw);
   p.kch = kch;
   p.nvalid = nvalid;
+  p.n_off = n_off;
   p.T = c.T;
   const int wbytes = KS * KS * kch * N * 2, per_wg = (kch / 8) * PW * PW * 16 + EPI;
   const int nwg = wbytes + 2 * per_wg <= kSmemMax ? 2 : 1;
@@ -558,18 +564,23 @@ int wgrad(const Ctx& c, const void* m_in, const void* n_in, int n_tot, int n_off
   return (int)cudaGetLastError();
 }
 
-// conv<1, N> / wgrad<KS, N> for the N that a width gives, at run time
-int conv1_n(const Ctx& c, int n, const void* in, const char* wt, void* out, int nvalid) {
+// conv<1, N> / wgrad<KS, N> for the N that a width gives, at run time.  The
+// dgrad into dx writes NCHW channels n_off .. n_off + N - 1 of nvalid.
+int conv1_n(const Ctx& c, int n, const void* in, const char* wt, void* out, int nvalid,
+            int n_off) {
   switch (n) {
 #define CWFA_CASE(N) \
   case N:            \
-    return conv<1, N, BWD_DX>(c, in, 64, wt, nullptr, nullptr, nullptr, nullptr, nullptr, out, nvalid);
+    return conv<1, N, BWD_DX>(c, in, 64, wt, nullptr, nullptr, nullptr, nullptr, nullptr, out, \
+                              nvalid, n_off);
     CWFA_CASE(16) CWFA_CASE(32) CWFA_CASE(48) CWFA_CASE(64)
 #undef CWFA_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// N above 64 only for a 1x1 (b1's wgrad, N = Cin up to 128: one tap's 64
+// sums a thread); a 3x3 sums three taps a warpgroup and spills above 64
 template <int KS>
 int wgrad_n(const Ctx& c, int n, int n_tot, int n_off, const void* m_in, const void* n_in,
             int m_shift, int co, int ci, float* part, float* dw, float* dbias) {
@@ -578,8 +589,11 @@ int wgrad_n(const Ctx& c, int n, int n_tot, int n_off, const void* m_in, const v
   case N:            \
     return wgrad<KS, N>(c, m_in, n_in, n_tot, n_off, m_shift, co, ci, part, dw, dbias);
     CWFA_CASE(16) CWFA_CASE(32) CWFA_CASE(48) CWFA_CASE(64)
-#undef CWFA_CASE
   }
+  if constexpr (KS == 1) {
+    switch (n) { CWFA_CASE(80) CWFA_CASE(96) CWFA_CASE(112) CWFA_CASE(128) }
+  }
+#undef CWFA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -623,16 +637,17 @@ extern "C" int64_t cwfa_btower_bwd_wg_scratch(int b, int h, int w, int cin, int 
 // slices of b1, b2a, b2b, b4a, b4b, b6a, b6b ([tap][K/8][64][8], K = cin
 // padded to 16 for b1, else 64), then the dgrad slices of b7, b6b, b6a, b4b,
 // b4a, b2b, b2a, b1 (taps flipped, in and out swapped: [tap][K/8][N][8], K =
-// nout padded to 16 for b7, else 64; N = cin padded to 16 for b1, else 64);
+// nout padded to 16 for b7, else 64; N = 64 but for b1, whose N = cin padded
+// to 16 comes in chunks of at most 64 outputs, one after the other);
 // bias: the 7 x 64 f32 biases of b1 .. b6b.  dx: (B, cin, H, W) bf16;
 // dw[8] (OIHW), db[8] (Co): f32, in the order b1, b2a, b2b, b4a, b4b, b6a,
 // b6b, b7.  scratch: cwfa_btower_bwd_wg_scratch bytes, 16-byte aligned.
-// The tower is 64 wide, cin <= 64, nout <= 96.
+// The tower is 64 wide, cin <= 128, nout <= 96.
 extern "C" int cwfa_btower_bwd_wg(const void* x, const void* dy, const void* wp,
                                   const float* bias, void* dx, float* const* dw,
                                   float* const* db, void* scratch, int b, int h, int w,
                                   int cin, int nout, int device, void* stream) {
-  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin > 64 || nout <= 0 || nout > 96 ||
+  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin > 128 || nout <= 0 || nout > 96 ||
       reinterpret_cast<uintptr_t>(wp) % 16 || reinterpret_cast<uintptr_t>(scratch) % 16)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -726,8 +741,12 @@ extern "C" int cwfa_btower_bwd_wg(const void* x, const void* dy, const void* wp,
     RUN(wgrad_n<3>(c, 64, 64, 0, gb[1], below, 0, 64, 64, part, dw[1 + 2 * k],
                    db[1 + 2 * k]));
   }
-  // dx = b1^T(g_r1); dW1 from g_r1 and x
-  RUN(conv1_n(c, cinp, gb[0], dwt[7], dx, cin));
+  // dx = b1^T(g_r1), at most 64 of its channels a launch (the sums of N
+  // above 64 do not fit a thread's registers beside the four M tiles); dW1
+  // from g_r1 and x
+  for (int n0 = 0; n0 < cinp; n0 += 64)
+    RUN(conv1_n(c, std::min(64, cinp - n0), gb[0], dwt[7] + (int64_t)n0 * 64 * 2, dx, cin,
+                n0));
   RUN(wgrad_n<1>(c, cinp, cinp, 0, gb[0], xc, 0, 64, cin, part, dw[0], db[0]));
 #undef RUN
   return 0;

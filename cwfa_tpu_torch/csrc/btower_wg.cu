@@ -61,9 +61,21 @@
 //     the level's input, then written in place.
 //   - SAME padding: every canvas that feeds a 3x3 conv is written as 0 at
 //     positions outside the image.
+//   - Cin up to 128 (the [x half | c_views] towers of the other coupling
+//     types: Cin 72 at step 0): b1's K is cut into chunks of at most 64
+//     input channels (a canvas is 64 channels wide; a wider one does not
+//     fit beside the other canvas and the ring), one weight slice a chunk,
+//     summed in the same registers.  bf16: x's channels past 64 are staged
+//     in canvas A, free until b1's epilogue writes r1 there after a
+//     barrier, so no staging runs while the sums are live.  f32 (one
+//     canvas): the chunks pass in turn through it, a barrier before each
+//     later chunk's staging, each in 32-channel slices.  The x canvas is
+//     dead after b1, so the later levels are as for Cin <= 64.
 //
 // Plain C interface for ctypes; launches on the caller's stream, does not
 // synchronise, returns cudaGetLastError().
+
+#include <algorithm>
 
 #include "tower_wg.cuh"
 
@@ -130,74 +142,88 @@ __global__ void __launch_bounds__(kThreads, 1) tower_bf16_kernel(const Params p)
   for (int i = tid; i < 7 * kC + NP7; i += kThreads)
     reinterpret_cast<float*>(smem + G::kBias)[i] =
         i < 7 * kC + p.nout ? p.bias[i] : 0.f;
-  // the input window (zero outside the image and in the channels that pad
-  // Cin) into canvas B
-  if (p.vec) {
-    // a thread takes 8 channels x 4 pixels of a row (one 8-byte load per
-    // channel, all in flight together) and writes 4 positions of 16 bytes
-    const uint2* x = static_cast<const uint2*>(p.x);
-    const int nunits = (p.cinp >> 3) * G::kSH * 6;
-    for (int u = tid; u < nunits; u += kThreads) {
-      const int o = u / (G::kSH * 6), rem = u % (G::kSH * 6);
-      const int R = rem / 6, Cc = (rem % 6) * 4;
-      const int gr = B.r0 + R, gc = B.c0 + Cc;
-      const bool in = (unsigned)gr < (unsigned)H && (unsigned)gc < (unsigned)W;
-      uint2 v[8];
+  // Channels c0 .. c0 + kc - 1 of the input window (zero outside the image
+  // and in the channels that pad Cin) into the canvas at cvs: one chunk of
+  // b1's K
+  auto stage_x = [&](uint32_t cvs, int c0, int kc) {
+    if (p.vec) {
+      // a thread takes 8 channels x 4 pixels of a row (one 8-byte load per
+      // channel, all in flight together) and writes 4 positions of 16 bytes
+      const uint2* x = static_cast<const uint2*>(p.x);
+      const int nunits = (kc >> 3) * G::kSH * 6;
+      for (int u = tid; u < nunits; u += kThreads) {
+        const int o = u / (G::kSH * 6), rem = u % (G::kSH * 6);
+        const int R = rem / 6, Cc = (rem % 6) * 4;
+        const int gr = B.r0 + R, gc = B.c0 + Cc;
+        const bool in = (unsigned)gr < (unsigned)H && (unsigned)gc < (unsigned)W;
+        uint2 v[8];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int ch = 8 * o + c;
-        v[c] = make_uint2(0u, 0u);
-        if (in && ch < p.cin)
-          v[c] = __ldg(x + ((((int64_t)b * p.cin + ch) * H + gr) * W + gc) / 4);
+        for (int c = 0; c < 8; ++c) {
+          const int ch = c0 + 8 * o + c;
+          v[c] = make_uint2(0u, 0u);
+          if (in && ch < p.cin)
+            v[c] = __ldg(x + ((((int64_t)b * p.cin + ch) * H + gr) * W + gc) / 4);
+        }
+        const uint32_t dst = cvs + o * PL + (R * kSW + Cc) * 16;
+        sts128(dst, __byte_perm(v[0].x, v[1].x, 0x5410), __byte_perm(v[2].x, v[3].x, 0x5410),
+               __byte_perm(v[4].x, v[5].x, 0x5410), __byte_perm(v[6].x, v[7].x, 0x5410));
+        sts128(dst + 16, __byte_perm(v[0].x, v[1].x, 0x7632), __byte_perm(v[2].x, v[3].x, 0x7632),
+               __byte_perm(v[4].x, v[5].x, 0x7632), __byte_perm(v[6].x, v[7].x, 0x7632));
+        sts128(dst + 32, __byte_perm(v[0].y, v[1].y, 0x5410), __byte_perm(v[2].y, v[3].y, 0x5410),
+               __byte_perm(v[4].y, v[5].y, 0x5410), __byte_perm(v[6].y, v[7].y, 0x5410));
+        sts128(dst + 48, __byte_perm(v[0].y, v[1].y, 0x7632), __byte_perm(v[2].y, v[3].y, 0x7632),
+               __byte_perm(v[4].y, v[5].y, 0x7632), __byte_perm(v[6].y, v[7].y, 0x7632));
       }
-      const uint32_t dst = cb + o * PL + (R * kSW + Cc) * 16;
-      sts128(dst, __byte_perm(v[0].x, v[1].x, 0x5410), __byte_perm(v[2].x, v[3].x, 0x5410),
-             __byte_perm(v[4].x, v[5].x, 0x5410), __byte_perm(v[6].x, v[7].x, 0x5410));
-      sts128(dst + 16, __byte_perm(v[0].x, v[1].x, 0x7632), __byte_perm(v[2].x, v[3].x, 0x7632),
-             __byte_perm(v[4].x, v[5].x, 0x7632), __byte_perm(v[6].x, v[7].x, 0x7632));
-      sts128(dst + 32, __byte_perm(v[0].y, v[1].y, 0x5410), __byte_perm(v[2].y, v[3].y, 0x5410),
-             __byte_perm(v[4].y, v[5].y, 0x5410), __byte_perm(v[6].y, v[7].y, 0x5410));
-      sts128(dst + 48, __byte_perm(v[0].y, v[1].y, 0x7632), __byte_perm(v[2].y, v[3].y, 0x7632),
-             __byte_perm(v[4].y, v[5].y, 0x7632), __byte_perm(v[6].y, v[7].y, 0x7632));
+    } else {
+      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+      __nv_bfloat16* xc = reinterpret_cast<__nv_bfloat16*>(smem + (cvs - s0));
+      for (int i = tid; i < kc * G::kP; i += kThreads) {
+        const int cl = i / G::kP, pos = i % G::kP, ch = c0 + cl;
+        __nv_bfloat16 v = __float2bfloat16_rn(0.f);
+        if (ch < p.cin && B.inside(pos))
+          v = x[(((int64_t)b * p.cin + ch) * H + B.r0 + pos / kSW) * W + B.c0 + pos % kSW];
+        xc[(cl >> 3) * (PL / 2) + pos * 8 + (cl & 7)] = v;
+      }
     }
-  } else {
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-    __nv_bfloat16* xc = reinterpret_cast<__nv_bfloat16*>(smem + G::kCanvas);
-    for (int i = tid; i < p.cinp * G::kP; i += kThreads) {
-      const int ch = i / G::kP, pos = i % G::kP;
-      __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-      if (ch < p.cin && B.inside(pos))
-        v = x[(((int64_t)b * p.cin + ch) * H + B.r0 + pos / kSW) * W + B.c0 + pos % kSW];
-      xc[(ch >> 3) * (PL / 2) + pos * 8 + (ch & 7)] = v;
-    }
-  }
+  };
+  // x in canvas B, its channels past 64 in canvas A (free until b1's
+  // epilogue)
+  stage_x(cb, 0, min(kC, p.cinp));
+  if (p.cinp > kC) stage_x(ca, kC, p.cinp - kC);
 
   const uint64_t da = wg::desc_base(PL, 128, wg::kSwizzleNone);
   const uint64_t dw = wg::desc_base(kC * 16, 128, wg::kSwizzleNone);
   int si = 0;
   float acc[3][32];
 
-  // ---- b1 (1x1, level 0, all 9 tiles): x (canvas B) -> r1 (canvas A)
+  // ---- b1 (1x1, level 0, all 9 tiles): x -> r1 (canvas A), its K in
+  // chunks of at most 64 channels (canvas B, then canvas A), one weight
+  // slice each, summed in the same registers as a 3x3's taps are
   {
-    const uint32_t slot = B.acquire(si++);
 #pragma unroll
     for (int j = 0; j < 3; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
-    wg::fence();
-    const int nks = p.cinp >> 4;
+#pragma unroll 1
+    for (int c0 = 0; c0 < p.cinp; c0 += kC) {
+      const uint32_t slot = B.acquire(si++);
+      const uint32_t xcv = c0 ? ca : cb;
+      wg::fence();
+      const int nks = min(kC, p.cinp - c0) >> 4;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const uint32_t a0 = cb + (wgi + 3 * j) * 64 * 16;
-      for (int ks = 0; ks < nks; ++ks)
-        wg::wgmma_ss_bf16<kC>(acc[j], wg::desc_at(da, a0 + 2 * ks * PL),
-                              wg::desc_at(dw, slot + 2 * ks * kC * 16));
+      for (int j = 0; j < 3; ++j) {
+        const uint32_t a0 = xcv + (wgi + 3 * j) * 64 * 16;
+        for (int ks = 0; ks < nks; ++ks)
+          wg::wgmma_ss_bf16<kC>(acc[j], wg::desc_at(da, a0 + 2 * ks * PL),
+                                wg::desc_at(dw, slot + 2 * ks * kC * 16));
+      }
+      wg::commit();
+      B.prefetch();
     }
-    wg::commit();
-    B.prefetch();
     wg::wait<0>();
 #pragma unroll
     for (int j = 0; j < 3; ++j) keep(acc[j]);
+    if (p.cinp > kC) __syncthreads();   // every warpgroup has read x in canvas A
 #pragma unroll
     for (int j = 0; j < 3; ++j)
 #pragma unroll
@@ -467,45 +493,50 @@ __global__ void __launch_bounds__(kThreads, 1) tower_tf32_kernel(const Params p)
   for (int i = tid; i < 7 * kC + NP7; i += kThreads)
     reinterpret_cast<float*>(smem + G::kBias)[i] =
         i < 7 * kC + p.nout ? p.bias[i] : 0.f;
-  if (p.vec) {
-    // a thread takes 4 channels x 4 pixels of a row (one 16-byte load per
-    // channel) and writes 4 positions of 16 bytes
-    const float4* x = static_cast<const float4*>(p.x);
-    const int nunits = (p.cinp >> 2) * G::kSH * 6;
-    for (int u = tid; u < nunits; u += kThreads) {
-      const int o = u / (G::kSH * 6), rem = u % (G::kSH * 6);
-      const int R = rem / 6, Cc = (rem % 6) * 4;
-      const int gr = B.r0 + R, gc = B.c0 + Cc;
-      const bool in = (unsigned)gr < (unsigned)H && (unsigned)gc < (unsigned)W;
-      float4 v[4];
+  // Channels c0 .. c0 + kc - 1 of the input window into the canvas: one
+  // chunk of b1's K
+  auto stage_x = [&](int c0, int kc) {
+    if (p.vec) {
+      // a thread takes 4 channels x 4 pixels of a row (one 16-byte load per
+      // channel) and writes 4 positions of 16 bytes
+      const float4* x = static_cast<const float4*>(p.x);
+      const int nunits = (kc >> 2) * G::kSH * 6;
+      for (int u = tid; u < nunits; u += kThreads) {
+        const int o = u / (G::kSH * 6), rem = u % (G::kSH * 6);
+        const int R = rem / 6, Cc = (rem % 6) * 4;
+        const int gr = B.r0 + R, gc = B.c0 + Cc;
+        const bool in = (unsigned)gr < (unsigned)H && (unsigned)gc < (unsigned)W;
+        float4 v[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int ch = 4 * o + c;
-        v[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (in && ch < p.cin)
-          v[c] = __ldg(x + ((((int64_t)b * p.cin + ch) * H + gr) * W + gc) / 4);
+        for (int c = 0; c < 4; ++c) {
+          const int ch = c0 + 4 * o + c;
+          v[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (in && ch < p.cin)
+            v[c] = __ldg(x + ((((int64_t)b * p.cin + ch) * H + gr) * W + gc) / 4);
+        }
+        const uint32_t dst = cv + o * PL + (R * kSW + Cc) * 16;
+        sts128(dst, __float_as_uint(v[0].x), __float_as_uint(v[1].x),
+               __float_as_uint(v[2].x), __float_as_uint(v[3].x));
+        sts128(dst + 16, __float_as_uint(v[0].y), __float_as_uint(v[1].y),
+               __float_as_uint(v[2].y), __float_as_uint(v[3].y));
+        sts128(dst + 32, __float_as_uint(v[0].z), __float_as_uint(v[1].z),
+               __float_as_uint(v[2].z), __float_as_uint(v[3].z));
+        sts128(dst + 48, __float_as_uint(v[0].w), __float_as_uint(v[1].w),
+               __float_as_uint(v[2].w), __float_as_uint(v[3].w));
       }
-      const uint32_t dst = cv + o * PL + (R * kSW + Cc) * 16;
-      sts128(dst, __float_as_uint(v[0].x), __float_as_uint(v[1].x),
-             __float_as_uint(v[2].x), __float_as_uint(v[3].x));
-      sts128(dst + 16, __float_as_uint(v[0].y), __float_as_uint(v[1].y),
-             __float_as_uint(v[2].y), __float_as_uint(v[3].y));
-      sts128(dst + 32, __float_as_uint(v[0].z), __float_as_uint(v[1].z),
-             __float_as_uint(v[2].z), __float_as_uint(v[3].z));
-      sts128(dst + 48, __float_as_uint(v[0].w), __float_as_uint(v[1].w),
-             __float_as_uint(v[2].w), __float_as_uint(v[3].w));
+    } else {
+      const float* x = static_cast<const float*>(p.x);
+      float* xc = reinterpret_cast<float*>(smem);
+      for (int i = tid; i < kc * G::kP; i += kThreads) {
+        const int cl = i / G::kP, pos = i % G::kP, ch = c0 + cl;
+        float v = 0.f;
+        if (ch < p.cin && B.inside(pos))
+          v = x[(((int64_t)b * p.cin + ch) * H + B.r0 + pos / kSW) * W + B.c0 + pos % kSW];
+        xc[(cl >> 2) * (PL / 4) + pos * 4 + (cl & 3)] = v;
+      }
     }
-  } else {
-    const float* x = static_cast<const float*>(p.x);
-    float* xc = reinterpret_cast<float*>(smem);
-    for (int i = tid; i < p.cinp * G::kP; i += kThreads) {
-      const int ch = i / G::kP, pos = i % G::kP;
-      float v = 0.f;
-      if (ch < p.cin && B.inside(pos))
-        v = x[(((int64_t)b * p.cin + ch) * H + B.r0 + pos / kSW) * W + B.c0 + pos % kSW];
-      xc[(ch >> 2) * (PL / 4) + pos * 4 + (ch & 3)] = v;
-    }
-  }
+  };
+  stage_x(0, min(kC, p.cinp));
 
   const uint64_t dw = wg::desc_base(kC * 16, 128, wg::kSwizzleNone);
   int si = 0;
@@ -542,24 +573,44 @@ __global__ void __launch_bounds__(kThreads, 1) tower_tf32_kernel(const Params p)
       }
   };
 
-  // ---- b1 (1x1, level 0, 6 tiles in two rounds): x -> r1
+  // ---- b1 (1x1, level 0, 6 tiles in two rounds): x -> r1.  Its K in
+  // chunks of at most 64 channels staged in turn into the canvas, each
+  // chunk's two rounds in slices of 32 channels; a slice's products sum into
+  // a zeroed tile that the CUDA cores add to the level's results
   {
-    const int nch = (p.cinp + 31) >> 5;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int i = 0; i < 32; ++i) res[r][i] = 0.f;
-      const int pos = 64 * (wgi + 3 * r) + B.r_lo;
-      for (int c = 0; c < nch; ++c) {
-        const uint32_t slot = B.acquire(si++);
-        const int kc = min(32, p.cinp - 32 * c);
-        load_frags(hi, lo, cv, PL, pos, pos + 8, 8 * c, kc >> 3, q);
-        wg::fence();
-        mma_3xtf32<kC>(res[r], hi, lo, kc >> 3, dw, slot, kc * kC * 4);
-        wg::commit();
-        B.prefetch();
-        finish_3xtf32(res[r], hi, lo);
+    float part[32];
+#pragma unroll 1
+    for (int c0 = 0; c0 < p.cinp; c0 += kC) {
+      const int kch = min(kC, p.cinp - c0);
+      if (c0 > 0) {
+        __syncthreads();        // every warpgroup has read the last chunk
+        stage_x(c0, kch);
       }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int pos = 64 * (wgi + 3 * r) + B.r_lo;
+        for (int c = 0; c < kch; c += 32) {
+          const uint32_t slot = B.acquire(si++);
+          const int kc = min(32, kch - c);
+          load_frags(hi, lo, cv, PL, pos, pos + 8, c >> 2, kc >> 3, q);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) part[i] = 0.f;
+          wg::fence();
+          mma_3xtf32<kC>(part, hi, lo, kc >> 3, dw, slot, kc * kC * 4);
+          wg::commit();
+          B.prefetch();
+          finish_3xtf32(part, hi, lo);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) res[r][i] += part[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * nt + 2 * q);
@@ -569,7 +620,6 @@ __global__ void __launch_bounds__(kThreads, 1) tower_tf32_kernel(const Params p)
           res[r][4 * nt + 2 * h + 1] += bv.y;
         }
       }
-    }
     write_level(0);
   }
 
@@ -703,15 +753,18 @@ __global__ void __launch_bounds__(kThreads, 1) tower_tf32_kernel(const Params p)
 
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// The slices in the order tower_bf16_kernel uses them: b1, then per block
-// the 3x3's 9 taps and the 1x1, then b7's 9 taps.
+constexpr int kMaxCin = 2 * kC;   // b1's K: at most two chunks of the canvas
+
+// The slices in the order tower_bf16_kernel uses them: b1 in chunks of 64
+// input channels (the pack's [Cin/8][64][8] cut at every 8 KB), then per
+// block the 3x3's 9 taps and the 1x1, then b7's 9 taps.
 void slices_bf16(Params& p, int np7) {
   int n = 0, off = 0;
   auto add = [&](int bytes) {
     p.slice[n++] = make_int2(off, bytes);
     off += bytes;
   };
-  add(p.cinp * 128);
+  for (int c0 = 0; c0 < p.cinp; c0 += kC) add(std::min(kC, p.cinp - c0) * 128);
   for (int k = 0; k < 3; ++k)
     for (int s = 0; s < 10; ++s) add(kC * 128);
   for (int t = 0; t < 9; ++t) add(np7 * 128);
@@ -719,9 +772,15 @@ void slices_bf16(Params& p, int np7) {
 }
 
 // The f32 pack holds each conv once; the kernel walks a conv once per round
-// of M tiles (two rounds but for b7), so the table repeats it.
+// of M tiles (two rounds but for b7), so the table repeats it.  b1 is walked
+// per chunk of 64 input channels, each chunk's slices once per round.
 void slices_tf32(Params& p, int np7) {
   int n = 0, off = 0;
+  for (int c0 = 0; c0 < p.cinp; c0 += kC)
+    for (int r = 0; r < 2; ++r)
+      for (int c = c0; c < std::min(p.cinp, c0 + kC); c += 32)
+        p.slice[n++] = make_int2(off + c * kC * 8, std::min(32, p.cinp - c) * kC * 8);
+  off += p.cinp * kC * 8;
   auto conv = [&](int taps, int cinp, int np, int rounds, int next_taps,
                   int next_cinp) {
     // `next`: a 1x1 that follows each round of this 3x3 (0 taps: none)
@@ -742,7 +801,6 @@ void slices_tf32(Params& p, int np7) {
     }
     off += bytes + nbytes;
   };
-  conv(1, p.cinp, kC, 2, 0, 0);
   for (int k = 0; k < 3; ++k) {
     // level k + 1 has (16 - 2 L) x (24 - 2 L) positions, 64 to a tile, three
     // tiles to a round
@@ -776,14 +834,14 @@ int launch(K kernel, const Params& p, int b, cudaStream_t stream) {
 }  // namespace
 
 // x and out: (B, cin, H, W) and (B, nout, H, W), dtype 0 = float32 (3xTF32),
-// 1 = bfloat16; the tower is 64 wide, cin <= 64, nout <= 96.  wp: the
+// 1 = bfloat16; the tower is 64 wide, cin <= 128, nout <= 96.  wp: the
 // weight pack of ops/btower.pack_float_tower in the wgmma layout of that
 // dtype (16-byte aligned), bias: its (7 * 64 + nout) f32 biases.
 extern "C" int cwfa_btower_wg(const void* x, const void* wp, const void* bias,
                               void* out, int b, int h, int w, int cin, int nout,
                               int dtype, int device, void* stream) {
   const int np7 = nout_pad(nout);
-  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin > kC || nout <= 0 ||
+  if (b <= 0 || h <= 0 || w <= 0 || cin <= 0 || cin > kMaxCin || nout <= 0 ||
       np7 == 0 || dtype < 0 || dtype > 1 || b > 65535 ||
       reinterpret_cast<uintptr_t>(wp) % 16)
     return (int)cudaErrorInvalidValue;

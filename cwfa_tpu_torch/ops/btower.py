@@ -15,24 +15,25 @@ with the cast structure of ``pair_tower_bf16_reference``
 between convs are rounded to x's dtype; sums, bias, ELU (as
 ``exp(min(v, 0)) - 1``) and the residual add are f32.
 
-The kernel has three instances (``kernel_instance``): a 64-wide tower runs
-on the warpgroup tensor cores (``wgmma``), in bf16 or, for f32, as 3xTF32
-(every f32 operand split into a TF32 high part and a remainder, three
-products, f32 sums; ``csrc/btower_wg.cu``); every other width runs on the
-CUDA cores (``csrc/btower.cu``), any width whose canvases fit in shared
-memory at the smallest tile (400 wide in bf16, 240 in f32).  Each reads the weights from a pack in its
-own layout, built once per set of weights by ``pack_float_tower`` and kept
-on the module.
+The kernel has three instances (``kernel_instance``): a 64-wide tower with
+up to 128 inputs (``WGMMA_CIN``) runs on the warpgroup tensor cores
+(``wgmma``), in bf16 or, for f32, as 3xTF32 (every f32 operand split into a
+TF32 high part and a remainder, three products, f32 sums;
+``csrc/btower_wg.cu``); every other tower runs on the CUDA cores
+(``csrc/btower.cu``), any width whose canvases fit in shared memory at the
+smallest tile (400 wide in bf16, 240 in f32).  Each reads the weights from
+a pack in its own layout, built once per set of weights by
+``pack_float_tower`` and kept on the module.
 
 The weights may be f32 master weights under a bf16 x (training): the
 kernel and the plain version then use them rounded to bf16, and the biases
 as they are.  ``FloatTowerFn`` differentiates the tower; its backward is a
 kernel too (``float_tower_backward``; the TPU kernel has none, JAX trains
 through its XLA convs), with two instances (``bwd_instance``): a 64-wide
-tower in bf16 on the warpgroup tensor cores (``csrc/btower_bwd_wg.cu``,
-weights packed by ``pack_float_tower_bwd``, its arithmetic in plain PyTorch
-``float_tower_backward_products``), every other on the CUDA cores
-(``csrc/btower_bwd.cu``).
+tower in bf16 with up to 128 inputs on the warpgroup tensor cores
+(``csrc/btower_bwd_wg.cu``, weights packed by ``pack_float_tower_bwd``, its
+arithmetic in plain PyTorch ``float_tower_backward_products``), every other
+on the CUDA cores (``csrc/btower_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -123,6 +124,8 @@ def float_tower_backward_reference(tower, x, dy):
 
 WGMMA_BF16, WGMMA_3XTF32, CUDA_CORES = "wgmma bf16", "wgmma 3xTF32", "CUDA cores"
 WGMMA_WIDTH = 64                       # the tower width of the wgmma instances
+WGMMA_CIN = 128                        # ... their most inputs (b1's K in two
+                                       # chunks of the 64-channel canvas)
 WGMMA_NOUT = (16, 32, 48, 64, 96)      # b7 widths they are built for
 TF32_CHUNK = 32                        # input channels per weight slice, 3xTF32
 TOO_WIDE = -1                          # csrc/btower.cu: no tile fits the width
@@ -134,7 +137,7 @@ _SUM_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 def kernel_instance(dtype, c: int, cin: int, nout: int) -> str:
     """Which instance of the kernel runs a tower of width ``c`` with ``cin``
     inputs and ``nout`` outputs in ``dtype``."""
-    if c == WGMMA_WIDTH and cin <= WGMMA_WIDTH and nout <= WGMMA_NOUT[-1]:
+    if c == WGMMA_WIDTH and cin <= WGMMA_CIN and nout <= WGMMA_NOUT[-1]:
         return WGMMA_BF16 if dtype == torch.bfloat16 else WGMMA_3XTF32
     return CUDA_CORES
 
@@ -202,7 +205,7 @@ def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False,
     return torch.cat(parts)
 
 
-def _pack(tower, instance: str):
+def _pack(tower, instance: str, dtype):
     weights, biases = [], []
     nout_pad = 0
     if instance != CUDA_CORES:
@@ -210,7 +213,7 @@ def _pack(tower, instance: str):
     for name in CONVS:
         conv = getattr(tower, name)
         weights.append(_pack_conv(
-            conv.weight.detach().float(), instance,
+            conv.weight.detach().to(dtype).float(), instance,
             nout_pad=nout_pad if name == "b7" else 0,
             after_3x3=name in ("b2b", "b4b", "b6b"), first=name == "b1"))
         bias = (torch.zeros(conv.out_channels, device=conv.weight.device)
@@ -227,25 +230,28 @@ def _instance_of(tower, dtype) -> str:
                            tower.b1.in_channels, tower.b7.out_channels)
 
 
-def pack_float_tower(tower, dtype=None):
+def pack_float_tower(tower, dtype=None, instance=None):
     """The tower's kernel pack (weights, biases): the weights of b1, b2a,
     b2b, b4a, b4b, b6a, b6b and b7 in turn, each in the layout of
     ``_pack_conv`` for the tower's instance (``kernel_instance``), and the
     eight biases in f32 (zeros where a conv has none; for the CUDA cores
     those of b1..b6b padded with zeros to a multiple of 8).  ``dtype``: the
-    compute dtype whose instance the pack is for (default: the weights').
-    Built at first use and kept on the module until a weight changes (in
-    place or by replacement) or another dtype asks."""
+    compute dtype whose instance the pack is for (default: the weights'),
+    the weights rounded to it; ``instance``: that instance's pack instead.
+    Built at first use, one per (dtype, instance), and kept on the module
+    until a weight changes (in place or by replacement)."""
     dtype = tower.b1.weight.dtype if dtype is None else dtype
-    key = (dtype,) + tuple((t.device, t.dtype, t.data_ptr(),
-                            None if t.is_inference() else t._version)
-                           for t in tower.parameters())
+    instance = instance or _instance_of(tower, dtype)
+    key = tuple((t.device, t.dtype, t.data_ptr(),
+                 None if t.is_inference() else t._version)
+                for t in tower.parameters())
     cached = getattr(tower, "_float_tower_pack", None)
     if cached is None or cached[0] != key:
+        cached = tower._float_tower_pack = (key, {})
+    if (dtype, instance) not in cached[1]:
         with torch.no_grad():
-            cached = (key, _pack(tower, _instance_of(tower, dtype)))
-        tower._float_tower_pack = cached
-    return cached[1]
+            cached[1][dtype, instance] = _pack(tower, instance, dtype)
+    return cached[1][dtype, instance]
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,7 +312,7 @@ def _check(x, tower):
     return c, tower.b7.out_channels
 
 
-def fused_float_tower(x, tower):
+def fused_float_tower(x, tower, *, instance=None):
     """One subnet tower over the whole batch (``fused_pair_tower_bf16``,
     ``cwfa_tpu/ops/btower.py:235``).
 
@@ -315,18 +321,22 @@ def fused_float_tower(x, tower):
     (f32 weights under a bf16 x run rounded to bf16).  Returns
     the tower's output (B, Nout, H, W) in x's dtype, NCHW.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    or raises.  Counts every launch, and per instance in
+    A CPU tensor runs the plain version; a CUDA tensor launches the instance
+    that ``kernel_instance`` picks or raises.  instance: ``CUDA_CORES`` runs
+    that instance where a wgmma one would be picked (to time the two side by
+    side).  Counts every launch, and per instance in
     ``fused_float_tower.by_instance``."""
     c, nout = _check(x, tower)
+    if instance not in (None, CUDA_CORES):
+        raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
         # NCHW as the kernel writes it (a conv of a 1-channel x may come out
         # channels-last)
         return float_tower_reference(tower, x).to(x.dtype).contiguous()
     b, cin, h, w = x.shape
-    weights, biases = pack_float_tower(tower, x.dtype)
+    instance = instance or kernel_instance(x.dtype, c, cin, nout)
+    weights, biases = pack_float_tower(tower, x.dtype, instance)
     out = torch.empty((b, nout, h, w), dtype=x.dtype, device=x.device)
-    instance = kernel_instance(x.dtype, c, cin, nout)
     lib, wg = _lib()
     ptrs = (x.data_ptr(), weights.data_ptr(), biases.data_ptr(), out.data_ptr())
     where = (x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
@@ -353,7 +363,7 @@ fused_float_tower.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0, CUDA_CORES: 0}
 def bwd_instance(dtype, c: int, cin: int, nout: int) -> str:
     """Which instance of the backward kernel runs a tower of width ``c``
     with ``cin`` inputs and ``nout`` outputs in ``dtype``."""
-    if (dtype == torch.bfloat16 and c == WGMMA_WIDTH and cin <= WGMMA_WIDTH
+    if (dtype == torch.bfloat16 and c == WGMMA_WIDTH and cin <= WGMMA_CIN
             and nout <= WGMMA_NOUT[-1]):
         return WGMMA_BF16
     return CUDA_CORES
@@ -363,6 +373,7 @@ def bwd_instance(dtype, c: int, cin: int, nout: int) -> str:
 # recomputes, then the dgrads from the top
 BWD_FORWARD = CONVS[:7]
 BWD_DGRAD = CONVS[::-1]
+DX_CHUNK = 64          # b1's dgrad (into dx): outputs a launch of the kernel
 
 
 def _wg_slices(w, npad: int = 16):
@@ -385,9 +396,10 @@ def pack_float_tower_bwd(tower):
     """The wgmma backward's pack (weights, biases): the weights rounded to
     bf16 as ``_wg_slices`` of b1 .. b6b (``BWD_FORWARD``, the recomputed
     forward), then of the dgrad weights (``dgrad_weight``) of b7 .. b1
-    (``BWD_DGRAD``); the biases of b1 .. b6b, f32 (zeros where a conv has
-    none).  Built at first use and kept on the module until a weight
-    changes."""
+    (``BWD_DGRAD``), b1's in chunks of at most ``DX_CHUNK`` of its outputs
+    (the kernel's launches into dx) one after the other; the biases of b1 ..
+    b6b, f32 (zeros where a conv has none).  Built at first use and kept on
+    the module until a weight changes."""
     key = tuple((t.device, t.dtype, t.data_ptr(),
                  None if t.is_inference() else t._version)
                 for t in tower.parameters())
@@ -397,7 +409,10 @@ def pack_float_tower_bwd(tower):
             ws = {n: getattr(tower, n).weight.detach().to(torch.bfloat16)
                   .float() for n in CONVS}
             weights = [_wg_slices(ws[n]) for n in BWD_FORWARD]
-            weights += [_wg_slices(dgrad_weight(ws[n])) for n in BWD_DGRAD]
+            weights += [_wg_slices(dgrad_weight(ws[n])) for n in BWD_DGRAD[:-1]]
+            d1 = dgrad_weight(ws["b1"])
+            weights += [_wg_slices(d1[n0:n0 + DX_CHUNK])
+                        for n0 in range(0, d1.shape[0], DX_CHUNK)]
             biases = [torch.zeros(WGMMA_WIDTH, device=ws["b1"].device)
                       if getattr(tower, n).bias is None
                       else getattr(tower, n).bias.detach().float()

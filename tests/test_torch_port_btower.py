@@ -199,7 +199,8 @@ def test_pack_layout_and_reuse():
         assert not blk[:, o:].any() and not blk[:, :, i:].any()
 
 
-@pytest.mark.parametrize("cin,nout", [(5, 10), (48, 96), (40, 33)])
+@pytest.mark.parametrize("cin,nout", [(5, 10), (48, 96), (40, 33), (72, 24),
+                                      (128, 48)])
 def test_mma_fragment_layout(cin, nout):
     """The 3xTF32 pack of the f32 wgmma instance: per tap and per chunk of
     32 input channels the high parts [chunk / 4][Cout][4] and then the low
@@ -207,7 +208,8 @@ def test_mma_fragment_layout(cin, nout):
     1x1 of a residual block reads the input channels of every 8 in the order
     its 3x3's sums sit in a thread."""
     assert tbt.kernel_instance(torch.float32, 64, cin, nout) == tbt.WGMMA_3XTF32
-    assert tbt.kernel_instance(torch.float32, 64, 65, nout) == tbt.CUDA_CORES
+    assert tbt.kernel_instance(torch.float32, 64, 65, nout) == tbt.WGMMA_3XTF32
+    assert tbt.kernel_instance(torch.float32, 64, 129, nout) == tbt.CUDA_CORES
     assert tbt.kernel_instance(torch.float32, 64, cin, 97) == tbt.CUDA_CORES
     assert tbt.kernel_instance(torch.bfloat16, 16, cin, nout) == tbt.CUDA_CORES
     m = WaveletFlowSubnet2d(cin, nout, n_ch=64)
@@ -288,6 +290,125 @@ def test_3xtf32_conv_holds_the_f32_bound(k):
     assert (one.double() - ref).abs().max() > 1e-5 * scale
 
 
+@pytest.mark.parametrize("cin", [65, 72, 128])
+def test_wgmma_instances_take_cin_up_to_128(cin):
+    """The 64-wide towers of up to 128 inputs (the [x half | c_views] towers
+    of the other coupling types: Cin 72 at step 0) run on wgmma, forward in
+    both dtypes and K2 in bf16; Cin 129 on the CUDA cores."""
+    for nout in (24, 48):
+        assert tbt.kernel_instance(torch.bfloat16, 64, cin, nout) \
+            == tbt.WGMMA_BF16
+        assert tbt.kernel_instance(torch.float32, 64, cin, nout) \
+            == tbt.WGMMA_3XTF32
+        assert tbt.bwd_instance(torch.bfloat16, 64, cin, nout) \
+            == tbt.WGMMA_BF16
+        assert tbt.bwd_instance(torch.float32, 64, cin, nout) \
+            == tbt.CUDA_CORES
+        for dtype in (torch.bfloat16, torch.float32):
+            assert tbt.kernel_instance(dtype, 64, 129, nout) == tbt.CUDA_CORES
+            assert tbt.bwd_instance(dtype, 64, 129, nout) == tbt.CUDA_CORES
+
+
+def _b1_chunks(cinp: int, chunk: int):
+    """The kernel's split of b1's K: (first channel, channels) of each
+    chunk of at most ``chunk`` of the padded input channels."""
+    return [(c0, min(chunk, cinp - c0)) for c0 in range(0, cinp, chunk)]
+
+
+def test_b1_chunks_are_the_kernels_slices():
+    """b1's K as csrc/btower_wg.cu walks it: bf16 in chunks of 64 of Cin
+    padded to 16, one weight slice each; 3xTF32 in chunks of 64 of Cin
+    padded to 8, each in slices of 32 (72 = 32 + 32 + 8), every slice
+    within a ring slot."""
+    assert _b1_chunks(80, 64) == [(0, 64), (64, 16)]          # bf16, Cin 72
+    assert _b1_chunks(128, 64) == [(0, 64), (64, 64)]
+    tf32 = [(c0 + c, min(tbt.TF32_CHUNK, kch - c))
+            for c0, kch in _b1_chunks(72, 64)
+            for c in range(0, kch, tbt.TF32_CHUNK)]
+    assert tf32 == [(0, 32), (32, 32), (64, 8)]
+    # the bf16 pack of b1, [Cin/8][64][8]: chunk c is 8 KB from c * 8 KB
+    m = WaveletFlowSubnet2d(72, 24, n_ch=64).to(torch.bfloat16)
+    pack = tbt.pack_float_tower(m)[0]
+    w = m.b1.weight.detach().float()[:, :, 0, 0]                # (64, 72)
+    for c0, kc in _b1_chunks(80, 64):
+        blk = pack[c0 * 64:(c0 + kc) * 64].float().reshape(kc // 8, 64, 8)
+        got = blk.permute(1, 0, 2).reshape(64, kc)
+        want = torch.zeros(64, kc)
+        want[:, :max(0, min(kc, 72 - c0))] = w[:, c0:c0 + kc]
+        assert torch.equal(got, want) and 64 * kc * 2 <= 64 * 128
+
+
+def test_b1_in_64_channel_chunks_holds_the_bf16_bound(monkeypatch):
+    """The bf16 tower at Cin 72 with b1 summed as the kernel sums it, two
+    chunks of 64 and 8 (+ 8 of padding) channels of bf16 operands with f32
+    sums added in f32, against the plain version: within the card's bf16
+    bound, 2^-6 of max|ref|."""
+    m = WaveletFlowSubnet2d(72, 24, n_ch=64).eval().to(torch.bfloat16)
+    x = torch.from_numpy(np.random.RandomState(21).randn(1, 72, 10, 10)
+                         .astype(np.float32)).to(torch.bfloat16)
+    conv2d = tbt.F.conv2d
+
+    def chunked(v, w, bias=None, padding=0):
+        if v.shape[1] <= 64:
+            return conv2d(v, w, bias, padding=padding)
+        out = sum(conv2d(v[:, c0:c0 + kc], w[:, c0:c0 + kc], padding=padding)
+                  for c0, kc in _b1_chunks(v.shape[1], 64))
+        return out if bias is None else out + bias[None, :, None, None]
+
+    with torch.no_grad():
+        want = tbt.float_tower_reference(m, x)
+        monkeypatch.setattr(tbt.F, "conv2d", chunked)
+        got = tbt.float_tower_reference(m, x)
+        monkeypatch.undo()
+    assert (got - want).abs().max() <= 2.0 ** -6 * want.abs().max()
+
+
+def _conv_3xtf32_sliced(x, w, padding):
+    """``_conv_3xtf32`` with the input channels in the kernel's slices of
+    32 within chunks of 64, each slice summed on its own and the slice sums
+    added in f32."""
+    return sum(_conv_3xtf32(x[:, c0 + c:c0 + c + 32], w[:, c0 + c:c0 + c + 32],
+                            padding)
+               for c0, kch in _b1_chunks(x.shape[1], 64)
+               for c in range(0, kch, tbt.TF32_CHUNK))
+
+
+def test_3xtf32_b1_in_32_channel_slices_holds_the_f32_bound():
+    """b1 at Cin 72 (slices 32 + 32 + 8) and 128 through the three TF32
+    products, slice by slice: <= 2e-6 of max|ref| from the f64 conv and <=
+    1e-5 from the f32 one, the bounds of the 64-channel conv above."""
+    rng = np.random.RandomState(22)
+    for cin in (72, 128):
+        x = torch.from_numpy(rng.randn(1, cin, 12, 12).astype(np.float32))
+        w = torch.from_numpy((rng.randn(64, cin, 1, 1) / np.sqrt(cin))
+                             .astype(np.float32))
+        ref = torch.nn.functional.conv2d(x.double(), w.double())
+        f32 = torch.nn.functional.conv2d(x, w)
+        got = _conv_3xtf32_sliced(x, w, 0)
+        assert (got - f32).abs().max() <= 1e-5 * f32.abs().max()
+        assert (got.double() - ref).abs().max() <= 2e-6 * ref.abs().max()
+
+
+def test_f32_cin72_tower_matches_jax_subnet():
+    """A step-0 coupling tower of the other coupling types (Cin 72 = 24 + 48
+    -> 24, 64 wide): the port's plain version against JAX's subnet, 1e-5 of
+    max|ref|, and through the three TF32 products as the f32 wgmma instance
+    sums them (b1 in its slices) within the same bound."""
+    params = jsubnets.init_wavelet_flow_subnet2d(jax.random.PRNGKey(5), 72, 24,
+                                                 n_ch=64)
+    m = WaveletFlowSubnet2d(72, 24, n_ch=64)
+    load_jax_params(m, jax.tree_util.tree_map(np.asarray, params), {})
+    m.eval()
+    x = np.random.RandomState(23).randn(1, 72, 8, 8).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jsubnets.wavelet_flow_subnet2d(_jax(params),
+                                                         jnp.asarray(x)))
+    with torch.no_grad():
+        got = tbt.fused_float_tower(torch.from_numpy(x), m).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-5 * scale
+
+
 def test_3xtf32_tower_holds_the_f32_bound(monkeypatch):
     """The whole tower with every conv through the three TF32 products
     against the plain f32 version: <= 1e-5 of max|ref|."""
@@ -325,3 +446,38 @@ def test_fused_float_tower_rejects_what_the_kernel_does_not_take():
         tbt.fused_float_tower(x[0], m)
     with pytest.raises(RuntimeError):               # neither CPU nor CUDA
         tbt.fused_float_tower(x.to("meta"), m.to("meta"))
+
+
+def test_fused_float_tower_rejects_unknown_instance():
+    """instance: None (the dispatch's pick) or CUDA_CORES (the older
+    instance, to time the two in turns); anything else raises."""
+    m = WaveletFlowSubnet2d(CIN, 2 * CIN, n_ch=64).eval()
+    x = torch.randn(1, CIN, 8, 8)
+    want = tbt.fused_float_tower(x, m)
+    assert torch.equal(tbt.fused_float_tower(x, m, instance=tbt.CUDA_CORES),
+                       want)                        # CPU: the plain version
+    for bad in (tbt.WGMMA_BF16, tbt.WGMMA_3XTF32, "cuda"):
+        with pytest.raises(ValueError):
+            tbt.fused_float_tower(x, m, instance=bad)
+
+
+def test_cuda_core_pack_rounds_f32_master_weights():
+    """f32 master weights under a bf16 x run rounded to bf16 on every
+    instance: the CUDA-core pack for bf16 holds the rounded weights (as the
+    CUDA-core backward and the plain version use them), for f32 the
+    weights as they are; one pack per (dtype, instance)."""
+    m = WaveletFlowSubnet2d(5, 10, n_ch=8)          # f32, 8 wide: CUDA cores
+    with torch.no_grad():
+        m.b2a.weight.add_(1e-3)                     # not bf16 values
+    p16 = tbt.pack_float_tower(m, torch.bfloat16)[0]
+    p32 = tbt.pack_float_tower(m, torch.float32)[0]
+    assert p16.dtype == p32.dtype == torch.float32
+    assert torch.equal(p16, p32.to(torch.bfloat16).float())
+    assert not torch.equal(p16, p32)
+    assert tbt.pack_float_tower(m, torch.bfloat16)[0] is p16
+    m = WaveletFlowSubnet2d(72, 24, n_ch=64)        # wgmma, and CUDA cores
+    for dtype in (torch.bfloat16, torch.float32):   # when asked for
+        own = tbt.pack_float_tower(m, dtype)[0]
+        cores = tbt.pack_float_tower(m, dtype, tbt.CUDA_CORES)[0]
+        assert own.numel() != cores.numel()
+        assert tbt.pack_float_tower(m, dtype)[0] is own

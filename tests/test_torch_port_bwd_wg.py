@@ -54,11 +54,12 @@ def _flat(g):
 
 
 @pytest.mark.parametrize("cin,nout", [(6, 12), (6, 6), (12, 24), (48, 96),
-                                      (24, 24), (5, 80)])
+                                      (24, 24), (5, 80), (72, 24), (128, 48)])
 def test_float_tower_bwd_pack_unpacks_to_oihw(cin, nout):
     """Every slice of ``pack_float_tower_bwd``, unpacked, is the OIHW weight
     (rounded to bf16) it came from: the forward's for b1 .. b6b, the flipped
-    and transposed one for each dgrad."""
+    and transposed one for each dgrad, b1's in chunks of at most 64 of its
+    outputs (Cin 72: 64 + 8 padded to 16)."""
     tower = _tower(cin, nout, 64, 0)
     weights, biases = btower.pack_float_tower_bwd(tower)
     assert weights.dtype == torch.bfloat16 and biases.dtype == torch.float32
@@ -73,11 +74,15 @@ def test_float_tower_bwd_pack_unpacks_to_oihw(cin, nout):
         off += size
     for n in btower.BWD_DGRAD:
         o, i, k, _ = ws[n].shape                 # the dgrad: i outputs
-        size = k * k * btower._round_up(o, 16) * btower._round_up(i, 16)
-        got = _unpack_wg_slices(weights[off:off + size], k, o, i)
-        # flip the taps back, swap in and out back
-        assert torch.equal(got.flip(2, 3).transpose(0, 1), ws[n]), n
-        off += size
+        chunk = btower.DX_CHUNK if n == "b1" else i
+        for i0 in range(0, i, chunk):
+            ic = min(chunk, i - i0)
+            size = k * k * btower._round_up(o, 16) * btower._round_up(ic, 16)
+            got = _unpack_wg_slices(weights[off:off + size], k, o, ic)
+            # flip the taps back, swap in and out back
+            assert torch.equal(got.flip(2, 3).transpose(0, 1),
+                               ws[n][:, i0:i0 + ic]), n
+            off += size
     assert off == weights.numel()
     want_b = torch.cat([getattr(tower, n).bias.detach().float()
                         for n in btower.BWD_FORWARD])
@@ -109,7 +114,11 @@ def test_float_tower_bwd_pack_cached_until_a_weight_changes():
     (torch.bfloat16, 64, 6, 6, btower.WGMMA_BF16),
     (torch.bfloat16, 64, 64, 96, btower.WGMMA_BF16),
     (torch.bfloat16, 64, 48, 128, btower.CUDA_CORES),
-    (torch.bfloat16, 64, 72, 24, btower.CUDA_CORES),
+    (torch.bfloat16, 64, 72, 24, btower.WGMMA_BF16),
+    (torch.bfloat16, 64, 65, 48, btower.WGMMA_BF16),
+    (torch.bfloat16, 64, 128, 96, btower.WGMMA_BF16),
+    (torch.bfloat16, 64, 129, 24, btower.CUDA_CORES),
+    (torch.float32, 64, 72, 24, btower.CUDA_CORES),
     (torch.bfloat16, 20, 5, 10, btower.CUDA_CORES),
     (torch.bfloat16, 72, 12, 24, btower.CUDA_CORES),
     (torch.float32, 64, 48, 96, btower.CUDA_CORES),
@@ -138,7 +147,8 @@ def test_float_tower_backward_rejects_unknown_instance():
 
 
 @pytest.mark.parametrize("b,cin,h,w,nout", [(1, 6, 8, 8, 12), (1, 12, 7, 9, 12),
-                                            (2, 5, 5, 6, 10), (1, 48, 4, 4, 96)])
+                                            (2, 5, 5, 6, 10), (1, 48, 4, 4, 96),
+                                            (1, 72, 5, 7, 24), (1, 128, 4, 4, 48)])
 def test_float_tower_backward_products_within_bound(b, cin, h, w, nout):
     """The wgmma instance's numerics (one bf16 rounding of each gradient
     operand, ELU' from the canvas) against autograd through the plain
