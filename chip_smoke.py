@@ -847,6 +847,24 @@ BWD_BOUND = {(torch.float32, "dx"): 1e-5, (torch.float32, "dW"): 1e-4,
              (torch.bfloat16, "dx"): 2.0 ** -5, (torch.bfloat16, "dW"): 2.0 ** -5}
 
 
+def k2_reference(tower, x, dy):
+    """K2's reference: f32 the f64 gradient of the tower's exact function
+    (the plain f32 backward's cuDNN wgrad is itself up to 8e-5 of max off
+    it at 512^2), bf16 the plain backward (autograd through the plain
+    forward)."""
+    if x.dtype == torch.float32:
+        return btower.float_tower_backward_f64(tower, x, dy)
+    return btower.float_tower_backward_reference(tower, x, dy)
+
+
+def k3_reference(x, dz, mods, scale):
+    """K3's reference: f32 the f64 gradient of the pair's function (PReLU's
+    branch where the f32 forward takes it), bf16 the plain backward."""
+    if x.dtype == torch.float32:
+        return cpair.cond_pair_backward_f64(x, dz, *mods, scale)
+    return cpair.cond_pair_backward_reference(x, dz, *mods, scale)
+
+
 def grads_err(got, ref, dtype, what: str) -> float:
     """The largest max|got - ref| / max|ref| over the gradients (dx first,
     then the parameters'), failing where one is over its BWD_BOUND."""
@@ -1011,14 +1029,16 @@ def check_cat_affine_backward(dev, kernels):
 
 
 def check_float_tower_backward(dev, kernels):
-    """K2 at every flagship tower shape (the wgmma bf16 instance in bf16, the
-    CUDA-core one in f32), at two odd shapes (64 wide through both
-    instances in bf16), at width 20 (CUDA cores) and at Cin 65, 72 and 128
-    (wgmma in bf16: b1 with K up to 128, dx in launches of 64) at odd sizes
-    and, bf16, at 512^2, each launch repeated and held equal to the bit; then, at
-    step 0 in bf16, the two instances timed in turns beside the plain
-    backward and the cuDNN autograd chain, and the wgmma instance at every
-    step's shape; at Cin 65 and 128 the two in turns beside the bound."""
+    """K2 at every flagship tower shape (the wgmma instances: bf16, and f32
+    as 3xTF32), at two odd shapes (64 wide through both instances, in both
+    dtypes), at width 20 (CUDA cores) and at Cin 65, 72 and 128 (wgmma: b1
+    with K up to 128, dx in launches of 64) at odd sizes and at 512^2, each
+    launch repeated and held equal to the bit; f32 against the f64
+    gradient, bf16 against the plain backward (``k2_reference``); then, at
+    step 0, the two instances of each dtype timed in turns beside the plain
+    backward (bf16: and the cuDNN autograd chain), and the bf16 wgmma
+    instance at every step's shape; at Cin 65 and 128 the two in turns
+    beside the bound."""
     gen = torch.Generator().manual_seed(6)
     k = kernels["float_tower_bwd"]
     by_instance = btower.float_tower_backward.by_instance
@@ -1040,13 +1060,10 @@ def check_float_tower_backward(dev, kernels):
         dy0 = torch.randn((b, nout, h, w), generator=gen)
         wide = b == 1 and h == SLICE_HW and cin not in TOWER_CIN
         flagship_shape = b == 1 and h == SLICE_HW and not wide
-        # Cin above 64 at 512^2: the wgmma instance, bf16 (f32 runs the
-        # CUDA-core instance, checked at the odd shapes)
-        for dtype in ((torch.bfloat16,) if wide
-                      else (torch.float32, torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
             x, dy = x0.to(dev, dtype), dy0.to(dev, dtype)
             own = btower.bwd_instance(dtype, width, cin, nout)
-            ref = btower.float_tower_backward_reference(tower, x, dy)
+            ref = k2_reference(tower, x, dy)
             # the older instance also where the new one is picked, at the odd
             # shapes
             also = [] if flagship_shape else [btower.CUDA_CORES]
@@ -1090,12 +1107,30 @@ def check_float_tower_backward(dev, kernels):
             plain_ms = time_ms(lambda: btower.float_tower_backward_reference(
                 tower, x, dy), 3)
             if dtype == torch.float32:
-                ms = time_ms(lambda: btower.float_tower_backward(tower, x, dy),
-                             5)
-                k["f32_ms"], k["f32_plain_ms"] = ms, plain_ms
+                side = instances_side_by_side(
+                    lambda inst: btower.float_tower_backward(
+                        tower, x, dy,
+                        instance=None if inst == btower.WGMMA_3XTF32 else inst),
+                    btower.WGMMA_3XTF32, btower.CUDA_CORES, 3)
+                ms = statistics.median(side[btower.WGMMA_3XTF32])
+                old = statistics.median(side[btower.CUDA_CORES])
+                # x and dy read, dx and the weights' gradients written, f32
+                nbytes = (b * h * w * (2 * cin + nout) * 4
+                          + 4 * sum(p.numel() for p in tower.parameters()))
+                tf32 = bound_ms(nbytes, 3 * 2 * flop, "tf32")
+                fma = bound_ms(nbytes, 2 * flop, "f32")
+                k.update(f32_ms=ms, f32_cuda_cores_ms=old,
+                         f32_plain_ms=plain_ms, f32_bound_ms=tf32[0],
+                         f32_bound_by=tf32[1], f32_fma_bound_ms=fma[0])
                 log(f"time float_tower_backward (1, {cin}, {h}, {w}) -> {nout}"
-                    f" f32 (CUDA cores): kernel {ms:.4f} ms  plain "
-                    f"{plain_ms:.4f} ms")
+                    f" f32, in turns new/old/new/old/new: wgmma 3xTF32 "
+                    f"{['%.4f' % t for t in side[btower.WGMMA_3XTF32]]}, CUDA "
+                    f"cores {['%.4f' % t for t in side[btower.CUDA_CORES]]} "
+                    f"ms; median {ms:.4f} ms against {old:.4f}  plain (cuDNN "
+                    f"f32, TF32 off) {plain_ms:.4f} ms; bound as 3xTF32 "
+                    f"({3 * 2 * flop / 1e9:.2f} G TF32 operations / 495 T) "
+                    f"{tf32[0]:.4f} ms ({tf32[1]}), on f32 FMAs "
+                    f"{fma[0]:.4f} ms")
                 continue
             side = instances_side_by_side(
                 lambda inst: btower.float_tower_backward(
@@ -1164,12 +1199,14 @@ def wide_k2_in_turns(tower, x, dy, what: str, cudnn: bool = False) -> float:
 
 
 def check_cond_pair_backward(dev, kernels):
-    """K3 at every flagship step's depth (the tensor-core instance in bf16,
-    the CUDA-core one in f32) and two odd shapes (bf16 through both
-    instances), with and without the Dropout3d scale, each launch repeated
-    and held equal to the bit; at step 0 in bf16 the
-    two instances timed in turns beside the plain backward and the cuDNN
-    autograd chain."""
+    """K3 at every flagship step's depth (the tensor-core instances: bf16,
+    and f32 as 3xTF32) and two odd shapes (through both instances, in both
+    dtypes), with and without the Dropout3d scale, each launch repeated and
+    held equal to the bit; f32 against the f64 gradient, bf16 against the
+    plain backward (``k3_reference``); then a case built so that many a pre
+    lands within 2^-16 of 0; at step 0 the two instances of each dtype
+    timed in turns beside the plain backward (bf16: and the cuDNN autograd
+    chain)."""
     gen = torch.Generator().manual_seed(7)
     k = kernels["cond_pair_bwd"]
     by_instance = cpair.cond_pair_backward.by_instance
@@ -1193,7 +1230,7 @@ def check_cond_pair_backward(dev, kernels):
             own = cpair.bwd_instance(dtype, 32)
             also = [] if flagship_shape else [cpair.CUDA_CORES]
             for scale in (None, keep.to(dev)):
-                ref = cpair.cond_pair_backward_reference(x, dz, *mods, scale)
+                ref = k3_reference(x, dz, mods, scale)
                 for instance in dict.fromkeys([own] + also):
                     run = lambda: cpair.cond_pair_backward(
                         x, dz, *mods, scale,
@@ -1215,9 +1252,12 @@ def check_cond_pair_backward(dev, kernels):
                     log(f"cond_pair_backward {shape} {str(dtype):14s} "
                         f"Dropout3d scale {scale is not None!s:5s} "
                         f"({instance}) max|d|/max|ref| {e:.3e}")
-            if shape[1] != 48 or dtype != torch.bfloat16:
+            if shape[1] != 48 or not flagship_shape:
                 continue
             sc = keep.to(dev)
+            if dtype == torch.float32:
+                time_k3_f32(k, x, dz, mods, sc)
+                continue
             side = instances_side_by_side(
                 lambda inst: cpair.cond_pair_backward(
                     x, dz, *mods, sc,
@@ -1242,9 +1282,84 @@ def check_cond_pair_backward(dev, kernels):
                       f"cond_pair_backward {shape} bf16")
             log(f"bound cond_pair_backward on f32 FMAs: "
                 f"{bound_ms(0, 2 * flop, 'f32')[0]:.4f} ms")
+    check_k3_kink(dev, kernels, gen)
     log(f"cond_pair_backward instances checked: {ran}")
     if not all(ran.values()):
         fail(f"an instance of cond_pair_backward was not checked: {ran}")
+
+
+def time_k3_f32(k, x, dz, mods, sc):
+    """K3 in f32 at step 0: the 3xTF32 instance and the CUDA-core one in
+    turns beside the plain backward and both bounds."""
+    side = instances_side_by_side(
+        lambda inst: cpair.cond_pair_backward(
+            x, dz, *mods, sc,
+            instance=None if inst == cpair.TENSOR_CORES_TF32 else inst),
+        cpair.TENSOR_CORES_TF32, cpair.CUDA_CORES, 3)
+    ms = statistics.median(side[cpair.TENSOR_CORES_TF32])
+    old = statistics.median(side[cpair.CUDA_CORES])
+    plain_ms = time_ms(lambda: cpair.cond_pair_backward_reference(
+        x, dz, *mods, sc), 3)
+    flop = 2 * 2 * 27 * 32 * x.numel()
+    tf32 = bound_ms(3 * x.numel() * 4, 3 * 2 * flop, "tf32")
+    fma = bound_ms(3 * x.numel() * 4, 2 * flop, "f32")
+    k.update(f32_ms=ms, f32_cuda_cores_ms=old, f32_plain_ms=plain_ms,
+             f32_bound_ms=tf32[0], f32_bound_by=tf32[1],
+             f32_fma_bound_ms=fma[0])
+    log(f"time cond_pair_backward {tuple(x.shape)} f32, in turns "
+        f"new/old/new/old/new: tensor cores 3xTF32 "
+        f"{['%.4f' % t for t in side[cpair.TENSOR_CORES_TF32]]}, CUDA cores "
+        f"{['%.4f' % t for t in side[cpair.CUDA_CORES]]} ms; median "
+        f"{ms:.4f} ms against {old:.4f}  plain (cuDNN f32, TF32 off) "
+        f"{plain_ms:.4f} ms; bound as 3xTF32 ({3 * 2 * flop / 1e9:.2f} G "
+        f"TF32 operations / 495 T) {tf32[0]:.4f} ms ({tf32[1]}), on f32 FMAs "
+        f"{fma[0]:.4f} ms")
+
+
+def check_k3_kink(dev, kernels, gen):
+    """K3 in f32 where many a pre lands within 2^-16 of 0 (``cpair.KINK``):
+    x zero on a block of voxels, where pre is then b_a exactly, and four
+    channels' b_a set to +-2^-18 and +-2^-20; through the 3xTF32 instance,
+    with and without the scale, against the f64 gradient (whose PReLU
+    branch is the f32 forward's), each launch repeated equal to the bit."""
+    k = kernels["cond_pair_bwd"]
+    shape = (1, 24, 96, 80)
+    net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                               "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                               "prelu": torch.nn.PReLU(1)})
+    reset_parameters_(net, gen)
+    with torch.no_grad():
+        net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        for ch, b in ((3, 2.0 ** -18), (7, -2.0 ** -18), (11, 2.0 ** -20),
+                      (19, -2.0 ** -20)):
+            net["c3a"].bias[ch] = b
+    net = net.to(dev)
+    mods = (net["c3a"], net["c3b"], net["prelu"])
+    x = torch.randn(shape, generator=gen)
+    x[:, 4:20, 20:70, 10:60] = 0.0
+    x, dz = x.to(dev), torch.randn(shape, generator=gen).to(dev)
+    near = int((cpair.pre_f32_taps(x, mods[0].weight, mods[0].bias).abs()
+                < cpair.KINK).sum())
+    if near == 0:
+        fail("cond_pair_backward kink case: no pre within 2^-16 of 0")
+    keep = ((torch.rand((1, 32), generator=gen) < 0.5).float() * 2.0).to(dev)
+    for scale in (None, keep):
+        run = lambda: cpair.cond_pair_backward(x, dz, *mods, scale)
+        got = one_launch_of(cpair.cond_pair_backward, cpair.TENSOR_CORES_TF32,
+                            run, f"cond_pair_backward kink {shape}")
+        for g, again in zip(got, run()):
+            exact_equal(again, g, f"cond_pair_backward kink {shape}, second "
+                        f"launch")
+        ref = k3_reference(x, dz, mods, scale)
+        e = grads_err(got, ref, torch.float32, f"cond_pair_backward kink "
+                      f"{shape} scale={scale is not None}")
+        k["max_abs_err"] = max(k.get("max_abs_err", 0.0),
+                               max((g - r).abs().max().item()
+                                   for g, r in zip(got, ref)))
+        log(f"cond_pair_backward kink case {shape} f32 (x zero on 16 x 50 x "
+            f"50 voxels; {near} pre within 2^-16 of 0) Dropout3d scale "
+            f"{scale is not None!s:5s} ({cpair.TENSOR_CORES_TF32}) "
+            f"max|d|/max|f64| {e:.3e}")
 
 
 def phase_small_rig(dev):
@@ -1926,6 +2041,21 @@ def nll_bound(got, ref, what: str):
     return d.max().item()
 
 
+def logdet_bound(ld, ld_rev, what: str) -> float:
+    """max|ld + ld_rev| of forward-then-reverse log-dets, failing unless
+    every |ld + ld_rev| <= max(1e-4, 2^-20 |ld|): the absolute 1e-4 up to
+    |ld| ~ 105, eight f32 ulps of |ld| above it (one ulp of a log-det of
+    1024 or more is 2^-13, over 1e-4, so a sum that cancels to rounding can
+    exceed an absolute 1e-4)."""
+    torch.cuda.synchronize()
+    d = (ld.float() + ld_rev.float()).abs()
+    bound = (2.0 ** -20 * ld.float().abs()).clamp_min(1e-4)
+    if not bool(torch.isfinite(d).all()) or bool((d > bound).any()):
+        fail(f"{what}: |ld + ld_rev| {d.tolist()} over max(1e-4, 2^-20 |ld|) "
+             f"for ld {ld.tolist()}")
+    return d.max().item()
+
+
 def phase_likelihood_small(dev):
     """Small rig, f32: per-frame NLLs card (kernels) vs CPU (plain) from the
     same volumes and the same noise; one step forward then back."""
@@ -1965,7 +2095,7 @@ def phase_likelihood_small(dev):
         fast = step.reverse_fast(z, avg, cv, cm)
         e_rt = share_err(back, v, 1e-5, f"step {k} forward then reverse")
         e_fast = share_err(fast, back, 1e-5, f"step {k} reverse_fast vs reverse")
-        nll_bound(ld + ld_rev, torch.zeros_like(ld), f"step {k} log-dets")
+        logdet_bound(ld, ld_rev, f"step {k} log-dets")
         log(f"small rig step {k} on the card: forward then reverse max|d| "
             f"{e_rt:.3e}, reverse_fast vs reverse {e_fast:.3e} (bounds 1e-5 "
             f"max|ref|); log-dets {ld.tolist()} cancel to "
@@ -2452,6 +2582,30 @@ def phase_train(dev, card, kernels, img: int):
     phase_train_small(dev)
     torch.cuda.empty_cache()
     phase_train_flagship(dev, card, kernels, img)
+    torch.cuda.empty_cache()
+    phase_f32_step(dev, card, kernels)
+
+
+def phase_f32_step(dev, card, kernels):
+    """A step-0 flow optimizer step of the CAT flagship in f32
+    (``use_half_precision=0``, batch 1) through ``scripts/torch_f32_step.py``:
+    its ms (CUDA events, median after the first) and its launches by
+    instance, failing unless K2 ran 5 times and K3 once, all on their
+    tensor-core instances (none on the CUDA cores)."""
+    reset_counts()
+    out = load_script("torch_f32_step").run(dev)
+    want = {"k2": {btower.WGMMA_3XTF32: FLOW_PER_STEP["float_tower_bwd"]},
+            "k3": {cpair.TENSOR_CORES_TF32: FLOW_PER_STEP["cond_pair_bwd"]}}
+    for key, name in (("k2", "float_tower_bwd"), ("k3", "cond_pair_bwd")):
+        if out[key] != want[key]:
+            fail(f"f32 flow step 0: {name} launches by instance {out[key]}, "
+                 f"expected {want[key]}")
+        kernels[name]["f32_step_launches"] = out[key]
+    kernels["float_tower_bwd"]["f32_step_ms"] = out["ms"]
+    log(f"f32 flow optimizer step 0 of the flagship (CAT, batch 1): "
+        f"{out['ms']:.2f} ms (median after the first of "
+        f"{[round(t, 2) for t in out['readings']]}); loss {out['loss']:.4f}; "
+        f"K2 {out['k2']}, K3 {out['k3']}, none on the CUDA cores; on {card}")
 
 
 def phase_nonfast(dev, card, kernels):
@@ -3894,7 +4048,7 @@ def check_block_towers(dev, kernels) -> dict:
                 btower.float_tower_backward, binst,
                 lambda: btower.float_tower_backward(tower, x, dy),
                 f"blocks K2 {cin}->{nout} {dtype}")
-            ref = btower.float_tower_backward_reference(tower, x, dy)
+            ref = k2_reference(tower, x, dy)
             eb = grads_err(flat(got), flat(ref), dtype,
                            f"blocks K2 {cin}->{nout} {dtype} ({binst})")
             bwd["max_abs_err"] = max(bwd.get("max_abs_err", 0.0), max(
@@ -3959,21 +4113,23 @@ def phase_blocks_small(dev):
                                                per_sample=True)[0])
         e_nll = nll_bound(got, ref, f"blocks small rig {bt} NLLs")
         rt = []
+        gen = torch.Generator(device=dev).manual_seed(16)
         with torch.no_grad():
             for k, step in enumerate(card.flow):
                 d = cfg.n_depths // 2 ** k
-                v, cv, cm = (torch.randn((2, c, side, side), device=dev)
+                v, cv, cm = (torch.randn((2, c, side, side), device=dev,
+                                         generator=gen)
                              for c in (d, d // 2, d // 2))
                 z, avg, ld = step(v, cv, cm)
                 back, ld_rev = step.reverse(z, avg, cv, cm)
                 rt.append(share_err(back, v, 1e-4,
                                     f"blocks {bt} step {k} round trip"))
-                nll_bound(ld + ld_rev, torch.zeros_like(ld),
-                          f"blocks {bt} step {k} log-dets")
+                logdet_bound(ld, ld_rev, f"blocks {bt} step {k} log-dets")
         log(f"blocks small rig f32 {bt}, card vs CPU: reconstruct fast "
             f"{errs[0]:.3e}, non-fast {errs[1]:.3e} (bound 1e-4 max|ref|); "
             f"NLLs max|d| {e_nll:.3e} (bound 1e-4 max(1, |ref|)); forward "
-            f"then reverse on the card max|d| {max(rt):.3e}")
+            f"then reverse on the card max|d| {max(rt):.3e}; log-dets within "
+            f"max(1e-4, 2^-20 |ld|)")
 
 
 def phase_blocks_flagship(dev, card, kernels, bt: str) -> dict:
@@ -5330,6 +5486,9 @@ def main():
         alone = {**kernel_phases, "serving": serving,
                  "train": lambda dev, kernels: phase_train(dev, card, kernels,
                                                            2160),
+                 "train_kernels": phase_train_kernels,
+                 "f32_step": lambda dev, kernels: phase_f32_step(dev, card,
+                                                                 kernels),
                  "train_cli": lambda dev, kernels: (
                      phase_nonfast(dev, card, kernels),
                      phase_train_cli(dev, card, kernels, 2160)),

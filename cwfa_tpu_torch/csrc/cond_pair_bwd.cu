@@ -19,9 +19,11 @@
 //   dW_a[k, t] = sum_p dpre_k(p) x(p + t),   db_a[k] = sum_p dpre_k(p)
 //   dalpha = sum_p dy_k(p) pre_k(p) [pre_k(p) <= 0]
 //
-// Two instances.  bf16 with K = 32 runs the four products on the tensor
-// cores (cond_pair_bwd_tc_kernel); f32, and bf16 with another K, run on the
-// CUDA cores (cond_pair_bwd_kernel).
+// Three instances.  K = 32 runs the products on the tensor cores, bf16
+// (cond_pair_bwd_tc_kernel) or f32 as 3xTF32 (cond_pair_bwd_tf32_kernel,
+// m16n8k8: each f32 operand split into a TF32 high part and the remainder,
+// hi*hi + hi*lo + lo*hi; its design beside it); another K runs on the CUDA
+// cores (cond_pair_bwd_kernel).
 //
 // Design of the tensor-core instance (mma.sync m16n8k16 bf16, f32 sums, the
 // products of the forward's cond_pair_tc_kernel):
@@ -62,7 +64,8 @@
 // fixed order.  No atomics: the result is the same from run to run.
 //
 // Bound at step 0 of the flagship (1, 48, 512, 512), K = 32: operations,
-// 2 x 43.49 GFLOP, 0.088 ms on bf16 tensor cores, 1.30 ms on f32 FMAs.
+// 2 x 43.49 GFLOP, 0.088 ms on bf16 tensor cores, 0.527 ms as 3xTF32 (three
+// TF32 products each at 495 TFLOP/s), 1.30 ms on f32 FMAs.
 //
 // Plain C interface for ctypes (cwfa_tpu_torch/ops/cond_pair.py); launches
 // on the caller's stream, does not synchronise, returns cudaGetLastError().
@@ -71,7 +74,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tower_wg.cuh"                 // split_tf32
+
 namespace {
+
+using tower::split_tf32;
 
 constexpr int kTW = 32, kTH = 8, kTD = 8;
 constexpr int kThreads = kTW * kTH;     // one thread per output (h, w)
@@ -708,8 +715,439 @@ __global__ void __launch_bounds__(kThreads, 1) cond_pair_bwd_tc_kernel(const Par
   block_sum<1>(v, red2 + 16 * kK, part + kK * kNV);
 }
 
-int tc_blocks(int b, int d, int h, int w, int* nchunks, int* td) {
-  *nchunks = (d + kMaxTDtc - 1) / kMaxTDtc;
+// ---------------------------------------------------------------------------
+// the tensor-core instance in f32: 3xTF32, K = 32
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxTDtf = 11;                  // depths a block: x, dz, own dz
+                                              // of 15 x 12 x 36 f32 fit beside
+                                              // the planes and the weights
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[n] += a b[n] as 3xTF32 (lo * lo dropped) for four B fragments, b[n] =
+// (hi of b0, b1, lo of b0, b1): each of the three products taken over the
+// four sums in turn, so that no product waits on the one before it (each
+// sum still adds lo hi, hi lo, hi hi in that order)
+__device__ __forceinline__ void mma_3x4(float (*c)[4], const uint32_t* ah, const uint32_t* al,
+                                        const uint4 (&b)[4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) mma_tf32(c[n], al, b[n].x, b[n].y);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) mma_tf32(c[n], ah, b[n].z, b[n].w);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) mma_tf32(c[n], ah, b[n].x, b[n].y);
+}
+
+// Element (row, ch) of a (352, 32) f32 plane of dpre or y: the channel
+// XOR-swizzled by the row, so that the sums' stores and the fragments'
+// loads (8 rows x 4 channels, 4 rows x 8 channels) hit 32 banks.
+__device__ __forceinline__ int sw(int row, int ch) {
+  return row * kK + (ch ^ (((row & 3) << 3) | (((row >> 2) & 1) << 2)));
+}
+
+// pre + b_a of channel ch at x-window position base, as the f32 CUDA-core
+// instances sum it: the 27 products in tap order with fused multiply-adds,
+// then the bias.
+__device__ __noinline__ float f32_pre_f(const float* xs, int base, const float* gwa, int ch,
+                                        float bias) {
+  float s = 0.f;
+#pragma unroll
+  for (int t = 0; t < 27; ++t) s = fmaf(gwa[ch * 27 + t], xs[base + tap_off(t)], s);
+  return s + bias;
+}
+
+// The bf16 tensor-core instance's structure in f32 with m16n8k8 TF32
+// products, each as 3xTF32: the same per-plane products (pre, dy, dx's
+// contributions, dW_a, dW_b), every operand split in registers as it is
+// loaded, the weights' fragments split once into shared memory.  What
+// differs: the C fragment of a TF32 product is not the A fragment of the
+// next, so dx's A is read back from the dpre plane; the planes are f32 with
+// a swizzle (32-bit loads, ldmatrix.trans being 16-bit only); a depth chunk
+// of at most 11 (the f32 windows); the weight sums of each plane go into
+// zeroed registers that the CUDA cores add on (the tensor cores' sums
+// truncate).
+__global__ void __launch_bounds__(kThreads, 1) cond_pair_bwd_tf32_kernel(const Params p, int td) {
+  extern __shared__ __align__(16) float smem[];
+  float* pbuf = smem;                                            // (27, kPStride)
+  float* dpl = pbuf + 27 * kPStride;                             // (352, 32), sw
+  float* ypl = dpl + kYRows * kK;                                // (352, 32), sw
+  uint4* wfr = reinterpret_cast<uint4*>(ypl + kYRows * kK);      // [3][ks][nt][lane]
+  float* xs = reinterpret_cast<float*>(wfr + 3 * 16 * 32);       // (td+4, kXH, kXW)
+  float* dzs = xs + (td + 4) * kXCols;
+  float* dzm = dzs + (td + 4) * kXCols;                          // dz, own voxels only
+  const int D = p.D, H = p.H, W = p.W;
+  const int b = blockIdx.z / p.nchunks;
+  const int d0 = (blockIdx.z % p.nchunks) * td;
+  const int h0 = blockIdx.y * kTH, w0 = blockIdx.x * kTW;
+  const int64_t vol = (int64_t)D * H * W;
+  const float* x = static_cast<const float*>(p.x) + b * vol;
+  const float* dz = static_cast<const float*>(p.dz) + b * vol;
+  const int64_t blk = blockIdx.x + (int64_t)gridDim.x * (blockIdx.y + (int64_t)gridDim.y * blockIdx.z);
+  float* part = p.part + blk * (kK * kNV + 1);
+
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) {
+    const int dd = i / kXCols, rc = i % kXCols, r = rc / kXW, c = rc % kXW;
+    const int d = d0 - 2 + dd, h = h0 - 2 + r, w = w0 - 2 + c;
+    float xv = 0.f, gv = 0.f;
+    const bool in = d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
+    if (in) {
+      const int64_t o = ((int64_t)d * H + h) * W + w;
+      xv = x[o];
+      gv = dz[o];
+    }
+    const bool own = in && dd >= 2 && dd < td + 2 && r >= 2 && r < kTH + 2 && c >= 2 &&
+                     c < kTW + 2;
+    xs[i] = xv;
+    dzs[i] = gv;
+    dzm[i] = own ? gv : 0.f;
+  }
+  const float* gwa = static_cast<const float*>(p.wa);
+  const float* gwb = static_cast<const float*>(p.wb);
+  // B fragments (k = 8 ks + q, + 4; n = 8 nt + g), split: 0: pre =
+  // im2col(x) . W_a, [tap][channel]; 1: dy = im2col(dz) . the flipped W_b^T,
+  // [tap][channel]; 2: dx's contributions = dpre . the flipped W_a,
+  // [channel][tap]; the taps beyond 27 zero
+  for (int i = threadIdx.x; i < 3 * 16 * 32; i += kThreads) {
+    const int mat = i / 512, ks = (i / 128) % 4, nt = (i / 32) % 4, l = i % 32;
+    const int n = 8 * nt + (l >> 2);
+    uint32_t hi[2], lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = 8 * ks + (l & 3) + 4 * r;
+      float v = 0.f;
+      if (mat == 0 && k < 27) v = gwa[n * 27 + k];
+      if (mat == 1 && k < 27) v = gwb[n * 27 + 26 - k];
+      if (mat == 2 && n < 27) v = gwa[k * 27 + 26 - n];
+      split_tf32(v, hi[r], lo[r]);
+    }
+    wfr[i] = make_uint4(hi[0], hi[1], lo[0], lo[1]);
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const float* gba = static_cast<const float*>(p.ba);
+  float bias_a[4][2], sc[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias_a[nt][e] = gba[8 * nt + 2 * q + e];
+      sc[nt][e] = p.scale ? p.scale[b * kK + 8 * nt + 2 * q + e] : 1.f;
+    }
+  const float alpha = *static_cast<const float*>(p.alpha);
+  int aoff[4][2];                       // taps 8 ks + q and + 4 of the im2col
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) aoff[ks][r] = tap_off(8 * ks + q + 4 * r);
+  // the tap side of the weight gradients: tap 8 nt + g of x (dW_a) and of dz
+  // flipped (dW_b)
+  int xo[4], zo[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int t = 8 * nt + g;
+    xo[nt] = tap_off(t);
+    zo[nt] = t < 27 ? tap_off(26 - t) : -1;
+  }
+
+  float wa_acc[2][4][4], wb_acc[2][4][4], dba[4][2], dal[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wa_acc[mt][nt][i] = wb_acc[mt][nt][i] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) dba[nt][0] = dba[nt][1] = dal[nt][0] = dal[nt][1] = 0.f;
+
+  const int zr = threadIdx.x / kTW, zc = threadIdx.x % kTW;
+  const int zh = h0 + zr, zw = w0 + zc;
+  float* dxo = static_cast<float*>(p.dx) + b * vol;
+  float x2 = 0.f, x1 = 0.f, x0 = 0.f;   // dx at depths plane - 1, plane, plane + 1
+  uint32_t ah[4][4], al[4][4];
+
+  // a plane's weight-gradient products over 16 positions (two k-steps):
+  // A = the plane (channels x positions) at rows row0 + k, B = the tap side
+  // at window offsets base0 + k + off[nt] of src (off < 0: zero), summed
+  // into tmp
+  auto wgrad16 = [&](float (&tmp)[2][4][4], const float* pl, int row0, const float* src,
+                     const int (&base)[2][2], const int (&off)[4]) {
+#pragma unroll
+    for (int kstep = 0; kstep < 2; ++kstep) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            split_tf32(pl[sw(row0 + 8 * kstep + q + 4 * r, 16 * mt + g + 8 * h)],
+                       ah[mt][2 * r + h], al[mt][2 * r + h]);
+      uint4 bb[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        uint32_t bh[2], bl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          split_tf32(off[nt] >= 0 ? src[base[kstep][r] + off[nt]] : 0.f, bh[r], bl[r]);
+        bb[nt] = make_uint4(bh[0], bh[1], bl[0], bl[1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_3x4(tmp[mt], ah[mt], al[mt], bb);
+    }
+  };
+
+  __syncthreads();
+  for (int j = 0; j < td + 2; ++j) {
+    const int dj = d0 - 1 + j;          // this plane's depth
+    const bool live = dj >= 0 && dj < D;
+    const bool own_plane = live && j >= 1 && j <= td;
+    if (live) {
+      for (int tile = warp; tile < kYTiles; tile += kThreads / 32) {
+        int base[2];
+        bool in[2], own[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = 16 * tile + g + 8 * h;
+          const int r = pos < kYCols ? pos / kYW : 0, c = pos < kYCols ? pos % kYW : 0;
+          base[h] = j * kXCols + r * kXW + c;
+          const int yh = h0 - 1 + r, yw = w0 - 1 + c;
+          in[h] = pos < kYCols && yh >= 0 && yh < H && yw >= 0 && yw < W;
+          own[h] = in[h] && own_plane && r >= 1 && r <= kTH && c >= 1 && c <= kTW;
+        }
+        // pre, then dy: the im2col fragments of x, then of dz (a0: position
+        // g, tap 8 ks + q; a1: position g + 8; a2, a3: tap + 4)
+        float pre[4][4], gy[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pre[nt][i] = gy[nt][i] = 0.f;
+#pragma unroll
+        for (int which = 0; which < 2; ++which) {
+          const float* src = which ? dzs : xs;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int o = aoff[ks][r];
+                split_tf32(o >= 0 ? src[base[h] + o] : 0.f, ah[ks][2 * r + h],
+                           al[ks][2 * r + h]);
+              }
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            uint4 bw[4];
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) bw[nt] = wfr[((which * 4 + ks) * 4 + nt) * 32 + lane];
+            mma_3x4(which ? gy : pre, ah[ks], al[ks], bw);
+          }
+        }
+        // pre + b_a; near the kink (rare: a warp with none skips the loop),
+        // summed again as the CUDA-core instances sum it (outside the volume
+        // too: those positions are zeroed below)
+        bool kink = false;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pre[nt][i] += bias_a[nt][i & 1];
+            kink |= (__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits;
+          }
+        if (__any_sync(0xffffffffu, kink)) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if ((__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits)
+                pre[nt][i] = f32_pre_f(xs, base[i >> 1], gwa, 8 * nt + 2 * q + (i & 1),
+                                       bias_a[nt][i & 1]);
+        }
+        // y and dpre into the planes
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float yv[2], gp[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = pre[nt][2 * h + e];
+              float yy = v > 0.f ? v : alpha * v;
+              if (p.scale) yy *= sc[nt][e];
+              const float gd = gy[nt][2 * h + e] * sc[nt][e];
+              const float gq = v > 0.f ? gd : gd * alpha;
+              yv[e] = in[h] ? yy : 0.f;
+              gp[e] = in[h] ? gq : 0.f;
+              if (own[h]) {
+                dba[nt][e] += gq;
+                if (!(v > 0.f)) dal[nt][e] += gd * v;
+              }
+            }
+            const int o = sw(16 * tile + g + 8 * h, 8 * nt + 2 * q);
+            *reinterpret_cast<float2*>(ypl + o) = make_float2(yv[0], yv[1]);
+            *reinterpret_cast<float2*>(dpl + o) = make_float2(gp[0], gp[1]);
+          }
+        __syncwarp();
+        // dx's contributions: every position's to its 27 neighbours, A =
+        // the tile's dpre read back from the plane
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              split_tf32(dpl[sw(16 * tile + g + 8 * h, 8 * ks + q + 4 * r)],
+                         ah[ks][2 * r + h], al[ks][2 * r + h]);
+        float cc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cc[nt][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint4 bw[4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) bw[nt] = wfr[((8 + ks) * 4 + nt) * 32 + lane];
+          mma_3x4(cc, ah[ks], al[ks], bw);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * nt + 2 * q + e;
+            if (t < 27) {
+              pbuf[t * kPStride + 16 * tile + g] = cc[nt][e];
+              pbuf[t * kPStride + 16 * tile + g + 8] = cc[nt][2 + e];
+            }
+          }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      // dpre at depth dj reaches dx at depth dj - dd + 1 through depth tap dd
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw) {
+          const float* c = pbuf + (9 * dh + 3 * dw) * kPStride + (zr + dh) * kYW + zc + dw;
+          x0 += c[0];
+          x1 += c[kPStride];
+          x2 += c[2 * kPStride];
+        }
+      float tmp[2][4][4];
+      // dW_a over the plane's own positions: 16 chunks of 16 (a row half)
+      if (own_plane) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tmp[mt][nt][i] = 0.f;
+        for (int ch = warp; ch < 2 * kTH; ch += kThreads / 32) {
+          const int rr = ch / 2 + 1, cs = (ch % 2) * 16 + 1;
+          const int xb = j * kXCols + rr * kXW + cs;
+          const int base[2][2] = {{xb + q, xb + q + 4}, {xb + 8 + q, xb + 12 + q}};
+          wgrad16(tmp, dpl, rr * kYW + cs, xs, base, xo);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) wa_acc[mt][nt][i] += tmp[mt][nt][i];
+      }
+      // dW_b over the plane's 352 rows: y there against dz at the block's own
+      // positions (zero elsewhere, and y is zero on the padding rows)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tmp[mt][nt][i] = 0.f;
+      for (int ch = warp; ch < kYTiles; ch += kThreads / 32) {
+        int base[2][2];
+#pragma unroll
+        for (int kstep = 0; kstep < 2; ++kstep)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int pos = 16 * ch + 8 * kstep + q + 4 * r;
+            const int pc = pos < kYCols ? pos : 0;
+            base[kstep][r] = j * kXCols + (pc / kYW) * kXW + pc % kYW;
+          }
+        wgrad16(tmp, ypl, 16 * ch, dzm, base, zo);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) wb_acc[mt][nt][i] += tmp[mt][nt][i];
+    }
+    const int dxd = dj - 1;             // x2 is complete
+    if (j >= 2 && dxd < D && zh < H && zw < W) dxo[((int64_t)dxd * H + zh) * W + zw] = x2;
+    x2 = x1;
+    x1 = x0;
+    x0 = 0.f;
+    __syncthreads();
+  }
+
+  // the block's sums, in a fixed order: the 8 warps' weight sums through
+  // shared memory (over the planes' buffers), the channel sums by shuffles
+  float* red = smem;                                   // (8, 2, 32, 32)
+  float* red2 = red + 8 * 2 * kK * kK;                 // (8, 2, 32)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 16 * mt + g + 8 * (i >> 1), t = 8 * nt + 2 * q + (i & 1);
+        red[((warp * 2 + 0) * kK + k) * kK + t] = wa_acc[mt][nt][i];
+        red[((warp * 2 + 1) * kK + k) * kK + t] = wb_acc[mt][nt][i];
+      }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s0 = dba[nt][e], s1 = dal[nt][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) {
+        red2[(warp * 2 + 0) * kK + 8 * nt + 2 * q + e] = s0;
+        red2[(warp * 2 + 1) * kK + 8 * nt + 2 * q + e] = s1;
+      }
+    }
+  float dbb = 0.f;
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) dbb += dzm[i];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kK * kNV; i += kThreads) {
+    const int k = i / kNV, t = i % kNV;
+    float s = 0.f;
+    if (t < 54) {
+      const int which = t / 27, tt = t % 27;
+      for (int wi = 0; wi < kThreads / 32; ++wi) s += red[((wi * 2 + which) * kK + k) * kK + tt];
+    } else {
+      for (int wi = 0; wi < kThreads / 32; ++wi) s += red2[(wi * 2 + t - 54) * kK + k];
+    }
+    part[i] = s;
+  }
+  float v[1] = {dbb};
+  __syncthreads();
+  block_sum<1>(v, red2 + 16 * kK, part + kK * kNV);
+}
+
+// depth chunks of at most max_td depths each, as even as they come
+int tc_blocks(int b, int d, int h, int w, int max_td, int* nchunks, int* td) {
+  *nchunks = (d + max_td - 1) / max_td;
   *td = (d + *nchunks - 1) / *nchunks;
   return ((w + kTW - 1) / kTW) * ((h + kTH - 1) / kTH) * b * *nchunks;
 }
@@ -744,7 +1182,7 @@ extern "C" int64_t cwfa_cond_pair_bwd_part(int b, int d, int h, int w, int k) {
 // x, dz, dx: (B, D, H, W); wa (K, 1, 3, 3, 3), ba (K), wb (1, K, 3, 3, 3),
 // alpha (1), all contiguous and of x's type (dtype 0 = float32,
 // 1 = bfloat16); scale: (B, K) f32 or null.  tensor_cores 1: the
-// tensor-core instance (bfloat16 and k = 32 only), 0: the CUDA-core one.  grads: f32, K * 56 + 1 floats:
+// tensor-core instance of the dtype (k = 32 only), 0: the CUDA-core one.  grads: f32, K * 56 + 1 floats:
 // per channel k, [k * 56 + t] dW_a (t < 27), dW_b (27 + t), db_a (54),
 // dalpha's share (55); then db_b.  part: cwfa_cond_pair_bwd_part floats.
 extern "C" int cwfa_cond_pair_bwd(const void* x, const void* dz, const void* wa,
@@ -753,12 +1191,13 @@ extern "C" int cwfa_cond_pair_bwd(const void* x, const void* dz, const void* wa,
                                   float* part, int b, int d, int h, int w, int k,
                                   int dtype, int tensor_cores, int device, void* stream) {
   if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1 ||
-      (tensor_cores && (dtype != 1 || k != kK)))
+      (tensor_cores && k != kK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int nchunks, td = kTD;
-  const int nblk = tensor_cores ? tc_blocks(b, d, h, w, &nchunks, &td)
+  const int nblk = tensor_cores ? tc_blocks(b, d, h, w, dtype ? kMaxTDtc : kMaxTDtf,
+                                            &nchunks, &td)
                                 : blocks_of(b, d, h, w, &nchunks);
   if ((int64_t)b * nchunks > 65535) return (int)cudaErrorInvalidValue;
   Params p;
@@ -780,7 +1219,14 @@ extern "C" int cwfa_cond_pair_bwd(const void* x, const void* dz, const void* wa,
   const int smem = ((kTD + 4) * kXCols * 2 + (kTD + 2) * kYCols * 2 + k * 55 +
                     (kThreads / 32) * 28) * 4;
   const dim3 grid((w + kTW - 1) / kTW, (h + kTH - 1) / kTH, b * nchunks);
-  if (tensor_cores) {
+  if (tensor_cores && dtype == 0) {
+    const int tsmem =
+        (27 * kPStride + 2 * kYRows * kK + 3 * 16 * 32 * 4 + 3 * (td + 4) * kXCols) * 4;
+    err = cudaFuncSetAttribute(cond_pair_bwd_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tsmem);
+    if (err != cudaSuccess) return (int)err;
+    cond_pair_bwd_tf32_kernel<<<grid, kThreads, tsmem, s>>>(p, td);
+  } else if (tensor_cores) {
     const int tsmem = 27 * kPStride * 4 + 2 * kYRows * kDPitch * 2 + 3 * (td + 4) * kXCols * 2;
     err = cudaFuncSetAttribute(cond_pair_bwd_tc_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, tsmem);

@@ -1,7 +1,9 @@
 // What the 64-wide tower kernels on Hopper's warpgroup tensor cores share
-// (csrc/btower_wg.cu: bf16 and f32 as 3xTF32; csrc/qtower_wg.cu: int8): the
-// tile geometry, the shared-memory and cp.async helpers, and the block's
-// coordinates with its ring of weight slices.
+// (csrc/btower_wg.cu: bf16 and f32 as 3xTF32; csrc/qtower_wg.cu: int8;
+// csrc/btower_bwd_wg.cu: the backward): the tile geometry, the
+// shared-memory and cp.async helpers, the 3xTF32 split and products
+// (csrc/cond_pair_bwd.cu takes the split), and the block's coordinates
+// with its ring of weight slices.
 //
 // Geometry: a block computes a TH x 16 output tile from a canvas of
 // (TH + 8) x 24 positions (the 4-pixel halo of the four 3x3 convs), kept as
@@ -113,6 +115,64 @@ template <int N>
 __device__ __forceinline__ void keep(int32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// ---- f32 as 3xTF32 (csrc/btower_wg.cu, csrc/btower_bwd_wg.cu)
+
+// f32 -> (hi, lo): hi = v rounded to TF32 (10 mantissa bits, ties away),
+// lo = v - hi, exact in f32 (the tensor cores read its top 10 mantissa bits)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// One slice (nks k-steps of 8 channels, hi parts then lo parts `lo_off`
+// bytes on) times the A fragments (hi, lo) of those k-steps, added to d.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float* d, uint32_t (*hi)[4],
+                                           uint32_t (*lo)[4], int nks,
+                                           uint64_t dw, uint32_t slot,
+                                           uint32_t lo_off) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    if (ks < nks) {
+      const uint64_t bh = wg::desc_at(dw, slot + 2 * ks * N * 16);
+      const uint64_t bl = wg::desc_at(dw, slot + lo_off + 2 * ks * N * 16);
+      wg::wgmma_rs_tf32<N>(d, lo[ks], bh);
+      wg::wgmma_rs_tf32<N>(d, hi[ks], bl);
+      wg::wgmma_rs_tf32<N>(d, hi[ks], bh);
+    }
+}
+
+// The A fragments of one slice from the canvas: rows pos_lo, pos_hi
+// (canvas positions, already shifted by the tap) and the channel quads
+// quad0 .. quad0 + 2 nks - 1, split into hi and lo.
+__device__ __forceinline__ void load_frags(uint32_t (*hi)[4], uint32_t (*lo)[4],
+                                           uint32_t canvas, int plane,
+                                           int pos_lo, int pos_hi, int quad0,
+                                           int nks, int q) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    if (ks < nks) {
+      const uint32_t a = canvas + (quad0 + 2 * ks) * plane + q * 4;
+      split_tf32(__uint_as_float(lds32(a + pos_lo * 16)), hi[ks][0], lo[ks][0]);
+      split_tf32(__uint_as_float(lds32(a + pos_hi * 16)), hi[ks][1], lo[ks][1]);
+      split_tf32(__uint_as_float(lds32(a + plane + pos_lo * 16)), hi[ks][2], lo[ks][2]);
+      split_tf32(__uint_as_float(lds32(a + plane + pos_hi * 16)), hi[ks][3], lo[ks][3]);
+    }
+}
+
+// Ends a slice's committed products: wait, and the operands are free again.
+template <int N>
+__device__ __forceinline__ void finish_3xtf32(float (&d)[N], uint32_t (*hi)[4],
+                                              uint32_t (*lo)[4]) {
+  wg::wait<0>();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    keep(hi[ks]);
+    keep(lo[ks]);
+  }
+  keep(d);
 }
 
 // What every instance shares: thread coordinates, the ring of weight slices

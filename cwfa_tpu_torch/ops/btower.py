@@ -29,11 +29,13 @@ The weights may be f32 master weights under a bf16 x (training): the
 kernel and the plain version then use them rounded to bf16, and the biases
 as they are.  ``FloatTowerFn`` differentiates the tower; its backward is a
 kernel too (``float_tower_backward``; the TPU kernel has none, JAX trains
-through its XLA convs), with two instances (``bwd_instance``): a 64-wide
-tower in bf16 with up to 128 inputs on the warpgroup tensor cores
-(``csrc/btower_bwd_wg.cu``, weights packed by ``pack_float_tower_bwd``, its
-arithmetic in plain PyTorch ``float_tower_backward_products``), every other
-on the CUDA cores (``csrc/btower_bwd.cu``).
+through its XLA convs), with three instances (``bwd_instance``): a 64-wide
+tower with up to 128 inputs on the warpgroup tensor cores, in bf16 or, for
+f32, as 3xTF32 (``csrc/btower_bwd_wg.cu``, weights packed by
+``pack_float_tower_bwd``, its arithmetic in plain PyTorch
+``float_tower_backward_products``), every other on the CUDA cores
+(``csrc/btower_bwd.cu``).  ``float_tower_backward_f64`` is the exact
+gradient, f64 autograd, that the f32 instances are held to.
 """
 
 from __future__ import annotations
@@ -122,6 +124,38 @@ def float_tower_backward_reference(tower, x, dy):
     return dx, dws, dbs
 
 
+def float_tower_backward_f64(tower, x, dy):
+    """(dx, [dW], [db]) of the tower's exact function for the output
+    gradient dy: f64 autograd, no canvas rounded, the weights' f32 values
+    (``_elu`` is the kernels' ELU, whose derivative is continuous at 0).
+    What the f32 instances of ``float_tower_backward`` are held to: cuDNN's
+    f32 wgrad, which the plain backward runs, is itself up to 8e-5 of
+    max|dW| off it at 512^2 (``scripts/torch_k2_f32_vs_f64.py``).  f64
+    results; db None where a conv has no bias."""
+    with torch.enable_grad():
+        xr = x.detach().double().requires_grad_()
+        params = [(w.detach().double().requires_grad_(),
+                   None if b is None else b.detach().double().requires_grad_())
+                  for w, b in _tower_params(tower)]
+        flat = [t for pair in params for t in pair if t is not None]
+        conv = dict(zip(CONVS, params))
+
+        def c(name, v):
+            w, b = conv[name]
+            return F.conv2d(v, w, b, padding=w.shape[-1] // 2)
+
+        e = c("b1", xr)
+        for a, b in (("b2a", "b2b"), ("b4a", "b4b"), ("b6a", "b6b")):
+            e = _elu(c(b, _elu(c(a, e))) + e)
+        grads = iter(torch.autograd.grad(c("b7", e), [xr] + flat, dy.double()))
+        dx = next(grads)
+        dws, dbs = [], []
+        for _, b in params:
+            dws.append(next(grads))
+            dbs.append(None if b is None else next(grads))
+    return dx, dws, dbs
+
+
 WGMMA_BF16, WGMMA_3XTF32, CUDA_CORES = "wgmma bf16", "wgmma 3xTF32", "CUDA cores"
 WGMMA_WIDTH = 64                       # the tower width of the wgmma instances
 WGMMA_CIN = 128                        # ... their most inputs (b1's K in two
@@ -146,16 +180,37 @@ def _round_up(n: int, m: int) -> int:
     return n + (-n) % m
 
 
+def _rna(v):
+    """f32 -> TF32 (10 mantissa bits), rounded to nearest, ties away."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def split_tf32(w):
     """f32 -> (hi, lo), both exact TF32 values (10 mantissa bits): hi is w
     rounded to nearest (ties away from zero), lo the remainder w - hi rounded
-    the same way.  hi + lo is w to 2^-22 relative."""
-    def rna(v):
-        bits = v.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    the same way.  hi + lo is w to 2^-22 relative.  The packs' split."""
+    hi = _rna(w)
+    return hi, _rna(w - hi)
 
-    hi = rna(w)
-    return hi, rna(w - hi)
+
+def split_tf32_read(v):
+    """f32 -> (hi, lo) as a kernel splits a value in registers and the
+    tensor cores then read it: hi = v rounded to TF32 (ties away), lo = v -
+    hi (exact in f32) with its low 13 mantissa bits dropped."""
+    hi = _rna(v)
+    lo = (v - hi).contiguous().view(torch.int32) & -0x2000
+    return hi, lo.view(torch.float32)
+
+
+def tf32x3(fn, a, b, b_packed: bool = False):
+    """fn(a, b), bilinear, as 3xTF32: fn(a_lo, b_hi) + fn(a_hi, b_lo) +
+    fn(a_hi, b_hi) with f32 sums (a_lo * b_lo dropped); a split in
+    registers (``split_tf32_read``), b too, or as a pack splits it
+    (``split_tf32``) with ``b_packed``."""
+    ah, al = split_tf32_read(a)
+    bh, bl = split_tf32(b) if b_packed else split_tf32_read(b)
+    return fn(al, bh) + fn(ah, bl) + fn(ah, bh)
 
 
 def _taps(w, ipad: int, opad: int):
@@ -196,13 +251,26 @@ def _pack_conv(w, instance: str, *, nout_pad: int = 0, after_3x3: bool = False,
     if after_3x3:
         order = torch.tensor(_SUM_ORDER, device=w.device)
         t = t.reshape(k * k, opad, -1, 8)[..., order].reshape(k * k, opad, -1)
-    parts = []
-    for tap in t:
-        for c0 in range(0, tap.shape[1], TF32_CHUNK):
-            chunk = tap[:, c0:c0 + TF32_CHUNK]                # [O][kc]
-            for part in split_tf32(chunk):
-                parts.append(part.reshape(opad, -1, 4).permute(1, 0, 2).reshape(-1))
-    return torch.cat(parts)
+    return _tf32_slices(t)
+
+
+def _tf32_slices(t):
+    """[tap][O][I] f32 (I a multiple of 8) -> the 3xTF32 instances' B
+    operand, flattened: per tap and per chunk of 32 input channels (the
+    last of I % 32) the high parts [chunk/4][O][4], then the low parts
+    (``split_tf32``)."""
+    taps, o, i = t.shape
+    hl = torch.stack(split_tf32(t), 1)                        # [tap][2][O][I]
+
+    def chunks(c0, c1):
+        kc = min(TF32_CHUNK, c1 - c0)
+        v = hl[..., c0:c1].reshape(taps, 2, o, (c1 - c0) // kc, kc // 4, 4)
+        return v.permute(0, 3, 1, 4, 2, 5).reshape(taps, -1)  # [n][2][kc/4][O][4]
+
+    full = i - i % TF32_CHUNK
+    parts = ([chunks(0, full)] if full else []) + ([chunks(full, i)]
+                                                    if i > full else [])
+    return torch.cat(parts, 1).reshape(-1)
 
 
 def _pack(tower, instance: str, dtype):
@@ -277,10 +345,11 @@ def _bwd_lib():
     lib.cwfa_btower_bwd_scratch.restype = i64
     lib.cwfa_btower_bwd_part.argtypes = [i32] * 5
     lib.cwfa_btower_bwd_part.restype = i64
-    wg.cwfa_btower_bwd_wg.argtypes = [p] * 8 + [i32] * 6 + [p]
-    wg.cwfa_btower_bwd_wg.restype = i32
-    wg.cwfa_btower_bwd_wg_scratch.argtypes = [i32] * 6
-    wg.cwfa_btower_bwd_wg_scratch.restype = i64
+    for name in ("cwfa_btower_bwd_wg", "cwfa_btower_bwd_tf32"):
+        getattr(wg, name).argtypes = [p] * 8 + [i32] * 6 + [p]
+        getattr(wg, name).restype = i32
+        getattr(wg, name + "_scratch").argtypes = [i32] * 6
+        getattr(wg, name + "_scratch").restype = i64
     return lib, wg
 
 
@@ -363,9 +432,8 @@ fused_float_tower.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0, CUDA_CORES: 0}
 def bwd_instance(dtype, c: int, cin: int, nout: int) -> str:
     """Which instance of the backward kernel runs a tower of width ``c``
     with ``cin`` inputs and ``nout`` outputs in ``dtype``."""
-    if (dtype == torch.bfloat16 and c == WGMMA_WIDTH and cin <= WGMMA_CIN
-            and nout <= WGMMA_NOUT[-1]):
-        return WGMMA_BF16
+    if c == WGMMA_WIDTH and cin <= WGMMA_CIN and nout <= WGMMA_NOUT[-1]:
+        return WGMMA_BF16 if dtype == torch.bfloat16 else WGMMA_3XTF32
     return CUDA_CORES
 
 
@@ -392,70 +460,89 @@ def dgrad_weight(w):
     return w.flip(2, 3).transpose(0, 1)
 
 
-def pack_float_tower_bwd(tower):
-    """The wgmma backward's pack (weights, biases): the weights rounded to
-    bf16 as ``_wg_slices`` of b1 .. b6b (``BWD_FORWARD``, the recomputed
-    forward), then of the dgrad weights (``dgrad_weight``) of b7 .. b1
-    (``BWD_DGRAD``), b1's in chunks of at most ``DX_CHUNK`` of its outputs
-    (the kernel's launches into dx) one after the other; the biases of b1 ..
-    b6b, f32 (zeros where a conv has none).  Built at first use and kept on
-    the module until a weight changes."""
+def _tf32_bwd_slices(w):
+    """An OIHW f32 weight as the 3xTF32 backward's B operand
+    (``_tf32_slices``), I and O padded with zeros to multiples of 16."""
+    o, i, k, _ = w.shape
+    return _tf32_slices(_taps(w, 16, _round_up(o, 16)))
+
+
+def pack_float_tower_bwd(tower, dtype=torch.bfloat16):
+    """The wgmma backward's pack (weights, biases) for ``dtype``: the
+    weights of b1 .. b6b (``BWD_FORWARD``, the recomputed forward), then the
+    dgrad weights (``dgrad_weight``) of b7 .. b1 (``BWD_DGRAD``), b1's in
+    chunks of at most ``DX_CHUNK`` of its outputs (the kernel's launches
+    into dx) one after the other; bf16: rounded to bf16 as ``_wg_slices``;
+    f32: split into TF32 high and low parts as ``_tf32_bwd_slices``.  The
+    biases of b1 .. b6b, f32 (zeros where a conv has none).  Built at first
+    use and kept on the module until a weight changes."""
     key = tuple((t.device, t.dtype, t.data_ptr(),
                  None if t.is_inference() else t._version)
                 for t in tower.parameters())
     cached = getattr(tower, "_float_tower_bwd_pack", None)
     if cached is None or cached[0] != key:
+        cached = tower._float_tower_bwd_pack = (key, {})
+    if dtype not in cached[1]:
+        slices = _wg_slices if dtype == torch.bfloat16 else _tf32_bwd_slices
         with torch.no_grad():
-            ws = {n: getattr(tower, n).weight.detach().to(torch.bfloat16)
-                  .float() for n in CONVS}
-            weights = [_wg_slices(ws[n]) for n in BWD_FORWARD]
-            weights += [_wg_slices(dgrad_weight(ws[n])) for n in BWD_DGRAD[:-1]]
+            ws = {n: getattr(tower, n).weight.detach().to(dtype).float()
+                  for n in CONVS}
+            weights = [slices(ws[n]) for n in BWD_FORWARD]
+            weights += [slices(dgrad_weight(ws[n])) for n in BWD_DGRAD[:-1]]
             d1 = dgrad_weight(ws["b1"])
-            weights += [_wg_slices(d1[n0:n0 + DX_CHUNK])
+            weights += [slices(d1[n0:n0 + DX_CHUNK])
                         for n0 in range(0, d1.shape[0], DX_CHUNK)]
             biases = [torch.zeros(WGMMA_WIDTH, device=ws["b1"].device)
                       if getattr(tower, n).bias is None
                       else getattr(tower, n).bias.detach().float()
                       for n in BWD_FORWARD]
-            cached = (key, (torch.cat(weights), torch.cat(biases)))
-        tower._float_tower_bwd_pack = cached
-    return cached[1]
+            cached[1][dtype] = (torch.cat(weights), torch.cat(biases))
+    return cached[1][dtype]
 
 
-def _conv_bwd_parts(params):
-    """{name: (weight rounded to bf16, f32 bias or zeros)}."""
+def _conv_bwd_parts(params, dtype):
+    """{name: (weight rounded to dtype, f32 bias or zeros)}."""
     out = {}
     for n, (w, b) in zip(CONVS, params):
-        w = w.detach().to(torch.bfloat16).float()
+        w = w.detach().to(dtype).float()
         out[n] = (w, torch.zeros(w.shape[0], device=w.device) if b is None
                   else b.detach().float())
     return out
 
 
 def float_tower_backward_products(tower, x, dy):
-    """The wgmma bf16 instance's arithmetic in plain PyTorch (x, dy bf16):
-    the forward recomputed with its canvases rounded to bf16 as the forward
-    rounds them; then each gradient with ELU' taken from the stored canvas
-    (``min(e, 0) + 1``), the residual chain in f32, and the gradient rounded
-    to bf16 as the operand of each product (dgrad, wgrad, bias sum) that
-    reads it.  Same results as ``float_tower_backward``."""
-    c = _conv_bwd_parts(_tower_params(tower))
+    """The wgmma instances' arithmetic in plain PyTorch.  bf16 (x, dy
+    bf16): the forward recomputed with its canvases rounded to bf16 as the
+    forward rounds them; then each gradient with ELU' taken from the stored
+    canvas (``min(e, 0) + 1``), the residual chain in f32, and the gradient
+    rounded to bf16 as the operand of each product (dgrad, wgrad, bias sum)
+    that reads it.  f32: nothing rounded, every product as 3xTF32
+    (``tf32x3``: the weights split as the pack splits them, the canvases and
+    gradients as the kernel splits them in registers), the sums of each
+    product in f32.  Same results as ``float_tower_backward``."""
+    f32 = x.dtype == torch.float32
+    c = _conv_bwd_parts(_tower_params(tower), x.dtype)
 
     def rnd(v):
-        return v.to(torch.bfloat16).float()
+        return v if f32 else v.to(torch.bfloat16).float()
+
+    def prod(fn, a, b, b_packed):
+        return tf32x3(fn, a, b, b_packed) if f32 else fn(a, b)
 
     def conv(n, v):
         w, b = c[n]
-        return F.conv2d(v, w, b, padding=w.shape[-1] // 2)
+        return prod(lambda a, ww: F.conv2d(a, ww, padding=ww.shape[-1] // 2),
+                    v, w, True) + b[:, None, None]
 
     def dgrad(n, g):
         w = c[n][0]
-        return F.conv_transpose2d(g, w, padding=w.shape[-1] // 2)
+        return prod(lambda a, ww: F.conv_transpose2d(
+            a, ww, padding=ww.shape[-1] // 2), g, w, True)
 
     def wgrad(n, g, v):
         w = c[n][0]
-        return torch.nn.grad.conv2d_weight(v, w.shape, g,
-                                           padding=w.shape[-1] // 2)
+        return prod(lambda a, gg: torch.nn.grad.conv2d_weight(
+            a, w.shape, gg, padding=w.shape[-1] // 2), v, g, False)
 
     def elu_grad(e):
         return torch.clamp_max(e, 0.0) + 1.0
@@ -482,7 +569,7 @@ def float_tower_backward_products(tower, x, dy):
             g_e = g_e * elu_grad(cv[lower])
         dws[ca], dbs[ca] = wgrad(ca, g_a, cv[lower]), g_a.sum((0, 2, 3))
     g_r1 = rnd(g_e)
-    dx = dgrad("b1", g_r1).to(torch.bfloat16)
+    dx = dgrad("b1", g_r1).to(x.dtype)
     dws["b1"], dbs["b1"] = wgrad("b1", g_r1, xf), g_r1.sum((0, 2, 3))
     params = _tower_params(tower)
     return (dx, [dws[n] for n in CONVS],
@@ -536,11 +623,12 @@ def _backward_cuda_cores(tower, x, dy, c, nout):
     return dx.to(dt), dws, dbs
 
 
-def _backward_wgmma(tower, x, dy, nout):
+def _backward_wgmma(tower, x, dy, nout, instance):
     b, cin, h, w = x.shape
     wg = _bwd_lib()[1]
-    weights, biases = pack_float_tower_bwd(tower)
-    nbytes = wg.cwfa_btower_bwd_wg_scratch(b, h, w, cin, nout, x.device.index)
+    entry = "cwfa_btower_bwd_wg" if instance == WGMMA_BF16 else "cwfa_btower_bwd_tf32"
+    weights, biases = pack_float_tower_bwd(tower, x.dtype)
+    nbytes = getattr(wg, entry + "_scratch")(b, h, w, cin, nout, x.device.index)
     if nbytes < 0:
         raise RuntimeError("float_tower_backward: no device attributes")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
@@ -549,12 +637,12 @@ def _backward_wgmma(tower, x, dy, nout):
            for n in CONVS]
     dbs = [torch.empty(getattr(tower, n).out_channels, device=x.device)
            for n in CONVS]
-    rc = wg.cwfa_btower_bwd_wg(
+    rc = getattr(wg, entry)(
         x.data_ptr(), dy.data_ptr(), weights.data_ptr(), biases.data_ptr(),
         dx.data_ptr(), _ptrs(dws), _ptrs(dbs), scratch.data_ptr(),
         b, h, w, cin, nout, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check_launch(rc, f"float_tower_backward ({WGMMA_BF16})")
+    cuda_build.check_launch(rc, f"float_tower_backward ({instance})")
     return dx, dws, dbs
 
 
@@ -566,9 +654,9 @@ def float_tower_backward(tower, x, dy, *, instance=None):
 
     A CPU tensor runs the plain version (``float_tower_backward_reference``);
     a CUDA tensor launches the instance that ``bwd_instance`` picks
-    (``csrc/btower_bwd_wg.cu`` or ``csrc/btower_bwd.cu``, one host entry
-    each) or raises.  instance: ``CUDA_CORES`` runs that instance where the
-    wgmma one would be picked (to time the two side by side).  Counts every
+    (``csrc/btower_bwd_wg.cu``, one host entry for bf16 and one for f32, or
+    ``csrc/btower_bwd.cu``) or raises.  instance: ``CUDA_CORES`` runs that
+    instance where a wgmma one would be picked (to time the two side by side).  Counts every
     launch, and per instance in ``float_tower_backward.by_instance``."""
     c, nout = _check(x, tower)
     b, cin, h, w = x.shape
@@ -582,8 +670,8 @@ def float_tower_backward(tower, x, dy, *, instance=None):
     if x.device.type == "cpu":
         return float_tower_backward_reference(tower, x, dy)
     instance = instance or bwd_instance(x.dtype, c, cin, nout)
-    if instance == WGMMA_BF16:
-        dx, dws, dbs = _backward_wgmma(tower, x, dy, nout)
+    if instance != CUDA_CORES:
+        dx, dws, dbs = _backward_wgmma(tower, x, dy, nout, instance)
     else:
         dx, dws, dbs = _backward_cuda_cores(tower, x, dy, c, nout)
     float_tower_backward.launches += 1
@@ -595,7 +683,8 @@ def float_tower_backward(tower, x, dy, *, instance=None):
 
 float_tower_backward.launches = 0             # every launch of the kernel
 # ... and of each instance
-float_tower_backward.by_instance = {WGMMA_BF16: 0, CUDA_CORES: 0}
+float_tower_backward.by_instance = {WGMMA_BF16: 0, WGMMA_3XTF32: 0,
+                                    CUDA_CORES: 0}
 
 
 class FloatTowerFn(torch.autograd.Function):

@@ -25,9 +25,11 @@ multiplies nothing.  The weights may be f32 master weights under a bf16 x
 (training): they then run rounded to bf16.  ``CondPairFn`` differentiates
 the pair; its backward is a kernel too (``cond_pair_backward``,
 ``csrc/cond_pair_bwd.cu``; the TPU kernel has none, JAX trains through its
-XLA convs), with the forward's two instances (``bwd_instance``): bf16 with
-K = 32 on the tensor cores (its arithmetic in plain PyTorch
+XLA convs), with three instances (``bwd_instance``): K = 32 on the tensor
+cores, bf16 or, for f32, as 3xTF32 (their arithmetic in plain PyTorch
 ``cond_pair_backward_products``), the rest on the CUDA cores.
+``cond_pair_backward_f64`` is the exact gradient, f64 autograd, that the
+f32 instances are held to.
 """
 
 from __future__ import annotations
@@ -39,12 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from cwfa_tpu_torch.ops import cuda_build
-from cwfa_tpu_torch.ops.btower import round_through
+from cwfa_tpu_torch.ops.btower import round_through, tf32x3
 from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
-TENSOR_CORE_K = 32                     # the K of the tensor-core instance
+TENSOR_CORES_TF32 = "tensor cores 3xTF32"   # the f32 backward's
+TENSOR_CORE_K = 32                     # the K of the tensor-core instances
+KINK = 2.0 ** -16                      # a pre this close to 0 is summed again
 
 
 def kernel_instance(dtype, k: int) -> str:
@@ -57,7 +61,11 @@ def kernel_instance(dtype, k: int) -> str:
 
 def bwd_instance(dtype, k: int) -> str:
     """Which instance of the backward kernel runs a pair with ``k``
-    intermediate channels in ``dtype`` (the forward's choice)."""
+    intermediate channels in ``dtype``: the forward's choice, but f32 with
+    K = 32 on the tensor cores as 3xTF32 (where the forward's f32 stays on
+    the CUDA cores)."""
+    if dtype == torch.float32 and k == TENSOR_CORE_K:
+        return TENSOR_CORES_TF32
     return kernel_instance(dtype, k)
 
 
@@ -98,6 +106,52 @@ def cond_pair_backward_reference(x, dz, c3a, c3b, prelu, scale=None):
               for t in _pair_params(c3a, c3b, prelu)]
         z = _pair_math(xr, *ps, scale)
         return torch.autograd.grad(z, [xr] + ps, dz)
+
+
+def _taps_view(v):
+    """(B, 1, H, W, D) -> the 27 zero-padded shifts of v in tap order (the
+    weights' (kh, kw, kd) order), each (B, 1, H, W, D)."""
+    _, _, h, w, d = v.shape
+    vp = F.pad(v, (1, 1, 1, 1, 1, 1))
+    return [vp[..., i:i + h, j:j + w, l:l + d]
+            for i in range(3) for j in range(3) for l in range(3)]
+
+
+def pre_f32_taps(x, wa, ba):
+    """pre = Conv3d(1 -> K)(x) + b_a in f32 as the f32 kernels sum it: the
+    27 products in tap order with fused multiply-adds (exact here: the
+    product and the add in f64, rounded once to f32), then the bias.
+    x: (B, D, H, W) f32; wa (K, 1, 3, 3, 3), ba (K,).  Returns (B, K, H, W,
+    D) f32."""
+    v = x.float().permute(0, 2, 3, 1).unsqueeze(1).double()
+    w = wa.detach().float().reshape(-1, 27).double()
+    s = torch.zeros((v.shape[0], w.shape[0]) + v.shape[2:], dtype=torch.float32,
+                    device=x.device)
+    for t, shifted in enumerate(_taps_view(v)):
+        s = (w[:, t, None, None, None] * shifted + s.double()).float()
+    return s + ba.detach().float()[:, None, None, None]
+
+
+def cond_pair_backward_f64(x, dz, c3a, c3b, prelu, scale=None):
+    """(dx, dW_a, db_a, dW_b, db_b, dalpha) of the f32 pair's function for
+    the output gradient dz, f64 autograd: the weights' f32 values, nothing
+    rounded, PReLU's branch at each voxel and channel where the f32 forward
+    takes it (``pre_f32_taps`` > 0): a pre within f32 rounding of 0 can land
+    on the other side in f64, and its slope then differs by 1 - alpha.
+    What the f32 instances of ``cond_pair_backward`` are held to; f64
+    results in the parameters' shapes."""
+    pos = pre_f32_taps(x, c3a.weight, c3a.bias) > 0
+    with torch.enable_grad():
+        xr = x.detach().double().requires_grad_()
+        wa, ba, wb, bb, alpha = [t.detach().double().requires_grad_()
+                                 for t in _pair_params(c3a, c3b, prelu)]
+        v = xr.permute(0, 2, 3, 1).unsqueeze(1)
+        pre = F.conv3d(v, wa, ba, padding=1)
+        y = torch.where(pos, pre, alpha * pre)
+        if scale is not None:
+            y = y * scale.double()[:, :, None, None, None]
+        z = F.conv3d(y, wb, bb, padding=1)[:, 0].permute(0, 3, 1, 2)
+        return torch.autograd.grad(z, [xr, wa, ba, wb, bb, alpha], dz.double())
 
 
 def cond_pair_products(x, c3a, c3b, prelu):
@@ -225,33 +279,47 @@ cond_pair.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}   # ... per instance
 
 
 def cond_pair_backward_products(x, dz, c3a, c3b, prelu, scale=None):
-    """The tensor-core instance's arithmetic in plain PyTorch (x, dz bf16):
-    pre and dy = conv_b^T(dz) from bf16 operands with f32 sums; y rounded as
-    the forward rounds it; dpre = dy m PReLU'(pre) in f32, rounded to bf16
-    once as the operand of dx's and dW_a's products; db_a and dalpha from
-    the f32 values.  Same results as ``cond_pair_backward``."""
-    dt = torch.bfloat16
+    """The tensor-core instances' arithmetic in plain PyTorch.  bf16 (x, dz
+    bf16): pre and dy = conv_b^T(dz) from bf16 operands with f32 sums; y
+    rounded as the forward rounds it; dpre = dy m PReLU'(pre) in f32,
+    rounded to bf16 once as the operand of dx's and dW_a's products; db_a
+    and dalpha from the f32 values.  f32: nothing rounded, every product
+    (pre, dy, dx, dW_a, dW_b) as 3xTF32 (``btower.tf32x3``, every operand
+    split as the kernel splits it in registers), and a pre within ``KINK``
+    of 0 summed again as the CUDA-core instances sum it
+    (``pre_f32_taps``).  Same results as ``cond_pair_backward``."""
+    f32 = x.dtype == torch.float32
+    dt = x.dtype
 
     def q(t):
         return t.detach().to(dt).float()
 
+    def prod(fn, a, b):
+        return tf32x3(fn, a, b) if f32 else fn(a, b)
+
     wa, ba, wb, _, alpha = (q(t) for t in _pair_params(c3a, c3b, prelu))
     v = x.float().permute(0, 2, 3, 1).unsqueeze(1)            # (B, 1, H, W, D)
     g = dz.float().permute(0, 2, 3, 1).unsqueeze(1)
-    pre = F.conv3d(v, wa, ba, padding=1)
+    conv = lambda a, w: F.conv3d(a, w, padding=1)             # noqa: E731
+    convt = lambda a, w: F.conv_transpose3d(a, w, padding=1)  # noqa: E731
+    pre = prod(conv, v, wa) + ba[:, None, None, None]
+    if f32:
+        pre = torch.where(pre.abs() < KINK, pre_f32_taps(x, wa, ba), pre)
     y = F.prelu(pre, alpha).to(dt).float()
     m = torch.ones_like(pre[:, :, :1, :1, :1]) if scale is None \
         else scale[:, :, None, None, None]
     if scale is not None:
         y = (y * m).to(dt).float()
-    gy = F.conv_transpose3d(g, wb, padding=1) * m            # dL/dPReLU(pre)
+    gy = prod(convt, g, wb) * m                               # dL/dPReLU(pre)
     neg = pre <= 0
     dpre = torch.where(neg, gy * alpha, gy)
     dal = (gy * pre * neg).sum()
     dq = dpre.to(dt).float()
-    dx = F.conv_transpose3d(dq, wa, padding=1)
-    dwa = torch.nn.grad.conv3d_weight(v, wa.shape, dq, padding=1)
-    dwb = torch.nn.grad.conv3d_weight(y, wb.shape, g, padding=1)
+    dx = prod(convt, dq, wa)
+    dwa = prod(lambda a, gg: torch.nn.grad.conv3d_weight(
+        a, wa.shape, gg, padding=1), v, dq)
+    dwb = prod(lambda a, gg: torch.nn.grad.conv3d_weight(
+        a, wb.shape, gg, padding=1), y, g)
     return (dx[:, 0].permute(0, 3, 1, 2).to(dt).contiguous(), dwa,
             dpre.sum((0, 2, 3, 4)), dwb, g.sum().reshape(1), dal.reshape(1))
 
@@ -266,7 +334,7 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
     A CPU tensor runs the plain version (``cond_pair_backward_reference``);
     a CUDA tensor launches the instance that ``bwd_instance`` picks
     (``csrc/cond_pair_bwd.cu``) or raises.  instance: ``CUDA_CORES`` runs
-    that instance where the tensor-core one would be picked (to time the
+    that instance where a tensor-core one would be picked (to time the
     two side by side).  Counts every launch, and per instance in
     ``cond_pair_backward.by_instance``."""
     k = _check(x, c3a, c3b, prelu, scale)
@@ -292,7 +360,7 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
         wb.data_ptr(), alpha.data_ptr(),
         None if scale is None else scale.data_ptr(),
         dx.data_ptr(), grads.data_ptr(), part.data_ptr(), b, d, h, w, k,
-        _DTYPES[x.dtype], int(instance == TENSOR_CORES), x.device.index,
+        _DTYPES[x.dtype], int(instance != CUDA_CORES), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(rc, f"cond_pair_backward ({instance})")
     cond_pair_backward.launches += 1
@@ -306,7 +374,8 @@ def cond_pair_backward(x, dz, c3a, c3b, prelu, scale=None, *, instance=None):
 
 cond_pair_backward.launches = 0             # every launch of the kernel
 # ... and of each instance
-cond_pair_backward.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}
+cond_pair_backward.by_instance = {TENSOR_CORES: 0, TENSOR_CORES_TF32: 0,
+                                  CUDA_CORES: 0}
 
 
 class CondPairFn(torch.autograd.Function):

@@ -1,9 +1,9 @@
-"""The float tower's backward in f32 on the card against an f64 autograd
-reference: K2's CUDA-core instance (``btower.float_tower_backward``) and
-the plain f32 backward (``btower.float_tower_backward_reference``, cuDNN
-f32 convs with TF32 off), each gradient's max|d| as a share of max|f64|.
-Says which of the two sits farther from the exact gradient where they
-differ.
+"""The float tower's backward in f32 on the card against the f64 gradient
+(``btower.float_tower_backward_f64``): K2 (``btower.float_tower_backward``,
+the instance that ``bwd_instance`` picks) and the plain f32 backward
+(``btower.float_tower_backward_reference``, cuDNN f32 convs with TF32 off),
+each gradient's max|d| as a share of max|f64|.  Says which of the two sits
+farther from the exact gradient where they differ.
 
     python3 scripts/torch_k2_f32_vs_f64.py [--cin 65] [--nout 48] [--side 512]
 
@@ -16,34 +16,11 @@ import sys
 from pathlib import Path
 
 import torch
-import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from cwfa_tpu_torch.flow.subnets import WaveletFlowSubnet2d  # noqa: E402
 from cwfa_tpu_torch.ops import btower  # noqa: E402
-
-
-def f64_grads(tower, x, dy):
-    """(dx, dW, db of each conv in ``btower.CONVS`` order), f64 autograd
-    through the tower's exact function (no canvas rounding in f32)."""
-    t = {n: getattr(tower, n) for n in btower.CONVS}
-    params = [p for n in btower.CONVS for p in
-              (t[n].weight.double().requires_grad_(),
-               t[n].bias.double().requires_grad_())]
-    conv = {n: (params[2 * i], params[2 * i + 1])
-            for i, n in enumerate(btower.CONVS)}
-
-    def c(n, v):
-        w, b = conv[n]
-        return F.conv2d(v, w, b, padding=w.shape[-1] // 2)
-
-    with torch.enable_grad():
-        xr = x.double().requires_grad_()
-        e = c("b1", xr)
-        for a, b in (("b2a", "b2b"), ("b4a", "b4b"), ("b6a", "b6b")):
-            e = btower._elu(c(b, btower._elu(c(a, e))) + e)
-        return torch.autograd.grad(c("b7", e), [xr] + params, dy.double())
 
 
 def main(argv=None) -> int:
@@ -74,7 +51,7 @@ def main(argv=None) -> int:
 
     kernel = flat(btower.float_tower_backward(tower, x, dy))
     plain = flat(btower.float_tower_backward_reference(tower, x, dy))
-    exact = f64_grads(tower, x, dy)
+    exact = flat(btower.float_tower_backward_f64(tower, x, dy))
     torch.cuda.synchronize()
     names = ["dx"] + [f"{k} {n}" for n in btower.CONVS for k in ("dW", "db")]
     print(torch.cuda.get_device_name(0))

@@ -293,8 +293,8 @@ def test_3xtf32_conv_holds_the_f32_bound(k):
 @pytest.mark.parametrize("cin", [65, 72, 128])
 def test_wgmma_instances_take_cin_up_to_128(cin):
     """The 64-wide towers of up to 128 inputs (the [x half | c_views] towers
-    of the other coupling types: Cin 72 at step 0) run on wgmma, forward in
-    both dtypes and K2 in bf16; Cin 129 on the CUDA cores."""
+    of the other coupling types: Cin 72 at step 0) run on wgmma, forward and
+    K2 in both dtypes; Cin 129 on the CUDA cores."""
     for nout in (24, 48):
         assert tbt.kernel_instance(torch.bfloat16, 64, cin, nout) \
             == tbt.WGMMA_BF16
@@ -303,7 +303,7 @@ def test_wgmma_instances_take_cin_up_to_128(cin):
         assert tbt.bwd_instance(torch.bfloat16, 64, cin, nout) \
             == tbt.WGMMA_BF16
         assert tbt.bwd_instance(torch.float32, 64, cin, nout) \
-            == tbt.CUDA_CORES
+            == tbt.WGMMA_3XTF32
         for dtype in (torch.bfloat16, torch.float32):
             assert tbt.kernel_instance(dtype, 64, 129, nout) == tbt.CUDA_CORES
             assert tbt.bwd_instance(dtype, 64, 129, nout) == tbt.CUDA_CORES

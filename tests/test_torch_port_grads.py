@@ -186,3 +186,65 @@ def test_channel_dropout_scale():
     assert channel_dropout_scale((3, 8), 0.5, None, "cpu") is None
     assert channel_dropout_scale((3, 8), 0.0, gen, "cpu") is None
     assert not channel_dropout_scale((3, 8), 1.0, gen, "cpu").any()
+
+
+@pytest.mark.parametrize("cin,nout", [(6, 12), (72, 24)])
+def test_float_tower_backward_products_f32_matches_jax(cin, nout):
+    """The 3xTF32 instance's arithmetic (``float_tower_backward_products``
+    in f32) of the 64-wide tower against ``jax.vjp`` of
+    ``wavelet_flow_subnet2d``: dx within 1e-5 and every dW, db within 1e-4
+    of max|JAX's| (the chip check's f32 bounds)."""
+    params, tower = _tower_pair(cin, nout, 64, seed=cin + 2 * nout)
+    x, dy = _x(1, cin, 6, 7, seed=11), _x(1, nout, 6, 7, seed=12)
+    _, vjp = jax.vjp(jfs.wavelet_flow_subnet2d,
+                     jax.tree_util.tree_map(jnp.asarray, params),
+                     jnp.asarray(x))
+    dparams, dx_want = vjp(jnp.asarray(dy))
+    dx, dws, dbs = btower.float_tower_backward_products(
+        tower, torch.from_numpy(x), torch.from_numpy(dy))
+    assert_share(dx, dx_want, 1e-5)
+    for name, dw, db in zip(CONVS, dws, dbs):
+        assert_share(dw, dparams[name]["w"], 1e-4)
+        assert_share(db, dparams[name]["b"], 1e-4)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_cond_pair_backward_products_f32_matches_jax(dropout):
+    """The 3xTF32 instance's arithmetic (``cond_pair_backward_products`` in
+    f32, K = 32) against ``jax.vjp`` of ``_conv3d_pair_direct``, with and
+    without the Dropout3d on JAX's mask: dx within 1e-5, the parameters'
+    gradients within 1e-4 of max|JAX's|."""
+    k, rate = 32, 0.5
+    params, mods = _pair_pair(k, seed=13)
+    x, dz = _x(1, 6, 7, 8, seed=14), _x(1, 6, 7, 8, seed=15)
+    rng = jax.random.PRNGKey(4) if dropout else None
+    scale = None
+    if dropout:
+        mask = np.asarray(jax.random.bernoulli(rng, 1.0 - rate, (1, k)))
+        scale = torch.from_numpy(mask.astype(np.float32) / (1.0 - rate))
+
+    def f(p, out):
+        act = lambda u: jnn.prelu(p["prelu"], u)   # noqa: E731
+        return jcond._conv3d_pair_direct(p, out, act, rate if dropout else 0.0,
+                                         rng)
+
+    _, vjp = jax.vjp(f, jax.tree_util.tree_map(jnp.asarray, params),
+                     jnp.asarray(x))
+    dp, dx_want = vjp(jnp.asarray(dz))
+    dx, dwa, dba, dwb, dbb, dalpha = tcp.cond_pair_backward_products(
+        torch.from_numpy(x), torch.from_numpy(dz), *mods, scale)
+    assert_share(dx, dx_want, 1e-5)
+    for got, want in ((dwa, dp["c3a"]["w"]), (dba, dp["c3a"]["b"]),
+                      (dwb, dp["c3b"]["w"]), (dbb, dp["c3b"]["b"]),
+                      (dalpha, dp["prelu"]["alpha"])):
+        assert_share(got, want, 1e-4)
+
+
+def assert_share(got, want, share):
+    """max|got - want| <= share * max|want| (the chip check's f32 bounds,
+    ``BWD_BOUND``)."""
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    d, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert d <= share * scale, (d, share * scale)
