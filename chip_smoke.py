@@ -27,10 +27,13 @@ code != 0) on the first phase that does not hold:
    instance and the plain version beside it at step 0;
 4. holds the cond nets' 3-D pair kernel (``cond_pair``) against its plain
    version at each flagship step's depth (1, D, 512, 512), D = 48/24/12/6,
-   at step 0's shape at batch 8 and at two odd shapes, in f32 (CUDA cores)
-   and bf16 (both instances: tensor cores; CUDA cores when asked for), and
-   times both at step 0 beside the plain version and the two cuDNN
-   ``Conv3d`` modules the kernel replaces;
+   at step 0's shape at batch 8 and at two odd shapes, in f32 and bf16,
+   each through both instances (tensor cores: bf16, or f32 as 3xTF32; CUDA
+   cores when asked for), f32 also with the Dropout3d scale, against the
+   f64 pair, twice to the bit and on a case with many a pre at PReLU's
+   kink; times both at step 0 in each dtype (f32 in turns) beside the
+   plain version, the two cuDNN ``Conv3d`` modules the kernel replaces and
+   the bounds;
 5. holds the float tower kernel (``fused_float_tower``) against its plain
    version at every flagship tower shape (coupling Cin -> 2*Cin and input
    Cin -> Cin, Cin 48/24/12/6, 64 wide), at step 0 at batch 8, at two odd
@@ -77,13 +80,15 @@ code != 0) on the first phase that does not hold:
     every mode and accumulator count) and at small and odd ones: the int8
     kernels equal to the bit (the out8 GEMM and the int8 chain through both
     instances: s8 ``wgmma`` fed by TMA and ``mma.sync``), bf16 and FMA
-    within their stated bounds; then drives the probe scripts' own entry points
+    within their stated bounds (the bf16 chain through both of its
+    instances: bf16 ``wgmma`` fed by TMA and ``mma.sync``); then drives the probe scripts' own entry points
     (``scripts/torch_bench_int8_micro.py``, ``torch_probe_cuda_core_rate.py``)
     for their times, with the library call beside each GEMM, holds the
-    launch counts to what those entry points must make and the int8 chain
-    and the out8 GEMM to the s8 ``wgmma`` instance, then times each of these
-    two against its older instance on the same inputs, in turns (their
-    ``ms`` is the median of the new instance's readings);
+    launch counts to what those entry points must make, the int8 chain
+    and the out8 GEMM to the s8 ``wgmma`` instance and the bf16 chain to
+    the bf16 one, then times each of these three against its older
+    instance on the same inputs, in turns (their ``ms`` is the median of
+    the new instance's readings);
 12. the exact-likelihood path: the small rig's per-frame NLLs of every step,
     card (kernels) vs CPU (plain), f32; forward then ``reverse`` on the card
     returns the volume and the log-dets cancel; ``reverse_fast`` agrees with
@@ -642,13 +647,70 @@ def cudnn_tower(t, x):
     return t.b7(F.elu(b6))
 
 
+def pair_net(gen):
+    """A 3-D pair (1 -> 32 -> 1) with weights from ``gen`` and a PReLU alpha
+    in [0.05, 0.5]."""
+    net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
+                               "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
+                               "prelu": torch.nn.PReLU(1)})
+    reset_parameters_(net, gen)
+    with torch.no_grad():
+        net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+    return net
+
+
+def kink_pair(dev, gen):
+    """(x, mods, near): a pair and an x (1, 24, 96, 80) where many a pre
+    lands within 2^-16 of 0 (``cpair.KINK``): x zero on a block of voxels,
+    where pre is then b_a exactly, and four channels' b_a set to +-2^-18
+    and +-2^-20; near counts the pre within 2^-16 of 0."""
+    net = pair_net(gen)
+    with torch.no_grad():
+        for ch, b in ((3, 2.0 ** -18), (7, -2.0 ** -18), (11, 2.0 ** -20),
+                      (19, -2.0 ** -20)):
+            net["c3a"].bias[ch] = b
+    net = net.to(dev)
+    mods = (net["c3a"], net["c3b"], net["prelu"])
+    x = torch.randn((1, 24, 96, 80), generator=gen)
+    x[:, 4:20, 20:70, 10:60] = 0.0
+    x = x.to(dev)
+    near = int((cpair.pre_f32_taps(x, mods[0].weight, mods[0].bias).abs()
+                < cpair.KINK).sum())
+    if near == 0:
+        fail("cond_pair kink case: no pre within 2^-16 of 0")
+    return x, mods, near
+
+
+def pair_f64(x, mods, scale):
+    """``cond_pair_f64`` sample by sample (the f64 temporaries of a batch-8
+    step would not fit the card at once)."""
+    return torch.cat([cpair.cond_pair_f64(
+        x[i:i + 1], *mods, None if scale is None else scale[i:i + 1])
+        for i in range(x.shape[0])])
+
+
+def f64_err(got, ref, what: str) -> float:
+    """max|got - ref| / max|ref|, failing above REL_BOUND's f32 1e-5 or on a
+    value that is not finite."""
+    d = (got.double() - ref).abs().max().item()
+    m = ref.abs().max().item()
+    if not bool(torch.isfinite(got).all()) or not d <= 1e-5 * m:
+        fail(f"{what}: max|d| {d:.3e} over 1e-5 x max|f64| {m:.3e}")
+    return d / m
+
+
 def phase_cond_pair(dev, kernels):
     """cond_pair vs cond_pair_reference on the card: every flagship step's
     depth at batch 1, step 0 at batch 8 and two odd shapes (D 5 and 8, a
     part of a depth chunk and a whole one; H, W not multiples of the 8x32
-    tile), f32 and bf16.  bf16 is checked through both instances (tensor
-    cores, and the CUDA cores when asked for); the instance of every launch
-    is logged and each must have run.  Times both at step 0 (bf16)."""
+    tile), f32 and bf16, each through both instances (its tensor-core one,
+    and the CUDA cores when asked for); the instance of every launch is
+    logged and each must have run.  f32 also with the Dropout3d scale at
+    the odd shapes, against the f64 pair (``cond_pair_f64``) within 1e-5 of
+    max|f64|, the tensor-core instance's second launch equal to the first
+    to the bit, and the kink case of the backward check (K3's) through the
+    forward.  Times both instances at step 0 in bf16 and in f32 (in turns,
+    beside the 3xTF32 bound)."""
     gen = torch.Generator().manual_seed(2)
     shapes = [(1, d, SLICE_HW, SLICE_HW) for d in (48, 24, 12, 6)]
     shapes += [(8, 48, SLICE_HW, SLICE_HW), (2, 5, 37, 53), (2, 8, 19, 35)]
@@ -656,42 +718,55 @@ def phase_cond_pair(dev, kernels):
     by_instance = cpair.cond_pair.by_instance
     ran = dict.fromkeys(by_instance, 0)
     for shape in shapes:
-        net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
-                                   "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
-                                   "prelu": torch.nn.PReLU(1)})
-        reset_parameters_(net, gen)
-        with torch.no_grad():
-            net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
+        net = pair_net(gen)
         x0 = torch.randn(shape, generator=gen)
+        keep = ((torch.rand((shape[0], 32), generator=gen) < 0.5).float()
+                * 2.0).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             net = net.to(dev, dtype)
             mods = (net["c3a"], net["c3b"], net["prelu"])
             x = x0.to(dev, dtype)
             own = cpair.kernel_instance(dtype, 32)
+            scales = [None] + ([keep] if dtype == torch.float32
+                               and shape[2] != SLICE_HW else [])
             with torch.inference_mode():
-                want = cpair.cond_pair_reference(x, *mods)
-                for instance in dict.fromkeys((own, cpair.CUDA_CORES)):
-                    before = by_instance[instance]
-                    got = cpair.cond_pair(
-                        x, *mods, instance=None if instance == own else instance)
-                    if by_instance[instance] != before + 1:
-                        fail(f"cond_pair {shape} {dtype} did not run the "
-                             f"{instance} instance")
-                    ran[instance] += 1
-                    e, share = rel_err(got, want, "cond_pair", dtype,
-                                       f"cond_pair {shape} {dtype} ({instance})")
-                    k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
-                    log(f"cond_pair {shape} {str(dtype):14s} ({instance}) "
-                        f"max|d| {e:.3e}, {share:.2e} of the elements differ")
-                del got, want
-                if shape[0] != 1 or shape[1] != 48 or dtype != torch.bfloat16:
+                for sc in scales:
+                    want = cpair.cond_pair_reference(x, *mods, sc)
+                    want64 = pair_f64(x, mods, sc) \
+                        if dtype == torch.float32 else None
+                    for instance in dict.fromkeys((own, cpair.CUDA_CORES)):
+                        call = lambda: cpair.cond_pair(  # noqa: E731
+                            x, *mods, scale=sc,
+                            instance=None if instance == own else instance)
+                        what = (f"cond_pair {shape} {dtype} ({instance}) "
+                                f"scale={sc is not None}")
+                        got = one_launch_of(cpair.cond_pair, instance, call,
+                                            what)
+                        ran[instance] += 1
+                        e, share = rel_err(got, want, "cond_pair", dtype, what)
+                        k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+                        line = (f"{what}: max|d| {e:.3e}, {share:.2e} of the "
+                                f"elements differ")
+                        if dtype == torch.float32:
+                            e64 = f64_err(got, want64, what)
+                            line += f"; max|d|/max|f64| {e64:.3e}"
+                        if instance == cpair.TENSOR_CORES_TF32:
+                            exact_equal(call(), got, f"{what}, second launch")
+                            line += "; second launch equal to the bit"
+                        log(line)
+                        del got
+                    del want, want64
+                if shape[0] != 1 or shape[1] != 48:
+                    continue
+                flop = 2 * 2 * 27 * 32 * x.numel()
+                if dtype == torch.float32:
+                    time_pair_f32(k, x, mods, flop)
                     continue
                 ms = time_ms(lambda: cpair.cond_pair(x, *mods), 20)
                 cores_ms = time_ms(lambda: cpair.cond_pair(
                     x, *mods, instance=cpair.CUDA_CORES), 10)
                 plain_ms = time_ms(lambda: cpair.cond_pair_reference(x, *mods), 5)
                 cudnn_ms = time_ms(lambda: cudnn_pair(net, x), 5)
-            flop = 2 * 2 * 27 * 32 * x.numel()
             log(f"time cond_pair {shape} bf16 ({own}): kernel {ms:.4f} ms "
                 f"({flop / ms / 1e6:.0f} GFLOP/s)  {cpair.CUDA_CORES} instance "
                 f"{cores_ms:.4f} ms  plain {plain_ms:.4f} ms  "
@@ -702,11 +777,62 @@ def phase_cond_pair(dev, kernels):
             # (on f32 FMAs the same work takes bound_ms(0, flop, "f32"))
             set_bound(k, 2 * x.numel() * x.element_size(), flop, "bf16",
                       f"cond_pair {shape} bf16")
-            log(f"bound cond_pair on f32 FMAs, as the {cpair.CUDA_CORES} "
-                f"instance runs it: {bound_ms(0, flop, 'f32')[0]:.4f} ms")
+    check_pair_kink(dev, kernels, gen)
     log(f"cond_pair instances checked: {ran}")
     if not all(ran.values()):
         fail(f"an instance of cond_pair was not checked: {ran}")
+
+
+def time_pair_f32(k, x, mods, flop: float):
+    """cond_pair in f32 at step 0: the 3xTF32 instance and the CUDA-core one
+    in turns (new/old/new/old/new) beside the plain version and both
+    bounds."""
+    side = instances_side_by_side(
+        lambda inst: cpair.cond_pair(
+            x, *mods, instance=None if inst == cpair.TENSOR_CORES_TF32
+            else inst),
+        cpair.TENSOR_CORES_TF32, cpair.CUDA_CORES, 10)
+    ms = statistics.median(side[cpair.TENSOR_CORES_TF32])
+    old = statistics.median(side[cpair.CUDA_CORES])
+    plain_ms = time_ms(lambda: cpair.cond_pair_reference(x, *mods), 5)
+    tf32 = bound_ms(2 * x.numel() * 4, 3 * flop, "tf32")
+    fma = bound_ms(2 * x.numel() * 4, flop, "f32")
+    k.update(f32_ms=ms, f32_cuda_cores_ms=old, f32_plain_ms=plain_ms,
+             f32_bound_ms=tf32[0], f32_bound_by=tf32[1],
+             f32_fma_bound_ms=fma[0])
+    log(f"time cond_pair {tuple(x.shape)} f32, in turns new/old/new/old/new: "
+        f"tensor cores 3xTF32 "
+        f"{['%.4f' % t for t in side[cpair.TENSOR_CORES_TF32]]}, CUDA cores "
+        f"{['%.4f' % t for t in side[cpair.CUDA_CORES]]} ms; median "
+        f"{ms:.4f} ms against {old:.4f} ({flop / ms / 1e6:.0f} GFLOP/s)  "
+        f"plain (cuDNN f32, TF32 off) {plain_ms:.4f} ms; bound as 3xTF32 "
+        f"({3 * flop / 1e9:.2f} G TF32 operations / 495 T) {tf32[0]:.4f} ms "
+        f"({tf32[1]}), on f32 FMAs {fma[0]:.4f} ms")
+
+
+def check_pair_kink(dev, kernels, gen):
+    """The kink case (``kink_pair``) through the f32 forward's 3xTF32
+    instance, with and without the scale, against the f64 pair (whose
+    PReLU branch is the f32 forward's), each launch repeated equal to the
+    bit."""
+    k = kernels["cond_pair"]
+    x, mods, near = kink_pair(dev, gen)
+    keep = ((torch.rand((1, 32), generator=gen) < 0.5).float() * 2.0).to(dev)
+    with torch.inference_mode():
+        for scale in (None, keep):
+            what = (f"cond_pair kink {tuple(x.shape)} f32 "
+                    f"scale={scale is not None}")
+            run = lambda: cpair.cond_pair(x, *mods, scale=scale)  # noqa: E731
+            got = one_launch_of(cpair.cond_pair, cpair.TENSOR_CORES_TF32, run,
+                                what)
+            exact_equal(run(), got, f"{what}, second launch")
+            e64 = f64_err(got, pair_f64(x, mods, scale), what)
+            e, _ = rel_err(got, cpair.cond_pair_reference(x, *mods, scale),
+                           "cond_pair", torch.float32, what)
+            k["max_abs_err"] = max(k.get("max_abs_err", 0.0), e)
+            log(f"{what} (x zero on 16 x 50 x 50 voxels; {near} pre within "
+                f"2^-16 of 0) ({cpair.TENSOR_CORES_TF32}): max|d|/max|f64| "
+                f"{e64:.3e}, vs plain {e:.3e}; second launch equal to the bit")
 
 
 def phase_float_tower(dev, kernels):
@@ -1317,31 +1443,14 @@ def time_k3_f32(k, x, dz, mods, sc):
 
 
 def check_k3_kink(dev, kernels, gen):
-    """K3 in f32 where many a pre lands within 2^-16 of 0 (``cpair.KINK``):
-    x zero on a block of voxels, where pre is then b_a exactly, and four
-    channels' b_a set to +-2^-18 and +-2^-20; through the 3xTF32 instance,
-    with and without the scale, against the f64 gradient (whose PReLU
-    branch is the f32 forward's), each launch repeated equal to the bit."""
+    """K3 in f32 on the kink case (``kink_pair``) through the 3xTF32
+    instance, with and without the scale, against the f64 gradient (whose
+    PReLU branch is the f32 forward's), each launch repeated equal to the
+    bit."""
     k = kernels["cond_pair_bwd"]
-    shape = (1, 24, 96, 80)
-    net = torch.nn.ModuleDict({"c3a": torch.nn.Conv3d(1, 32, 3, padding=1),
-                               "c3b": torch.nn.Conv3d(32, 1, 3, padding=1),
-                               "prelu": torch.nn.PReLU(1)})
-    reset_parameters_(net, gen)
-    with torch.no_grad():
-        net["prelu"].weight.uniform_(0.05, 0.5, generator=gen)
-        for ch, b in ((3, 2.0 ** -18), (7, -2.0 ** -18), (11, 2.0 ** -20),
-                      (19, -2.0 ** -20)):
-            net["c3a"].bias[ch] = b
-    net = net.to(dev)
-    mods = (net["c3a"], net["c3b"], net["prelu"])
-    x = torch.randn(shape, generator=gen)
-    x[:, 4:20, 20:70, 10:60] = 0.0
-    x, dz = x.to(dev), torch.randn(shape, generator=gen).to(dev)
-    near = int((cpair.pre_f32_taps(x, mods[0].weight, mods[0].bias).abs()
-                < cpair.KINK).sum())
-    if near == 0:
-        fail("cond_pair_backward kink case: no pre within 2^-16 of 0")
+    x, mods, near = kink_pair(dev, gen)
+    shape = tuple(x.shape)
+    dz = torch.randn(shape, generator=gen).to(dev)
     keep = ((torch.rand((1, 32), generator=gen) < 0.5).float() * 2.0).to(dev)
     for scale in (None, keep):
         run = lambda: cpair.cond_pair_backward(x, dz, *mods, scale)
@@ -1580,12 +1689,22 @@ def phase_flagship_stochastic(dev, card, model, stats, vidx, caches, frames1):
         f"{tuple(out.shape)} finite; launches {delta} in 1 call")
 
 
-def phase_bf16_vs_f32(dev, model, stats, vidx, caches, frames1, recon16):
+def phase_bf16_vs_f32(dev, kernels, model, stats, vidx, caches, frames1,
+                      recon16):
+    """The flagship bf16 output against the f32 output at batch 1; the f32
+    call's 3-D pairs (4) each on the 3xTF32 instance."""
     out16 = recon16(frames1)
     recon32 = XLFMReconstructor(model, stats, vidx, caches, device=dev,
                                 deterministic=True,
                                 compute_dtype=torch.float32)
+    reset_counts()
     out32 = recon32(frames1)
+    n = launch_counts()["cond_pair"]
+    check_instance("cond_pair", cpair.TENSOR_CORES_TF32, "flagship f32")
+    if n != BF16_PER_CALL["cond_pair"]:
+        fail(f"flagship f32: {n} cond_pair launches, expected "
+             f"{BF16_PER_CALL['cond_pair']}")
+    kernels["cond_pair"]["f32_launches"] = n
     rel = ((out16 - out32).abs().max() / out32.abs().max()).item()
     log(f"flagship batch 1, bf16 vs f32: max|d|/max|f32| {rel:.3e} "
         f"(bound 5e-2)")
@@ -1903,11 +2022,18 @@ def phase_probes(dev, card, kernels):
             main_chain = {"x": x, "ws": ws}
         x = micro.make((m, 128), torch.bfloat16, dev, gen)
         ws = micro.make((depth, 128, 128), torch.bfloat16, dev, gen)
-        e = share_err(probes.chained_gemm(x, ws),
-                      probes.chained_gemm_reference(x, ws), 2.0 ** -6,
-                      f"chained_gemm bf16 M {m} depth {depth}")
-        log(f"chained_gemm bf16 M {m} depth {depth}: max|d| {e:.3e} "
-            f"(bound 2^-6 max|ref|)")
+        ref = probes.chained_gemm_reference(x, ws)
+        errs = {}
+        for inst in (probes.WGMMA_BF16, probes.MMA_SYNC):
+            what = f"chained_gemm bf16 M {m} depth {depth} ({inst})"
+            run = lambda: probes.chained_gemm(x, ws, instance=inst)  # noqa: E731
+            got = one_launch_of(probes.chained_gemm, inst, run, what)
+            errs[inst] = share_err(got, ref, 2.0 ** -6, what)
+            exact_equal(run(), got, f"{what}, second launch")
+        log(f"chained_gemm bf16 M {m} depth {depth}: max|d| {errs} (bound "
+            f"2^-6 max|ref|), second launches equal to the bit")
+        if full:
+            main_chain.update(xb=x, wsb=ws)
         del x, ws, ref
     kc["max_abs_err"] = 0.0
 
@@ -1966,15 +2092,18 @@ def phase_probes(dev, card, kernels):
         kernels[name]["launches"] = delta[name]
     log(f"probe scripts: launches {delta}, {per} of each configuration")
     # the int8 chain (M 2^20) and the out8 GEMM (N 128) ran the s8 wgmma
-    # instances, every other launch its older one
+    # instances, the bf16 chain the bf16 one, every other GEMM launch its
+    # older one
     gi, ci = probes.tiled_gemm.by_instance, probes.chained_gemm.by_instance
     log(f"probe scripts: tiled_gemm launches by instance {gi}, chained_gemm "
         f"{ci}")
     if gi[probes.WGMMA_S8] != per or ci[probes.WGMMA_S8] != per \
-            or ci[probes.MMA_SYNC] != per:
-        fail(f"probe scripts: {gi[probes.WGMMA_S8]} of the {per} out8 and "
-             f"{ci[probes.WGMMA_S8]} of the {per} int8 chain launches ran "
-             f"{probes.WGMMA_S8}")
+            or ci[probes.WGMMA_BF16] != per or ci[probes.MMA_SYNC]:
+        fail(f"probe scripts: {gi[probes.WGMMA_S8]} of the {per} out8 "
+             f"launches ran {probes.WGMMA_S8}; chained_gemm by instance "
+             f"{ci}, expected {per} int8 on {probes.WGMMA_S8} and {per} "
+             f"bf16 on {probes.WGMMA_BF16}")
+    kc["launches_by_instance"] = dict(ci)
     by_key = {r["key"]: r for r in recs}
     m, kk, n = big, 1152, 128
     r = by_key["gemm", "i8", kk, n]
@@ -2016,8 +2145,18 @@ def phase_probes(dev, card, kernels):
     set_bound(kc, 2 * m * 128 + 8 * 128 * 128, 2 * m * 128 * 128 * 8, "int8",
               f"chained_gemm int8 M {m} depth 8")
     rb = by_key["chain", "bfloat16"]
-    log(f"chained_gemm bf16 M {m} depth 8: {rb['ms']:.4f} ms, bound "
-        f"{bound_ms(4 * m * 128, rb['ops'], 'bf16')[0]:.4f} ms by operations")
+    xb, wsb = main_chain["xb"], main_chain["wsb"]
+    side = instances_side_by_side(
+        lambda inst: probes.chained_gemm(xb, wsb, instance=inst),
+        probes.WGMMA_BF16, probes.MMA_SYNC, iters)
+    bb = bound_ms(4 * m * 128 + 2 * 8 * 128 * 128, rb["ops"], "bf16")
+    kc.update(bf16_ms=statistics.median(side[probes.WGMMA_BF16]),
+              bf16_mma_sync_ms=statistics.median(side[probes.MMA_SYNC]),
+              bf16_script_ms=rb["ms"], bf16_library_chain_ms=rb["library_ms"],
+              bf16_bound_ms=bb[0], bf16_bound_by=bb[1])
+    log(f"chained_gemm bf16 M {m} depth 8 side by side: {side}; script "
+        f"{rb['ms']:.4f} ms, 8 x matmul {rb['library_ms']:.4f} ms; bound "
+        f"{bb[0]:.4f} ms by {bb[1]}; on {card}")
     fr = next(r for r in frecs if r["mode"] == "fma" and r["u"] == 8
               and r["rows"] == rate.ROWS_FULL)
     kf["ms"], kf["library_ms"] = fr["ms"], None
@@ -2590,13 +2729,15 @@ def phase_f32_step(dev, card, kernels):
     """A step-0 flow optimizer step of the CAT flagship in f32
     (``use_half_precision=0``, batch 1) through ``scripts/torch_f32_step.py``:
     its ms (CUDA events, median after the first) and its launches by
-    instance, failing unless K2 ran 5 times and K3 once, all on their
-    tensor-core instances (none on the CUDA cores)."""
+    instance, failing unless K2 ran 5 times, K3 once and the forward pair
+    once, all on their tensor-core instances (none on the CUDA cores)."""
     reset_counts()
     out = load_script("torch_f32_step").run(dev)
     want = {"k2": {btower.WGMMA_3XTF32: FLOW_PER_STEP["float_tower_bwd"]},
-            "k3": {cpair.TENSOR_CORES_TF32: FLOW_PER_STEP["cond_pair_bwd"]}}
-    for key, name in (("k2", "float_tower_bwd"), ("k3", "cond_pair_bwd")):
+            "k3": {cpair.TENSOR_CORES_TF32: FLOW_PER_STEP["cond_pair_bwd"]},
+            "pair": {cpair.TENSOR_CORES_TF32: FLOW_PER_STEP["cond_pair"]}}
+    for key, name in (("k2", "float_tower_bwd"), ("k3", "cond_pair_bwd"),
+                      ("pair", "cond_pair")):
         if out[key] != want[key]:
             fail(f"f32 flow step 0: {name} launches by instance {out[key]}, "
                  f"expected {want[key]}")
@@ -2605,7 +2746,8 @@ def phase_f32_step(dev, card, kernels):
     log(f"f32 flow optimizer step 0 of the flagship (CAT, batch 1): "
         f"{out['ms']:.2f} ms (median after the first of "
         f"{[round(t, 2) for t in out['readings']]}); loss {out['loss']:.4f}; "
-        f"K2 {out['k2']}, K3 {out['k3']}, none on the CUDA cores; on {card}")
+        f"K2 {out['k2']}, K3 {out['k3']}, the pair {out['pair']}, none on "
+        f"the CUDA cores; on {card}")
 
 
 def phase_nonfast(dev, card, kernels):
@@ -2719,7 +2861,8 @@ def phase_train_cli(dev, card, kernels, img: int):
 
     root = Path(tempfile.mkdtemp(prefix="cwfa_cli_"))
     seg: dict = {}
-    state = {"eval": None, "trainer": None, "ood": None, "files": None}
+    state = {"eval": None, "trainer": None, "ood": None, "files": None,
+             "recons": 0}
     patches = []
 
     def add(name, v):
@@ -2770,11 +2913,18 @@ def phase_train_cli(dev, card, kernels, img: int):
             return out
         return run
 
+    def recon_counted(fn):
+        def run(self, *args, **kw):
+            state["recons"] += 1
+            return fn(self, *args, **kw)
+        return run
+
     def epoch_checked(fn):
         def run(self, dataset, epoch, *args, **kw):
             stage = self.stage_for_epoch(epoch)
             nf = self.model.n_flow_steps
             counts, inst = launch_counts(), instances()
+            recons = state["recons"]
             torch.cuda.reset_peak_memory_stats()
             loss = fn(self, dataset, epoch, *args, **kw)
             what = f"train_cli epoch {epoch} (stage {stage})"
@@ -2782,13 +2932,24 @@ def phase_train_cli(dev, card, kernels, img: int):
                 # the first epoch: the 3 GT pyramids and the mean caches
                 check_counts(NLL_PER_CALL, TRAIN_FRAMES + 1, what, counts)
             else:
-                check_counts(FLOW_PER_STEP, TRAIN_FRAMES, what, counts)
-                for name, instance in (
-                        ("fused_float_tower", btower.WGMMA_BF16),
-                        ("cond_pair", cpair.TENSOR_CORES),
-                        ("float_tower_bwd", btower.WGMMA_BF16),
-                        ("cond_pair_bwd", cpair.TENSOR_CORES)):
-                    on_instance(inst, counts, name, instance, what)
+                # a stage input rebuilt in f32 (STAGE_INPUT_PER_CALL) runs
+                # the 3xTF32 towers and pairs
+                n, rec = TRAIN_FRAMES, state["recons"] - recons
+                check_counts({k: FLOW_PER_STEP.get(k, 0) * n
+                              + STAGE_INPUT_PER_CALL.get(k, 0) * rec
+                              for k in KERNELS}, 1, what, counts)
+                for name, instance, want in (
+                        ("fused_float_tower", btower.WGMMA_BF16, 5 * n),
+                        ("fused_float_tower", btower.WGMMA_3XTF32, 20 * rec),
+                        ("cond_pair", cpair.TENSOR_CORES, n),
+                        ("cond_pair", cpair.TENSOR_CORES_TF32, 4 * rec),
+                        ("float_tower_bwd", btower.WGMMA_BF16, 5 * n),
+                        ("cond_pair_bwd", cpair.TENSOR_CORES, n)):
+                    got = KERNELS[name]["wrapper"].by_instance[instance] \
+                        - inst[name][instance]
+                    if got != want:
+                        fail(f"{what}: {got} {name} launches ran the "
+                             f"{instance} instance, expected {want}")
             add("loss", loss)
             add(f"train_peak/{stage}", torch.cuda.max_memory_allocated())
             return loss
@@ -2876,6 +3037,7 @@ def phase_train_cli(dev, card, kernels, img: int):
         patch(T, "_lrnn_step", step_timed)
         patch(T, "_flow_step", step_timed)
         patch(T, "train_epoch", epoch_checked)
+        patch(CWFAModel, "reconstruct", recon_counted)
         patch(T, "_recon_eval", recon_checked)
         patch(T, "_batch_inputs", host_timed("inputs_s"))
         patch(T, "_refresh_nlls", host_timed("refresh_s"))
@@ -3400,8 +3562,8 @@ OOD_FRAMES, OOD_EPOCHS_PER_STEP = 3, 2
 # a flow epoch's stage input reconstructed for a frame whose handed-off
 # input is of another level (the finetune's second epoch of a stage, after
 # its first captured its own outputs; JAX's trainer does the same): the
-# fast chain in f32, the trainer's master weights, so its towers run the
-# 3xTF32 instance and its pairs the CUDA cores
+# fast chain in f32, the trainer's master weights, so its towers and its
+# pairs run their 3xTF32 instances
 STAGE_INPUT_PER_CALL = BF16_PER_CALL
 
 
@@ -3487,7 +3649,7 @@ def phase_ood_cli(dev, card, kernels, img: int):
                         ("fused_float_tower", btower.WGMMA_BF16, 5 * n),
                         ("fused_float_tower", btower.WGMMA_3XTF32, 20 * rec),
                         ("cond_pair", cpair.TENSOR_CORES, n),
-                        ("cond_pair", cpair.CUDA_CORES, 4 * rec),
+                        ("cond_pair", cpair.TENSOR_CORES_TF32, 4 * rec),
                         ("float_tower_bwd", btower.WGMMA_BF16, 5 * n),
                         ("cond_pair_bwd", cpair.TENSOR_CORES, n)):
                     got = KERNELS[name]["wrapper"].by_instance[instance] \
@@ -5515,8 +5677,8 @@ def main():
     small_rig_int8(dev)
     model, stats, vidx, caches, frames1, recon16 = phase_flagship(
         dev, card, kernels)
-    out32 = phase_bf16_vs_f32(dev, model, stats, vidx, caches, frames1,
-                              recon16)
+    out32 = phase_bf16_vs_f32(dev, kernels, model, stats, vidx, caches,
+                              frames1, recon16)
     del recon16
     phase_flagship_stochastic(dev, card, model, stats, vidx, caches, frames1)
     out8 = phase_flagship_int8(dev, card, kernels, model, stats, vidx, caches,

@@ -24,9 +24,9 @@
 // TPU kernel's lane packing (depth % 4, slabs, pre-shifted canvases,
 // block-placed weights) is not carried over.
 //
-// Two instances.  bf16 with K = 32 runs both convs on the tensor cores
-// (cond_pair_tc_kernel, below); f32, and bf16 with any other K, run on the
-// CUDA cores (cond_pair_kernel).
+// Three instances.  K = 32 runs both convs on the tensor cores, bf16
+// (cond_pair_tc_kernel, below) or f32 as 3xTF32 (cond_pair_tf32_kernel);
+// any other K runs on the CUDA cores (cond_pair_kernel).
 //
 // Design of the tensor-core instance:
 //   - Both convs are products with K = 32 on one side.  conv_a is
@@ -57,6 +57,30 @@
 //   - Products of bf16 values are exact in f32; only the order of the f32
 //     sums differs from the plain version (its bound: 2^-7 max|ref|).
 //
+// Design of the f32 tensor-core instance (3xTF32; bound at step 0 of the
+// flagship, (1, 48, 512, 512): 3 x 43.49 G TF32 operations, 0.264 ms, against
+// 0.649 ms on f32 FMAs): the bf16 instance's structure with mma.sync
+// m16n8k8 TF32 products, each operand split in registers into a TF32 high
+// part and the remainder, hi*hi + hi*lo + lo*hi with f32 sums (mma_3x4,
+// shared with the backward's f32 instance through cond_pair_tc.cuh).
+//   - conv_a is the backward's pre product, the same gather, splits and
+//     order, so that both compute the same pre to the bit; a pre within
+//     2^-16 of 0 is summed again in tap order as the CUDA-core instances sum
+//     it (the kink rule), so that every instance and the f64 reference
+//     (ops/cond_pair.py cond_pair_f64) take the same side of PReLU's kink.
+//   - y stays in registers.  A TF32 sum fragment holds channels 2 q, 2 q + 1
+//     of its rows, the next product's A fragment wants K columns q and q + 4;
+//     conv_b's K is the channel, a sum over which any order serves, so W_b is
+//     packed with slot q of each k-step of 8 holding channel 2 q and slot
+//     q + 4 channel 2 q + 1: the sum tile is then the A fragment as it sits,
+//     split in registers (no plane of y in shared memory, no barrier).
+//   - Shared memory: the 27 f32 contribution planes (38 KB), the split B
+//     fragments of both weights (16 KB) and the f32 x window, (td + 4) x 12
+//     x 36; depth chunks of at most 24 keep a block within 113 KB, so two
+//     blocks (16 warps) share an SM.
+//   - z is the shift-and-add of the bf16 instance, in f32, in the same fixed
+//     order: the result does not change from run to run.
+//
 // Design of the CUDA-core instance:
 //   - One block of 256 threads per (batch, depth chunk of TD, 8x32 H x W
 //     tile).  x with its 2-voxel halo, (TD+4) x 12 x 36, is staged once
@@ -79,15 +103,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cond_pair_tc.cuh"              // geometry, 3xTF32, the kink rule
+
 namespace {
 
-constexpr int kTW = 32;                 // output tile width (W)
-constexpr int kTH = 8;                  // output tile height (H)
-constexpr int kThreads = kTW * kTH;     // one thread per output (h, w)
-constexpr int kYW = kTW + 2, kYH = kTH + 2;
-constexpr int kXW = kTW + 4, kXH = kTH + 4;
-constexpr int kYCols = kYW * kYH;
-constexpr int kXCols = kXW * kXH;
+using namespace cpair;
+
 constexpr int kSmemMax = 232448;
 
 struct Params {
@@ -228,11 +249,6 @@ __global__ void __launch_bounds__(kThreads) cond_pair_kernel(const Params p) {
 // the tensor-core instance: bf16, K = 32
 // ---------------------------------------------------------------------------
 
-constexpr int kK = 32;                  // the instance's K
-constexpr int kYTiles = (kYCols + 15) / 16;
-constexpr int kPStride = 356;           // floats per contribution plane:
-                                        // >= 16 kYTiles and 4 (mod 32), so a
-                                        // warp's stores hit 32 banks
 constexpr int kMaxTD = 48;              // depths per block
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
@@ -319,7 +335,7 @@ cond_pair_tc_kernel(const Params p, int td) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int t = 16 * ks + 8 * r + 2 * q + e;
-        aoff[ks][r][e] = t < 27 ? (t % 3) * kXCols + (t / 9) * kXW + (t / 3) % 3 : -1;
+        aoff[ks][r][e] = tap_off(t);
       }
 
   const int zr = threadIdx.x / kTW, zc = threadIdx.x % kTW;
@@ -436,6 +452,216 @@ int launch_tc(const Params& p0, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// the tensor-core instance in f32: 3xTF32, K = 32
+// ---------------------------------------------------------------------------
+
+// Floats of its shared memory besides the x window: the 27 contribution
+// planes and the two weights' split B fragments.
+constexpr int kTf32Fixed = 27 * kPStride + 2 * 16 * 32 * 4;
+
+// p.nchunks depth chunks of td depths each (ops/cond_pair.py pair_plan).
+__global__ void __launch_bounds__(kThreads, 2)
+cond_pair_tf32_kernel(const Params p, int td) {
+  extern __shared__ __align__(16) float smem[];
+  float* pbuf = smem;                                            // (27, kPStride)
+  uint4* wfr = reinterpret_cast<uint4*>(pbuf + 27 * kPStride);   // [2][ks][nt][lane]
+  float* xs = reinterpret_cast<float*>(wfr + 2 * 16 * 32);       // (td+4, kXH, kXW)
+  const int D = p.D, H = p.H, W = p.W;
+  const int b = blockIdx.z / p.nchunks;
+  const int d0 = (blockIdx.z % p.nchunks) * td;
+  const int h0 = blockIdx.y * kTH, w0 = blockIdx.x * kTW;
+  const float* x = static_cast<const float*>(p.x) + (int64_t)b * D * H * W;
+
+  for (int i = threadIdx.x; i < (td + 4) * kXCols; i += kThreads) {
+    const int dz = i / kXCols, rc = i % kXCols;
+    const int d = d0 - 2 + dz, h = h0 - 2 + rc / kXW, w = w0 - 2 + rc % kXW;
+    xs[i] = d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W
+                ? x[((int64_t)d * H + h) * W + w]
+                : 0.f;
+  }
+  const float* gwa = static_cast<const float*>(p.wa);
+  const float* gwb = static_cast<const float*>(p.wb);
+  // B fragments (k = 8 ks + q, + 4; n = 8 nt + g), split: 0: conv_a's
+  // W_a, [tap][channel], as the backward's pre product reads it; 1:
+  // conv_b's W_b, [channel slot][tap], slot q of k-step ks channel
+  // 8 ks + 2 q and slot q + 4 channel 8 ks + 2 q + 1 (the order in which
+  // conv_a's sums sit in a thread, below); the taps beyond 27 zero
+  for (int i = threadIdx.x; i < 2 * 16 * 32; i += kThreads) {
+    const int mat = i / 512, ks = (i / 128) % 4, nt = (i / 32) % 4, l = i % 32;
+    const int n = 8 * nt + (l >> 2);
+    uint32_t hi[2], lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = 8 * ks + (l & 3) + 4 * r;
+      float v = 0.f;
+      if (mat == 0 && k < 27) v = gwa[n * 27 + k];
+      if (mat == 1 && n < 27) v = gwb[(8 * ks + 2 * (l & 3) + r) * 27 + n];
+      split_tf32(v, hi[r], lo[r]);
+    }
+    wfr[i] = make_uint4(hi[0], hi[1], lo[0], lo[1]);
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const float* gba = static_cast<const float*>(p.ba);
+  float bias_a[4][2], sc[4][2];         // channel 8 nt + 2 q + e
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      bias_a[nt][e] = gba[8 * nt + 2 * q + e];
+      sc[nt][e] = p.scale ? p.scale[b * kK + 8 * nt + 2 * q + e] : 1.f;
+    }
+  const float alpha = *static_cast<const float*>(p.alpha);
+  const float bias_b = *static_cast<const float*>(p.bb);
+  int aoff[4][2];                       // taps 8 ks + q and + 4 of the im2col
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) aoff[ks][r] = tap_off(8 * ks + q + 4 * r);
+
+  const int zr = threadIdx.x / kTW, zc = threadIdx.x % kTW;
+  const int zh = h0 + zr, zw = w0 + zc;
+  float* z = static_cast<float*>(p.z) + (int64_t)b * D * H * W;
+  float z2 = 0.f, z1 = 0.f, z0 = 0.f;   // z at depths plane - 1, plane, plane + 1
+
+  __syncthreads();
+  for (int j = 0; j < td + 2; ++j) {
+    const int dj = d0 - 1 + j;          // this y plane's depth
+    const bool live = dj >= 0 && dj < D;
+    if (live) {
+      for (int tile = warp; tile < kYTiles; tile += kThreads / 32) {
+        int base[2];
+        bool in[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos = 16 * tile + g + 8 * h;
+          const int r = pos < kYCols ? pos / kYW : 0, c = pos < kYCols ? pos % kYW : 0;
+          base[h] = j * kXCols + r * kXW + c;
+          const int yh = h0 - 1 + r, yw = w0 - 1 + c;
+          in[h] = pos < kYCols && yh >= 0 && yh < H && yw >= 0 && yw < W;
+        }
+        // conv_a: pre = the im2col of x (a0: position g, tap 8 ks + q; a1:
+        // position g + 8; a2, a3: tap + 4) . W_a, as the backward sums it
+        float pre[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pre[nt][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int o = aoff[ks][r];
+              split_tf32(o >= 0 ? xs[base[h] + o] : 0.f, ah[2 * r + h], al[2 * r + h]);
+            }
+          uint4 bw[4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) bw[nt] = wfr[(ks * 4 + nt) * 32 + lane];
+          mma_3x4(pre, ah, al, bw);
+        }
+        // pre + b_a; near the kink (rare: a warp with none skips the loop),
+        // summed again as the CUDA-core instances sum it
+        bool kink = false;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            pre[nt][i] += bias_a[nt][i & 1];
+            kink |= near_kink(pre[nt][i]);
+          }
+        if (__any_sync(0xffffffffu, kink)) {
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (near_kink(pre[nt][i]))
+                pre[nt][i] = f32_pre_f(xs, base[i >> 1], gwa, 8 * nt + 2 * q + (i & 1),
+                                       bias_a[nt][i & 1]);
+        }
+        // conv_b: y = PReLU(pre), times the scale, zero outside the volume.
+        // Sum tile ks of conv_a (channels 8 ks + 2 q, + 1 of rows g, g + 8)
+        // is, in the order of W_b's pack, conv_b's A fragment of k-step ks:
+        // a0 = (g, slot q), a1 = (g + 8, slot q), a2, a3 = slot q + 4.  y
+        // never leaves the registers.
+        float cc[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) cc[nt][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          float y[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = pre[ks][i];
+            float yy = v > 0.f ? v : alpha * v;
+            if (p.scale) yy *= sc[ks][i & 1];
+            y[i] = in[i >> 1] ? yy : 0.f;
+          }
+          uint32_t ah[4], al[4];
+          split_tf32(y[0], ah[0], al[0]);
+          split_tf32(y[2], ah[1], al[1]);
+          split_tf32(y[1], ah[2], al[2]);
+          split_tf32(y[3], ah[3], al[3]);
+          uint4 bw[4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) bw[nt] = wfr[((4 + ks) * 4 + nt) * 32 + lane];
+          mma_3x4(cc, ah, al, bw);
+        }
+        // every position's contribution to its 27 neighbours
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int t = 8 * nt + 2 * q + e;
+            if (t < 27) {
+              pbuf[t * kPStride + 16 * tile + g] = cc[nt][e];
+              pbuf[t * kPStride + 16 * tile + g + 8] = cc[nt][2 + e];
+            }
+          }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      // y at depth dj reaches z at depth dj - dd + 1 through depth tap dd
+#pragma unroll
+      for (int dh = 0; dh < 3; ++dh)
+#pragma unroll
+        for (int dw = 0; dw < 3; ++dw) {
+          const float* c = pbuf + (9 * dh + 3 * dw) * kPStride + (zr + dh) * kYW + zc + dw;
+          z0 += c[0];
+          z1 += c[kPStride];
+          z2 += c[2 * kPStride];
+        }
+    }
+    const int dzo = dj - 1;             // z2 is complete
+    if (j >= 2 && dzo < D && zh < H && zw < W) z[((int64_t)dzo * H + zh) * W + zw] = z2 + bias_b;
+    z2 = z1;
+    z1 = z0;
+    z0 = 0.f;
+    __syncthreads();
+  }
+}
+
+int launch_tf32(const Params& p0, int b, int td, cudaStream_t stream) {
+  Params p = p0;
+  if (td <= 0) return (int)cudaErrorInvalidValue;
+  p.nchunks = (p.D + td - 1) / td;
+  const int smem = (kTf32Fixed + (td + 4) * kXCols) * 4;
+  if (smem > kSmemMax || (int64_t)b * p.nchunks > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cond_pair_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.W + kTW - 1) / kTW, (p.H + kTH - 1) / kTH, b * p.nchunks);
+  cond_pair_tf32_kernel<<<grid, kThreads, smem, stream>>>(p, td);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // the CUDA-core instance
 // ---------------------------------------------------------------------------
 
@@ -470,15 +696,17 @@ int dispatch(const Params& p, int b, cudaStream_t stream) {
 
 // x, z: (B, D, H, W); wa (K, 1, 3, 3, 3), ba (K), wb (1, K, 3, 3, 3), bb (1),
 // alpha (1), all contiguous and of x's type: dtype 0 = float32,
-// 1 = bfloat16; scale: (B, K) f32 or null.  tensor_cores 1: the tensor-core instance (bfloat16 and
-// k = 32 only), 0: the CUDA-core instance.
+// 1 = bfloat16; scale: (B, K) f32 or null.  instance 0: the CUDA-core
+// instance; 1: the tensor-core instance in bf16 (bfloat16, k = 32); 2: in
+// f32 as 3xTF32 (float32, k = 32) with depth chunks of td (the others
+// ignore td).
 extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
                               const void* wb, const void* bb, const void* alpha,
                               const float* scale, void* z, int b, int d, int h, int w, int k,
-                              int dtype, int tensor_cores, int device,
+                              int dtype, int instance, int td, int device,
                               void* stream) {
   if (b <= 0 || d <= 0 || h <= 0 || w <= 0 || k <= 0 || dtype < 0 || dtype > 1 ||
-      (tensor_cores && (dtype != 1 || k != kK)))
+      instance < 0 || instance > 2 || (instance && (dtype != 2 - instance || k != kK)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -497,6 +725,7 @@ extern "C" int cwfa_cond_pair(const void* x, const void* wa, const void* ba,
   p.K = k;
   p.nchunks = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) return launch_tc(p, b, s);
+  if (instance == 1) return launch_tc(p, b, s);
+  if (instance == 2) return launch_tf32(p, b, td, s);
   return dtype ? dispatch<__nv_bfloat16>(p, b, s) : dispatch<float>(p, b, s);
 }

@@ -74,18 +74,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tower_wg.cuh"                 // split_tf32
+#include "cond_pair_tc.cuh"              // geometry, 3xTF32, the kink rule
 
 namespace {
 
-using tower::split_tf32;
+using namespace cpair;
 
-constexpr int kTW = 32, kTH = 8, kTD = 8;
-constexpr int kThreads = kTW * kTH;     // one thread per output (h, w)
-constexpr int kYW = kTW + 2, kYH = kTH + 2;
-constexpr int kXW = kTW + 4, kXH = kTH + 4;
-constexpr int kYCols = kYW * kYH;
-constexpr int kXCols = kXW * kXH;
+constexpr int kTD = 8;                  // depths a block, CUDA cores
 constexpr int kNV = 56;                 // a channel's sums: dW_a 27, dW_b 27,
                                         // db_a, dalpha
 constexpr int kChunk = 64;              // blocks summed by one reduce thread
@@ -315,10 +310,6 @@ __global__ void __launch_bounds__(kThreads) cond_pair_bwd_kernel(const Params p)
 // the tensor-core instance: bf16, K = 32
 // ---------------------------------------------------------------------------
 
-constexpr int kK = 32;
-constexpr int kYTiles = (kYCols + 15) / 16;     // 22 tiles of 16 positions
-constexpr int kYRows = kYTiles * 16;            // 352: the plane's rows, padded
-constexpr int kPStride = 356;                   // floats per contribution plane
 constexpr int kDPitch = 40;                     // bf16 a row of the dpre / y
                                                 // planes: 80 bytes, so the 8
                                                 // rows of an ldmatrix hit
@@ -352,20 +343,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 __device__ __forceinline__ float bf(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
 
 __device__ __forceinline__ float rnd(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-
-// offset in the x window of tap t = 9 dh + 3 dw + dd (-1: a tap that pads 27
-// to 32)
-__device__ __forceinline__ int tap_off(int t) {
-  return t < 27 ? (t % 3) * kXCols + (t / 9) * kXW + (t / 3) % 3 : -1;
-}
-
-// A pre-activation this close to 0 is summed again: where pre is within
-// rounding of 0, the side of 0 it lands on depends on the order of its f32
-// sums, and the other side takes PReLU's other slope, a jump of dpre that dx
-// carries to 27 neighbours.  The tensor cores' sums truncate; near the kink
-// pre is summed as the CUDA-core instance sums it, so that the two instances
-// take the same slope.
-constexpr uint32_t kKinkBits = 0x37800000u;     // |pre| < 2^-16, as f32 bits
 
 // pre + b_a of channel ch at x-window position base, as cond_pair_bwd_kernel
 // sums it: the 27 products in tap order with fused multiply-adds, then the
@@ -536,14 +513,14 @@ __global__ void __launch_bounds__(kThreads, 1) cond_pair_bwd_tc_kernel(const Par
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             pre[nt][i] += bias_a[nt][i & 1];
-            kink |= (__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits;
+            kink |= near_kink(pre[nt][i]);
           }
         if (__any_sync(0xffffffffu, kink)) {
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              if ((__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits)
+              if (near_kink(pre[nt][i]))
                 pre[nt][i] = f32_pre(xs, base[i >> 1], gwa, 8 * nt + 2 * q + (i & 1),
                                      bias_a[nt][i & 1]);
         }
@@ -723,44 +700,11 @@ constexpr int kMaxTDtf = 11;                  // depths a block: x, dz, own dz
                                               // of 15 x 12 x 36 f32 fit beside
                                               // the planes and the weights
 
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[n] += a b[n] as 3xTF32 (lo * lo dropped) for four B fragments, b[n] =
-// (hi of b0, b1, lo of b0, b1): each of the three products taken over the
-// four sums in turn, so that no product waits on the one before it (each
-// sum still adds lo hi, hi lo, hi hi in that order)
-__device__ __forceinline__ void mma_3x4(float (*c)[4], const uint32_t* ah, const uint32_t* al,
-                                        const uint4 (&b)[4]) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) mma_tf32(c[n], al, b[n].x, b[n].y);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) mma_tf32(c[n], ah, b[n].z, b[n].w);
-#pragma unroll
-  for (int n = 0; n < 4; ++n) mma_tf32(c[n], ah, b[n].x, b[n].y);
-}
-
 // Element (row, ch) of a (352, 32) f32 plane of dpre or y: the channel
 // XOR-swizzled by the row, so that the sums' stores and the fragments'
 // loads (8 rows x 4 channels, 4 rows x 8 channels) hit 32 banks.
 __device__ __forceinline__ int sw(int row, int ch) {
   return row * kK + (ch ^ (((row & 3) << 3) | (((row >> 2) & 1) << 2)));
-}
-
-// pre + b_a of channel ch at x-window position base, as the f32 CUDA-core
-// instances sum it: the 27 products in tap order with fused multiply-adds,
-// then the bias.
-__device__ __noinline__ float f32_pre_f(const float* xs, int base, const float* gwa, int ch,
-                                        float bias) {
-  float s = 0.f;
-#pragma unroll
-  for (int t = 0; t < 27; ++t) s = fmaf(gwa[ch * 27 + t], xs[base + tap_off(t)], s);
-  return s + bias;
 }
 
 // The bf16 tensor-core instance's structure in f32 with m16n8k8 TF32
@@ -958,14 +902,14 @@ __global__ void __launch_bounds__(kThreads, 1) cond_pair_bwd_tf32_kernel(const P
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             pre[nt][i] += bias_a[nt][i & 1];
-            kink |= (__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits;
+            kink |= near_kink(pre[nt][i]);
           }
         if (__any_sync(0xffffffffu, kink)) {
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              if ((__float_as_uint(pre[nt][i]) & 0x7fffffffu) < kKinkBits)
+              if (near_kink(pre[nt][i]))
                 pre[nt][i] = f32_pre_f(xs, base[i >> 1], gwa, 8 * nt + 2 * q + (i & 1),
                                        bias_a[nt][i & 1]);
         }

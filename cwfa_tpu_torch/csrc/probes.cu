@@ -62,19 +62,19 @@
 //     same edges as the int8 kernel.  Neither TMA nor a producer warp: every
 //     thread copies, which costs instruction slots; the remaining distance to
 //     cuBLAS at N >= 256 is there and in the epilogue's 4-byte stores.
-//   - chain_kernel (bf16, and int8 where the s8 instance below does not
-//     take the call): 16 warps, each carries its own 16 rows through all
-//     the products, so only the weights need block-wide barriers.  The
-//     weights of one stage (128 x 128, 16 KB int8, 32 KB bf16; all eight
-//     bf16 stages would not fit a block's 227 KB) stream from L2 into a
-//     double buffer with cp.async while the previous stage computes.  bf16:
-//     the sum fragment of one stage is, packed to bf16 pairs, the A fragment
-//     of the next, and never leaves the registers.  int8: the m16n8k32 A
-//     fragment needs four consecutive columns that two lanes hold, so the
-//     requantized tile passes through the warp's own shared-memory tile.
-//     Every warp re-reads the whole stage from shared memory, one 32-bit
-//     pair per mma: shared-memory bandwidth caps it near 17% of the int8
-//     peak.
+//   - chain_kernel (the older instance of both types, kept for the shapes
+//     the wgmma ones do not take and to time them against): 16 warps, each
+//     carries its own 16 rows through all the products, so only the
+//     weights need block-wide barriers.  The weights of one stage (128 x
+//     128, 16 KB int8, 32 KB bf16) stream from L2 into a double buffer with
+//     cp.async while the previous stage computes.  bf16: the sum fragment of
+//     one stage is, packed to bf16 pairs, the A fragment of the next, and
+//     never leaves the registers.  int8: the m16n8k32 A fragment needs four
+//     consecutive columns that two lanes hold, so the requantized tile
+//     passes through the warp's own shared-memory tile.  Every warp re-reads
+//     the whole stage from shared memory, one 32-bit pair per mma:
+//     shared-memory bandwidth caps it (int8 near 17% of its peak, bf16 23%
+//     of its bound).
 //   - chain_s8_kernel and gemm_s8_kernel (int8 on s8 wgmma, csrc/tma.cuh):
 //     persistent blocks (one per SM) of consumer warpgroups, 64 rows and
 //     128 columns each (m64n128k32), and one producer warp whose one thread
@@ -92,7 +92,18 @@
 //     out of step, so one's requant runs while another's products are on
 //     the tensor cores, and cvt.pack.sat halves the requant's instructions
 //     (forcing the warpgroups to take turns measured slower: PERF.md
-//     section 6).  gemm_s8_kernel (the requant GEMM, two
+//     section 6).  chain_bf16_kernel (the bf16 chain, bf16 wgmma
+//     m64n128k16) has the same blocks, but eight bf16 stages (256 KB) do not
+//     fit beside anything: every tile's stages stream through a ring of four
+//     32 KB slots behind the x ring's two 48 KB slots, the producer loading
+//     each tile's x, then its stages, in the order the consumers take them.
+//     A stage loaded once serves the tile's 192 rows (all three
+//     warpgroups), so ~1.4 GB of weights come from L2 at M = 2^20, depth 8,
+//     against 0.54 GB of x and out from device memory.  No permutation: the
+//     f32 sums of a 16-bit m64nNk16 product, packed in pairs, are the next
+//     product's A registers as they sit.  The x slot, free once stage 0 has
+//     read it, is the warpgroup's staging tile for its stores.
+//     gemm_s8_kernel (the requant GEMM, two
 //     warpgroups on 128-row tiles) keeps B^T's 128-column slice resident
 //     (128 x K bytes, K <= 1408) and streams 128-byte K slices of A; a
 //     block keeps its column slice and walks row tiles, so the ring already
@@ -917,6 +928,170 @@ __global__ void __launch_bounds__(tma_threads(kChainWGs), 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 chain on bf16 wgmma, fed by TMA
+// ---------------------------------------------------------------------------
+
+// A tile of 64 kChainWGs rows of bf16 x: two K halves (128 bytes of each
+// row), each kChainWGs 64-row parts of 8 KB; a stage's weights: two K halves
+// of 128 rows of B^T.  The x ring's slots are also the warpgroups' staging
+// tiles for the stores.
+constexpr int kBXSlot = 2 * kChainSlot, kBWSlot = 2 * kTile;
+constexpr int kBXRing = 2;
+
+// Shared memory: [x ring][weight ring][barriers: x full, x empty, weight
+// full, weight empty], the tiles 1024-byte aligned (ops/probes.py
+// chain_plan lays it out the same way).
+constexpr int bf16_chain_smem(int wring) {
+  return 1024 + kBXRing * kBXSlot + wring * kBWSlot + 16 * (kBXRing + wring);
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void keep(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The chain in bf16: x (M, 128) through map mx (boxes of 192 rows x 128
+// bytes), the depth stages' B^T through mw (depth * 128 rows of 256 bytes,
+// unpermuted), out (M, 128), all bf16.  Three consumer warpgroups, 64 rows
+// of a 192-row tile each, and the producer warp, which streams every
+// tile's x and then its depth stages' weights through two rings in the
+// order the consumers take them.
+__global__ void __launch_bounds__(tma_threads(kChainWGs), 1)
+    chain_bf16_kernel(const __grid_constant__ CUtensorMap mx,
+                      const __grid_constant__ CUtensorMap mw,
+                      uint8_t* __restrict__ out, const int64_t M,
+                      const int depth, const int wring) {
+  constexpr int NC = kChainWGs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t xring =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t wr = xring + kBXRing * kBXSlot;
+  const uint32_t xfull = wr + wring * kBWSlot, xempty = xfull + 8 * kBXRing;
+  const uint32_t wfull = xempty + 8 * kBXRing, wempty = wfull + 8 * wring;
+  const int tid = threadIdx.x;
+  // the same in every lane, so that wgmma is not in a divergent branch
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < kBXRing; ++s) {
+      tma::mbar_init(xfull + 8 * s, 1);
+      tma::mbar_init(xempty + 8 * s, 4 * NC);   // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < wring; ++s) {
+      tma::mbar_init(wfull + 8 * s, 1);
+      tma::mbar_init(wempty + 8 * s, 4 * NC);
+    }
+    tma::fence_barrier_init();
+  }
+  __syncthreads();
+  const int64_t ntiles = (M + kChainRows - 1) / kChainRows;
+
+  if (wgi == NC) {
+    if (tid == 128 * NC) {
+      int wi = 0;
+      int xi = 0;
+      for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++xi) {
+        const int xs = xi % kBXRing;
+        const uint32_t xd = xring + xs * kBXSlot;
+        tma::mbar_wait(xempty + 8 * xs, ((uint32_t)(xi / kBXRing) & 1u) ^ 1u);
+        tma::mbar_expect(xfull + 8 * xs, kBXSlot);
+        tma::load_2d(xd, &mx, 0, (int)(t * kChainRows), xfull + 8 * xs);
+        tma::load_2d(xd + kChainSlot, &mx, 128, (int)(t * kChainRows), xfull + 8 * xs);
+        for (int i = 0; i < depth; ++i, ++wi) {
+          const int ws = wi % wring;
+          const uint32_t wd = wr + ws * kBWSlot;
+          tma::mbar_wait(wempty + 8 * ws, ((uint32_t)(wi / wring) & 1u) ^ 1u);
+          tma::mbar_expect(wfull + 8 * ws, kBWSlot);
+          tma::load_2d(wd, &mw, 0, 128 * i, wfull + 8 * ws);
+          tma::load_2d(wd + kTile, &mw, 128, 128 * i, wfull + 8 * ws);
+        }
+      }
+    }
+    return;
+  }
+
+  const uint64_t dsw = wg::desc_base(0, 1024, wg::kSwizzle128);
+  const int t128 = tid & 127, lane = tid & 31;
+  const int warp = t128 >> 5, g = lane >> 2, q = lane & 3;
+  float acc[64];
+  uint32_t af[8][4];
+  int wi = 0;
+  int xi = 0;
+  for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x, ++xi) {
+    const int xs = xi % kBXRing;
+    // this warpgroup's 64 rows: K half 0 at xa, K half 1 at xa + kChainSlot
+    const uint32_t xa = xring + xs * kBXSlot + wgi * kHalf;
+    tma::mbar_wait(xfull + 8 * xs, (uint32_t)(xi / kBXRing) & 1u);
+#pragma unroll 1
+    for (int i = 0; i < depth; ++i, ++wi) {
+      if (i > 0) {
+        // relu, bf16: the sums of n-tiles 2 ks, 2 ks + 1, packed in pairs,
+        // are the A registers of k-step ks (rows g, g + 8; k = 16 ks + 2 q,
+        // + 1 and + 8, + 9), as they sit in the thread
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float* a = acc + 4 * (2 * ks + (r >> 1)) + 2 * (r & 1);
+            af[ks][r] = pack_bf16(fmaxf(a[0], 0.f), fmaxf(a[1], 0.f));
+          }
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      const int ws = wi % wring;
+      const uint32_t wb = wr + ws * kBWSlot;
+      tma::mbar_wait(wfull + 8 * ws, (uint32_t)(wi / wring) & 1u);
+      wg::fence();
+      if (i == 0) {
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          wg::wgmma_ss_bf16<128>(
+              acc, wg::desc_at(dsw, xa + (ks >> 2) * kChainSlot + 32 * (ks & 3)),
+              wg::desc_at(dsw, wb + (ks >> 2) * kTile + 32 * (ks & 3)));
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          wg::wgmma_rs_bf16<128>(
+              acc, af[ks], wg::desc_at(dsw, wb + (ks >> 2) * kTile + 32 * (ks & 3)));
+      }
+      wg::commit();
+      wg::wait<0>();
+      keep(acc);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) keep(af[ks]);
+      if (lane == 0) tma::mbar_arrive(wempty + 8 * ws);
+    }
+    // relu, bf16 into the warpgroup's part of its x slot (x was read by
+    // stage 0): 128-byte rows of each K half, chunk c of row r at c ^ (r %
+    // 8), then 16 bytes a store, rows >= M skipped
+    tma::bar_sync<128>(1 + wgi);        // every warp is past stage 0
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + g + 8 * h;
+        sts32(xa + (j >> 3) * kChainSlot + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * q,
+              pack_bf16(fmaxf(acc[4 * j + 2 * h], 0.f), fmaxf(acc[4 * j + 2 * h + 1], 0.f)));
+      }
+    tma::bar_sync<128>(1 + wgi);
+    const int64_t row0 = t * kChainRows + wgi * 64;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = t128 + 128 * i, r = idx >> 4, ch = idx & 15;
+      if (row0 + r >= M) continue;
+      const uint4 v = lds128(xa + (ch >> 3) * kChainSlot + r * 128 + (((ch & 7) ^ (r & 7)) << 4));
+      *reinterpret_cast<uint4*>(out + (row0 + r) * 256 + 16 * ch) = v;
+    }
+    // the slot's generic reads and writes before TMA writes it again
+    wg::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(xempty + 8 * xs);
+  }
+}
+
 int launch_gemm_s8(const void* a, const void* bt, void* out, int64_t m, int n,
                    int kb, int ring, int grid, int device, cudaStream_t s) {
   GemmS8 p;
@@ -961,6 +1136,27 @@ int launch_chain_s8(const void* x, const void* wt, void* out, int64_t m,
   if (err != 0) return err;
   chain_s8_kernel<<<(unsigned)grid, tma_threads(kChainWGs), smem, s>>>(
       mx, mw, static_cast<int8_t*>(out), m, depth, ring);
+  return (int)cudaGetLastError();
+}
+
+int launch_chain_bf16(const void* x, const void* wt, void* out, int64_t m,
+                      int depth, int wring, int grid, int device,
+                      cudaStream_t s) {
+  const int smem = bf16_chain_smem(wring);
+  int err = check_tma_launch(device, smem, grid, wring);
+  if (err == 0 && (reinterpret_cast<uintptr_t>(x) % 16 ||
+                   reinterpret_cast<uintptr_t>(wt) % 16 ||
+                   reinterpret_cast<uintptr_t>(out) % 16))
+    err = (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mw;
+  if (err == 0) err = tma::map_2d(&mx, x, m, 2 * kC, kChainRows);
+  if (err == 0) err = tma::map_2d(&mw, wt, (uint64_t)depth * kC, 2 * kC, 128);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(
+        chain_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  chain_bf16_kernel<<<(unsigned)grid, tma_threads(kChainWGs), smem, s>>>(
+      mx, mw, static_cast<uint8_t*>(out), m, depth, wring);
   return (int)cudaGetLastError();
 }
 
@@ -1065,20 +1261,24 @@ extern "C" int cwfa_tiled_gemm(const void* a, const void* bt, void* out,
 // (N, K); all int8 (dtype 0) or bf16 (dtype 1), contiguous.  instance: 0
 // mma.sync; 1 s8 wgmma fed by TMA (int8, depth <= 8, 16-byte aligned, every
 // stage after the first with its K permuted as ops/probes.chain_operand
-// does it; ring slots and grid as ops/probes.py chain_plan gives them, which
-// instance 0 ignores).
+// does it); 2 bf16 wgmma fed by TMA (bf16, 16-byte aligned, the weight ring
+// `ring` slots of a stage).  Ring slots and grid as ops/probes.py
+// chain_plan gives them, which instance 0 ignores.
 extern "C" int cwfa_chained_gemm(const void* x, const void* wt, void* out,
                                  int64_t m, int depth, int dtype, int instance,
                                  int ring, int grid, int device,
                                  void* stream) {
   if (m <= 0 || depth <= 0 || dtype < 0 || dtype > 1 || instance < 0 ||
-      instance > 1 || (instance == 1 && (dtype != 0 || depth > 8)))
+      instance > 2 || (instance == 1 && (dtype != 0 || depth > 8)) ||
+      (instance == 2 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (instance == 1)
     return launch_chain_s8(x, wt, out, m, depth, ring, grid, device, s);
+  if (instance == 2)
+    return launch_chain_bf16(x, wt, out, m, depth, ring, grid, device, s);
   return dtype == 1 ? launch_chain<true>(x, wt, out, m, depth, s)
                     : launch_chain<false>(x, wt, out, m, depth, s);
 }

@@ -14,10 +14,13 @@ f32 sums.  The weights are the modules' own: c3a (K, 1, 3, 3, 3) and c3b
 does on the (B, 1, H, W, D) view (``_conv3d_pair_direct``,
 ``cwfa_tpu/models/cond_net.py:259-265``).
 
-The kernel has two instances (``kernel_instance``): bf16 with K = 32 runs
-both convs as products on the tensor cores and z as the shift-and-add of
-conv_b's 27 per-tap planes (``cond_pair_products`` is that form in plain
-PyTorch); f32, and bf16 with another K, run on the CUDA cores.
+The kernel has three instances (``kernel_instance``): K = 32 runs both
+convs as products on the tensor cores, bf16 or, for f32, as 3xTF32 (every
+operand split into a TF32 high part and the remainder; ``pair_plan`` gives
+its depth chunk), and z as the shift-and-add of conv_b's 27 per-tap planes
+(``cond_pair_products`` is that form in plain PyTorch); another K runs on
+the CUDA cores.  ``cond_pair_f64`` is the exact pair in f64 that the f32
+instances are held to.
 
 ``scale`` is the Dropout3d of training (``cond_net.py:259-265``): a (B, K)
 f32 scale of the intermediate channels, 0 or 1/keep; None (inference)
@@ -25,11 +28,12 @@ multiplies nothing.  The weights may be f32 master weights under a bf16 x
 (training): they then run rounded to bf16.  ``CondPairFn`` differentiates
 the pair; its backward is a kernel too (``cond_pair_backward``,
 ``csrc/cond_pair_bwd.cu``; the TPU kernel has none, JAX trains through its
-XLA convs), with three instances (``bwd_instance``): K = 32 on the tensor
-cores, bf16 or, for f32, as 3xTF32 (their arithmetic in plain PyTorch
-``cond_pair_backward_products``), the rest on the CUDA cores.
+XLA convs), with the forward's three instances (``bwd_instance``; their
+arithmetic in plain PyTorch ``cond_pair_backward_products``).
 ``cond_pair_backward_f64`` is the exact gradient, f64 autograd, that the
-f32 instances are held to.
+f32 instances are held to.  The f32 tensor-core instances of both compute
+pre alike (``pre_products``), so they take PReLU's branch at the same
+voxels.
 """
 
 from __future__ import annotations
@@ -46,27 +50,48 @@ from cwfa_tpu_torch.utils.profiling import check_kernel_outputs
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORES, CUDA_CORES = "tensor cores", "CUDA cores"
-TENSOR_CORES_TF32 = "tensor cores 3xTF32"   # the f32 backward's
+TENSOR_CORES_TF32 = "tensor cores 3xTF32"   # f32 with K = 32
+_INSTANCE_IDS = {CUDA_CORES: 0, TENSOR_CORES: 1, TENSOR_CORES_TF32: 2}
 TENSOR_CORE_K = 32                     # the K of the tensor-core instances
 KINK = 2.0 ** -16                      # a pre this close to 0 is summed again
+SMEM_MAX = 232448                      # bytes of shared memory a block may use
+SM_SMEM = 233472                       # ... an SM holds (a block reserves 1 KB)
+TF32_MAX_TD = 24                       # depths a block of the f32 instance
+# floats of the f32 instance's shared memory: the 27 contribution planes
+# (356 floats each) and the split B fragments of both weights (16 KB), then
+# per depth of its x window 12 x 36
+_TF32_FIXED, _X_PLANE = 27 * 356 + 2 * 16 * 32 * 4, 12 * 36
 
 
 def kernel_instance(dtype, k: int) -> str:
     """Which instance of the kernel runs a pair with ``k`` intermediate
-    channels in ``dtype``."""
-    if dtype == torch.bfloat16 and k == TENSOR_CORE_K:
-        return TENSOR_CORES
-    return CUDA_CORES
+    channels in ``dtype``: K = 32 on the tensor cores (bf16, or f32 as
+    3xTF32), any other K on the CUDA cores."""
+    if k != TENSOR_CORE_K:
+        return CUDA_CORES
+    return TENSOR_CORES if dtype == torch.bfloat16 else TENSOR_CORES_TF32
 
 
 def bwd_instance(dtype, k: int) -> str:
     """Which instance of the backward kernel runs a pair with ``k``
-    intermediate channels in ``dtype``: the forward's choice, but f32 with
-    K = 32 on the tensor cores as 3xTF32 (where the forward's f32 stays on
-    the CUDA cores)."""
-    if dtype == torch.float32 and k == TENSOR_CORE_K:
-        return TENSOR_CORES_TF32
+    intermediate channels in ``dtype``: the forward's."""
     return kernel_instance(dtype, k)
+
+
+def pair_plan(dtype, k: int, d: int, instance=None) -> dict:
+    """How ``cond_pair`` runs a pair of depth ``d`` on a card: the instance
+    (``kernel_instance``, or ``instance`` where one is asked for) and, for
+    the f32 tensor-core instance, its depth chunk ``td`` (at most
+    ``TF32_MAX_TD`` depths, the chunks as even as they come), ``nchunks`` and
+    the block's shared memory in bytes as ``csrc/cond_pair.cu``
+    ``launch_tf32`` computes it (the launch only checks that it fits)."""
+    plan = {"instance": instance or kernel_instance(dtype, k)}
+    if plan["instance"] == TENSOR_CORES_TF32:
+        n = -(-d // TF32_MAX_TD)
+        td = -(-d // n)
+        plan.update(td=td, nchunks=n, smem=(_TF32_FIXED + (td + 4) * _X_PLANE)
+                    * 4)
+    return plan
 
 
 def _pair_math(x, wa, ba, wb, bb, alpha, scale=None):
@@ -132,6 +157,39 @@ def pre_f32_taps(x, wa, ba):
     return s + ba.detach().float()[:, None, None, None]
 
 
+def pre_products(x, wa, ba):
+    """pre = Conv3d(1 -> K)(x) + b_a as the f32 tensor-core instances,
+    forward and backward, compute it: the product as 3xTF32
+    (``btower.tf32x3``, both operands split as the kernels split them in
+    registers), and a pre within ``KINK`` of 0 summed again in tap order
+    (``pre_f32_taps``).  x: (B, D, H, W) f32; wa (K, 1, 3, 3, 3), ba (K,).
+    Returns (B, K, H, W, D) f32."""
+    v = x.float().permute(0, 2, 3, 1).unsqueeze(1)
+    pre = tf32x3(lambda a, w: F.conv3d(a, w, padding=1), v,
+                 wa.detach().float()) + ba.detach().float()[:, None, None, None]
+    return torch.where(pre.abs() < KINK, pre_f32_taps(x, wa, ba), pre)
+
+
+def _pair_f64(x, wa, ba, wb, bb, alpha, pos, scale):
+    """z of the pair in f64 on f64 arguments, PReLU's branch from ``pos``."""
+    pre = F.conv3d(x.permute(0, 2, 3, 1).unsqueeze(1), wa, ba, padding=1)
+    y = torch.where(pos, pre, alpha * pre)
+    if scale is not None:
+        y = y * scale.double()[:, :, None, None, None]
+    return F.conv3d(y, wb, bb, padding=1)[:, 0].permute(0, 3, 1, 2)
+
+
+def cond_pair_f64(x, c3a, c3b, prelu, scale=None):
+    """The f32 pair's function in f64: the weights' f32 values, nothing
+    rounded, PReLU's branch at each voxel and channel where the f32 kernels
+    take it (``pre_f32_taps`` > 0; f64 can put a pre within f32 rounding of
+    0 on the other side).  What the f32 instances of ``cond_pair`` are held
+    to; (B, D, H, W) f64."""
+    pos = pre_f32_taps(x, c3a.weight, c3a.bias) > 0
+    params = [t.detach().double() for t in _pair_params(c3a, c3b, prelu)]
+    return _pair_f64(x.double(), *params, pos, scale).contiguous()
+
+
 def cond_pair_backward_f64(x, dz, c3a, c3b, prelu, scale=None):
     """(dx, dW_a, db_a, dW_b, db_b, dalpha) of the f32 pair's function for
     the output gradient dz, f64 autograd: the weights' f32 values, nothing
@@ -143,34 +201,39 @@ def cond_pair_backward_f64(x, dz, c3a, c3b, prelu, scale=None):
     pos = pre_f32_taps(x, c3a.weight, c3a.bias) > 0
     with torch.enable_grad():
         xr = x.detach().double().requires_grad_()
-        wa, ba, wb, bb, alpha = [t.detach().double().requires_grad_()
-                                 for t in _pair_params(c3a, c3b, prelu)]
-        v = xr.permute(0, 2, 3, 1).unsqueeze(1)
-        pre = F.conv3d(v, wa, ba, padding=1)
-        y = torch.where(pos, pre, alpha * pre)
-        if scale is not None:
-            y = y * scale.double()[:, :, None, None, None]
-        z = F.conv3d(y, wb, bb, padding=1)[:, 0].permute(0, 3, 1, 2)
-        return torch.autograd.grad(z, [xr, wa, ba, wb, bb, alpha], dz.double())
+        params = [t.detach().double().requires_grad_()
+                  for t in _pair_params(c3a, c3b, prelu)]
+        z = _pair_f64(xr, *params, pos, scale)
+        return torch.autograd.grad(z, [xr, *params], dz.double())
 
 
-def cond_pair_products(x, c3a, c3b, prelu):
-    """The pair as the tensor-core instance computes it, in plain PyTorch:
+def cond_pair_products(x, c3a, c3b, prelu, scale=None):
+    """The pair as the tensor-core instances compute it, in plain PyTorch:
     conv_a as (positions x 27 taps) . (27 x K) on the 3x3x3 neighbourhoods of
     the zero-padded x; conv_b as (positions x K) . (K x 27), every y
     position's contribution to each of its 27 neighbours; z as the
-    shift-and-add of those 27 planes.  y is zero outside the volume.  Same
-    arguments and result as ``cond_pair_reference``."""
+    shift-and-add of those 27 planes.  y is zero outside the volume.  bf16:
+    bf16 operands, f32 sums, y rounded (and again after the scale); f32:
+    both products as 3xTF32, pre as ``pre_products`` gives it (the kink
+    rule), nothing rounded.  Same arguments and result as
+    ``cond_pair_reference``."""
     b, d, h, w = x.shape
     k = c3a.weight.shape[0]
-    v = x.float().permute(0, 2, 3, 1)                       # (B, H, W, D)
+    f32 = x.dtype == torch.float32
     taps = [(i, j, l) for i in range(3) for j in range(3) for l in range(3)]
-    xp = F.pad(v, (1, 1, 1, 1, 1, 1))
-    cols = torch.stack([xp[:, i:i + h, j:j + w, l:l + d] for i, j, l in taps],
-                       dim=-1)                              # (B, H, W, D, 27)
-    y = cols @ c3a.weight.float().reshape(k, 27).t() + c3a.bias.float()
+    if f32:
+        y = pre_products(x, c3a.weight, c3a.bias).permute(0, 2, 3, 4, 1)
+    else:
+        v = x.float().permute(0, 2, 3, 1)                   # (B, H, W, D)
+        xp = F.pad(v, (1, 1, 1, 1, 1, 1))
+        cols = torch.stack([xp[:, i:i + h, j:j + w, l:l + d]
+                            for i, j, l in taps], dim=-1)   # (B, H, W, D, 27)
+        y = cols @ c3a.weight.float().reshape(k, 27).t() + c3a.bias.float()
     y = F.prelu(y, prelu.weight.float()).to(x.dtype).float()
-    planes = y @ c3b.weight.float().reshape(k, 27)          # (B, H, W, D, 27)
+    if scale is not None:                                   # (B, H, W, D, K)
+        y = (y * scale[:, None, None, None, :]).to(x.dtype).float()
+    wb = c3b.weight.float().reshape(k, 27)
+    planes = tf32x3(torch.matmul, y, wb) if f32 else y @ wb  # (B, H, W, D, 27)
     pp = F.pad(planes, (0, 0, 1, 1, 1, 1, 1, 1))
     # tap (i, j, l) of the plane of y at (h + i - 1, w + j - 1, d + l - 1)
     z = sum(pp[:, i:i + h, j:j + w, l:l + d, t]
@@ -182,7 +245,7 @@ def cond_pair_products(x, c3a, c3b, prelu):
 def _lib():
     lib = cuda_build.load("cond_pair")
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cwfa_cond_pair.argtypes = [p] * 8 + [i32] * 8 + [p]
+    lib.cwfa_cond_pair.argtypes = [p] * 8 + [i32] * 9 + [p]
     lib.cwfa_cond_pair.restype = i32
     return lib
 
@@ -250,23 +313,24 @@ def cond_pair(x, c3a, c3b, prelu, *, scale=None, instance=None):
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     or raises.  instance: ``CUDA_CORES`` runs that instance where
-    ``kernel_instance`` would pick the tensor cores (to time the two side by
-    side).  Counts every launch, and per instance in
+    ``kernel_instance`` would pick a tensor-core one (to time the two side
+    by side).  Counts every launch, and per instance in
     ``cond_pair.by_instance``."""
     k = _check(x, c3a, c3b, prelu, scale)
     if instance not in (None, CUDA_CORES):
         raise ValueError(f"instance {instance!r}: None or {CUDA_CORES!r}")
     if x.device.type == "cpu":
         return cond_pair_reference(x, c3a, c3b, prelu, scale)
-    instance = instance or kernel_instance(x.dtype, k)
     b, d, h, w = x.shape
+    plan = pair_plan(x.dtype, k, d, instance)
+    instance = plan["instance"]
     z = torch.empty_like(x)
     params = _kernel_params(x, c3a, c3b, prelu)
     rc = _lib().cwfa_cond_pair(
         x.data_ptr(), *[t.data_ptr() for t in params],
         None if scale is None else scale.data_ptr(),
         z.data_ptr(), b, d, h, w, k, _DTYPES[x.dtype],
-        int(instance == TENSOR_CORES), x.device.index,
+        _INSTANCE_IDS[instance], plan.get("td", 0), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(rc, f"cond_pair ({instance})")
     cond_pair.launches += 1
@@ -275,7 +339,7 @@ def cond_pair(x, c3a, c3b, prelu, *, scale=None, instance=None):
 
 
 cond_pair.launches = 0                      # every launch of the kernel
-cond_pair.by_instance = {TENSOR_CORES: 0, CUDA_CORES: 0}   # ... per instance
+cond_pair.by_instance = dict.fromkeys(_INSTANCE_IDS, 0)   # ... per instance
 
 
 def cond_pair_backward_products(x, dz, c3a, c3b, prelu, scale=None):
@@ -285,9 +349,9 @@ def cond_pair_backward_products(x, dz, c3a, c3b, prelu, scale=None):
     rounded to bf16 once as the operand of dx's and dW_a's products; db_a
     and dalpha from the f32 values.  f32: nothing rounded, every product
     (pre, dy, dx, dW_a, dW_b) as 3xTF32 (``btower.tf32x3``, every operand
-    split as the kernel splits it in registers), and a pre within ``KINK``
-    of 0 summed again as the CUDA-core instances sum it
-    (``pre_f32_taps``).  Same results as ``cond_pair_backward``."""
+    split as the kernel splits it in registers), pre as the forward's
+    (``pre_products``: the kink rule).  Same results as
+    ``cond_pair_backward``."""
     f32 = x.dtype == torch.float32
     dt = x.dtype
 
@@ -302,9 +366,8 @@ def cond_pair_backward_products(x, dz, c3a, c3b, prelu, scale=None):
     g = dz.float().permute(0, 2, 3, 1).unsqueeze(1)
     conv = lambda a, w: F.conv3d(a, w, padding=1)             # noqa: E731
     convt = lambda a, w: F.conv_transpose3d(a, w, padding=1)  # noqa: E731
-    pre = prod(conv, v, wa) + ba[:, None, None, None]
-    if f32:
-        pre = torch.where(pre.abs() < KINK, pre_f32_taps(x, wa, ba), pre)
+    pre = pre_products(x, wa, ba) if f32 else \
+        conv(v, wa) + ba[:, None, None, None]
     y = F.prelu(pre, alpha).to(dt).float()
     m = torch.ones_like(pre[:, :, :1, :1, :1]) if scale is None \
         else scale[:, :, None, None, None]

@@ -29,13 +29,16 @@ A wrapper dispatches on the device of its inputs: CPU tensors take the plain
 version; CUDA tensors launch the kernel (or raise).  Each wrapper counts its
 launches in ``<wrapper>.launches``; the plain path does not count.
 
-The int8 kernels have two instances each (``gemm_plan``, ``chain_plan`` pick
-one by shape; ``<wrapper>.by_instance`` counts the launches of each):
-``WGMMA_S8``, persistent blocks on s8 ``wgmma`` fed by TMA, for the requant
-GEMM where B^T's column slice fits resident in shared memory (K up to 1408)
-and for a chain of up to 8 stages (all weights resident); ``MMA_SYNC``, the
-older ``mma.sync`` kernels, for the int32-out GEMM and everything else.
-The bf16 GEMM is ``WGMMA_BF16``, the bf16 chain ``MMA_SYNC``.
+The int8 kernels and the bf16 chain have two instances each
+(``gemm_plan``, ``chain_plan`` pick one by shape; ``<wrapper>.by_instance``
+counts the launches of each): ``WGMMA_S8``, persistent blocks on s8
+``wgmma`` fed by TMA, for the requant GEMM where B^T's column slice fits
+resident in shared memory (K up to 1408) and for an int8 chain of up to 8
+stages (all weights resident); ``WGMMA_BF16`` for the bf16 chain, the same
+blocks on bf16 ``wgmma`` with every stage's weights streamed through a TMA
+ring (eight bf16 stages would not fit); ``MMA_SYNC``, the older
+``mma.sync`` kernels, for the int32-out GEMM and everything else.  The
+bf16 GEMM is ``WGMMA_BF16``.
 """
 
 from __future__ import annotations
@@ -56,14 +59,15 @@ _ROW_CHUNK = 1 << 16        # rows per matmul of a plain version on a card
 
 MMA_SYNC, WGMMA_BF16, WGMMA_S8 = "mma.sync", "wgmma bf16", "wgmma s8"
 _GEMM_IDS = {MMA_SYNC: 0, WGMMA_BF16: 1, WGMMA_S8: 2}
-_CHAIN_IDS = {MMA_SYNC: 0, WGMMA_S8: 1}
+_CHAIN_IDS = {MMA_SYNC: 0, WGMMA_S8: 1, WGMMA_BF16: 2}
 SMEM_MAX = 232448           # bytes of shared memory a block may use (H100)
 H100_SMS = 132              # the plans' SM count where no card is asked
 GEMM_RING_MAX, CHAIN_RING_MAX = 6, 4
 _HALF = 64 * 128            # a consumer warpgroup's 64 rows x 128 bytes
 _TILE = 2 * _HALF           # a 128-row tile: a resident slice, a GEMM slot
-CHAIN_WGS = 3               # consumer warpgroups of the s8 chain
-CHAIN_RESIDENT = 8          # chain stages whose weights fit beside the ring
+CHAIN_WGS = 3               # consumer warpgroups of the wgmma chains
+CHAIN_RESIDENT = 8          # s8 chain stages whose weights fit beside the ring
+CHAIN_BF16_XRING = 2        # x tiles of the bf16 chain in flight
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +164,16 @@ def _tma_ring(nres: int, slot: int, nc: int, most: int) -> int:
                  if _tma_smem(nres, r, slot, nc) <= SMEM_MAX), 0)
 
 
+def _bf16_chain_smem(wring: int) -> int:
+    """Shared memory of the bf16 chain, laid out as csrc/probes.cu
+    ``bf16_chain_smem`` reads it: the base aligned to 1024 bytes,
+    ``CHAIN_BF16_XRING`` x slots of 64 ``CHAIN_WGS`` rows x 256 bytes (also
+    the staging tiles of the stores), ``wring`` stages of weights (32 KB),
+    the four rings' mbarriers."""
+    return (1024 + CHAIN_BF16_XRING * 2 * CHAIN_WGS * _HALF + wring * 2 * _TILE
+            + 16 * (CHAIN_BF16_XRING + wring))
+
+
 def gemm_plan(m: int, k: int, n: int, dtype, out8: bool = False,
               aligned: bool = True, sms: int = H100_SMS) -> dict:
     """How ``tiled_gemm`` runs A (m, k) x B (k, n) on a card: the instance,
@@ -188,16 +202,26 @@ def gemm_plan(m: int, k: int, n: int, dtype, out8: bool = False,
 def chain_plan(m: int, depth: int, dtype, aligned: bool = True,
                sms: int = H100_SMS) -> dict:
     """How ``chained_gemm`` runs x (m, 128) through ``depth`` stages on a
-    card: ``WGMMA_S8`` for int8 with every stage's weights resident (depth
-    <= 8) and 16-byte aligned x, with its tiles of 64 ``CHAIN_WGS`` rows,
-    ring, shared memory and grid; ``MMA_SYNC`` otherwise."""
+    card, for 16-byte aligned x: ``WGMMA_S8`` for int8 with every stage's
+    weights resident (depth <= 8), ``WGMMA_BF16`` for bf16 at any depth (the
+    stages streamed), each with its tiles of 64 ``CHAIN_WGS`` rows, ring
+    (x tiles for s8, weight stages for bf16), shared memory and persistent
+    grid; ``MMA_SYNC`` otherwise."""
     rows = 64 * CHAIN_WGS
     plan = {"instance": MMA_SYNC}
-    if dtype == torch.int8 and depth <= CHAIN_RESIDENT and aligned:
+    if not aligned:
+        return plan
+    tiles = _ceil(m, rows)
+    if dtype == torch.int8 and depth <= CHAIN_RESIDENT:
         ring = _tma_ring(depth, rows * 128, CHAIN_WGS, CHAIN_RING_MAX)
-        plan.update(instance=WGMMA_S8, tiles=_ceil(m, rows), ring=ring,
+        plan.update(instance=WGMMA_S8, tiles=tiles, ring=ring,
                     smem=_tma_smem(depth, ring, rows * 128, CHAIN_WGS),
-                    grid=min(sms, _ceil(m, rows)))
+                    grid=min(sms, tiles))
+    elif dtype == torch.bfloat16:
+        ring = next(r for r in range(CHAIN_RING_MAX, 1, -1)
+                    if _bf16_chain_smem(r) <= SMEM_MAX)
+        plan.update(instance=WGMMA_BF16, tiles=tiles, ring=ring,
+                    smem=_bf16_chain_smem(ring), grid=min(sms, tiles))
     return plan
 
 
@@ -218,8 +242,10 @@ def chain_operand(ws, instance: str):
     stage transposed, (N, K); for the s8 ``wgmma`` instance the input
     channels of every stage after the first in ``S8_SUM_ORDER`` within each
     16, the order in which the requantized sums of the stage before sit in a
-    thread's A registers.  One gather."""
-    if instance == MMA_SYNC:
+    thread's A registers (one gather).  The bf16 instances need no order:
+    a 16-bit sum fragment, packed in pairs, is the next A fragment as it
+    sits."""
+    if instance in (MMA_SYNC, WGMMA_BF16):
         return ws.transpose(1, 2).contiguous()
     d, c = ws.shape[0], ws.shape[1]
     return torch.gather(ws.transpose(1, 2), 2,
@@ -329,8 +355,8 @@ def chained_gemm(x, ws, *, instance=None):
 
     On a card the kernel reads the weights as ``chain_operand`` makes them
     (here: the weights are small).  ``chain_plan`` picks the instance;
-    ``instance=MMA_SYNC`` runs the ``mma.sync`` kernel where it would pick
-    ``WGMMA_S8`` (to time the two side by side), and the instance it picks
+    ``instance=MMA_SYNC`` runs the ``mma.sync`` kernel where it would pick a
+    ``wgmma`` one (to time the two side by side), and the instance it picks
     may be named too.  Counts every launch, and per instance in
     ``chained_gemm.by_instance``."""
     _check_pair(x, ws, ("x", "ws"), _DTYPES)
@@ -342,10 +368,9 @@ def chained_gemm(x, ws, *, instance=None):
     plan = chain_plan(m, depth, x.dtype, x.data_ptr() % 16 == 0,
                       _sms(x.device))
     picked = plan["instance"]
-    if instance not in (None, picked) and (
-            instance != MMA_SYNC or picked != WGMMA_S8):
-        raise ValueError(f"instance {instance!r}: None, {picked!r}, or "
-                         f"{MMA_SYNC!r} where {WGMMA_S8!r} runs")
+    if instance not in (None, picked) and instance != MMA_SYNC:
+        raise ValueError(f"instance {instance!r}: None, {picked!r} or "
+                         f"{MMA_SYNC!r}")
     if x.device.type == "cpu":
         return chained_gemm_reference(x, ws)
     if x.shape[1] != CHAIN_WIDTH:
@@ -366,7 +391,7 @@ def chained_gemm(x, ws, *, instance=None):
 
 
 chained_gemm.launches = 0
-chained_gemm.by_instance = {WGMMA_S8: 0, MMA_SYNC: 0}
+chained_gemm.by_instance = dict.fromkeys(_CHAIN_IDS, 0)
 
 
 def fma_probe(x, y, *, t: int, u: int, mode: str):

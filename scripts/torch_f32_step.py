@@ -3,7 +3,8 @@
 its time (CUDA events around each call, the median of the calls after the
 first) and the launches of the training backward kernels K2
 (``btower.float_tower_backward``) and K3 (``cond_pair.cond_pair_backward``)
-by instance in the first call.
+and of the forward pair (``cond_pair.cond_pair``) by instance in the first
+call.
 
     python3 scripts/torch_f32_step.py [--root DIR] [--iters 5] [--profile]
 
@@ -28,10 +29,10 @@ import torch
 
 
 def run(dev, iters: int = 5, profile: bool = False) -> dict:
-    """The step on ``dev``: {"ms", "readings", "loss", "k2", "k3"}, k2 / k3
-    the launches by instance of the first call; with ``profile``, also
-    "busy_ms" and "top" (ms of device time by kernel name, the largest ten)
-    of one more call."""
+    """The step on ``dev``: {"ms", "readings", "loss", "k2", "k3", "pair"},
+    k2 / k3 / pair the launches by instance of the first call; with
+    ``profile``, also "busy_ms" and "top" (ms of device time by kernel name,
+    the largest ten) of one more call."""
     from cwfa_tpu_torch.engine.trainer import CWFATrainer
     from cwfa_tpu_torch.ops import btower
     from cwfa_tpu_torch.ops import cond_pair as cpair
@@ -49,7 +50,7 @@ def run(dev, iters: int = 5, profile: bool = False) -> dict:
 
     inputs = (randn(cfg.n_lenslets), randn(d // 2, 0.3), randn(d), randn(d // 2))
     wrappers = {"k2": btower.float_tower_backward,
-                "k3": cpair.cond_pair_backward}
+                "k3": cpair.cond_pair_backward, "pair": cpair.cond_pair}
     before = {k: dict(w.by_instance) for k, w in wrappers.items()}
     readings = []
     loss = None
@@ -123,7 +124,8 @@ def main(argv=None) -> int:
     out = run(torch.device("cuda", 0), a.iters, a.profile)
     print(f"f32 flow step 0 of the flagship, batch 1 ({a.root}): "
           f"{out['ms']:.2f} ms (readings {[round(t, 2) for t in out['readings']]}); "
-          f"K2 {out['k2']}, K3 {out['k3']}", flush=True)
+          f"K2 {out['k2']}, K3 {out['k3']}, the pair {out['pair']}",
+          flush=True)
     if a.profile:
         print(f"profiled call {out['call_ms']:.2f} ms, device busy "
               f"{out['busy_ms']:.2f} ms; by kernel {out['top']}", flush=True)

@@ -19,7 +19,7 @@ HEADER = (Path(__file__).resolve().parents[1] / "cwfa_tpu_torch" / "csrc"
           / "wgmma.cuh")
 SS_BF16 = (16, 32, 48, 64, 96, 128, 256)   # A and B from shared memory
 SS_BF16_T = (16, 32, 48, 64, 80, 96, 112, 128)   # ... both MN-major (transposed)
-RS_BF16 = (64,)                            # A from registers
+RS_BF16 = (64, 128)                        # A from registers
 RS_TF32 = (16, 32, 48, 64, 96)
 SS_S8 = (16, 32, 48, 64, 96, 128)          # int8, int32 sums
 RS_S8 = (64, 128)

@@ -153,10 +153,14 @@ def test_cond_pair_bwd_instance(dtype, k, want):
 
 
 def test_cond_pair_f32_forward_stays_on_the_cuda_cores():
-    """The backward's f32 choice parts from the forward's: the f32 forward
-    at K = 32 stays on the CUDA cores."""
-    assert cpair.kernel_instance(torch.float32, 32) == cpair.CUDA_CORES
+    """The f32 forward at K = 32 no longer stays on the CUDA cores: it runs
+    the 3xTF32 instance, as the backward does, and the two pick alike."""
+    assert cpair.kernel_instance(torch.float32, 32) == cpair.TENSOR_CORES_TF32
     assert cpair.bwd_instance(torch.float32, 32) == cpair.TENSOR_CORES_TF32
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (16, 32, 64):
+            assert cpair.bwd_instance(dtype, k) == \
+                cpair.kernel_instance(dtype, k)
 
 
 def test_float_tower_backward_rejects_unknown_instance():

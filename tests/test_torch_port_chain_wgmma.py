@@ -1,6 +1,6 @@
-"""The s8 ``wgmma`` instances of the int8 probes (``csrc/probes.cu``:
-``chain_s8_kernel``, ``gemm_s8_kernel``) walked on the CPU in the kernels'
-own order, and their host plans.
+"""The ``wgmma`` instances of the probes fed by TMA (``csrc/probes.cu``:
+``chain_s8_kernel``, ``gemm_s8_kernel``, and the bf16 ``chain_bf16_kernel``)
+walked on the CPU in the kernels' own order, and their host plans.
 
 A kernel written in CUDA cannot run here, so what surrounds its arithmetic
 is held instead: the weight operand the wrapper builds
@@ -8,10 +8,11 @@ is held instead: the weight operand the wrapper builds
 ``csrc/wgmma.cuh`` as a thread of the kernel reads it; the K slices, the
 zero fill of TMA beyond the matrix, the persistent blocks' walk over the
 tiles, the staging tile's swizzle and the masked stores.  Everything is
-int8 with int32 sums, so every walk must equal the plain version to the
-bit.  The plans (``gemm_plan``, ``chain_plan``) must pick the s8 instance
-and stay inside a block's shared memory at every shape ``chip_smoke.py``
-runs.
+int8 with int32 sums, so every int8 walk must equal the plain version to
+the bit; the bf16 chain's walk (f32 sums, bf16 between the stages) is held
+to chip_smoke.py's bound, 2^-6 of max|ref|.  The plans (``gemm_plan``,
+``chain_plan``) must pick the ``wgmma`` instances and stay inside a block's
+shared memory at every shape ``chip_smoke.py`` runs.
 """
 
 import re
@@ -248,7 +249,8 @@ def test_chain_plan_at_the_smoke_shapes(m, depth):
     assert plan["smem"] <= probes.SMEM_MAX and plan["ring"] >= 2
     assert plan["tiles"] == -(-m // (64 * probes.CHAIN_WGS))
     assert plan["grid"] == min(probes.H100_SMS, plan["tiles"])
-    assert probes.chain_plan(m, depth, torch.bfloat16)["instance"] == probes.MMA_SYNC
+    assert probes.chain_plan(m, depth, torch.bfloat16)["instance"] == \
+        probes.WGMMA_BF16
     assert probes.chain_plan(m, 9, torch.int8)["instance"] == probes.MMA_SYNC
     assert probes.chain_plan(m, depth, torch.int8,
                              aligned=False)["instance"] == probes.MMA_SYNC
@@ -260,7 +262,7 @@ def test_instances_to_ask_for():
     assert set(probes.tiled_gemm.by_instance) == {
         probes.WGMMA_S8, probes.WGMMA_BF16, probes.MMA_SYNC}
     assert set(probes.chained_gemm.by_instance) == {
-        probes.WGMMA_S8, probes.MMA_SYNC}
+        probes.WGMMA_S8, probes.WGMMA_BF16, probes.MMA_SYNC}
     # the older instance, where the s8 one would run: the plain version here
     assert torch.equal(probes.tiled_gemm(a, b, out8=True,
                                          instance=probes.MMA_SYNC),
@@ -283,9 +285,15 @@ def test_instances_to_ask_for():
     with pytest.raises(ValueError):                 # the s8 chain takes depth <= 8
         probes.chained_gemm(x, torch.zeros(9, 128, 128, dtype=torch.int8),
                             instance=probes.WGMMA_S8)
-    with pytest.raises(ValueError):                 # bf16 runs mma.sync only
+    with pytest.raises(ValueError):                 # bf16 has no s8 instance
         probes.chained_gemm(x.to(torch.bfloat16), ws.to(torch.bfloat16),
                             instance=probes.WGMMA_S8)
+    with pytest.raises(ValueError):                 # int8 has no bf16 one
+        probes.chained_gemm(x, ws, instance=probes.WGMMA_BF16)
+    xb, wb = x.to(torch.bfloat16), ws.to(torch.bfloat16)
+    for inst in (probes.MMA_SYNC, probes.WGMMA_BF16):
+        assert torch.equal(probes.chained_gemm(xb, wb, instance=inst),
+                           probes.chained_gemm_reference(xb, wb))
     with pytest.raises(ValueError):                 # not an instance at all
         probes.chained_gemm(x, ws, instance="wgmma s8 turns")
 
@@ -304,3 +312,119 @@ def test_plan_lays_shared_memory_out_as_the_kernels_read_it(nres, ring, slot,
            "kTile": 128 * 128, "kHalf": 64 * 128}
     assert eval(body, {}, env) == probes._tma_smem(nres, ring, slot, nc)
     assert probes._sms(torch.device("cpu")) == probes.H100_SMS
+
+
+def _bf16(v):
+    """f32 values rounded to bf16 (nearest even), as f32."""
+    return torch.as_tensor(v, dtype=torch.float32).to(torch.bfloat16).float()
+
+
+def _chain_bf16_walk(x, wt, grid):
+    """chain_bf16_kernel on the CPU: blocks b = 0..grid-1 take tiles of
+    64 CHAIN_WGS rows b, b + grid, ... (rows beyond M zero, TMA's fill);
+    warpgroup v of a tile its rows 64 v ..; stage 0 from the x tile, every
+    later stage from A registers packed from the sums as the kernel packs
+    them (register r of k-step ks: the relu'd sums of n-tile 2 ks + r // 2,
+    rows g + 8 (r % 2), as bf16 pairs) and read back through wgmma.cuh's
+    bf16 layout (register r: row g + 8 (r % 2), k = 16 ks + 2 q + 8 (r //
+    2), + 1); the last sums through the staging tile (two K halves of
+    128-byte rows, chunk c of row r at c ^ (r % 8)) and its 16-byte
+    chunks, rows >= M skipped.  Sums in f32."""
+    m, rows = x.shape[0], 64 * probes.CHAIN_WGS
+    ntiles = -(-m // rows)
+    xp = torch.zeros((ntiles * rows, 128))
+    xp[:m] = x.float()
+    w = wt.float()                                  # (depth, N, K)
+    out = torch.zeros((m, 128), dtype=torch.bfloat16)
+    seen = []
+    for b in range(grid):
+        for t in range(b, ntiles, grid):
+            seen.append(t)
+            for v in range(probes.CHAIN_WGS):
+                acc = xp[t * rows + 64 * v:][:64] @ w[0].T
+                for i in range(1, len(w)):
+                    a = torch.zeros((64, 128))
+                    for warp in range(4):
+                        for g in range(8):
+                            for q in range(4):
+                                for ks in range(8):
+                                    for r in range(4):
+                                        j, h = 2 * ks + r // 2, r % 2
+                                        row = 16 * warp + g + 8 * h
+                                        c = 8 * j + 2 * q      # the sums'
+                                        reg = _bf16(acc[row, c:c + 2]
+                                                    .clamp_min(0))
+                                        k0 = 16 * ks + 2 * q + 8 * (r // 2)
+                                        a[row, k0:k0 + 2] = reg
+                    acc = a @ w[i].T
+                stg = torch.zeros((2, 64, 128), dtype=torch.bfloat16)
+                val = _bf16(acc.clamp_min(0)).to(torch.bfloat16)
+                for warp in range(4):
+                    for g in range(8):
+                        for q in range(4):
+                            for j in range(16):
+                                for h in range(2):
+                                    r = 16 * warp + g + 8 * h
+                                    at = (((j & 7) ^ (r & 7)) << 3) + 2 * q
+                                    stg[j >> 3, r, at:at + 2] = \
+                                        val[r, 8 * j + 2 * q:8 * j + 2 * q + 2]
+                row0 = t * rows + 64 * v
+                for t128 in range(128):
+                    for i in range(8):
+                        idx = t128 + 128 * i
+                        r, ch = idx >> 4, idx & 15
+                        if row0 + r >= m:
+                            continue
+                        at = ((ch & 7) ^ (r & 7)) << 3
+                        out[row0 + r, 8 * ch:8 * ch + 8] = \
+                            stg[ch >> 3, r, at:at + 8]
+    assert sorted(seen) == list(range(ntiles))       # every tile once
+    return out
+
+
+@pytest.mark.parametrize("m,depth", [(64, 1), (37, 3), (200, 2)])
+def test_chain_bf16_walked_in_fragment_order_is_the_plain_version(m, depth):
+    """The bf16 chain's weight operand (``chain_operand(ws, WGMMA_BF16)``:
+    every stage transposed, no K order), walked as the kernel reads it,
+    gives the plain version within 2^-6 of max|ref|; with a misread A
+    fragment (its two K halves swapped) it does not."""
+    rng = np.random.RandomState(depth * 10 + m)
+    x = torch.as_tensor(rng.randn(m, 128).astype(np.float32)).to(torch.bfloat16)
+    ws = torch.as_tensor((rng.randn(depth, 128, 128) / 8).astype(np.float32)
+                         ).to(torch.bfloat16)
+    plan = probes.chain_plan(m, depth, torch.bfloat16, sms=2)
+    assert plan["instance"] == probes.WGMMA_BF16
+    wt = probes.chain_operand(ws, probes.WGMMA_BF16)
+    assert torch.equal(wt, ws.transpose(1, 2))
+    ref = probes.chained_gemm_reference(x, ws).float()
+    got = _chain_bf16_walk(x, wt, plan["grid"]).float()
+    assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    assert (ref > 0).any() and (ref == 0).any()
+    if depth > 1:
+        # k-steps' halves swapped: a K order the sums do not hold
+        perm = torch.arange(128).view(8, 2, 8).flip(1).reshape(128)
+        bad = torch.cat([wt[:1], wt[1:, :, perm]])
+        assert (_chain_bf16_walk(x, bad, plan["grid"]).float()
+                - ref).abs().max() > 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m,depth", CHAIN_SHAPES + [(1 << 20, 12)])
+def test_chain_bf16_plan_at_the_smoke_shapes(m, depth):
+    """The bf16 chain streams its stages, so any depth fits: two x slots of
+    192 rows, a ring of four 32 KB stages and the barriers within a block's
+    shared memory, as csrc/probes.cu ``bf16_chain_smem`` sums them."""
+    plan = probes.chain_plan(m, depth, torch.bfloat16)
+    assert plan["instance"] == probes.WGMMA_BF16
+    assert plan["ring"] == probes.CHAIN_RING_MAX == 4
+    assert plan["smem"] == 1024 + 2 * 192 * 256 + 4 * 128 * 256 + 16 * 6
+    assert plan["smem"] <= probes.SMEM_MAX
+    assert plan["tiles"] == -(-m // (64 * probes.CHAIN_WGS))
+    assert plan["grid"] == min(probes.H100_SMS, plan["tiles"])
+    assert probes.chain_plan(m, depth, torch.bfloat16,
+                             aligned=False)["instance"] == probes.MMA_SYNC
+    src = (Path(probes.__file__).parents[1] / "csrc" / "probes.cu").read_text()
+    body = re.search(r"constexpr int bf16_chain_smem\(int wring\) \{\s*"
+                     r"return ([^;]+);", src).group(1)
+    env = {"wring": plan["ring"], "kBXRing": probes.CHAIN_BF16_XRING,
+           "kBXSlot": 2 * 192 * 128, "kBWSlot": 2 * 128 * 128}
+    assert eval(body, {}, env) == plan["smem"]

@@ -10,11 +10,17 @@ carried across by load_jax_params.
 - The whole port ``CondNetwork`` against ``cond_network`` with
   ``conv3d_impl="pallas_fused"`` (the same bound) and ``"direct"`` (1e-5).
 
-- The pair written as the tensor-core instance computes it (two products
+- The pair written as the tensor-core instances compute it (two products
   with K on one side and the shift-and-add of conv_b's 27 planes,
   ``cond_pair_products``) against the plain version: 1e-5 of max|ref| in
   f32, 2^-7 in bf16 (chip_smoke.py's bounds for the kernel), and against the
-  Pallas kernel in interpret mode.
+  Pallas kernel in interpret mode.  In f32 (3xTF32, the kink rule) also
+  against ``_conv3d_pair_direct`` at highest precision and against the f64
+  pair ``cond_pair_f64``, with the Dropout3d scale: 1e-5 of max|ref|; at a
+  pre of -2^-31 that is +2^-31 exactly it takes the f32 forward's branch;
+  conv_b's operand order (y's sums as they sit, W_b's K permuted) walked
+  lane by lane; the f32 instance's host plan fits the card at every shape
+  chip_smoke.py runs.
 
 Every elementwise tensor stays under 32,768 elements (the CPU's
 multithreaded elementwise kernels above that size are not steady, PERF.md).
@@ -38,6 +44,7 @@ from cwfa_tpu_torch.engine.jax_params import load_jax_params
 from cwfa_tpu_torch.models.cond_net import CondNetwork
 from cwfa_tpu_torch.ops import cond_pair as tcp
 
+from test_torch_port_bwd_wg import _kink_pair, _pair
 from test_torch_port_layers import randomize_fixed_leaves
 
 C_IN = 4
@@ -179,12 +186,126 @@ def test_products_form_matches_pallas_fused_interpret():
 
 def test_kernel_instances():
     assert tcp.kernel_instance(torch.bfloat16, 32) == tcp.TENSOR_CORES
-    assert tcp.kernel_instance(torch.float32, 32) == tcp.CUDA_CORES
+    assert tcp.kernel_instance(torch.float32, 32) == tcp.TENSOR_CORES_TF32
     assert tcp.kernel_instance(torch.bfloat16, 4) == tcp.CUDA_CORES
-    assert set(tcp.cond_pair.by_instance) == {tcp.TENSOR_CORES, tcp.CUDA_CORES}
+    assert tcp.kernel_instance(torch.float32, 4) == tcp.CUDA_CORES
+    assert set(tcp.cond_pair.by_instance) == {
+        tcp.TENSOR_CORES, tcp.TENSOR_CORES_TF32, tcp.CUDA_CORES}
     _, net = _net(6)
     x = torch.from_numpy(_x(1, 6, 5, 7))
     with pytest.raises(ValueError):                 # not an instance to ask for
         tcp.cond_pair(x, net.c3a, net.c3b, net.prelu,
                       instance=tcp.TENSOR_CORES)
     tcp.cond_pair(x, net.c3a, net.c3b, net.prelu, instance=tcp.CUDA_CORES)
+
+
+@pytest.mark.parametrize("b,d,h,w", [(2, 6, 7, 9), (1, 8, 5, 11)])
+def test_products_f32_matches_jax_direct(b, d, h, w):
+    """The f32 tensor-core instance's arithmetic (3xTF32, the kink rule)
+    against JAX's direct pair at highest precision: 1e-5 of max|ref|."""
+    params, net = _net(d, seed=10)
+    x = _x(b, d, h, w, seed=11)
+    act = lambda u: cnn.prelu(_jnp(params)["prelu"], u)
+    with jax.default_matmul_precision("highest"):
+        want = jcond._conv3d_pair_direct(_jnp(params), jnp.asarray(x), act,
+                                         0.0, None)
+    with torch.no_grad():
+        got = tcp.cond_pair_products(torch.from_numpy(x), net.c3a, net.c3b,
+                                     net.prelu)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _assert_rel(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("shape,with_scale", [((1, 6, 8, 9), False),
+                                              ((1, 6, 8, 9), True),
+                                              ((2, 5, 6, 7), True)])
+def test_products_f32_within_f64(shape, with_scale):
+    """... and against the f64 pair (``cond_pair_f64``, PReLU's branch where
+    the f32 kernels take it), with and without the Dropout3d scale: 1e-5 of
+    max|ref|."""
+    rng = np.random.RandomState(sum(shape) + 3 * with_scale)
+    mods = _pair(32, sum(shape) + 2)
+    x = torch.as_tensor(rng.randn(*shape).astype(np.float32))
+    scale = None
+    if with_scale:
+        scale = torch.as_tensor(
+            ((rng.rand(shape[0], 32) < 0.5) * 2.0).astype(np.float32))
+    with torch.no_grad():
+        want = tcp.cond_pair_f64(x, *mods, scale)
+        got = tcp.cond_pair_products(x, *mods, scale)
+    assert want.dtype == torch.float64 and want.shape == x.shape
+    _assert_rel(got, want.numpy(), 1e-5)
+
+
+def test_products_f32_takes_the_forward_branch_at_the_kink():
+    """At a pre of 1 + 2^-30 - 1 - 2^-31 (-2^-31 as the f32 forward sums it,
+    +2^-31 exactly) the 3xTF32 pre is the f32 forward's tap-order sum, so
+    the forward takes the branch that the backward and ``cond_pair_f64``
+    take; the result stays within 1e-5 of the f64 pair."""
+    x, _, mods = _kink_pair()
+    with torch.no_grad():
+        pre = tcp.pre_products(x, mods[0].weight, mods[0].bias)
+        taps = tcp.pre_f32_taps(x, mods[0].weight, mods[0].bias)
+        exact = torch.nn.functional.conv3d(
+            x.double().permute(0, 2, 3, 1).unsqueeze(1),
+            mods[0].weight.double(), mods[0].bias.double(), padding=1)
+        got = tcp.cond_pair_products(x, *mods)
+        want = tcp.cond_pair_f64(x, *mods)
+    assert pre[0, 0, 2, 2, 2].item() == taps[0, 0, 2, 2, 2].item() == -2.0 ** -31
+    assert exact[0, 0, 2, 2, 2].item() > 0
+    assert torch.equal(pre > 0, taps > 0)
+    _assert_rel(got, want.numpy(), 1e-5)
+
+
+def test_conv_b_operand_order_walked_lane_by_lane():
+    """The f32 instance's conv_b (``cond_pair_tf32_kernel``): lane 4 g + q
+    holds conv_a's sums of channels 8 ks + 2 q, + 1 at rows g, g + 8 and
+    hands them on as the m16n8k8 A fragment (a0 = row g slot q, a1 = row
+    g + 8 slot q, a2, a3 = slot q + 4); W_b's B fragment b0 / b1 of k-step
+    ks holds slot q / q + 4 as channel 8 ks + 2 q / + 1.  Walked lane by
+    lane, the products give y . W_b exactly (f64)."""
+    rng = np.random.RandomState(12)
+    y = torch.as_tensor(rng.randn(16, 32))           # a tile's 16 rows
+    wb = torch.as_tensor(rng.randn(32, 32))          # [channel][tap]
+    got = torch.zeros(16, 32, dtype=torch.float64)
+    for ks in range(4):
+        a = torch.zeros(16, 8, dtype=torch.float64)  # [row][slot]
+        bm = torch.zeros(8, 32, dtype=torch.float64)  # [slot][tap]
+        for lane in range(32):
+            g, q = lane >> 2, lane & 3
+            # the sum fragment c0..c3 of n-tile ks: (g, 2q), (g, 2q+1),
+            # (g+8, 2q), (g+8, 2q+1) -> a0 = c0, a1 = c2, a2 = c1, a3 = c3
+            c = [y[g, 8 * ks + 2 * q], y[g, 8 * ks + 2 * q + 1],
+                 y[g + 8, 8 * ks + 2 * q], y[g + 8, 8 * ks + 2 * q + 1]]
+            a[g, q], a[g + 8, q], a[g, q + 4], a[g + 8, q + 4] = \
+                c[0], c[2], c[1], c[3]
+            for nt in range(4):
+                n = 8 * nt + g
+                for r in range(2):               # b0, b1: slot q + 4 r
+                    bm[q + 4 * r, n] = wb[8 * ks + 2 * q + r, n]
+        got += a @ bm
+    assert (got - y @ wb).abs().max().item() < 1e-12
+
+
+@pytest.mark.parametrize("b,d,h,w", [(1, 48, 512, 512), (1, 24, 512, 512),
+                                     (1, 12, 512, 512), (1, 6, 512, 512),
+                                     (8, 48, 512, 512), (2, 5, 37, 53),
+                                     (2, 8, 19, 35), (1, 24, 96, 80)])
+def test_tf32_plan_fits_the_card(b, d, h, w):
+    """The f32 instance's host plan at every shape chip_smoke.py runs it:
+    chunks of at most TF32_MAX_TD depths that cover D, a block's shared
+    memory within the card's 227 KB, two blocks to an SM, and the grid's
+    z extent within 65535."""
+    plan = tcp.pair_plan(torch.float32, 32, d)
+    assert plan["instance"] == tcp.TENSOR_CORES_TF32
+    td, n = plan["td"], plan["nchunks"]
+    assert td <= tcp.TF32_MAX_TD and td * n >= d > td * (n - 1)
+    # 27 planes of 356 floats, 2 x 4 x 4 x 32 uint4 fragments, the x window
+    assert plan["smem"] == (27 * 356 + 2 * 4 * 4 * 32 * 4 + (td + 4) * 432) * 4
+    assert plan["smem"] <= tcp.SMEM_MAX
+    assert 2 * (plan["smem"] + 1024) <= tcp.SM_SMEM
+    assert b * n <= 65535
+    assert tcp.pair_plan(torch.float32, 32, d, tcp.CUDA_CORES) == {
+        "instance": tcp.CUDA_CORES}
+    assert tcp.pair_plan(torch.bfloat16, 32, d) == {
+        "instance": tcp.TENSOR_CORES}
